@@ -4,22 +4,27 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. the card's name and power limit; build every CUDA kernel of the port
-     (nvcc, sm_90a) from the sources in this checkout;
-  2. each kernel against its plain PyTorch version on the card: the
-     requirement screen (screen_block and its B=1 form screen_row) on
-     random masks with an empty segment and ragged shapes, on wide masks,
-     and on the exact planes of phase 4's snapshot; exact equality, with
-     the kernel's time, the plain version's time and the card's bound;
+  1. the card's name, power limit and maximum SM clock; build every CUDA
+     kernel of the port (nvcc, sm_90a) from the sources in this checkout;
+  2. each kernel against its plain PyTorch version on the card, exactly:
+     screen_prep (both sides) and the requirement screen in every form
+     (block, one slot row against every item, every slot row against one
+     item) on random masks with an empty segment and ragged shapes, on
+     wide masks, on 40 keys (two-word key bitmasks), and on the exact
+     planes of phase 4's snapshot. Then each of the main path's four screen
+     shapes (the existing block E x C, the template rows J x C, the virgin
+     row 1 x C, and N x 1) is timed: the wrapper, the kernel alone, the
+     plain version, and the card's bound;
   3. parity: BASELINE config 2 (5,000 pods with nodeSelector and
      taints/tolerations over 100 instance types, one provisioner, 200
      existing nodes of the ten smallest types) solved on the card and on
-     the CPU must place every pod byte-identically;
+     the CPU must place every pod byte-identically; screen launches per
+     form are printed;
   4. the main path at full width: the generic share of the 50k-pod
      reference mix (21,428 pods in 1,000 spec classes) over 500 instance
      types and 1,000 existing nodes, ~12.5k slots, solved cold then warm;
-     every placement is checked on the host, and the screen kernel must
-     have been launched by these solves.
+     every placement is checked on the host, and both kernels, the screen
+     in its block form, must have been launched by these solves.
 It prints one JSON line describing every kernel, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
@@ -55,7 +60,7 @@ from karpenter_core_tpu_torch.kube.objects import (  # noqa: E402
     Toleration,
 )
 from karpenter_core_tpu_torch.ops import cuda_build, screen  # noqa: E402
-from karpenter_core_tpu_torch.ops.pack import class_planes  # noqa: E402
+from karpenter_core_tpu_torch.ops.pack import ScreenOps, class_planes  # noqa: E402
 from karpenter_core_tpu_torch.scheduling import taints as taints_mod  # noqa: E402
 from karpenter_core_tpu_torch.scheduling.requirement import Requirement  # noqa: E402
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements  # noqa: E402
@@ -64,12 +69,16 @@ from karpenter_core_tpu_torch.solver.encode import encode_snapshot  # noqa: E402
 from karpenter_core_tpu_torch.state.node import StateNode  # noqa: E402
 from karpenter_core_tpu_torch.utils import resources  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth,
-# and the float32 rate outside the tensor cores, used as the peak for the
-# screen's 32-bit integer word operations
+# H100 SXM peaks at the 700 W limit (NVIDIA H100 data sheet): HBM
+# bandwidth, and the dense int8 tensor-core rate (without sparsity)
 HBM_BYTES_PER_S = 3.35e12
-NON_TENSOR_OPS_PER_S = 67e12
-KERNELS = ["screen"]
+INT8_TENSOR_OPS_PER_S = 1979e12
+# 32-bit integer add and logical operations issue at 64 results per clock
+# per SM on compute capability 9.0, half the float32 FMA rate (CUDA C++
+# Programming Guide, arithmetic instruction throughput table); times the
+# card's SMs and its maximum SM clock (nvidia-smi clocks.max.sm)
+INT32_OPS_PER_CLOCK_PER_SM = 64
+KERNELS = ["screen"]  # csrc/screen.cu holds both screen and screen_prep
 
 
 def say(msg: str) -> None:
@@ -139,13 +148,17 @@ def generic_mix(n_pods=50000, n_types=500, n_nodes=1000, distinct=1000, seed=0):
 
 # -- timing and bounds -----------------------------------------------------
 
-def time_on_card(fn, reps: int = 20) -> float:
+def time_on_card(fn, reps: int = 20, busy_cycles: int = 0) -> float:
     """Milliseconds per call: CUDA events around `reps` calls, after a
-    warm-up, on the current stream."""
+    warm-up, on the current stream. With busy_cycles the card first spins
+    that long, so the host enqueues every call before the first one runs
+    and the events time the device work alone (no host launch gaps)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if busy_cycles:
+        torch.cuda._sleep(busy_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -154,23 +167,65 @@ def time_on_card(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def screen_bound(N: int, B: int, K: int, layout) -> dict:
-    """The least time the card could take for one screen of N slot rows
-    against B item rows: each bool input plane read once and the [N, B]
-    verdict written once, against the 32-bit word operations the packed
-    algorithm needs (per pair and active key word: AND and test; per pair
-    and key: ~6 flag operations)."""
-    w = layout.width
-    bytes_moved = N * (w + 2 * K) + B * (w + 4 * K) + N * B
-    ops = N * B * (2 * layout.n_words + 6 * K) + N * 3 * layout.n_words
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
-    return {
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": bytes_moved,
-        "ops": ops,
+def host_ms(fn, reps: int = 50) -> float:
+    """Milliseconds of host time per call: what the caller's thread spends
+    in the wrapper (Python, checks, allocation, launches), with no
+    synchronize inside the timed loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def _bound(bytes_moved: int, tensor_ops: int, int_ops: int, int_rate: float) -> dict:
+    times = {
+        "bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+        "tensor int8 operations": tensor_ops / INT8_TENSOR_OPS_PER_S * 1e3,
+        "32-bit operations": int_ops / int_rate * 1e3,
     }
+    worst = max(times, key=times.get)
+    return {
+        "bound_ms": times[worst],
+        "bound_by": "bytes" if worst == "bytes" else "operations",
+        "bound_detail": worst,
+        "bytes": bytes_moved, "tensor_ops": tensor_ops, "int_ops": int_ops,
+    }
+
+
+def screen_bound(form: str, N: int, B: int, layout, int_rate: float) -> dict:
+    """The least time the card could take for one screen launch on
+    prepared sides. Bytes: the prepared value planes the form reads (int8
+    bytes for the block form, packed words for the row forms) and the key
+    bitmasks (3 words a slot row, 4 an item row, per key group), each read
+    once, and one verdict byte per pair written. Operations: the block
+    form's contraction, 2 N B 32 W int8 operations on the tensor cores;
+    on the SIMT cores, per pair, a test and a set for each key that has
+    words and ~12 bitmask operations for each group of 32 keys, plus for
+    the row forms an AND and an OR per word."""
+    W, KW = layout.n_words, layout.KW
+    keys = len(set(layout.word_key.tolist()))
+    flag_bytes = (3 * N + 4 * B) * KW * 4
+    if form == "block":
+        return _bound((N + B) * 32 * W + flag_bytes + N * B, 2 * N * B * 32 * W,
+                      N * B * (2 * keys + 12 * KW), int_rate)
+    return _bound((N + B) * W * 4 + flag_bytes + N * B, 0,
+                  N * B * (2 * W + 2 * keys + 12 * KW), int_rate)
+
+
+def prep_bound(R: int, layout, item_side: bool, words: bool, planes: bool,
+               int_rate: float) -> dict:
+    """One prep launch over R rows: the bool planes read once (allow cut to
+    the width, out and defined, plus escape and deny on the item side) and
+    the words, bytes and key bitmasks written; ~8 32-bit operations per
+    value bit (gather, test, two ballots, store)."""
+    W, K, KW = layout.n_words, layout.K, layout.KW
+    read = R * (layout.width + (4 if item_side else 2) * K)
+    written = R * (4 * W * words + 32 * W * planes + 4 * KW * 4)
+    return _bound(read + written, 0, R * 32 * W * 8, int_rate)
 
 
 # -- phase 2: kernels against their plain versions --------------------------
@@ -186,35 +241,64 @@ def _random_planes(rng, N, B, segments, device):
     return to(slot), to(items)
 
 
+def _plain(slot, items, layout, rows=slice(None)):
+    w = layout.width
+    cut = {k: (v[rows, :w] if k == "allow" else v[rows]) for k, v in items.items()}
+    return screen.screen_plain(slot["allow"][:, :w], slot["out"], slot["defined"], cut,
+                               layout.segments, layout.every_key)
+
+
+def check_prep(slot, items, layout) -> int:
+    """screen_prep of both sides against screen_prep_plain: mismatching
+    elements over words, bytes and key bitmasks."""
+    bad = 0
+    for planes, extra in ((slot, {}), (items, {k: items[k] for k in ("escape", "custom_deny")})):
+        got = screen.screen_prep(planes["allow"], planes["out"], planes["defined"], layout,
+                                 **extra)
+        want = screen.screen_prep_plain(planes["allow"], planes["out"], planes["defined"],
+                                        layout, **extra)
+        torch.cuda.synchronize()
+        bad += sum(int((got[k] != want[k]).sum()) for k in ("words", "bytes", "flags"))
+    return bad
+
+
 def check_screen_case(name, slot, items, segments, width):
-    """Both kernel forms against screen_plain on the same card tensors.
-    Returns the largest absolute difference (0 or 1 for bool verdicts)."""
+    """screen_prep and every form of the screen against their plain
+    versions on the same card tensors. Returns the largest absolute
+    difference (0 or 1 for bool verdicts and bit planes)."""
     worst = 0
     for every_key in (False, True):
         layout = screen.ScreenLayout(segments, width, every_key=every_key)
-        si = screen.ScreenItems(items)
+        si = screen.ScreenItems(items, layout)
+        prep_bad = check_prep(slot, items, layout)
         got = screen.screen_block(slot["allow"], slot["out"], slot["defined"], si, layout)
-        want = screen.screen_plain(
-            slot["allow"][:, :width], slot["out"], slot["defined"],
-            dict(items, allow=items["allow"][:, :width]), segments, every_key)
+        want = _plain(slot, items, layout)
         torch.cuda.synchronize()
         diff = int((got != want).sum())
-        worst = max(worst, 1 if diff else 0)
-        for b in range(min(4, si.B)):
-            row = screen.screen_row(slot["allow"], slot["out"], slot["defined"],
-                                    {k: v[b] for k, v in items.items()}, layout)
-            torch.cuda.synchronize()
-            if not torch.equal(row, want[:, b]):
-                worst = 1
-        say(f"[screen] {name}: N={slot['allow'].shape[0]} B={si.B} "
-            f"V={items['allow'].shape[1]} width={width} every_key={every_key} "
-            f"words={layout.n_words} mismatches={diff}")
+        B, N = si.B, slot["allow"].shape[0]
+        for b in sorted({0, 1 % B, B - 1}):  # row_b1: every slot row against item b
+            row = screen.screen_row(slot["allow"], slot["out"], slot["defined"], si, b, layout)
+            diff += int((row != want[:, b]).sum())
+        for n in sorted({0, N // 2, N - 1}):  # row_n1: one slot row against every item
+            one = {k: v[n:n + 1] for k, v in slot.items()}
+            got_n = screen.screen_block(one["allow"], one["out"], one["defined"], si, layout)
+            diff += int((got_n != want[n:n + 1]).sum())
+        torch.cuda.synchronize()
+        worst = max(worst, 1 if diff or prep_bad else 0)
+        say(f"[screen] {name}: N={N} B={B} V={items['allow'].shape[1]} width={width} "
+            f"K={layout.K} every_key={every_key} words={layout.n_words} "
+            f"mismatches: screen {diff}, prep {prep_bad}")
     if worst:
-        raise AssertionError(f"screen kernel disagrees with screen_plain on {name}")
+        raise AssertionError(f"screen kernels disagree with their plain versions on {name}")
     return worst
 
 
-def phase_kernels(main_snapshot):
+def _segments(lengths):
+    bounds = np.cumsum([0] + list(lengths))
+    return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def phase_kernels(main_snapshot, int_rate: float, busy_cycles: int):
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     worst = 0
@@ -223,55 +307,106 @@ def phase_kernels(main_snapshot):
     slot, items = _random_planes(rng, 1037, 333, segs, dev)
     worst = max(worst, check_screen_case("random", slot, items, segs, 171))
     worst = max(worst, check_screen_case("random-cut", slot, items, segs, 41))
-    # wide masks: keys spanning many words
-    bounds = np.cumsum([0, 3, 2500, 1, 0, 1900, 77, 1500])
-    segs = [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+    # wide masks: keys spanning many words, many double-buffered stages
+    segs = _segments([3, 2500, 1, 0, 1900, 77, 1500])
     slot, items = _random_planes(rng, 2048, 512, segs, dev)
-    worst = max(worst, check_screen_case("wide", slot, items, segs, int(bounds[-1])))
+    worst = max(worst, check_screen_case("wide", slot, items, segs, segs[-1][1]))
+    # 40 keys: two-word key bitmasks
+    segs = _segments(rng.integers(0, 40, size=40))
+    slot, items = _random_planes(rng, 700, 300, segs, dev)
+    worst = max(worst, check_screen_case("40-keys", slot, items, segs, segs[-1][1] - 9))
 
-    # the exact planes of the main path's prescreen block
+    # the exact planes of the main path's prescreen and template rows
     snap = main_snapshot
     args = torch_solver.args_to_torch(torch_solver.device_args(snap), dev)
     geom = torch_solver.solve_geometry(snap, 0)
     segments, screen_v = list(geom[8]), geom[16]
-    pod_arrays, exist = args[0], args[9]
-    items_pl = class_planes(pod_arrays)
+    pod_arrays, tmpl, exist = args[0], args[1], args[9]
+    V, K = exist["allow"].shape[1], exist["out"].shape[1]
+    ops = ScreenOps(segments, V, screen_v)
+    items_pl = class_planes(pod_arrays, ops)
     worst = max(worst, check_screen_case(
         "snapshot", {k: exist[k] for k in ("allow", "out", "defined")},
         items_pl.planes, segments, screen_v))
 
-    # timing at the main path's shapes: the existing block of the prescreen
-    layout = screen.ScreenLayout(segments, screen_v, every_key=False)
-    e_allow, e_out, e_def = exist["allow"], exist["out"], exist["defined"]
-    N, K, B = e_allow.shape[0], e_out.shape[1], items_pl.B
-    ms = time_on_card(lambda: screen.screen_block(e_allow, e_out, e_def, items_pl, layout))
-    cut = dict(items_pl.planes, allow=items_pl.planes["allow"][:, :screen_v])
-    plain_ms = time_on_card(lambda: screen.screen_plain(
-        e_allow[:, :screen_v], e_out, e_def, cut, segments, False), reps=5)
-    words = screen.pack_words(e_allow[:, :screen_v], layout)
-    flags = (e_out.to(torch.uint8).contiguous(), e_def.to(torch.uint8).contiguous())
-    kernel_only_ms = time_on_card(lambda: screen._launch(words, *flags, items_pl, layout))
-    bound = screen_bound(N, B, K, layout)
-    say(f"[screen] main-path shape N={N} B={B} width={screen_v} K={K} "
-        f"words={layout.n_words}: wrapper {ms:.4f} ms (kernel alone "
-        f"{kernel_only_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-        f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} "
-        f"({bound['bytes']} bytes, {bound['ops']} word ops)")
-    # the B=1 form (the reference's slot_screen_pallas): every existing
-    # slot against one class row
-    row_layout = screen.ScreenLayout(segments, screen_v, every_key=True)
-    item0 = {k: v[0] for k, v in items_pl.planes.items()}
-    row_ms = time_on_card(lambda: screen.screen_row(e_allow, e_out, e_def, item0, row_layout))
-    row_plain_ms = time_on_card(lambda: screen.screen_plain(
-        e_allow[:, :screen_v], e_out, e_def,
-        {k: v[None, :screen_v] if k == "allow" else v[None] for k, v in item0.items()},
-        segments, True), reps=5)
-    row_bound = screen_bound(N, 1, K, row_layout)
-    say(f"[screen] B=1 form N={N} B=1: wrapper {row_ms:.4f} ms, plain "
-        f"{row_plain_ms:.4f} ms, bound {row_bound['bound_ms']:.6f} ms by "
-        f"{row_bound['bound_by']}")
-    return {"max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms,
-            "kernel_only_ms": kernel_only_ms, **bound}
+    # timing at the main path's four screen shapes (ops/pack.py's calls)
+    virgin = {"allow": torch.ones((1, V), dtype=torch.bool, device=dev),
+              "out": torch.ones((1, K), dtype=torch.bool, device=dev),
+              "defined": torch.zeros((1, K), dtype=torch.bool, device=dev)}
+    e_rows = {k: exist[k] for k in ("allow", "out", "defined")}
+    t_rows = {k: tmpl[k] for k in ("allow", "out", "defined")}
+    shapes = [  # (name, slot rows, layout, item row or None for every item)
+        ("existing block E x C", e_rows, ops.rows_layout, None),
+        ("template rows J x C", t_rows, ops.rows_layout, None),
+        ("virgin row 1 x C", virgin, ops.row_layout, None),
+        ("one class N x 1", e_rows, ops.row_layout, 0),
+    ]
+    timed = {}
+    for name, rows, layout, b in shapes:
+        N = rows["allow"].shape[0]
+        form = screen.form_of(N, items_pl.B if b is None else 1)
+        s_args = (rows["allow"], rows["out"], rows["defined"])
+        if b is None:
+            wrapper = lambda: screen.screen_block(*s_args, items_pl, layout)  # noqa: E731
+            plain = lambda: _plain(rows, items_pl.planes, layout)  # noqa: E731
+        else:
+            wrapper = lambda: screen.screen_row(*s_args, items_pl, b, layout)  # noqa: E731
+            plain = lambda: _plain(rows, items_pl.planes, layout, slice(b, b + 1))  # noqa: E731
+        want = plain()
+        got = wrapper()
+        torch.cuda.synchronize()
+        if not torch.equal(got.reshape(want.shape), want):
+            raise AssertionError(f"screen disagrees with screen_plain at {name}")
+        slot_prep = screen.screen_prep(*s_args, layout, words=form != "block",
+                                       planes=form == "block")
+        kernel = lambda: screen._launch(form, slot_prep, items_pl, b or 0, layout, N)  # noqa: E731
+        prep_kernel = lambda: screen.screen_prep(*s_args, layout, words=form != "block",  # noqa: E731
+                                                 planes=form == "block")
+        B = items_pl.B if b is None else 1
+        # ms: a wrapper call as the caller sees it (screen_block / screen_row:
+        # slot prep and screen; screen_prep alone for prep_ms), host gaps
+        # included; kernel_ms: the one launch alone, the card kept busy
+        stats = {
+            "form": form, "N": N, "B": B,
+            "ms": time_on_card(wrapper, reps=50),
+            "host_ms": host_ms(wrapper),
+            "kernel_ms": time_on_card(kernel, reps=50, busy_cycles=busy_cycles),
+            "prep_ms": time_on_card(prep_kernel, reps=50),
+            "prep_kernel_ms": time_on_card(prep_kernel, reps=50, busy_cycles=busy_cycles),
+            "plain_ms": time_on_card(plain, reps=5),
+            **screen_bound(form, N, B, layout, int_rate),
+        }
+        prep_b = prep_bound(N, layout, False, form != "block", form == "block", int_rate)
+        stats["prep_bound_ms"], stats["prep_bound_by"] = prep_b["bound_ms"], prep_b["bound_by"]
+        timed[name] = stats
+        say(f"[screen] {name} ({form}, N={N} B={B} width={layout.width} K={K} "
+            f"words={layout.n_words}): wrapper {stats['ms']:.4f} ms ({stats['host_ms']:.4f} ms "
+            f"of it host time), screen kernel {stats['kernel_ms']:.4f} ms, slot prep "
+            f"wrapper {stats['prep_ms']:.4f} ms, kernel {stats['prep_kernel_ms']:.4f} ms, "
+            f"plain {stats['plain_ms']:.4f} ms; screen bound {stats['bound_ms']:.6f} ms by "
+            f"{stats['bound_detail']} ({stats['bytes']} bytes, {stats['tensor_ops']} tensor "
+            f"ops, {stats['int_ops']} 32-bit ops), slot prep bound "
+            f"{stats['prep_bound_ms']:.6f} ms by {prep_b['bound_detail']}")
+    blk = timed["existing block E x C"]
+
+    # the item side's prep (once per ScreenItems: twice per solve)
+    ip = items_pl.planes
+    i_args = (ip["allow"], ip["out"], ip["defined"], ops.rows_layout)
+    i_extra = {"escape": ip["escape"], "custom_deny": ip["custom_deny"]}
+    item_prep_ms = time_on_card(lambda: screen.screen_prep(*i_args, **i_extra), reps=50,
+                                busy_cycles=busy_cycles)
+    item_prep_plain_ms = time_on_card(lambda: screen.screen_prep_plain(*i_args, **i_extra),
+                                      reps=5)
+    ib = prep_bound(items_pl.B, ops.rows_layout, True, True, True, int_rate)
+    say(f"[screen_prep] item side C={items_pl.B}: kernel {item_prep_ms:.4f} ms, plain "
+        f"{item_prep_plain_ms:.4f} ms, bound {ib['bound_ms']:.6f} ms by {ib['bound_detail']}")
+    # the slot side's prep of the block shape: the kernels line's screen_prep
+    s_plain_ms = time_on_card(lambda: screen.screen_prep_plain(
+        e_rows["allow"], e_rows["out"], e_rows["defined"], ops.rows_layout), reps=5)
+    say(f"[screen_prep] slot side E={blk['N']} (block form: bytes and bitmasks): wrapper "
+        f"{blk['prep_ms']:.4f} ms, kernel {blk['prep_kernel_ms']:.4f} ms, plain "
+        f"{s_plain_ms:.4f} ms, bound {blk['prep_bound_ms']:.6f} ms")
+    return {"max_abs_err": float(worst), "timed": timed, "slot_prep_plain_ms": s_plain_ms}
 
 
 # -- host-side checks ---------------------------------------------------------
@@ -339,6 +474,11 @@ def profile_solve(solver, workload) -> None:
         raise AssertionError("the profiler saw no device time")
 
 
+def launches_line() -> str:
+    return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
+            f"{json.dumps(screen.FORM_LAUNCHES)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("chip_smoke: no CUDA card is available")
@@ -349,8 +489,18 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     say(f"card: {smi}")
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_rate = INT32_OPS_PER_CLOCK_PER_SM * sms * max_sm_mhz * 1e6
+    # 5 ms of spinning covers the host's enqueue of 50 timed launches
+    busy_cycles = int(5e-3 * max_sm_mhz * 1e6)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}; "
+        f"{sms} SMs, max SM clock {max_sm_mhz:.0f} MHz: 32-bit integer peak "
+        f"{int_rate / 1e12:.2f} T ops/s")
 
     # phase 1: build
     t0 = time.perf_counter()
@@ -373,14 +523,16 @@ def main() -> int:
         f"K={snap.dictionary.K}, in {time.perf_counter() - t0:.2f} s")
 
     # phase 2: kernels against their plain versions
-    screen_stats = phase_kernels(snap)
+    kstats = phase_kernels(snap, int_rate, busy_cycles)
 
     # phase 3: card and CPU place config 2 identically
     pods, provs, its, nodes = config2()
+    screen.reset_launches()
     t0 = time.perf_counter()
     on_card = torch_solver.TorchSolver(max_nodes=2048, device="cuda").solve(
         pods, provs, its, state_nodes=nodes)
     t_card = time.perf_counter() - t0
+    say(f"[parity] config 2 on the card: {launches_line()}")
     t0 = time.perf_counter()
     on_cpu = torch_solver.TorchSolver(max_nodes=2048, device="cpu").solve(
         pods, provs, its, state_nodes=nodes)
@@ -406,6 +558,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         runs.append((label, wall, dict(solver.last_phase_ms), result))
     launches = dict(screen.LAUNCHES)
+    forms = dict(screen.FORM_LAUNCHES)
     for label, wall, phases, result in runs:
         check_placements(result, len(gen_pods))
         say(f"[main] {label}: {wall:.3f} s wall, scheduled "
@@ -416,25 +569,28 @@ def main() -> int:
             + json.dumps({k: round(v, 3) for k, v in phases.items()}))
     if torch_solver.placements_json(runs[0][3]) != torch_solver.placements_json(runs[1][3]):
         raise AssertionError("cold and warm main-path solves differ")
-    say(f"[main] screen launches over the two solves: {launches['screen']}")
-    if launches["screen"] < 1:
-        raise AssertionError("the main path never launched the screen kernel")
+    say(f"[main] over the two solves: {launches_line()}")
+    if launches["screen"] < 1 or launches["screen_prep"] < 1 or forms["block"] < 1:
+        raise AssertionError("the main path did not launch screen_prep and the block-form screen")
     if "--profile" in sys.argv[1:]:
         profile_solve(solver, gen)
 
-    kernels = [{
-        "name": "screen",
-        "route": "cuda",
-        "source": "karpenter_core_tpu_torch/csrc/screen.cu",
-        "replaces": "karpenter_core_tpu/ops/pallas_kernels.py:29",
-        "launches": launches["screen"],
-        "max_abs_err": screen_stats["max_abs_err"],
-        "ms": screen_stats["ms"],
-        "plain_ms": screen_stats["plain_ms"],
-        "bound_ms": screen_stats["bound_ms"],
-        "bound_by": screen_stats["bound_by"],
-        "library_ms": None,
-    }]
+    blk = kstats["timed"]["existing block E x C"]
+    common = {"route": "cuda", "source": "karpenter_core_tpu_torch/csrc/screen.cu",
+              "replaces": "karpenter_core_tpu/ops/pallas_kernels.py:29",
+              "max_abs_err": kstats["max_abs_err"], "library_ms": None}
+    # ms is the wrapper's time at the block shape (screen: screen_block, its
+    # slot prep included; screen_prep: the slot side's screen_prep call);
+    # kernel_ms is that kernel's launch alone
+    kernels = [
+        dict(common, name="screen", launches=launches["screen"],
+             ms=blk["ms"], kernel_ms=blk["kernel_ms"], plain_ms=blk["plain_ms"],
+             bound_ms=blk["bound_ms"], bound_by=blk["bound_by"]),
+        dict(common, name="screen_prep", launches=launches["screen_prep"],
+             ms=blk["prep_ms"], kernel_ms=blk["prep_kernel_ms"],
+             plain_ms=kstats["slot_prep_plain_ms"],
+             bound_ms=blk["prep_bound_ms"], bound_by=blk["prep_bound_by"]),
+    ]
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

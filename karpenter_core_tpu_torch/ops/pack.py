@@ -128,14 +128,15 @@ class ScreenOps:
         return torch.cat([block, tail], dim=0)
 
 
-def class_planes(pod_arrays) -> ScreenItems:
+def class_planes(pod_arrays, ops: ScreenOps) -> ScreenItems:
     """The verdict tensor's column planes: item rows gathered through
-    scls_first (one representative item per class column)."""
+    scls_first (one representative item per class column), prepared in the
+    screen's packing (both of its layouts share it)."""
     sf = pod_arrays["scls_first"].to(torch.int64)
     return ScreenItems({
         k: pod_arrays[k][sf]
         for k in ("allow", "out", "defined", "escape", "custom_deny")
-    })
+    }, ops.rows_layout)
 
 
 def make_prescreen_kernel(segments, n_slots: int, screen_v: Optional[int] = None):
@@ -147,7 +148,7 @@ def make_prescreen_kernel(segments, n_slots: int, screen_v: Optional[int] = None
         V = pod_arrays["allow"].shape[1]
         ops = ScreenOps(segments, V, screen_v)
         return ops.initial_screen(
-            class_planes(pod_arrays), exist["allow"], exist["out"],
+            class_planes(pod_arrays, ops), exist["allow"], exist["out"],
             exist["defined"], n_slots,
         )
 
@@ -241,7 +242,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
         LB = 1 if BR == 0 else min(2 * I + V + 64, 4096)
         log = _Log(L, LB, BR, dev)
 
-        items_pl = class_planes(item_arrays)
+        items_pl = class_planes(item_arrays, ops)
         if screen0 is not None:
             screen = screen0.clone()  # refreshed in place below
         else:

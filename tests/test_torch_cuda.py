@@ -198,30 +198,92 @@ def _random_case(rng, n_slots, n_items, segments):
             {k: torch.from_numpy(v) for k, v in items.items()})
 
 
+def _segments(lengths):
+    b = np.cumsum([0] + list(lengths))
+    return [(int(x), int(y)) for x, y in zip(b[:-1], b[1:])]
+
+
+# empty keys and a 1,300-value key: 48 words, many double-buffered stages
+WIDE = _segments([3, 0, 7, 30, 1, 1300, 2, 0, 90])
+# 40 keys: two-word key bitmasks
+MANY = _segments(np.random.default_rng(4).integers(0, 40, size=40))
+# the forms' shapes: block, J x C template rows, N = 1 against C items, B = 1
+SCREEN_SHAPES = [(1037, 333), (3, 2048), (1, 2048), (1024, 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("every_key", [False, True])
 def test_screen_kernel_matches_plain_on_card(every_key):
     _card()
     rng = np.random.default_rng(11)
-    bounds = np.cumsum([0, 3, 0, 7, 30, 1, 1300, 2, 0, 90])  # empty and wide keys
-    segments = [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
-    V = segments[-1][1]
-    slot, items = _random_case(rng, 1037, 333, segments)
-    for width in (V, V - 95, 40):
-        layout = screen.ScreenLayout(segments, width, every_key=every_key)
-        want = screen.screen_block(slot["allow"], slot["out"], slot["defined"],
-                                   screen.ScreenItems(items), layout)
+    for segments in (WIDE, MANY):
+        V = segments[-1][1]
+        for N, B in SCREEN_SHAPES:
+            slot, items = _random_case(rng, N, B, segments)
+            cuda = {k: v.cuda() for k, v in slot.items()}
+            for width in (V, V - 95, 40):
+                layout = screen.ScreenLayout(segments, width, every_key=every_key)
+                c_items = screen.ScreenItems({k: v.cuda() for k, v in items.items()}, layout)
+                want = screen.screen_block(slot["allow"], slot["out"], slot["defined"],
+                                           screen.ScreenItems(items, layout), layout)
+                got = screen.screen_block(cuda["allow"], cuda["out"], cuda["defined"],
+                                          c_items, layout)
+                torch.cuda.synchronize()
+                np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                              err_msg=f"{N}x{B} width {width}")
+                for b in {0, B // 2, B - 1}:
+                    row = screen.screen_row(cuda["allow"], cuda["out"], cuda["defined"],
+                                            c_items, b, layout)
+                    np.testing.assert_array_equal(row.cpu().numpy(), want[:, b].numpy())
+
+
+@pytest.mark.cuda
+def test_screen_prep_matches_plain_on_card():
+    _card()
+    rng = np.random.default_rng(12)
+    for segments in (WIDE, MANY):
+        V = segments[-1][1]
+        slot, items = _random_case(rng, 517, 203, segments)
+        for width in (V, V // 2):
+            layout = screen.ScreenLayout(segments, width)
+            for planes, item_side in ((slot, False), (items, True)):
+                extra = ({"escape": planes["escape"], "custom_deny": planes["custom_deny"]}
+                         if item_side else {})
+                want = screen.screen_prep_plain(planes["allow"], planes["out"],
+                                                planes["defined"], layout, **extra)
+                cuda = {k: v.cuda() for k, v in planes.items()}
+                got = screen.screen_prep(cuda["allow"], cuda["out"], cuda["defined"], layout,
+                                         **{k: cuda[k] for k in extra})
+                torch.cuda.synchronize()
+                for name in ("words", "bytes", "flags"):
+                    assert torch.equal(got[name].cpu(), want[name]), (name, item_side, width)
+                part = screen.screen_prep(cuda["allow"], cuda["out"], cuda["defined"],
+                                          layout, words=False, **{k: cuda[k] for k in extra})
+                assert part["words"] is None
+                assert torch.equal(part["flags"].cpu(), want["flags"])
+
+
+@pytest.mark.cuda
+def test_screen_launches_per_form_on_card():
+    """Every form issues at most two launches per call (prep of the slot
+    side, then the screen); the item side is prepared once, when its
+    ScreenItems is made."""
+    _card()
+    rng = np.random.default_rng(13)
+    layout = screen.ScreenLayout(WIDE, WIDE[-1][1])
+    for (N, B), form in zip(SCREEN_SHAPES, ("block", "block", "row_n1", "row_b1")):
+        slot, items = _random_case(rng, N, B, WIDE)
         cuda = {k: v.cuda() for k, v in slot.items()}
-        before = screen.LAUNCHES["screen"]
-        got = screen.screen_block(
-            cuda["allow"], cuda["out"], cuda["defined"],
-            screen.ScreenItems({k: v.cuda() for k, v in items.items()}), layout)
-        torch.cuda.synchronize()
-        assert screen.LAUNCHES["screen"] == before + 1
-        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
-        row = screen.screen_row(cuda["allow"], cuda["out"], cuda["defined"],
-                                {k: v[5].cuda() for k, v in items.items()}, layout)
-        np.testing.assert_array_equal(row.cpu().numpy(), want[:, 5].numpy())
+        screen.reset_launches()
+        c_items = screen.ScreenItems({k: v.cuda() for k, v in items.items()}, layout)
+        assert screen.LAUNCHES == {"screen": 0, "screen_prep": 1}
+        screen.screen_block(cuda["allow"], cuda["out"], cuda["defined"], c_items, layout)
+        assert screen.LAUNCHES == {"screen": 1, "screen_prep": 2}
+        assert screen.FORM_LAUNCHES[form] == 1 and sum(screen.FORM_LAUNCHES.values()) == 1
+        screen.screen_row(cuda["allow"], cuda["out"], cuda["defined"], c_items, B - 1, layout)
+        assert screen.LAUNCHES == {"screen": 2, "screen_prep": 3}
+        assert screen.FORM_LAUNCHES["row_b1"] == 1 + (form == "row_b1")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -230,11 +292,15 @@ def test_screen_wrapper_rejects_bad_inputs_on_card():
     layout = screen.ScreenLayout([(0, 4)], 4)
     items = screen.ScreenItems({k: torch.zeros((2, 4 if k == "allow" else 1),
                                                dtype=torch.bool, device="cuda")
-                                for k in screen.ITEM_KEYS})
-    words = screen.pack_words(torch.ones((3, 4), dtype=torch.bool, device="cuda"), layout)
+                                for k in screen.ITEM_KEYS}, layout)
+    allow = torch.ones((3, 4), dtype=torch.bool, device="cuda")
+    defined = torch.zeros((3, 1), dtype=torch.bool, device="cuda")
     with pytest.raises(TypeError):
-        screen._launch(words, torch.zeros((3, 1), dtype=torch.bool, device="cuda"),
-                       torch.zeros((3, 1), dtype=torch.uint8, device="cuda"), items, layout)
+        screen.screen_block(allow, defined.to(torch.uint8), defined, items, layout)
+    with pytest.raises(ValueError):
+        screen.screen_block(allow[:, :2], defined, defined, items, layout)
+    with pytest.raises(IndexError):
+        screen.screen_row(allow, defined, defined, items, 2, layout)
 
 
 @pytest.mark.cuda

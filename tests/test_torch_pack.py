@@ -82,4 +82,4 @@ def test_pack_state_matches(runs):
 
 
 def test_cpu_path_never_launches_the_kernel(runs):
-    assert runs["launches"] == {"screen": 0}
+    assert runs["launches"] == {"screen": 0, "screen_prep": 0}
