@@ -20,17 +20,28 @@ Phases, each fatal on failure:
      existing nodes of the ten smallest types) solved on the card and on
      the CPU must place every pod byte-identically; screen launches per
      form are printed;
-  4. the main path at full width: the generic share of the 50k-pod
-     reference mix (21,428 pods in 1,000 spec classes) over 500 instance
-     types and 1,000 existing nodes, ~12.5k slots, solved cold then warm;
-     every placement is checked on the host, and both kernels, the screen
-     in its block form, must have been launched by these solves.
+  3b. parity on topology: BASELINE config 3 (20,000 pods over 200 types:
+     16 hostname anti-affinity services, a zonal spread cohort and
+     filler; the machine-region bulk fill) and the upstream benchmark's
+     largest grid cell (the 5,000-pod diverse mix over 400 types) placed
+     byte-identically on the card and on the CPU, every placement checked;
+  4. the generic share of the 50k-pod reference mix (21,428 pods in 1,000
+     spec classes) over 500 instance types and 1,000 existing nodes, ~12.5k
+     slots, solved cold then warm; every placement is checked on the host,
+     and both kernels, the screen in its block form, must have been
+     launched by these solves;
+  5. the main path at full width: the whole 50k-pod reference mix (21,428
+     generic pods, 7,143 zonal-spread, 7,143 hostname-spread and 14,286
+     zonal pod-affinity pods) with the same types and nodes, cold then
+     warm; every placement and every topology constraint is checked on the
+     host, and screen_prep and the screen in its block and row_n1 forms
+     must have been launched by these solves.
 It prints one JSON line describing every kernel, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
 
-adds a third main-path solve under torch.profiler and prints the device's
+adds a third full-mix solve under torch.profiler and prints the device's
 busy share of that solve and its costliest device operations.
 """
 import json
@@ -56,10 +67,13 @@ from karpenter_core_tpu_torch.kube.objects import (  # noqa: E402
     LABEL_HOSTNAME,
     LABEL_INSTANCE_TYPE_STABLE,
     LABEL_TOPOLOGY_ZONE,
+    LabelSelector,
+    PodAffinityTerm,
     Taint,
     Toleration,
+    TopologySpreadConstraint,
 )
-from karpenter_core_tpu_torch.ops import cuda_build, screen  # noqa: E402
+from karpenter_core_tpu_torch.ops import cuda_build, pack, screen  # noqa: E402
 from karpenter_core_tpu_torch.ops.pack import ScreenOps, class_planes  # noqa: E402
 from karpenter_core_tpu_torch.scheduling import taints as taints_mod  # noqa: E402
 from karpenter_core_tpu_torch.scheduling.requirement import Requirement  # noqa: E402
@@ -130,20 +144,80 @@ def config2(n_pods=5000, n_types=100, n_nodes=200):
     return pods, provisioners, {"default": universe}, existing_nodes(n_nodes, universe[:10])
 
 
-def generic_mix(n_pods=50000, n_types=500, n_nodes=1000, distinct=1000, seed=0):
-    """The generic share (kinds 4-6 of every 7) of bench.py's
-    _reference_mix(n_pods, n_types, distinct): 1 cpu / 1Gi pods in
-    `distinct` label classes, plus bench.py's existing nodes."""
-    pods = [
-        testing.make_pod(
-            name=f"gen-{i}", labels={"app": f"gen-{seed}-{i % max(distinct, 1)}"},
-            requests={"cpu": "1", "memory": "1Gi"},
-            uid=f"uid-gen-{i:06d}", creation_timestamp=1000.0)
-        for i in range(n_pods) if i % 7 >= 4
-    ]
-    universe = fake.instance_types(n_types)
-    provisioners = [testing.make_provisioner(name="default")]
-    return pods, provisioners, {"default": universe}, existing_nodes(n_nodes, universe)
+def reference_mix(n_pods=50000, n_types=500, distinct=1, generic_only=False):
+    """bench.py's _reference_mix(n_pods, n_types, distinct), the upstream
+    benchmark's diverse mix (scheduling_benchmark_test.go:187-199): of
+    every 7 pods 1 zonal spread, 1 hostname spread, 2 zonal pod affinity
+    (all maxSkew 1, DoNotSchedule, selecting their own kind) and 3 generic
+    1 cpu / 1Gi pods in `distinct` label classes. The constraint objects
+    are shared across pods, as a deployment's are. generic_only keeps the
+    generic share alone. Returns (pods, provisioners, instance types)."""
+    sel = lambda app: LabelSelector(match_labels={"app": app})  # noqa: E731
+    zonal = TopologySpreadConstraint(1, LABEL_TOPOLOGY_ZONE, "DoNotSchedule", sel("spread"))
+    hostname = TopologySpreadConstraint(1, LABEL_HOSTNAME, "DoNotSchedule", sel("hspread"))
+    affinity = PodAffinityTerm(topology_key=LABEL_TOPOLOGY_ZONE, label_selector=sel("aff"))
+    pods = []
+    for i in range(n_pods):
+        kind = i % 7
+        if kind >= 4:
+            name, kw = f"gen-{i}", dict(
+                labels={"app": f"gen-0-{i % max(distinct, 1)}"},
+                requests={"cpu": "1", "memory": "1Gi"})
+        elif generic_only:
+            continue
+        elif kind == 0:
+            name, kw = f"spread-{i}", dict(labels={"app": "spread"}, requests={"cpu": "1"},
+                                           topology_spread=[zonal])
+        elif kind == 1:
+            name, kw = f"hspread-{i}", dict(labels={"app": "hspread"}, requests={"cpu": "1"},
+                                            topology_spread=[hostname])
+        else:
+            name, kw = f"aff-{i}", dict(labels={"app": "aff"}, requests={"cpu": "1"},
+                                        pod_affinity_required=[affinity])
+        pods.append(testing.make_pod(name=name, uid=f"uid-{i:06d}",
+                                     creation_timestamp=1000.0, **kw))
+    return pods, [testing.make_provisioner(name="default")], {
+        "default": fake.instance_types(n_types)}
+
+
+def generic_mix(n_pods=50000, n_types=500, n_nodes=1000, distinct=1000):
+    """Phase 4: the generic share of reference_mix plus bench.py's
+    existing nodes."""
+    pods, provisioners, its = reference_mix(n_pods, n_types, distinct, generic_only=True)
+    return pods, provisioners, its, existing_nodes(n_nodes, its["default"])
+
+
+def full_mix(n_pods=50000, n_types=500, n_nodes=1000, distinct=1000):
+    """Phase 5: the whole reference mix plus bench.py's existing nodes."""
+    pods, provisioners, its = reference_mix(n_pods, n_types, distinct)
+    return pods, provisioners, its, existing_nodes(n_nodes, its["default"])
+
+
+def config3(n_pods=20000, n_types=200):
+    """BASELINE config 3 (bench.py's config3 grid cell): of every 4 pods
+    one replica of 16 services whose replicas repel over hostname, one of
+    a zonal DoNotSchedule spread cohort, two generic fillers."""
+    zonal = TopologySpreadConstraint(1, LABEL_TOPOLOGY_ZONE, "DoNotSchedule",
+                                     LabelSelector(match_labels={"app": "spread"}))
+    n_groups = 16
+    pods = []
+    for i in range(n_pods):
+        kind = i % 4
+        if kind == 0:
+            group = f"anti-{i % (4 * n_groups) // 4}"
+            kw = dict(labels={"app": group}, requests={"cpu": "1"},
+                      pod_anti_affinity_required=[PodAffinityTerm(
+                          topology_key=LABEL_HOSTNAME,
+                          label_selector=LabelSelector(match_labels={"app": group}))])
+        elif kind == 1:
+            kw = dict(labels={"app": "spread"}, requests={"cpu": "1"},
+                      topology_spread=[zonal])
+        else:
+            kw = dict(requests={"cpu": "1", "memory": "1Gi"})
+        pods.append(testing.make_pod(name=f"c3-{i}", uid=f"uid-c3-{i:06d}",
+                                     creation_timestamp=1000.0, **kw))
+    return pods, [testing.make_provisioner(name="default")], {
+        "default": fake.instance_types(n_types)}
 
 
 # -- timing and bounds -----------------------------------------------------
@@ -427,13 +501,17 @@ def check_placements(result, n_pods: int) -> None:
                 raise AssertionError(f"{p.metadata.name} incompatible with {node.name()}")
             if taints_mod.tolerates(node.taints(), p) is not None:
                 raise AssertionError(f"{p.metadata.name} does not tolerate {node.name()}")
+    allocatable = {}  # per instance type, computed once
     for m in result.new_machines:
         options = m.instance_type_options
         if not options:
             raise AssertionError("a machine without instance-type options")
         total = resources.requests_for_pods(*m.pods)
         for it in options:
-            if not resources.fits(total, it.allocatable()):
+            alloc = allocatable.get(id(it))
+            if alloc is None:
+                alloc = allocatable[id(it)] = it.allocatable()
+            if not resources.fits(total, alloc):
                 raise AssertionError(f"machine pods do not fit option {it.name}")
         for p in m.pods:
             reqs = Requirements.from_pod(p)
@@ -443,6 +521,97 @@ def check_placements(result, n_pods: int) -> None:
                 raise AssertionError(f"{p.metadata.name} incompatible with {options[0].name}")
             if taints_mod.tolerates(m.template.taints, p) is not None:
                 raise AssertionError(f"{p.metadata.name} does not tolerate its template")
+
+
+def _machine_zone(machine):
+    """The zone a new machine's requirements pin, or None."""
+    r = machine.requirements.get(LABEL_TOPOLOGY_ZONE)
+    if r is not None and not r.complement and len(r.values) == 1:
+        return next(iter(r.values))
+    return None
+
+
+def check_topology(result, zones) -> dict:
+    """The batch's topology constraints hold in the placements, checked
+    from the pods' own specs, independently of the solver: every
+    DoNotSchedule zonal spread keeps max - min <= maxSkew over `zones`,
+    every hostname spread at most maxSkew selected pods a node; the pods
+    of one zonal or hostname pod-affinity term share one zone or node (the
+    domain its first placement seeded: no cluster pod seeds another); no
+    pod with a required anti-affinity term shares its domain with another
+    pod its selector matches. Returns counts of what was checked."""
+    nodes = []  # (node key, zone or None, pods)
+    for node, pods in result.existing_assignments:
+        nodes.append((f"node/{node.name()}", node.labels().get(LABEL_TOPOLOGY_ZONE), pods))
+    for i, m in enumerate(result.new_machines):
+        nodes.append((f"machine/{i}", _machine_zone(m), m.pods))
+    placed = [(key, zone, p) for key, zone, pods in nodes for p in pods]
+
+    def selects(selector, owner, p):
+        return (p.metadata.namespace == owner.metadata.namespace
+                and selector is not None and selector.matches(p.metadata.labels))
+
+    def domain(key, zone, p, topology_key, owner: bool):
+        if topology_key == LABEL_HOSTNAME:
+            return key
+        if topology_key != LABEL_TOPOLOGY_ZONE:
+            raise AssertionError(f"check_topology: unchecked key {topology_key}")
+        if zone is None and owner:
+            raise AssertionError(f"{p.metadata.name} placed on a machine of no single zone")
+        return zone
+
+    checked = {"spread": 0, "affinity": 0, "anti": 0}
+    spreads, affinities = {}, {}
+    for _key, _zone, p in placed:
+        for c in p.spec.topology_spread_constraints:
+            if c.when_unsatisfiable == "DoNotSchedule":
+                spreads.setdefault((c.topology_key, c.max_skew, repr(c.label_selector),
+                                    p.metadata.namespace), (c, p))
+        aff = p.spec.affinity
+        if aff is not None and aff.pod_affinity is not None:
+            for t in aff.pod_affinity.required:
+                affinities.setdefault((t.topology_key, repr(t.label_selector),
+                                       p.metadata.namespace), []).append(p)
+    for (tkey, skew, _sel, _ns), (c, owner) in spreads.items():
+        counts = {}
+        for key, zone, p in placed:
+            if selects(c.label_selector, owner, p):
+                is_owner = c in p.spec.topology_spread_constraints
+                d = domain(key, zone, p, tkey, is_owner)
+                if d is not None:
+                    counts[d] = counts.get(d, 0) + 1
+        if tkey == LABEL_HOSTNAME:
+            worst = max(counts.values(), default=0)
+            if worst > skew:
+                raise AssertionError(f"hostname spread: {worst} pods on one node > {skew}")
+        else:
+            per_zone = [counts.get(z, 0) for z in zones]
+            if max(per_zone) - min(per_zone) > skew:
+                raise AssertionError(f"zonal spread skew {per_zone} > {skew}")
+        checked["spread"] += 1
+    placed_at = {id(p): (key, zone) for key, zone, p in placed}
+    for (tkey, _sel, _ns), owners in affinities.items():
+        doms = {domain(*placed_at[id(p)], p, tkey, True)
+                for p in owners if id(p) in placed_at}
+        if len(doms) > 1:
+            raise AssertionError(f"pod affinity over {tkey}: owners in {sorted(doms)}")
+        checked["affinity"] += 1
+    by_domain = {}
+    for key, zone, p in placed:
+        by_domain.setdefault((LABEL_HOSTNAME, key), []).append(p)
+        by_domain.setdefault((LABEL_TOPOLOGY_ZONE, zone), []).append(p)
+    for key, zone, p in placed:
+        aff = p.spec.affinity
+        if aff is None or aff.pod_anti_affinity is None:
+            continue
+        for t in aff.pod_anti_affinity.required:
+            mine = domain(key, zone, p, t.topology_key, True)
+            for q in by_domain[(t.topology_key, mine)]:
+                if q is not p and selects(t.label_selector, p, q):
+                    raise AssertionError(
+                        f"{p.metadata.name} shares {mine} with {q.metadata.name}")
+            checked["anti"] += 1
+    return checked
 
 
 # -- main ---------------------------------------------------------------------
@@ -474,6 +643,47 @@ def profile_solve(solver, workload) -> None:
         raise AssertionError("the profiler saw no device time")
 
 
+def _zones(its) -> list:
+    return sorted({o.zone for it in its["default"] for o in it.offerings if o.available})
+
+
+def run_main_path(label, solver, workload, zones=None):
+    """Solve `workload` cold then warm with the launch counts set to 0
+    just before and read just after; check the placements (and with
+    `zones`, the topology constraints) and that both solves agree.
+    Returns (launches, launches by form, solver)."""
+    pods, provs, its, nodes = workload
+    screen.reset_launches()
+    runs = []
+    for run in ("cold", "warm"):
+        t0 = time.perf_counter()
+        result = solver.solve(pods, provs, its, state_nodes=nodes)
+        torch.cuda.synchronize()
+        runs.append((run, time.perf_counter() - t0, dict(solver.last_phase_ms),
+                     dict(pack.LAST_SCAN), result))
+    launches, forms = dict(screen.LAUNCHES), dict(screen.FORM_LAUNCHES)
+    result = runs[0][4]
+    check_placements(result, len(pods))
+    checked = check_topology(result, zones) if zones else {}
+    if torch_solver.placements_json(result) != torch_solver.placements_json(runs[1][4]):
+        raise AssertionError(f"{label}: cold and warm solves differ")
+    for run, wall, phases, scan, res in runs:
+        say(f"[{label}] {run}: {wall:.3f} s wall, scheduled "
+            f"{res.pod_count_new() + res.pod_count_existing()} (new "
+            f"{res.pod_count_new()} on {len(res.new_machines)} machines, existing "
+            f"{res.pod_count_existing()}), failed {len(res.failed_pods)}, rounds "
+            f"{res.rounds}, last_phase_ms "
+            + json.dumps({k: round(v, 3) for k, v in phases.items()})
+            + f", scan {json.dumps(scan)}")
+    snap = solver.encode(pods, provs, its, state_nodes=nodes)
+    groups = len(snap.topo_meta.groups) if snap.topo_meta is not None else 0
+    say(f"[{label}] {len(pods)} pods, {len(snap.item_counts)} items, G={groups} "
+        f"groups, N={snap.n_slots} slots, V={snap.dictionary.V} (screen width "
+        f"{snap.screen_v}); topology checked {json.dumps(checked)}; over the two "
+        f"solves: {launches_line()}")
+    return launches, forms, solver
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -484,6 +694,10 @@ def main() -> int:
         say("chip_smoke: no CUDA card is available")
         return 2
     t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        say(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -522,8 +736,11 @@ def main() -> int:
         f"V={snap.dictionary.V} (screen width {snap.screen_v}), "
         f"K={snap.dictionary.K}, in {time.perf_counter() - t0:.2f} s")
 
+    mark("phase 1")
+
     # phase 2: kernels against their plain versions
     kstats = phase_kernels(snap, int_rate, busy_cycles)
+    mark("phase 2")
 
     # phase 3: card and CPU place config 2 identically
     pods, provs, its, nodes = config2()
@@ -546,34 +763,61 @@ def main() -> int:
         f"{on_card.pod_count_existing()}, failed {len(on_card.failed_pods)}; "
         f"card {t_card:.2f} s, cpu {t_cpu:.2f} s; placements byte-identical "
         f"({len(a)} bytes)")
+    mark("phase 3")
 
-    # phase 4: the main path at full width, cold then warm
-    solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda")
-    screen.reset_launches()
-    runs = []
-    for label in ("cold", "warm"):
+    # phase 3b: card and CPU place the topology cells identically
+    for name, (pods, provs, its), nodes, mn in (
+        ("config 3", config3(), [], 20000 // 3 + 64),
+        ("diverse 5k x 400", reference_mix(5000, 400), [], max(1024, 5000 // 5 + 512)),
+    ):
+        zones = _zones(its)
+        screen.reset_launches()
         t0 = time.perf_counter()
-        result = solver.solve(gen_pods, gen_provs, gen_its, state_nodes=gen_nodes)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        runs.append((label, wall, dict(solver.last_phase_ms), result))
-    launches = dict(screen.LAUNCHES)
-    forms = dict(screen.FORM_LAUNCHES)
-    for label, wall, phases, result in runs:
-        check_placements(result, len(gen_pods))
-        say(f"[main] {label}: {wall:.3f} s wall, scheduled "
-            f"{result.pod_count_new() + result.pod_count_existing()} (new "
-            f"{result.pod_count_new()} on {len(result.new_machines)} machines, "
-            f"existing {result.pod_count_existing()}), failed "
-            f"{len(result.failed_pods)}, rounds {result.rounds}, last_phase_ms "
-            + json.dumps({k: round(v, 3) for k, v in phases.items()}))
-    if torch_solver.placements_json(runs[0][3]) != torch_solver.placements_json(runs[1][3]):
-        raise AssertionError("cold and warm main-path solves differ")
-    say(f"[main] over the two solves: {launches_line()}")
-    if launches["screen"] < 1 or launches["screen_prep"] < 1 or forms["block"] < 1:
-        raise AssertionError("the main path did not launch screen_prep and the block-form screen")
+        on_card = torch_solver.TorchSolver(max_nodes=mn, device="cuda").solve(
+            pods, provs, its, state_nodes=nodes)
+        t_card = time.perf_counter() - t0
+        scan = dict(pack.LAST_SCAN)
+        card_launches = launches_line()
+        t0 = time.perf_counter()
+        on_cpu = torch_solver.TorchSolver(max_nodes=mn, device="cpu").solve(
+            pods, provs, its, state_nodes=nodes)
+        t_cpu = time.perf_counter() - t0
+        a, b = torch_solver.placements_json(on_card), torch_solver.placements_json(on_cpu)
+        if a != b:
+            raise AssertionError(f"{name}: card and CPU placements differ")
+        check_placements(on_card, len(pods))
+        checked = check_topology(on_card, zones)
+        say(f"[parity] {name}: {len(pods)} pods, new {on_card.pod_count_new()} on "
+            f"{len(on_card.new_machines)} machines, existing "
+            f"{on_card.pod_count_existing()}, failed {len(on_card.failed_pods)}, rounds "
+            f"{on_card.rounds}; card {t_card:.2f} s, cpu {t_cpu:.2f} s; placements "
+            f"byte-identical ({len(a)} bytes); topology checked {json.dumps(checked)}; "
+            f"card scan {json.dumps(scan)}; {card_launches}")
+    mark("phase 3b")
+
+    # phase 4: the generic share at full width, cold then warm
+    solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda")
+    gen_launches, gen_forms, _ = run_main_path("generic", solver, gen)
+    if gen_launches["screen"] < 1 or gen_launches["screen_prep"] < 1 or gen_forms["block"] < 1:
+        raise AssertionError("the generic path did not launch screen_prep and the "
+                             "block-form screen")
+    mark("phase 4")
+
+    # phase 5: the main path, the whole reference mix at full width
+    mix = full_mix()
+    mark("building the full mix")
+    mix_launches, mix_forms, mix_solver = run_main_path(
+        "main", torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda"), mix,
+        zones=_zones(mix[2]))
+    if (mix_launches["screen_prep"] < 1 or mix_forms["block"] < 1
+            or mix_forms["row_n1"] < 1):
+        raise AssertionError("the main path did not launch screen_prep and the screen "
+                             "in its block and row_n1 forms")
+    mark("phase 5")
     if "--profile" in sys.argv[1:]:
-        profile_solve(solver, gen)
+        profile_solve(mix_solver, mix)
+        mark("the profiled solve")
+    launches = {k: gen_launches[k] + mix_launches[k] for k in gen_launches}
 
     blk = kstats["timed"]["existing block E x C"]
     common = {"route": "cuda", "source": "karpenter_core_tpu_torch/csrc/screen.cu",

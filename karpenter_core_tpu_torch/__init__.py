@@ -5,11 +5,13 @@ stays the reference). Module paths mirror the reference's, so each
 counterpart is easy to find; the port keeps its own copy of every host
 module it needs and imports nothing of the reference package.
 
-This slice covers one generic provisioning ``Solve()``: pods with requests,
-``nodeSelector``, node affinity, tolerations, daemonset overhead, several
-weighted provisioners with limits, existing nodes and relaxation. Pods with
-topology spread, pod (anti-)affinity, host ports or volumes are refused
-(``NotImplementedError``) until their lanes are ported.
+It solves one provisioning ``Solve()``: pods with requests,
+``nodeSelector``, node affinity, tolerations, topology spread, pod affinity
+and anti-affinity, daemonset overhead, several weighted provisioners with
+limits, existing nodes and relaxation. Pods with host ports or volumes, and
+a kube client or cluster (whose running pods would seed the topology
+counts), are refused (``NotImplementedError``) until their parts are
+ported.
 
 Entry point: ``karpenter_core_tpu_torch.solver.torch_solver.TorchSolver``.
 It runs on the CUDA card by default and raises when none is present unless

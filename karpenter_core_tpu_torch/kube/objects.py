@@ -79,8 +79,39 @@ class NodeAffinity:
 
 
 @dataclass
+class LabelSelectorRequirement:
+    key: str
+    operator: str  # In | NotIn | Exists | DoesNotExist
+    values: List[str] = field(default_factory=list)
+
+
+@dataclass
 class LabelSelector:
     match_labels: Dict[str, str] = field(default_factory=dict)
+    match_expressions: List[LabelSelectorRequirement] = field(default_factory=list)
+
+    def matches(self, labels: Dict[str, str]) -> bool:
+        """metav1.LabelSelectorAsSelector: every label and expression holds."""
+        for k, v in self.match_labels.items():
+            if labels.get(k) != v:
+                return False
+        for expr in self.match_expressions:
+            val = labels.get(expr.key)
+            if expr.operator == "In":
+                if val is None or val not in expr.values:
+                    return False
+            elif expr.operator == "NotIn":
+                if val is not None and val in expr.values:
+                    return False
+            elif expr.operator == "Exists":
+                if expr.key not in labels:
+                    return False
+            elif expr.operator == "DoesNotExist":
+                if expr.key in labels:
+                    return False
+            else:
+                return False
+        return True
 
 
 @dataclass
@@ -88,6 +119,7 @@ class PodAffinityTerm:
     topology_key: str
     label_selector: Optional[LabelSelector] = None
     namespaces: List[str] = field(default_factory=list)
+    namespace_selector: Optional[LabelSelector] = None
 
 
 @dataclass

@@ -1,29 +1,36 @@
 """Greedy packing over FFD-ordered items, in eager PyTorch.
 
-The port of karpenter_core_tpu/ops/pack.py for the generic batch: no
-topology groups, no host-port or volume lanes (Q = W = 0), the prescreen
-screen mode and a logged commit sequence. It replaces the serial Solve loop
-(scheduler.go:96-133,177-222) with a scan over a fixed budget of node slots:
+The port of karpenter_core_tpu/ops/pack.py for the prescreen screen mode
+and a logged commit sequence, with the topology lanes and without the
+host-port and volume lanes (Q = W = 0). It replaces the serial Solve loop
+(scheduler.go:96-133,177-222) with a scan over a fixed budget of node
+slots:
 
   slot state: accumulated requests, merged requirement masks, remaining
-  instance-type mask, optimistic capacity, pod count.
+  instance-type mask, optimistic capacity, pod count; global state: the
+  topology groups' domain counts (ops/topology.py).
 
 Per item (one pod spec class with a replica count):
   1. SCREEN all slots: taints ∧ requirement verdict (a column of the [N, C]
-     prescreen tensor) ∧ optimistic fit.
+     prescreen tensor) ∧ optimistic fit ∧ topology viability.
   2. Rank candidates: existing nodes by index first, then open machines by
      ascending pod count (scheduler.go:179-193).
-  3. Fill existing nodes in one bulk commit, VERIFY and commit to the best
-     candidate, or OPEN fresh slots from the first template that can host
-     the item (weight order, scheduler.go:195-221) within provisioner limits
-     (scheduler.go:276-293).
+  3. Fill the bulk region in one commit (existing nodes; the whole slot
+     axis for batches with hostname anti-affinity), VERIFY and commit to
+     the best candidate (narrowed to the topology domain choice), or OPEN
+     fresh slots from the first template that can host the item (weight
+     order, scheduler.go:195-221) within provisioner limits
+     (scheduler.go:276-293). Owners of a value-key spread pack by a
+     per-iteration water-fill over the domains.
+  4. Record each commit into the topology counts (topology.go:120-143).
 
 The reference's lax.scan is a Python loop here, and its lax.while_loop and
-lax.cond are Python control flow on small scalars read from the device.
-Every float is computed with the reference's operations in the reference's
-order, one float32 op at a time, so slot state matches bit for bit. The
-commit log keeps the reference's layout (item, slot, ns, k, k_last,
-bulk_take, bulk_n) and budgets, so it decodes with the same expand_log.
+lax.cond are Python control flow on small scalars read from the device,
+batched into one read per decision. Every float is computed with the
+reference's operations in the reference's order, one float32 op at a time,
+so slot state and counts match bit for bit. The commit log keeps the
+reference's layout (item, slot, ns, k, k_last, bulk_take, bulk_n) and
+budgets, so it decodes with the same expand_log.
 """
 from __future__ import annotations
 
@@ -34,9 +41,27 @@ import torch
 
 from karpenter_core_tpu_torch.ops import compat
 from karpenter_core_tpu_torch.ops.screen import ScreenItems, ScreenLayout, screen_block
+from karpenter_core_tpu_torch.ops.topology import (
+    TOPO_AFFINITY,
+    TOPO_ANTI,
+    TOPO_SPREAD,
+    TopoMeta,
+    topo_bulk_item_ok,
+    topo_bulk_narrow,
+    topo_bulk_need_seed,
+    topo_mach_bulk_item_ok,
+    topo_narrow_single,
+    topo_node_filter_ok,
+    topo_record,
+    topo_record_bulk,
+    topo_screen,
+)
 
 BIG = 1e30  # float32(1e30) once it meets a float32 tensor
 BIGK = 2**30
+
+# the last pack call's work: items stepped and while-iterations per branch
+LAST_SCAN = {"items": 0, "bulk": 0, "candidate": 0, "open": 0}
 
 
 class PackState(NamedTuple):
@@ -53,9 +78,9 @@ class PackState(NamedTuple):
     cap: torch.Tensor  # [N, R] float32 optimistic capacity
     nopen: torch.Tensor  # 0-d int32: next free slot
     remaining: torch.Tensor  # [J, R] float32 provisioner limit left (1e30: none)
-    tcounts: torch.Tensor  # [0, V] topology lanes (not in this slice)
-    thost: torch.Tensor  # [0, N]
-    tdoms: torch.Tensor  # [0, V]
+    tcounts: torch.Tensor  # [G, V] float32 topology domain counts
+    thost: torch.Tensor  # [G, N] float32 hostname-group counts per slot
+    tdoms: torch.Tensor  # [G, V] bool registered domains per group
     ports: torch.Tensor  # [N, 0]
     vols: torch.Tensor  # [E, 0]
 
@@ -195,13 +220,52 @@ class _Log:
         return out
 
 
-def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None):
-    """Build the packing function for a fixed label geometry (the generic
-    slice of make_pack_kernel: prescreen mode, no topology, Q = W = 0,
+def replica_cap_rows(alloc, used_rows, req):
+    """replica_cap over slot rows: alloc [T, R] against per-slot used
+    [X, R] + k*req [R] -> [X, T] identical replicas, with the same
+    exact-fit corrections and validity rules, looped over the resource
+    axis as in the reference."""
+    X, T = used_rows.shape[0], alloc.shape[0]
+    bigf = float(BIGK)
+    kmin = torch.full((X, T), bigf, dtype=torch.float32, device=alloc.device)
+    valid = torch.ones((X, T), dtype=torch.bool, device=alloc.device)
+    for r in range(alloc.shape[1]):
+        alloc_r = alloc[None, :, r]
+        room = alloc_r - used_rows[:, r:r + 1]
+        reqr = req[r]
+        safe = reqr > 0
+        denom = torch.where(safe, reqr, 1.0)
+        kf = torch.clamp(torch.floor(room / denom), 0.0, bigf)
+        kf = torch.where((kf + 1.0) * denom <= room, kf + 1.0, kf)
+        kf = torch.where(kf * denom > room, kf - 1.0, kf)
+        kr = torch.where(safe, torch.clamp(kf, 0.0, bigf), bigf)
+        kmin = torch.minimum(kmin, kr)
+        valid &= (alloc_r >= 0.0) & ((room >= 0.0) | safe)
+    return torch.where(valid, kmin, 0.0).to(torch.int32)
+
+
+def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] = None,
+                     screen_v: Optional[int] = None):
+    """Build the packing function for a fixed label geometry and, when the
+    batch has topology groups, their structure (prescreen mode, Q = W = 0,
     logged commits)."""
     segments = [tuple(s) for s in segments]
     zlo, zhi = zone_seg
     clo, chi = ct_seg
+    has_topo = topo_meta is not None and len(topo_meta.groups) > 0
+    groups = topo_meta.groups if has_topo else []
+    # machine-region bulk fill: with hostname anti-affinity groups (slot-
+    # local: the domain is the node) the bulk region widens from the
+    # existing prefix to the whole slot axis, with exact per-slot type
+    # narrowing for machine rows
+    mach_bulk = any(gm.gtype == TOPO_ANTI and gm.is_hostname for gm in groups)
+    # value-key spread groups: their owners pack by a per-iteration
+    # water-fill over the domains
+    vk_spread_gs = [(g, gm) for g, gm in enumerate(groups)
+                    if gm.gtype == TOPO_SPREAD and not gm.is_hostname]
+    vk_ids = {g for g, _gm in vk_spread_gs}
+    host_aff_gs = [g for g, gm in enumerate(groups)
+                   if gm.is_hostname and gm.gtype == TOPO_AFFINITY and not gm.is_inverse]
 
     def pack(
         state: PackState,
@@ -215,14 +279,16 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
         type_alloc: torch.Tensor,
         type_capacity: torch.Tensor,
         type_offering_ok: torch.Tensor,
-        log_len: int,
-        n_exist: int,
+        well_known: Optional[torch.Tensor] = None,
+        topo_terms: Optional[dict] = None,
+        log_len: int = 0,
+        n_exist: int = 0,
         screen0: Optional[torch.Tensor] = None,  # [N, C] prescreen tensor
     ):
-        if state.tcounts.shape[0] or state.ports.shape[1] or state.vols.shape[1]:
+        if state.ports.shape[1] or state.vols.shape[1]:
             raise NotImplementedError(
-                "topology, host-port and volume lanes are not ported yet "
-                "(ROADMAP Queue A items 7-8)"
+                "host-port and volume lanes are not ported yet "
+                "(ROADMAP Queue A item 7)"
             )
         dev = state.used.device
         N, V = state.allow.shape
@@ -237,9 +303,17 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
         key_scr = np.asarray([lo < WSCR for (lo, _hi) in segments], dtype=bool)
 
         EB = n_exist
-        BR = EB  # bulk-fill region: the existing prefix
+        BR = N if mach_bulk else EB  # bulk-fill region
         L = log_len
-        LB = 1 if BR == 0 else min(2 * I + V + 64, 4096)
+        if BR == 0:
+            LB = 1
+        elif mach_bulk:
+            # take rows per bulk commit: ~2 per plain bulk item plus one per
+            # water-fill round of the value-key spread items
+            spread_w = sum(gm.seg[1] - gm.seg[0] for _g, gm in vk_spread_gs)
+            LB = min(3 * I + spread_w + 64, 2048)
+        else:
+            LB = min(2 * I + V + 64, 4096)
         log = _Log(L, LB, BR, dev)
 
         items_pl = class_planes(item_arrays, ops)
@@ -262,9 +336,24 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
         count_h = item_arrays["count"].cpu().numpy()
         scls_h = item_arrays["scls"].cpu().numpy()
         defined_h = item_arrays["defined"].cpu().numpy()
+        G = len(groups)
+        if has_topo:
+            own_h = item_arrays["topo_own"].cpu().numpy()
+            sel_h = item_arrays["topo_sel"].cpu().numpy()
+            # a group whose node filter has an empty term (a spread pod with
+            # no node selector or affinity) matches every merged row
+            term_def = topo_terms["defined"].cpu().numpy()
+            nf_trivial = [
+                not gm.filter_term_rows
+                or any(not term_def[r].any() for r in gm.filter_term_rows)
+                for gm in groups
+            ]
+            seg_scr = [gm.seg[0] < WSCR for gm in groups]
         nopen = int(state.nopen)
         idx_f = torch.arange(N, dtype=torch.float32, device=dev)
-        arange_j = torch.arange(J, device=dev)
+        arange_n = torch.arange(N, device=dev)
+        ones_v = torch.ones(V, dtype=torch.bool, device=dev)
+        true_t = torch.ones((), dtype=torch.bool, device=dev)
 
         def merged_types_compat(m_allow, m_out, m_defined, base_tmask):
             """[T]: types surviving requirements and offerings for a merged
@@ -284,6 +373,32 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
             ) > 0.5
             return base_tmask & ok_t & offer_t
 
+        def mach_rows_types_compat(m_allow_rows, m_out_rows, m_def_rows,
+                                   base_tmask_rows):
+            """merged_types_compat over slot rows: [X, T]. The hostname tail
+            past the screen width is exact to skip (no type defines it)."""
+            a = m_allow_rows[:, :WSCR]
+            esc = compat.escape_flags_m(a, m_out_rows, m_def_rows, sm)
+            ok = torch.ones((a.shape[0], type_alloc.shape[0]), dtype=torch.bool,
+                            device=dev)
+            for k, (lo, hi) in enumerate(segments):
+                if lo >= WSCR:
+                    continue
+                hi_s = min(hi, WSCR)
+                shared = m_def_rows[:, k:k + 1] & type_reqs["defined"][None, :, k]
+                nonempty = m_out_rows[:, k:k + 1] & type_reqs["out"][None, :, k]
+                if hi_s > lo:
+                    nonempty = nonempty | (compat._count(
+                        a[:, lo:hi_s], type_rows["allow"][:, lo:hi_s].T) > 0.5)
+                escapes = esc[:, k:k + 1] & type_reqs["escape"][None, :, k]
+                ok &= (~shared) | nonempty | escapes
+            offer = torch.einsum(
+                "tzc,nz,nc->nt", offer_f,
+                m_allow_rows[:, zlo:zhi].to(torch.float32),
+                m_allow_rows[:, clo:chi].to(torch.float32),
+            ) > 0.5
+            return base_tmask_rows & ok & offer
+
         # In place of the reference's refresh descriptor (pack.py:1078-1216,
         # which exists only to keep XLA from copying the [N, C] tensor under
         # lax.cond) the rows a commit writes are re-screened here, at commit
@@ -297,10 +412,13 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
         # items_vs_row agree unless an item defines a key at or past the
         # screen width, which the encoder's elision rule prevents.)
 
+        for k in LAST_SCAN:
+            LAST_SCAN[k] = 0
         for i in range(I):
             count = int(count_h[i])
             if not valid_h[i] or count <= 0:
                 continue
+            LAST_SCAN["items"] += 1
             allow_i = item_arrays["allow"][i]
             out_i = item_arrays["out"][i]
             def_i = item_arrays["defined"][i]
@@ -308,7 +426,24 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
             tol_i = item_arrays["tol"][i]
             f_static_p = f_static[:, i, :]  # [J, T]
             openable_p = openable[:, i]  # [J]
-            plane_mut = bool((defined_h[i] & key_scr).any())
+            if has_topo:
+                own = own_h[i].tolist()
+                sel = sel_h[i].tolist()
+            else:
+                own = sel = []
+            # does any group own or select the item? Items outside every
+            # group skip the per-group work, which changes nothing for them
+            any_topo_i = any(own) or any(sel)
+            # an item with no defined screened key and no group on a
+            # screened key merges as the identity on the screened planes:
+            # its commits cannot change any verdict, so they re-screen
+            # nothing (hostname groups narrow only the elided tail)
+            plane_mut = bool((defined_h[i] & key_scr).any()) or any(
+                (own[g] or sel[g]) and seg_scr[g] for g in range(G))
+            # node-filter matches are read only for selected direct groups
+            # whose filter can fail
+            need_nf = any(sel[g] and not nf_trivial[g] and not gm.is_inverse
+                          for g, gm in enumerate(groups))
 
             # -- screen once per item: slots at or past nopen are closed
             lim = nopen
@@ -318,6 +453,9 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
                 & compat.fits(state.used[:lim] + req_i[None, :], state.cap[:lim])
                 & screen[:lim, int(scls_h[i])]
             )
+            if any_topo_i:
+                sc &= topo_screen(topo_meta, state.tcounts, state.thost[:, :lim],
+                                  state.tdoms, own, sel, allow_i, state.allow[:lim])
             s0 = torch.where(
                 state.is_existing[:lim],
                 idx_f[:lim],
@@ -326,11 +464,136 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
             score = torch.full((N,), BIG, dtype=torch.float32, device=dev)
             score[:lim] = torch.where(sc, s0, BIG)
 
-            def do_candidate(remaining):
-                n_t = torch.argmin(score)
-                m_allow = state.allow[n_t] & allow_i
-                m_out = state.out[n_t] & out_i
-                m_def = state.defined[n_t] | def_i
+            owned_vk = [g for g, _gm in vk_spread_gs if own[g]]
+            n_owned_vk = len(owned_vk)
+            owns_vk_spread = n_owned_vk > 0
+            owns_nonspread = any(own[g] for g in range(G) if g not in vk_ids)
+            # the water-fill is statically provable only when one value-key
+            # spread is the item's sole structural constraint; otherwise its
+            # plan degrades to the per-pod skew bound
+            not_provable = n_owned_vk > 1 or owns_nonspread
+            if EB > 0 and has_topo:
+                item_bulk_ok = topo_bulk_item_ok(topo_meta, own, sel)
+            else:
+                item_bulk_ok = EB > 0
+            mach_ok_i = mach_bulk and topo_mach_bulk_item_ok(topo_meta, own, sel)
+            own_hostaff = any(own[g] for g in host_aff_gs)
+
+            def dom_open_one(lo, hi):
+                """[seg]: domains a fresh machine could open in for this
+                item (the per-item probe): the template allows the domain
+                and some feasible type does, with an available offering
+                for zone spread."""
+                dom_open = torch.zeros(hi - lo, dtype=torch.bool, device=dev)
+                for j in range(J):
+                    f_j = f_static_p[j] & tmpl_type_mask[j]
+                    type_dom = type_reqs["allow"][:, lo:hi]
+                    if (lo, hi) == (zlo, zhi):
+                        ct_allow = tmpl_reqs["allow"][j, clo:chi] & allow_i[clo:chi]
+                        type_zone_ok = torch.einsum(
+                            "tzc,c->tz", offer_f, ct_allow.to(torch.float32)
+                        ) > 0.5
+                        type_dom = type_dom & type_zone_ok
+                    dom_open |= (openable_p[j] & tmpl_reqs["allow"][j, lo:hi]
+                                 & (f_j[:, None] & type_dom).any(dim=0))
+                return dom_open
+
+            dom_open_by_g = {g: dom_open_one(*gm.seg) for g, gm in vk_spread_gs
+                             if own[g]}
+
+            def spread_plan(remaining, dead):
+                """The water-fill for the owned value-key spread groups
+                (pack.py:1492-1593): the argmin-count live domain d* and a
+                commit cap up to the fill level, bounded by the frozen
+                domains' minimum plus maxSkew (or, degraded when a budget
+                is scarce, by the minimum over all the pod's domains).
+                Returns (force[V], cap, blocked, gate[N], dmark[V])."""
+                force = ones_v.clone()
+                dmark = torch.zeros(V, dtype=torch.bool, device=dev)
+                gate = torch.ones(N, dtype=torch.bool, device=dev)
+                cands = score < BIG
+                limits_finite = (state.remaining < 1e29).any()
+                caps = []
+                for g in owned_vk:
+                    gm = groups[g]
+                    lo, hi = gm.seg
+                    if hi == lo:
+                        # a key no label, requirement or offering mentions:
+                        # no domain at all, so blocked (the reference fails
+                        # here on an empty argmin; ROADMAP Queue C)
+                        caps.append(torch.zeros((), dtype=torch.int32, device=dev))
+                        caps.append(true_t)
+                        continue
+                    pod_dom = allow_i[lo:hi] & state.tdoms[g, lo:hi]
+                    dom_cand = (cands[:, None] & state.allow[:, lo:hi]).any(dim=0)
+                    live = pod_dom & ~dead[lo:hi] & (dom_cand | dom_open_by_g[g])
+                    frozen = pod_dom & ~live
+                    cnt = state.tcounts[g, lo:hi]
+                    inf = float("inf")
+                    minc_frozen = torch.where(frozen, cnt, inf).min()
+                    minc_all = torch.where(pod_dom, cnt, inf).min()
+                    n_live = live.sum()
+                    degraded = (limits_finite | ((N - nopen) < n_live)
+                                | ((L - log.ptr) < n_live + 1) | not_provable)
+                    level = (
+                        torch.where(live, cnt, 0.0).sum()
+                        + torch.tensor(float(remaining), dtype=torch.float32, device=dev)
+                    ) / torch.clamp(n_live, min=1).to(torch.float32)
+                    cntm = torch.where(live, cnt, inf)
+                    d_star = torch.argmin(cntm)
+                    c_star = cntm[d_star]
+                    has_live = live.any()
+                    level_cap = torch.clamp(torch.floor(level - c_star), min=1.0)
+                    skew = float(gm.max_skew)
+                    skew_cap = torch.where(degraded, minc_all + skew - c_star,
+                                           minc_frozen + skew - c_star)
+                    cap_f = torch.minimum(level_cap, skew_cap)
+                    skew_blocked = has_live & (cap_f < 1.0)
+                    cap_g = torch.where(
+                        skew_blocked | ~has_live, 0,
+                        torch.clamp(cap_f, 1.0, float(BIGK)).to(torch.int32),
+                    )
+                    oh = (torch.arange(hi - lo, device=dev) == d_star) & has_live
+                    force[lo:hi] = oh
+                    dmark[lo:hi] = oh
+                    gate &= state.allow[:, lo + d_star]
+                    caps.append(cap_g.to(torch.int32))
+                    caps.append(~has_live | skew_blocked)
+                vals = torch.stack([c.to(torch.int64) for c in caps]).tolist()
+                cap = min([BIGK] + vals[0::2])
+                blocked = any(vals[1::2])
+                return force, cap, blocked, gate, dmark
+
+            def node_filter(m_allow, m_out, m_defined):
+                if not need_nf:
+                    return [True] * G
+                return topo_node_filter_ok(
+                    topo_meta, topo_terms, segments, well_known, m_allow, m_out,
+                    m_defined).tolist()
+
+            def record(m_allow, m_out, m_defined, row_mask, k_row):
+                """record_topo (pack.py:895-907); a no-op for an item no
+                group owns or selects."""
+                if any_topo_i:
+                    topo_record(topo_meta, state.tcounts, state.thost, state.tdoms,
+                                own, sel, node_filter(m_allow, m_out, m_defined),
+                                m_allow, m_out, row_mask, k_row)
+
+            def do_candidate(remaining, force, cap, gate, dead):
+                n_t = torch.argmin(score if gate is None else torch.where(gate, score, BIG))
+                slot_allow = state.allow[n_t]
+                if any_topo_i:
+                    t_viable, narrow, applied, k_topo = topo_narrow_single(
+                        topo_meta, state.tcounts, state.thost, state.tdoms, own, sel,
+                        allow_i, slot_allow, n_t, K, spread_force=force)
+                    m_allow = slot_allow & allow_i & narrow
+                    m_out = state.out[n_t] & out_i & ~applied
+                    m_def = state.defined[n_t] | def_i | applied
+                else:
+                    t_viable, k_topo = true_t, None
+                    m_allow = slot_allow & allow_i
+                    m_out = state.out[n_t] & out_i
+                    m_def = state.defined[n_t] | def_i
                 compat_tmask = merged_types_compat(
                     m_allow, m_out, m_def,
                     state.tmask[n_t] & f_static_p[state.tmpl[n_t].to(torch.int64)],
@@ -340,13 +603,15 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
                 kmax_exist = replica_cap(state.cap[n_t][None, :], used_n, req_i)[0]
                 kmax_mach = torch.where(compat_tmask, kcap_t, 0).max()
                 kmax_t = torch.where(state.is_existing[n_t], kmax_exist, kmax_mach)
-                n, kmax, is_ex = torch.stack([
+                if k_topo is not None:
+                    kmax_t = torch.minimum(kmax_t, k_topo)
+                n, kmax, is_ex, viable = torch.stack([
                     n_t, kmax_t.to(torch.int64),
-                    state.is_existing[n_t].to(torch.int64),
+                    state.is_existing[n_t].to(torch.int64), t_viable.to(torch.int64),
                 ]).tolist()
                 kmax = min(kmax, BIGK)
-                k = min(remaining, kmax)
-                do = kmax >= 1 and k >= 1 and log.has_room()
+                k = min(remaining, kmax, cap)
+                do = bool(viable) and kmax >= 1 and k >= 1 and log.has_room()
                 if do:
                     tmask_k = compat_tmask & (kcap_t >= k)
                     state.used[n] = state.used[n] + float(k) * req_i
@@ -357,46 +622,118 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
                     if not is_ex:
                         state.tmask[n] = tmask_k
                         state.cap[n] = _segment_max_alloc(tmask_k, type_alloc)
+                    row_mask = arange_n == n
+                    record(m_allow, m_out, m_def, row_mask,
+                           torch.where(row_mask, k, 0).to(torch.int32))
                     log.write(i, n, 1, k, k)
                     remaining -= k
                     if plane_mut:
                         screen[n] = ops.items_vs_row(
                             items_pl, state.allow[n], state.out[n], state.defined[n]
                         )
+                # retire on failure or when filled to capacity; a commit cut
+                # only by the water-fill cap leaves the slot for a later round
                 if not do or k >= kmax:
-                    score[n] = BIG  # retire: failed, or filled to capacity
-                return remaining, False
+                    score[n] = BIG
+                return remaining, False, dead
 
-            def do_bulk(remaining):
-                """All existing candidates in one commit, filled in index
-                order under per-slot caps (scheduler.go:179-185)."""
-                cands = (score[:BR] < BIG) & state.is_existing[:BR]
-                k_e = replica_cap(state.cap[:BR], state.used[:BR], req_i)
-                k_eff = torch.where(cands, torch.clamp(k_e, max=BIGK), 0)
-                csum = torch.cumsum(k_eff, dim=0, dtype=torch.int32)
-                take = torch.minimum(
-                    torch.clamp(remaining - (csum - k_eff), min=0), k_eff
-                ).to(torch.int32)
+            def do_bulk(remaining, dead):
+                """Every candidate of the bulk region in one commit, filled
+                in index order (existing prefix) or, over the machine
+                region, in score order, under per-slot caps
+                (scheduler.go:179-193). Rows at or past nopen are closed and
+                take nothing, so the work stops at min(BR, nopen). A spread
+                group always has a node filter, which keeps its owners off
+                the bulk paths, so no water-fill plan (force, cap, gate)
+                reaches here."""
+                BRo = min(BR, nopen)
+                sa = state.allow[:BRo]
+                cands = score[:BRo] < BIG
+                if not mach_ok_i:
+                    cands &= state.is_existing[:BRo]
+                if any_topo_i:
+                    thost_e = state.thost[:, :BRo]
+                    viable = topo_screen(topo_meta, state.tcounts, thost_e, state.tdoms,
+                                         own, sel, allow_i, sa)
+                    narrow, applied, k_topo_e = topo_bulk_narrow(
+                        topo_meta, state.tcounts, thost_e, state.tdoms, own, sel,
+                        allow_i, K)
+                    # owned narrowed domains must stay reachable per slot
+                    for g, gm in enumerate(groups):
+                        if (gm.is_hostname or gm.is_inverse or not own[g]
+                                or gm.gtype == TOPO_ANTI):
+                            continue
+                        lo, hi = gm.seg
+                        viable &= (sa[:, lo:hi] & narrow[lo:hi]).any(dim=-1)
+                    m_allow_rows = sa & (allow_i & narrow)[None, :]
+                    m_out_rows = state.out[:BRo] & (out_i & ~applied)[None, :]
+                    m_def_rows = state.defined[:BRo] | (def_i | applied)[None, :]
+                else:
+                    viable, k_topo_e = None, None
+                    m_allow_rows = sa & allow_i[None, :]
+                    m_out_rows = state.out[:BRo] & out_i[None, :]
+                    m_def_rows = state.defined[:BRo] | def_i[None, :]
+                KEW = min(EB, BRo) if mach_bulk else BRo
+                k_slot = replica_cap(state.cap[:KEW], state.used[:KEW], req_i)
+                if mach_bulk:
+                    # exact surviving types for machine rows (the bulk analog
+                    # of the candidate verify); the existing prefix keeps its
+                    # fixed capacity
+                    MW = BRo - KEW
+                    if mach_ok_i and MW > 0:
+                        tmask_rows = mach_rows_types_compat(
+                            m_allow_rows[KEW:], m_out_rows[KEW:], m_def_rows[KEW:],
+                            state.tmask[KEW:BRo]
+                            & f_static_p[state.tmpl[KEW:BRo].to(torch.int64)],
+                        )
+                        kcap_rows = replica_cap_rows(type_alloc, state.used[KEW:BRo], req_i)
+                        k_mach = torch.where(tmask_rows, kcap_rows, 0).max(dim=-1).values
+                    else:
+                        k_mach = torch.zeros(MW, dtype=torch.int32, device=dev)
+                    k_slot = torch.cat([k_slot, k_mach])
+                ok = cands if viable is None else cands & viable
+                k_slot = k_slot if k_topo_e is None else torch.minimum(k_slot, k_topo_e)
+                k_eff = torch.where(ok, torch.clamp(k_slot, max=BIGK), 0).to(torch.int32)
+                budget = remaining
+                if mach_bulk:
+                    # take in score order (existing rank before machines) so a
+                    # small budget lands where the candidate loop would put it
+                    order = torch.argsort(torch.where(k_eff > 0, score[:BRo], BIG),
+                                          stable=True)
+                    k_ord = k_eff[order]
+                    csum = torch.cumsum(k_ord, dim=0, dtype=torch.int32)
+                    take_o = torch.minimum(torch.clamp(budget - (csum - k_ord), min=0),
+                                           k_ord).to(torch.int32)
+                    take = torch.zeros_like(k_eff).scatter_(0, order, take_o)
+                else:
+                    csum = torch.cumsum(k_eff, dim=0, dtype=torch.int32)
+                    take = torch.minimum(torch.clamp(budget - (csum - k_eff), min=0),
+                                         k_eff).to(torch.int32)
                 placed = int(take.sum())
                 do = placed >= 1 and log.has_room() and log.bulk_n < LB
                 if do:
                     touched = take > 0
                     tm = touched[:, None]
-                    state.used[:BR] = (
-                        state.used[:BR]
+                    state.used[:BRo] = (
+                        state.used[:BRo]
                         + take[:, None].to(torch.float32) * req_i[None, :]
                     )
-                    state.pods[:BR] += take
-                    state.allow[:BR] = torch.where(
-                        tm, state.allow[:BR] & allow_i[None, :], state.allow[:BR]
-                    )
-                    state.out[:BR] = torch.where(
-                        tm, state.out[:BR] & out_i[None, :], state.out[:BR]
-                    )
-                    state.defined[:BR] = torch.where(
-                        tm, state.defined[:BR] | def_i[None, :], state.defined[:BR]
-                    )
-                    log.bulk_take[log.bulk_n] = take
+                    state.pods[:BRo] += take
+                    state.allow[:BRo] = torch.where(tm, m_allow_rows, sa)
+                    state.out[:BRo] = torch.where(tm, m_out_rows, state.out[:BRo])
+                    state.defined[:BRo] = torch.where(tm, m_def_rows, state.defined[:BRo])
+                    if mach_bulk and mach_ok_i and BRo > KEW:
+                        # touched machine rows narrow their types to those
+                        # that fit the committed replicas
+                        rows = torch.nonzero(touched[KEW:]).flatten()
+                        new_tm = tmask_rows[rows] & (kcap_rows[rows] >= take[KEW + rows, None])
+                        state.tmask[KEW + rows] = new_tm
+                        state.cap[KEW + rows] = _segment_max_alloc(new_tm, type_alloc)
+                    if any_topo_i:
+                        topo_record_bulk(topo_meta, state.tcounts, state.thost,
+                                         state.tdoms, own, sel, m_allow_rows,
+                                         m_out_rows, take)
+                    log.bulk_take[log.bulk_n, :BRo] = take
                     log.write(i, 0, -1, log.bulk_n, placed)
                     log.bulk_n += 1
                     remaining -= placed
@@ -409,7 +746,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
                     retire = cands & ((k_eff == 0) | (take >= k_eff))
                 else:
                     retire = cands
-                score[:BR] = torch.where(retire, BIG, score[:BR])
+                score[:BRo] = torch.where(retire, BIG, score[:BRo])
                 # fused open: no candidate left at all -> open in the same
                 # iteration
                 live = score < BIG
@@ -417,26 +754,39 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
                     (live & state.is_existing).any(), (live & ~state.is_existing).any()
                 ]).tolist()
                 if do and not exist_left and not mach_cand and remaining > 0:
-                    return open_commit(remaining)
-                return remaining, False
+                    return open_commit(remaining, None, BIGK, None, dead)
+                return remaining, False, dead
 
-            def open_commit(remaining):
-                """Bulk-open s fresh slots with m replicas each."""
+            def open_commit(remaining, force, cap, dmark, dead):
+                """Bulk-open s fresh slots with m replicas each, from the
+                first template that can host the item (weight order)."""
                 nonlocal nopen
                 cap_ok = torch.all(
                     type_capacity[None, :, :] <= state.remaining[:, None, :], dim=-1
                 )  # [J, T]
-                viab, allows, outs, defs, compats, kcaps = [], [], [], [], [], []
+                slot_n = min(nopen, N - 1)
+                viab, allows, outs, defs, compats, kcaps, ktopos = (
+                    [], [], [], [], [], [], [])
                 for j in range(J):
-                    m_allow_j = tmpl_reqs["allow"][j] & allow_i
+                    fresh_allow = tmpl_reqs["allow"][j]
+                    m_allow_j = fresh_allow & allow_i
                     m_out_j = tmpl_reqs["out"][j] & out_i
                     m_def_j = tmpl_reqs["defined"][j] | def_i
+                    tv = true_t
+                    if any_topo_i:
+                        tv, tnarrow, tkeys, k_topo_j = topo_narrow_single(
+                            topo_meta, state.tcounts, state.thost, state.tdoms, own,
+                            sel, allow_i, fresh_allow, slot_n, K, spread_force=force)
+                        m_allow_j = m_allow_j & tnarrow
+                        m_out_j = m_out_j & ~tkeys
+                        m_def_j = m_def_j | tkeys
+                        ktopos.append(k_topo_j)
                     compat_j = merged_types_compat(
                         m_allow_j, m_out_j, m_def_j,
                         tmpl_type_mask[j] & cap_ok[j] & f_static_p[j],
                     )
                     kcap_j = replica_cap(type_alloc, tmpl_daemon[j][None, :], req_i)
-                    viab.append((compat_j & (kcap_j >= 1)).any())
+                    viab.append(tv & (compat_j & (kcap_j >= 1)).any())
                     allows.append(m_allow_j)
                     outs.append(m_out_j)
                     defs.append(m_def_j)
@@ -446,7 +796,10 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
                 jc_t = torch.argmax(can_open_j.to(torch.uint8))
                 compat_o = torch.stack(compats)[jc_t]
                 kcap_o = torch.stack(kcaps)[jc_t]
-                m_eff_t = torch.clamp(torch.where(compat_o, kcap_o, 0).max(), 0, BIGK)
+                m_eff_t = torch.where(compat_o, kcap_o, 0).max()
+                if ktopos:
+                    m_eff_t = torch.minimum(m_eff_t, torch.stack(ktopos)[jc_t])
+                m_eff_t = torch.clamp(m_eff_t, 0, BIGK)
                 # provisioner-limit slot budget: pessimistic max capacity
                 # over the k >= 1 types (scheduler.go:276-293)
                 tmask_1 = compat_o & (kcap_o >= 1)
@@ -463,12 +816,22 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
                     jc_t, m_eff_t.to(torch.int64), s_limit_t,
                     can_open_j.any().to(torch.int64),
                 ]).tolist()
-                s_need = (remaining + max(m_eff, 1) - 1) // max(m_eff, 1)
+                # the water-fill cap bounds this iteration's share
+                target = min(remaining, cap)
+                s_need = (target + max(m_eff, 1) - 1) // max(m_eff, 1)
                 s = min(s_need, N - nopen, s_limit)
+                if own_hostaff:
+                    # a hostname-affinity owner's replicas co-locate on the
+                    # seeded host: never more than one fresh slot
+                    s = min(s, 1)
                 can = bool(can_any) and m_eff >= 1 and s >= 1 and log.has_room()
                 if not can:
-                    return remaining, True  # exhausted: nothing can open
-                placed = min(remaining, s * m_eff)
+                    # a single owned spread group retires the forced domain
+                    # and retries the next; anything else is stuck
+                    if dmark is not None and n_owned_vk == 1:
+                        dead = dead | dmark
+                    return remaining, n_owned_vk != 1, dead
+                placed = min(target, s * m_eff)
                 k_last = placed - (s - 1) * m_eff
                 lo, hi = nopen, nopen + s
                 m_allow_o, m_out_o, m_def_o = allows[jc], outs[jc], defs[jc]
@@ -494,6 +857,11 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
                 state.cap[hi - 1] = _segment_max_alloc(tmask_last, type_alloc)
                 state.remaining[jc] = state.remaining[jc] - float(s) * max_cap
                 nopen = hi
+                if any_topo_i:
+                    row_mask = (arange_n >= lo) & (arange_n < hi)
+                    k_full = torch.zeros(N, dtype=torch.int32, device=dev)
+                    k_full[lo:hi] = k_row
+                    record(m_allow_o, m_out_o, m_def_o, row_mask, k_full)
                 log.write(i, lo, s, m_eff, k_last)
                 remaining -= placed
                 # opened slots become candidates for later fill rounds
@@ -509,25 +877,48 @@ def make_pack_kernel(segments, zone_seg, ct_seg, screen_v: Optional[int] = None)
                     )
                 else:
                     screen[lo:hi] = tmpl_rows[jc]
-                return remaining, False
+                return remaining, False, dead
 
             remaining = count
             exhausted = False
             tries = 0
+            dead = torch.zeros(V, dtype=torch.bool, device=dev)
             # backstop only: commits consume count, failed verifies retire
-            # slots (<= N), failed opens end the item
+            # slots (<= N), failed opens end the item or retire a domain
             while remaining > 0 and not exhausted and tries < count + N + V + 64:
-                live = score < BIG
-                has_cand, exist_cand = torch.stack([
-                    live.any(), (live & state.is_existing).any()
-                ]).tolist()
-                if BR > 0 and exist_cand and log.bulk_n < LB:
-                    remaining, exhausted = do_bulk(remaining)
-                elif has_cand:
-                    remaining, exhausted = do_candidate(remaining)
-                else:
-                    remaining, exhausted = open_commit(remaining)
                 tries += 1
+                force, cap, gate, dmark = None, BIGK, None, None
+                if owns_vk_spread:
+                    force, cap, blocked, gate, dmark = spread_plan(remaining, dead)
+                    if blocked:
+                        # the reference's blocked iteration commits nothing
+                        # (its cap is 0) and ends the item
+                        break
+                live = score < BIG
+                if gate is not None:
+                    live &= gate
+                flags = [live.any(), (live & state.is_existing).any()]
+                if BR > 0 and has_topo and any(own):
+                    flags.append(topo_bulk_need_seed(topo_meta, state.tcounts,
+                                                     state.tdoms, own, allow_i))
+                has_cand, exist_cand, *seed = torch.stack(flags).tolist()
+                use_bulk = (
+                    BR > 0
+                    and ((item_bulk_ok and exist_cand) or (mach_ok_i and has_cand))
+                    and not any(seed)
+                    and log.bulk_n < LB
+                )
+                if use_bulk:
+                    LAST_SCAN["bulk"] += 1
+                    remaining, exhausted, dead = do_bulk(remaining, dead)
+                elif has_cand:
+                    LAST_SCAN["candidate"] += 1
+                    remaining, exhausted, dead = do_candidate(
+                        remaining, force, cap, gate, dead)
+                else:
+                    LAST_SCAN["open"] += 1
+                    remaining, exhausted, dead = open_commit(
+                        remaining, force, cap, dmark, dead)
 
         state = state._replace(
             nopen=torch.tensor(nopen, dtype=torch.int32, device=dev)

@@ -1,10 +1,9 @@
 """Soft-constraint relaxation in fixed order (preferences.go:36-145).
 
 Order: required node-affinity term (OR semantics: drop the head term) ->
-preferred node affinity (heaviest first) -> (optionally) tolerate
-PreferNoSchedule taints. The pod-affinity and topology-spread steps of the
-reference sit between these; pods carrying those constraints are refused
-by this slice's encoder, so they have nothing to relax here.
+preferred pod affinity -> preferred pod anti-affinity -> preferred node
+affinity (heaviest first) -> ScheduleAnyway topology spreads ->
+(optionally) tolerate PreferNoSchedule taints.
 """
 from __future__ import annotations
 
@@ -20,7 +19,10 @@ class Preferences:
     def relax(self, pod) -> bool:
         relaxations = [
             self._remove_required_node_affinity_term,
+            self._remove_preferred_pod_affinity_term,
+            self._remove_preferred_pod_anti_affinity_term,
             self._remove_preferred_node_affinity_term,
+            self._remove_topology_spread_schedule_anyway,
         ]
         if self.tolerate_prefer_no_schedule:
             relaxations.append(self._tolerate_prefer_no_schedule_taints)
@@ -40,6 +42,24 @@ class Preferences:
         affinity.node_affinity.required = affinity.node_affinity.required[1:]
         return f"removed required node affinity term {dropped}"
 
+    def _remove_preferred_pod_affinity_term(self, pod) -> Optional[str]:
+        affinity = pod.spec.affinity
+        if (affinity is None or affinity.pod_affinity is None
+                or not affinity.pod_affinity.preferred):
+            return None
+        terms = sorted(affinity.pod_affinity.preferred, key=lambda t: -t.weight)
+        affinity.pod_affinity.preferred = terms[1:]
+        return f"removed preferred pod affinity term {terms[0]}"
+
+    def _remove_preferred_pod_anti_affinity_term(self, pod) -> Optional[str]:
+        affinity = pod.spec.affinity
+        if (affinity is None or affinity.pod_anti_affinity is None
+                or not affinity.pod_anti_affinity.preferred):
+            return None
+        terms = sorted(affinity.pod_anti_affinity.preferred, key=lambda t: -t.weight)
+        affinity.pod_anti_affinity.preferred = terms[1:]
+        return f"removed preferred pod anti-affinity term {terms[0]}"
+
     def _remove_preferred_node_affinity_term(self, pod) -> Optional[str]:
         affinity = pod.spec.affinity
         if (affinity is None or affinity.node_affinity is None
@@ -48,6 +68,13 @@ class Preferences:
         terms = sorted(affinity.node_affinity.preferred, key=lambda t: -t.weight)
         affinity.node_affinity.preferred = terms[1:]
         return f"removed preferred node affinity term {terms[0]}"
+
+    def _remove_topology_spread_schedule_anyway(self, pod) -> Optional[str]:
+        for i, tsc in enumerate(pod.spec.topology_spread_constraints):
+            if tsc.when_unsatisfiable == "ScheduleAnyway":
+                pod.spec.topology_spread_constraints.pop(i)
+                return f"removed ScheduleAnyway topology spread {tsc}"
+        return None
 
     def _tolerate_prefer_no_schedule_taints(self, pod) -> Optional[str]:
         """preferences.go:131-145."""

@@ -89,6 +89,12 @@ class Requirement:
             value, self.greater_than, self.less_than
         )
 
+    def insert(self, *items: str) -> None:
+        self.values.update(items)
+
+    def values_list(self):
+        return sorted(self.values)
+
     def operator(self) -> str:
         """Recovered NodeSelector operator (requirement.go:186-197)."""
         if self.complement:

@@ -13,9 +13,9 @@ Every Requirement becomes
 and, because concrete In-sets are dictionary-closed, the nonemptiness of a
 per-key intersection is exactly (outA & outB) | any_v(allowA & allowB).
 
-This slice encodes generic batches only: pods with topology spread, pod
-(anti-)affinity, host ports or volumes raise NotImplementedError, since
-their device lanes are not ported yet.
+Topology spread and pod (anti-)affinity lower to the domain-count tensors
+of ops/topology.py. Pods with host ports or volumes raise
+NotImplementedError: their device lanes are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,10 +27,19 @@ import numpy as np
 from karpenter_core_tpu_torch.api import labels as api_labels
 from karpenter_core_tpu_torch.api.provisioner import order_by_weight
 from karpenter_core_tpu_torch.api.settings import DEFAULT_BUCKET_LADDER
+from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology import (
+    Topology,
+    build_domains,
+)
 from karpenter_core_tpu_torch.kube.objects import (
     LABEL_HOSTNAME,
     LABEL_TOPOLOGY_ZONE,
     ResourceList,
+)
+from karpenter_core_tpu_torch.ops.topology import (
+    TOPO_ANTI,
+    TOPO_SPREAD,
+    encode_topology,
 )
 from karpenter_core_tpu_torch.scheduling import taints as taints_mod
 from karpenter_core_tpu_torch.scheduling.machinetemplate import MachineTemplate
@@ -79,15 +88,8 @@ def refuse_unported(pods) -> None:
     does not port. Refusing is deliberate: nothing is solved approximately."""
     for p in pods:
         s = p.spec
-        aff = s.affinity
         what = None
-        if s.topology_spread_constraints:
-            what = ("topology spread", "Queue A item 8, ops/topology")
-        elif aff is not None and (
-            aff.pod_affinity is not None or aff.pod_anti_affinity is not None
-        ):
-            what = ("pod (anti-)affinity", "Queue A item 8, ops/topology")
-        elif any(pt.host_port for c in s.containers for pt in c.ports):
+        if any(pt.host_port for c in s.containers for pt in c.ports):
             what = ("host ports", "Queue A item 7, host ports and volumes")
         elif any(v.persistent_volume_claim is not None for v in s.volumes):
             what = ("volumes", "Queue A item 7, host ports and volumes")
@@ -102,28 +104,34 @@ def _ids(lst):
     return tuple(map(id, lst))
 
 
+def _aff_duo(x):
+    # identity of the leaf term objects, which producers share across a
+    # deployment's pods even when each pod gets fresh wrapper objects
+    return None if x is None else (_ids(x.required), _ids(x.preferred))
+
+
+def _memo_repr(memo: Dict, key: Tuple, obj) -> str:
+    r = memo.get(key)
+    if r is None:
+        r = memo[key] = repr(obj)
+    return r
+
+
 def _pod_spec_signature(p, memo: Dict) -> Tuple:
     """Content key for pod spec-equivalence: everything the encoder derives
-    per pod (namespace, labels, node selector, affinity, tolerations,
-    resources). Pods with equal signatures are interchangeable."""
+    per pod (namespace, labels for topology selection, node selector,
+    node and pod affinity, tolerations, spread constraints, resources).
+    Pods with equal signatures are interchangeable. Constraint objects key
+    by content (repr), memoized by the identity of their leaf objects."""
     s = p.spec
     aff = s.affinity
-    if aff is None:
-        aff_r = None
-    else:
-        na = aff.node_affinity
-        k = ("aff",) + ((None,) if na is None else (_ids(na.required), _ids(na.preferred)))
-        aff_r = memo.get(k)
-        if aff_r is None:
-            aff_r = memo[k] = repr(aff)
+    aff_r = None if aff is None else _memo_repr(
+        memo, ("aff", _aff_duo(aff.node_affinity), _aff_duo(aff.pod_affinity),
+               _aff_duo(aff.pod_anti_affinity)), aff)
     tol = s.tolerations
-    if tol:
-        k = ("tol",) + _ids(tol)
-        tol_r = memo.get(k)
-        if tol_r is None:
-            tol_r = memo[k] = repr(tol)
-    else:
-        tol_r = None
+    tol_r = _memo_repr(memo, ("tol",) + _ids(tol), tol) if tol else None
+    tsc = s.topology_spread_constraints
+    tsc_r = _memo_repr(memo, ("tsc",) + _ids(tsc), tsc) if tsc else None
     res = tuple(
         (tuple(c.resources.requests.items()), tuple(c.resources.limits.items()))
         for c in s.containers
@@ -143,6 +151,7 @@ def _pod_spec_signature(p, memo: Dict) -> Tuple:
         tuple(s.node_selector.items()),
         aff_r,
         tol_r,
+        tsc_r,
         res,
         ic_r,
     )
@@ -176,6 +185,15 @@ class LabelDictionary:
             self.offsets[k + 1] = self.offsets[k] + len(self._values[k])
         self.V = int(self.offsets[-1])
         self.K = len(self.keys)
+
+    def flat_index(self, key: str, value: str) -> Optional[int]:
+        k = self.key_index.get(key)
+        if k is None:
+            return None
+        local = self._values[k].get(value)
+        if local is None:
+            return None
+        return int(self.offsets[k]) + local
 
     def values_of(self, key: str) -> List[str]:
         k = self.key_index.get(key)
@@ -315,6 +333,11 @@ class EncodedSnapshot:
     pods: List = field(default_factory=list)
     state_nodes: List = field(default_factory=list)
 
+    # topology groups (None when the batch has none)
+    topo_meta: object = None  # ops.topology.TopoMeta
+    topo_arrays: object = None  # ops.topology.TopoArrays
+    item_of_pod: np.ndarray = None  # [P] int32 item of sorted pod i
+
 
 def encode_snapshot(
     pods: List,
@@ -396,6 +419,9 @@ def encode_snapshot(
     pods_sorted = [pods[i] for i in order]
     uidx = uidx0[order]
 
+    def ffd_key_of_class(u):
+        return (-cpu_u[u], -mem_u[u])
+
     pod_reqs_u = [Requirements.from_pod(p) for p in uniq_pods]
     tmpl_reqs_list = [t.requirements for t in templates]
     type_reqs_list = [it.requirements for it in all_types]
@@ -404,6 +430,14 @@ def encode_snapshot(
         reqs = Requirements.from_labels(node.labels())
         reqs.add(Requirement(LABEL_HOSTNAME, OP_IN, [node.hostname()]))
         exist_reqs_list.append(reqs)
+
+    # the batch's topology groups; cluster pods do not seed them (the
+    # solver refuses a kube client)
+    host_topology = Topology(build_domains(provisioners, instance_types),
+                             pods_sorted, update_pods=uniq_pods)
+    topo_groups = list(host_topology.topologies.values()) + list(
+        host_topology.inverse_topologies.values()
+    )
 
     # dictionary closure; the existing-node axis pads to its tier and
     # hostname values pad in step, so the segment tracks the bucket
@@ -415,6 +449,14 @@ def encode_snapshot(
         dictionary = LabelDictionary()
         for reqs in pod_reqs_u + tmpl_reqs_list + type_reqs_list + exist_reqs_list:
             _collect_requirement_values(reqs, dictionary)
+        for tg in topo_groups:
+            # hostname domains live on slot identity: the key alone
+            dictionary.add_key(tg.key)
+            if tg.key != LABEL_HOSTNAME:
+                for d in tg.domains:
+                    dictionary.add_value(tg.key, d)
+            for term in tg.node_filter.terms:
+                _collect_requirement_values(term, dictionary)
         dictionary.add_key(LABEL_TOPOLOGY_ZONE)
         dictionary.add_key(api_labels.LABEL_CAPACITY_TYPE)
         for it in all_types:
@@ -549,6 +591,10 @@ def encode_snapshot(
         tol_exist_us[:, :S] = np.stack(tol_rows_u, axis=1)
 
     n_slots = E_pad + min(max_nodes, bucket_pow2(max(P, 1), 64))
+    topo_meta, topo_arrays = encode_topology(
+        host_topology, pods_sorted, dictionary, n_slots,
+        [n.hostname() for n in state_nodes], uidx=uidx, uniq_pods=uniq_pods,
+    )
     pod_reqs_u_arr = encode_reqsets(pod_reqs_u, dictionary)
 
     # screens may run on a prefix of the value axis: when no pod or type
@@ -567,7 +613,9 @@ def encode_snapshot(
                 screen_v = hlo
         dictionary.screen_v = screen_v
 
-    item_counts, item_rep, item_members = _build_items(uidx)
+    item_of_pod, item_counts, item_rep, item_members = _build_items(
+        uidx, topo_meta, topo_arrays, ffd_key_of_class=ffd_key_of_class,
+    )
     # verdict columns: one per distinct class among items
     cls_of_item = uidx[item_rep] if len(item_rep) else item_rep
     _ucls, scls_items, item_scls = np.unique(
@@ -618,27 +666,87 @@ def encode_snapshot(
         templates=templates,
         pods=pods_sorted,
         state_nodes=state_nodes,
+        topo_meta=topo_meta,
+        topo_arrays=topo_arrays,
+        item_of_pod=item_of_pod,
     )
 
 
-def _build_items(uidx):
+def _build_items(uidx, topo_meta, topo_arrays, ffd_key_of_class=None):
     """Group FFD-sorted pods into items by spec-equivalence class, in order
-    of first appearance. Returns (item_counts [I], item_rep [I], members)."""
+    of first appearance. Classes in a VALUE-KEY anti-affinity group expand
+    back to count-1 items: each placement blocks every possible domain
+    (topology.go:120-143), so the reference's per-pod re-evaluation must
+    be kept. Hostname anti-affinity is slot-local and stays bulk, except
+    owners that do not match their own selector (their replicas may share
+    a node, which the kernel's one-per-slot cap would forbid). Spread and
+    affinity owners stay bulk. Returns (item_of_pod [P], item_counts [I],
+    item_rep [I], members)."""
+    P = len(uidx)
+    if P == 0:
+        return (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                np.zeros(0, np.int32), [])
+    expand_pod = np.zeros(P, dtype=bool)
+    if topo_meta is not None:
+        owner, sel = topo_arrays.owner, topo_arrays.sel  # [G, P]
+        for g, gm in enumerate(topo_meta.groups):
+            if gm.gtype != TOPO_ANTI:
+                continue
+            if not gm.is_hostname or gm.filter_term_rows:
+                expand_pod |= sel[g] if gm.is_inverse else owner[g]
+            elif not gm.is_inverse:
+                expand_pod |= owner[g] & ~sel[g]
     class_item: Dict[int, int] = {}
+    item_of_pod = np.zeros(P, dtype=np.int32)
     counts: List[int] = []
     reps: List[int] = []
     members: List[List[int]] = []
-    for i in range(len(uidx)):
-        u = int(uidx[i])
-        item = class_item.get(u)
-        if item is None:
-            item = class_item[u] = len(counts)
-            counts.append(0)
+    for i in range(P):
+        if expand_pod[i]:
+            item = len(counts)
+            counts.append(1)
             reps.append(i)
-            members.append([])
-        counts[item] += 1
-        members[item].append(i)
+            members.append([i])
+        else:
+            u = int(uidx[i])
+            item = class_item.get(u)
+            if item is None:
+                item = class_item[u] = len(counts)
+                counts.append(0)
+                reps.append(i)
+                members.append([])
+            counts[item] += 1
+            members[item].append(i)
+        item_of_pod[i] = item
+
+    # Within an FFD tie group, hostname-spread and hostname-anti owners go
+    # first: each replica opens or claims a near-empty node, which the
+    # reference's interleaved per-pod loop lets same-sized pods that follow
+    # reuse (machines rank by ascending pod count, scheduler.go:186-193)
+    if topo_meta is not None and ffd_key_of_class is not None:
+        hs_groups = [
+            g for g, gm in enumerate(topo_meta.groups)
+            if gm.gtype in (TOPO_SPREAD, TOPO_ANTI) and gm.is_hostname
+            and not gm.is_inverse
+        ]
+        if hs_groups:
+            owner = topo_arrays.owner
+            owns_hs = [any(owner[g, reps[it]] for g in hs_groups)
+                       for it in range(len(counts))]
+            order = sorted(
+                range(len(counts)),
+                key=lambda it: (ffd_key_of_class(uidx[reps[it]]),
+                                0 if owns_hs[it] else 1, it),
+            )
+            inv = np.zeros(len(counts), dtype=np.int32)
+            for new, old in enumerate(order):
+                inv[old] = new
+            item_of_pod = inv[item_of_pod]
+            counts = [counts[old] for old in order]
+            reps = [reps[old] for old in order]
+            members = [members[old] for old in order]
     return (
+        item_of_pod,
         np.asarray(counts, dtype=np.int32),
         np.asarray(reps, dtype=np.int32),
         members,

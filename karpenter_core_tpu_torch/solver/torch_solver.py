@@ -31,6 +31,7 @@ from karpenter_core_tpu_torch.ops.pack import (
     make_pack_kernel,
     make_prescreen_kernel,
 )
+from karpenter_core_tpu_torch.ops.topology import TopoGroupMeta, TopoMeta
 from karpenter_core_tpu_torch.scheduling.preferences import Preferences
 from karpenter_core_tpu_torch.scheduling.requirement import Requirement
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
@@ -197,6 +198,13 @@ def solve_geometry(snap: EncodedSnapshot, max_nodes: int):
     R = len(snap.resource_names)
     K, V = dictionary.K, dictionary.V
     N = snap.n_slots or (E + min(max_nodes, max(P, 1)))
+    topo_sig = ()
+    if snap.topo_meta is not None:
+        topo_sig = tuple(
+            (g.gtype, g.seg, g.key_k, g.max_skew, g.is_hostname, g.is_inverse,
+             tuple(g.filter_term_rows))
+            for g in snap.topo_meta.groups
+        )
     # commit-log capacity: total pods rounded to a power of two
     log_len = 128
     while log_len < len(snap.pods) + 64:
@@ -206,7 +214,7 @@ def solve_geometry(snap: EncodedSnapshot, max_nodes: int):
     D = snap.exist_vol_limits.shape[1]
     return (
         P, J, T, E, R, K, V, N, tuple(segments), snap.zone_seg, snap.ct_seg,
-        (), log_len, Q, W, D, snap.screen_v or V,
+        topo_sig, log_len, Q, W, D, snap.screen_v or V,
     )
 
 
@@ -234,6 +242,9 @@ def device_args(snap: EncodedSnapshot, provisioners=None):
         "count": counts.astype(np.int32),
         "scls": snap.item_scls.astype(np.int32),
     }
+    if snap.topo_meta is not None:
+        pod_arrays["topo_own"] = snap.topo_arrays.owner.T[rep].copy()  # [I, G]
+        pod_arrays["topo_sel"] = snap.topo_arrays.sel.T[rep].copy()
     pod_arrays["ports"] = snap.pod_ports_u[cls]
     pod_arrays["port_conflict"] = snap.pod_port_conflict_u[cls]
     pod_arrays["vols"] = snap.pod_vols_u[cls]
@@ -282,12 +293,22 @@ def device_args(snap: EncodedSnapshot, provisioners=None):
                         remaining0[j, r_i] -= cap.get(rname, 0.0)
 
     V, K = snap.dictionary.V, snap.dictionary.K
-    topo_terms = {
-        "allow": np.zeros((0, V), bool),
-        "out": np.zeros((0, K), bool),
-        "defined": np.zeros((0, K), bool),
-        "escape": np.zeros((0, K), bool),
-    }
+    if snap.topo_meta is not None:
+        ta = snap.topo_arrays
+        topo_counts0, topo_hcounts0, topo_doms0 = (
+            ta.counts0, ta.hcounts0, ta.domain_mask0)
+        topo_terms = {"allow": ta.term_allow, "out": ta.term_out,
+                      "defined": ta.term_defined, "escape": ta.term_escape}
+    else:
+        topo_counts0 = np.zeros((0, V), np.float32)
+        topo_hcounts0 = np.zeros((0, snap.n_slots or 1), np.float32)
+        topo_doms0 = np.zeros((0, V), bool)
+        topo_terms = {
+            "allow": np.zeros((0, V), bool),
+            "out": np.zeros((0, K), bool),
+            "defined": np.zeros((0, K), bool),
+            "escape": np.zeros((0, K), bool),
+        }
     return (
         pod_arrays,
         _reqset_to_dict(snap.tmpl_reqs),
@@ -303,9 +324,9 @@ def device_args(snap: EncodedSnapshot, provisioners=None):
         snap.exist_cap,
         snap.well_known,
         remaining0,
-        np.zeros((0, V), np.float32),
-        np.zeros((0, snap.n_slots or 1), np.float32),
-        np.zeros((0, V), bool),
+        topo_counts0,
+        topo_hcounts0,
+        topo_doms0,
         topo_terms,
         snap.exist_ports,
         snap.exist_vols,
@@ -327,13 +348,30 @@ def args_to_torch(args, device) -> tuple:
     return tuple(conv(a) for a in args)
 
 
-def make_device_run(segments, zone_seg, ct_seg, n_slots: int, log_len: int,
-                    screen_v: Optional[int] = None):
+def topo_meta_from(obj) -> Optional[TopoMeta]:
+    """A TopoMeta of the port from any object with a TopoMeta's fields (the
+    reference's included), read by attribute; None stays None."""
+    if obj is None:
+        return None
+    return TopoMeta(groups=[
+        TopoGroupMeta(
+            gtype=int(g.gtype), seg=(int(g.seg[0]), int(g.seg[1])),
+            key_k=int(g.key_k), max_skew=int(g.max_skew),
+            is_hostname=bool(g.is_hostname), is_inverse=bool(g.is_inverse),
+            filter_term_rows=[int(r) for r in g.filter_term_rows],
+        )
+        for g in obj.groups
+    ])
+
+
+def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
+                    log_len: int, screen_v: Optional[int] = None):
     """The solve program (make_device_run with an external prescreen):
     feasibility + openable + the pack scan, a function of args_to_torch's
     tensors and the prescreen tensor. Returns (log, ptr, state)."""
     segments = [tuple(s) for s in segments]
-    pack = make_pack_kernel(segments, zone_seg, ct_seg, screen_v=screen_v)
+    pack = make_pack_kernel(segments, zone_seg, ct_seg,
+                            topo_meta=topo_meta_from(topo_meta), screen_v=screen_v)
 
     def run(screen0, pod_arrays, tmpl, tmpl_daemon, tmpl_type_mask, types,
             type_alloc, type_capacity, type_offering_ok, pod_tol_all, exist,
@@ -376,9 +414,9 @@ def make_device_run(segments, zone_seg, ct_seg, n_slots: int, log_len: int,
             cap=prefix(0.0, exist_cap, torch.float32),
             nopen=torch.tensor(E, dtype=torch.int32, device=dev),
             remaining=remaining0.clone(),
-            tcounts=topo_counts0,
-            thost=topo_hcounts0,
-            tdoms=topo_doms0,
+            tcounts=topo_counts0.clone(),
+            thost=topo_hcounts0.clone(),
+            tdoms=topo_doms0.clone(),
             ports=prefix(False, exist_ports, torch.bool),
             vols=exist_vols,
         )
@@ -387,7 +425,8 @@ def make_device_run(segments, zone_seg, ct_seg, n_slots: int, log_len: int,
             state, item_arrays, f_static, openable,
             {k: tmpl[k] for k in ("allow", "out", "defined")},
             tmpl_daemon, tmpl_type_mask, types, type_alloc, type_capacity,
-            type_offering_ok, log_len=log_len, n_exist=E, screen0=screen0,
+            type_offering_ok, well_known=well_known, topo_terms=topo_terms,
+            log_len=log_len, n_exist=E, screen0=screen0,
         )
         return log, ptr, state
 
@@ -590,7 +629,8 @@ class TorchSolver:
         prescreen = make_prescreen_kernel(segments, N, screen_v=screen_v)
         screen0 = prescreen(targs[0], targs[9])
         mark("prescreen")
-        run = make_device_run(segments, zone_seg, ct_seg, N, log_len, screen_v=screen_v)
+        run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
+                              screen_v=screen_v)
         log, ptr, state = run(screen0, *targs)
         mark("device")
         nopen = int(state.nopen)
@@ -607,5 +647,5 @@ def _refuse_cluster(kube_client, cluster) -> None:
     if kube_client is not None or cluster is not None:
         raise NotImplementedError(
             "TorchSolver does not read cluster pods or CSINode limits yet "
-            "(ROADMAP Queue A items 7-8); pass state_nodes instead"
+            "(ROADMAP Queue A items 7 and 8b); pass state_nodes instead"
         )

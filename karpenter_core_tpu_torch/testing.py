@@ -29,6 +29,7 @@ from karpenter_core_tpu_torch.kube.objects import (
     Taint,
     Toleration,
     TopologySpreadConstraint,
+    WeightedPodAffinityTerm,
 )
 from karpenter_core_tpu_torch.utils.resources import parse_resource_list
 
@@ -49,7 +50,9 @@ def make_pod(
     tolerations: Optional[List[Toleration]] = None,
     topology_spread: Optional[List[TopologySpreadConstraint]] = None,
     pod_affinity_required: Optional[List[PodAffinityTerm]] = None,
+    pod_affinity_preferred: Optional[List[WeightedPodAffinityTerm]] = None,
     pod_anti_affinity_required: Optional[List[PodAffinityTerm]] = None,
+    pod_anti_affinity_preferred: Optional[List[WeightedPodAffinityTerm]] = None,
     node_affinity_required: Optional[List[NodeSelectorTerm]] = None,
     node_affinity_preferred=None,
     host_ports: Optional[List[int]] = None,
@@ -86,7 +89,8 @@ def make_pod(
             )
         ]
     affinity = None
-    if any([pod_affinity_required, pod_anti_affinity_required,
+    if any([pod_affinity_required, pod_affinity_preferred,
+            pod_anti_affinity_required, pod_anti_affinity_preferred,
             node_affinity_required, node_affinity_preferred]):
         affinity = Affinity(
             node_affinity=NodeAffinity(
@@ -95,13 +99,17 @@ def make_pod(
             )
             if (node_affinity_required or node_affinity_preferred)
             else None,
-            pod_affinity=PodAffinity(required=list(pod_affinity_required))
-            if pod_affinity_required
+            pod_affinity=PodAffinity(
+                required=list(pod_affinity_required or []),
+                preferred=list(pod_affinity_preferred or []),
+            )
+            if (pod_affinity_required or pod_affinity_preferred)
             else None,
             pod_anti_affinity=PodAntiAffinity(
-                required=list(pod_anti_affinity_required)
+                required=list(pod_anti_affinity_required or []),
+                preferred=list(pod_anti_affinity_preferred or []),
             )
-            if pod_anti_affinity_required
+            if (pod_anti_affinity_required or pod_anti_affinity_preferred)
             else None,
         )
     meta = ObjectMeta(

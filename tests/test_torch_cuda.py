@@ -18,12 +18,14 @@ import torch
 
 from karpenter_core_tpu_torch import testing as tt
 from karpenter_core_tpu_torch.cloudprovider import fake as tfake
+from karpenter_core_tpu_torch.cloudprovider import types as ttypes
 from karpenter_core_tpu_torch.kube import objects as tobj
 from karpenter_core_tpu_torch.ops import screen
 from karpenter_core_tpu_torch.solver import torch_solver as tsolver
 from karpenter_core_tpu_torch.state.node import StateNode as TStateNode
 
 ZONE = "topology.kubernetes.io/zone"
+HOST = "kubernetes.io/hostname"
 CT = "karpenter.sh/capacity-type"
 PROV = "karpenter.sh/provisioner-name"
 
@@ -34,12 +36,13 @@ def _mods(pkg):
     if pkg == "jax":
         from karpenter_core_tpu import testing as jt
         from karpenter_core_tpu.cloudprovider import fake as jfake
+        from karpenter_core_tpu.cloudprovider import types as jtypes
         from karpenter_core_tpu.kube import objects as jobj
         from karpenter_core_tpu.state.node import StateNode as JStateNode
 
-        return SimpleNamespace(t=jt, o=jobj, fake=jfake,
+        return SimpleNamespace(t=jt, o=jobj, fake=jfake, types=jtypes,
                                node=lambda n: JStateNode(node=n))
-    return SimpleNamespace(t=tt, o=tobj, fake=tfake, node=TStateNode)
+    return SimpleNamespace(t=tt, o=tobj, fake=tfake, types=ttypes, node=TStateNode)
 
 
 def _term(m, *exprs):
@@ -59,10 +62,10 @@ def _pod(m, family, i, **kw):
     return p
 
 
-def _nodes(m, its, n, bound=(), daemons_on=()):
+def _nodes(m, its, n, bound=(), daemons_on=(), labels=None):
     """n initialized nodes of the provisioner "default"; `bound` lists
     (node index, cpu) pods already running there, `daemons_on` the nodes
-    that already run a daemonset pod."""
+    that already run a daemonset pod, `labels(e)` extra labels of node e."""
     out = []
     for e in range(n):
         it = its[(3 * e) % len(its)]
@@ -70,7 +73,8 @@ def _nodes(m, its, n, bound=(), daemons_on=()):
             name=f"node-{e}",
             labels={PROV: "default", "karpenter.sh/initialized": "true",
                     "node.kubernetes.io/instance-type": it.name,
-                    ZONE: f"test-zone-{1 + e % 3}", CT: "on-demand"},
+                    ZONE: f"test-zone-{1 + e % 3}", CT: "on-demand",
+                    **(labels(e) if labels else {})},
             capacity={k: str(v) for k, v in it.capacity.items()},
         )
         sn = m.node(node)
@@ -173,10 +177,189 @@ def workload(family, pkg):
         ] + [_pod(m, family, 400 + i, requests={"cpu": "0.5"}) for i in range(30)]
         nodes = _nodes(m, small, 48)
         return pods, provs, {"default": small}, [], nodes, 512
+    if family == "spread":
+        return _spread(m, family, its)
+    if family == "affinity":
+        return _affinity(m, family, its)
+    if family == "anti":
+        return _anti(m, family, its)
+    if family == "refmix":
+        pods, provs, its_map = reference_mix(m, 280, 16, distinct=12, tag=family)
+        return pods, provs, its_map, [], _nodes(m, its_map["default"], 9), 128
     raise ValueError(family)
 
 
-FAMILIES = ("mixed", "relax", "bulk", "wide")
+def _sel(m, app):
+    return m.o.LabelSelector(match_labels={"app": app})
+
+
+def _spread(m, family, its):
+    """Zonal and hostname spreads with maxSkew 1 and 2; a ScheduleAnyway
+    spread over a key no provisioner offers (blocked, then relaxed away);
+    big pods whose only fitting type is offered in two of the three zones
+    (the third zone is retired as dead); a spread whose node filter
+    (nodeSelector) excludes some of the pods it selects; a provisioner
+    limit (the water-fill runs degraded)."""
+    big = m.fake.new_instance_type(
+        "big-2z", resources={"cpu": 40.0, "memory": float(80 * 2**30), "pods": 50.0},
+        offerings=[m.types.Offering("on-demand", "test-zone-1", 4.0),
+                   m.types.Offering("on-demand", "test-zone-2", 4.0)])
+    its = its[:12] + [big]
+    provs = [m.t.make_provisioner(name="default", limits={"cpu": "400"})]
+    tsc = m.o.TopologySpreadConstraint
+    z1 = tsc(1, ZONE, "DoNotSchedule", _sel(m, "z1"))
+    z2 = tsc(2, ZONE, "DoNotSchedule", _sel(m, "z2"))
+    h1 = tsc(1, HOST, "DoNotSchedule", _sel(m, "h1"))
+    h2 = tsc(2, HOST, "DoNotSchedule", _sel(m, "h2"))
+    rack = tsc(1, "rack", "ScheduleAnyway", _sel(m, "rack"))
+    zbig = tsc(2, ZONE, "DoNotSchedule", _sel(m, "zbig"))
+    zsel = tsc(1, ZONE, "DoNotSchedule", _sel(m, "zsel"))
+    pods = []
+    for i in range(150):
+        kind = i % 10
+        if kind in (0, 1):
+            kw = dict(labels={"app": "z1"}, topology_spread=[z1],
+                      requests={"cpu": str(1 + i % 3)})
+        elif kind == 2:
+            kw = dict(labels={"app": "z2"}, topology_spread=[z2],
+                      requests={"cpu": "1", "memory": "1Gi"})
+        elif kind == 3:
+            kw = dict(labels={"app": "h1"}, topology_spread=[h1], requests={"cpu": "2"})
+        elif kind == 4:
+            kw = dict(labels={"app": "h2"}, topology_spread=[h2], requests={"cpu": "1"})
+        elif kind == 5:
+            kw = dict(labels={"app": "rack"}, topology_spread=[rack],
+                      requests={"cpu": "1"})
+        elif kind == 6 and i % 20 == 6:
+            kw = dict(labels={"app": "zbig"}, topology_spread=[zbig],
+                      requests={"cpu": "20"})
+        elif kind == 7:
+            # selected by z1's group without owning it
+            kw = dict(labels={"app": "z1"}, requests={"cpu": "3"},
+                      node_selector={ZONE: "test-zone-2"})
+        elif kind == 8 and i % 20 == 8:
+            kw = dict(labels={"app": "zsel"}, topology_spread=[zsel],
+                      node_selector={CT: "on-demand"}, requests={"cpu": "1"})
+        elif kind == 8:
+            # selected by zsel's group, outside its node filter
+            kw = dict(labels={"app": "zsel"}, node_selector={CT: "spot"},
+                      requests={"cpu": "1"})
+        else:
+            kw = dict(labels={"app": f"gen-{i % 4}"}, requests={"cpu": "1"})
+        pods.append(_pod(m, family, i, **kw))
+    nodes = _nodes(m, its, 6, labels=lambda e: {"rack": f"r{e % 2}"})
+    return pods, provs, {"default": its}, [], nodes, 96
+
+
+def _affinity(m, family, its):
+    """Zonal and hostname pod affinity whose pods select themselves (the
+    first placement seeds the domain), zonal and hostname followers of a
+    plain deployment, and a preferred term that relaxes."""
+    provs = [m.t.make_provisioner(name="default")]
+    term = m.o.PodAffinityTerm
+    zaff = term(topology_key=ZONE, label_selector=_sel(m, "za"))
+    haff = term(topology_key=HOST, label_selector=_sel(m, "ha"))
+    web = term(topology_key=ZONE, label_selector=_sel(m, "web"))
+    hweb = term(topology_key=HOST, label_selector=_sel(m, "web"))
+    ghost = m.o.WeightedPodAffinityTerm(
+        weight=10, pod_affinity_term=term(topology_key=ZONE,
+                                          label_selector=_sel(m, "ghost")))
+    pods = []
+    for i in range(140):
+        kind = i % 7
+        if kind in (0, 1):
+            kw = dict(labels={"app": "za"}, pod_affinity_required=[zaff],
+                      requests={"cpu": "1"})
+        elif kind == 2:
+            kw = dict(labels={"app": "ha"}, pod_affinity_required=[haff],
+                      requests={"cpu": "0.5"})
+        elif kind == 3:
+            kw = dict(labels={"app": "web"}, requests={"cpu": "2", "memory": "1Gi"})
+        elif kind == 4:
+            kw = dict(labels={"app": "follow"},
+                      pod_affinity_required=[web if i % 2 else hweb],
+                      requests={"cpu": "1"})
+        elif kind == 5:
+            kw = dict(labels={"app": "pref"}, pod_affinity_preferred=[ghost],
+                      requests={"cpu": "1"})
+        else:
+            kw = dict(labels={"app": f"gen-{i % 3}"}, requests={"cpu": "1"})
+        pods.append(_pod(m, family, i, **kw))
+    return pods, provs, {"default": its}, [], _nodes(m, its, 6), 96
+
+
+def _anti(m, family, its):
+    """A hostname anti-affinity service that selects itself (bulk over the
+    machine region), an owner that does not match its own selector
+    (expanded to one item per pod), a zonal anti group, followers that
+    are selected only, and beside them (in the machine-region geometry) a
+    zonal spread cohort and hostname pod affinity."""
+    provs = [m.t.make_provisioner(name="default")]
+    term = m.o.PodAffinityTerm
+    svc = term(topology_key=HOST, label_selector=_sel(m, "svc"))
+    other = term(topology_key=HOST, label_selector=_sel(m, "svc"))
+    zanti = term(topology_key=ZONE, label_selector=_sel(m, "zanti"))
+    haff = term(topology_key=HOST, label_selector=_sel(m, "ha"))
+    zonal = m.o.TopologySpreadConstraint(1, ZONE, "DoNotSchedule", _sel(m, "spread"))
+    pods = []
+    for i in range(150):
+        kind = i % 8
+        if kind in (0, 1):
+            kw = dict(labels={"app": "svc"}, pod_anti_affinity_required=[svc],
+                      requests={"cpu": "1"})
+        elif kind == 2:
+            kw = dict(labels={"app": "loner"}, pod_anti_affinity_required=[other],
+                      requests={"cpu": "0.5"})
+        elif kind == 3 and i % 24 == 3:
+            kw = dict(labels={"app": "zanti"}, pod_anti_affinity_required=[zanti],
+                      requests={"cpu": "1"})
+        elif kind == 4:
+            kw = dict(labels={"app": "svc"}, requests={"cpu": "0.5"})
+        elif kind == 5:
+            kw = dict(labels={"app": "spread"}, topology_spread=[zonal],
+                      requests={"cpu": "1"})
+        elif kind == 6 and i % 16 == 6:
+            kw = dict(labels={"app": "ha"}, pod_affinity_required=[haff],
+                      requests={"cpu": "0.5"})
+        else:
+            kw = dict(labels={"app": f"gen-{i % 5}"}, requests={"cpu": "1"})
+        pods.append(_pod(m, family, i, **kw))
+    return pods, provs, {"default": its}, [], _nodes(m, its, 6), 128
+
+
+def reference_mix(m, n_pods, n_types, distinct=1, tag="mix"):
+    """The upstream benchmark's diverse mix (scheduling_benchmark_test.go:
+    187-199), as bench.py's _reference_mix builds it: 1/7 zonal spread,
+    1/7 hostname spread, 2/7 zonal pod affinity, 3/7 generic pods in
+    `distinct` label classes; names, uids and creation times pinned."""
+    tsc = m.o.TopologySpreadConstraint
+    zonal = tsc(1, ZONE, "DoNotSchedule", _sel(m, "spread"))
+    hostname = tsc(1, HOST, "DoNotSchedule", _sel(m, "hspread"))
+    affinity = m.o.PodAffinityTerm(topology_key=ZONE, label_selector=_sel(m, "aff"))
+    pods = []
+    for i in range(n_pods):
+        kind = i % 7
+        if kind == 0:
+            kw = dict(labels={"app": "spread"}, requests={"cpu": "1"},
+                      topology_spread=[zonal])
+        elif kind == 1:
+            kw = dict(labels={"app": "hspread"}, requests={"cpu": "1"},
+                      topology_spread=[hostname])
+        elif kind in (2, 3):
+            kw = dict(labels={"app": "aff"}, requests={"cpu": "1"},
+                      pod_affinity_required=[affinity])
+        else:
+            kw = dict(labels={"app": f"gen-0-{i % max(distinct, 1)}"},
+                      requests={"cpu": "1", "memory": "1Gi"})
+        p = m.t.make_pod(name=f"{tag}-{i}", **kw)
+        p.metadata.uid = f"uid-{tag}-{i:06d}"
+        p.metadata.creation_timestamp = 1000.0
+        pods.append(p)
+    return pods, [m.t.make_provisioner(name="default")], {
+        "default": m.fake.instance_types(n_types)}
+
+
+FAMILIES = ("mixed", "relax", "bulk", "wide", "spread", "affinity", "anti", "refmix")
 
 
 def _card():
@@ -324,7 +507,7 @@ def test_card_and_cpu_scan_state_bit_identical(family):
         targs = tsolver.args_to_torch(args, dev)
         scr = make_prescreen_kernel(segs, N, screen_v=screen_v)(targs[0], targs[9])
         log, ptr, state = tsolver.make_device_run(
-            segs, zs, cs, N, log_len, screen_v=screen_v)(scr, *targs)
+            segs, zs, cs, snap.topo_meta, N, log_len, screen_v=screen_v)(scr, *targs)
         out[dev] = (scr.cpu(), log, ptr, state)
     (s_cpu, l_cpu, p_cpu, st_cpu), (s_gpu, l_gpu, p_gpu, st_gpu) = out["cpu"], out["cuda"]
     assert torch.equal(s_cpu, s_gpu)

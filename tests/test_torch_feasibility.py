@@ -12,10 +12,10 @@ from karpenter_core_tpu.solver import tpu_solver as jsolver
 from karpenter_core_tpu_torch.ops import feasibility as tf
 from karpenter_core_tpu_torch.solver.torch_solver import args_to_torch
 
-from tests.test_torch_cuda import workload
+from tests.test_torch_cuda import FAMILIES, workload
 
 
-@pytest.mark.parametrize("family", ["mixed", "relax", "bulk", "wide"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_feasibility_static_and_openable_match(family):
     pods, provs, its, daemons, nodes, max_nodes = workload(family, "jax")
     snap = jencode.encode_snapshot(pods, provs, its, daemons, nodes,

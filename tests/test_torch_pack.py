@@ -1,7 +1,9 @@
 """The port's prescreen and pack scan against the reference's compiled
 programs, fed the SAME device_args arrays (the reference's own, moved with
 args_to_torch): the [N, C] verdict tensor, the full commit log, ptr and
-every PackState field must be equal, floats bit for bit."""
+every PackState field must be equal, floats bit for bit (the topology
+counts included: the reference's own TopoMeta drives the port's scan
+through topo_meta_from)."""
 import jax
 import numpy as np
 import pytest
@@ -18,7 +20,8 @@ from tests.test_torch_cuda import workload
 from tests.test_torch_solver import _assert_tree_equal
 
 
-@pytest.fixture(scope="module", params=["mixed", "bulk", "wide"])
+@pytest.fixture(scope="module", params=["mixed", "bulk", "wide", "spread", "affinity",
+                                        "anti", "refmix"])
 def runs(request):
     family = request.param
     pods, provs, its, daemons, nodes, max_nodes = workload(family, "jax")
@@ -43,7 +46,8 @@ def runs(request):
     t_screen = tpack.make_prescreen_kernel(segs, N, screen_v=screen_v)(
         targs[0], targs[9])
     t_log, t_ptr, t_state = tsolver.make_device_run(
-        segs, zs, cs, N, log_len, screen_v=screen_v)(t_screen.clone(), *targs)
+        segs, zs, cs, tsolver.topo_meta_from(snap.topo_meta), N, log_len,
+        screen_v=screen_v)(t_screen.clone(), *targs)
     return {
         "family": family,
         "jax": (np.asarray(j_screen), j_log, int(j_ptr), j_state),
@@ -69,8 +73,8 @@ def test_commit_log_matches(runs):
     got = {k: (v.numpy() if hasattr(v, "numpy") else np.asarray(v, np.int32))
            for k, v in t_log.items()}
     _assert_tree_equal(want, got, "log")
-    if runs["family"] == "bulk":
-        assert int(want["bulk_n"]) > 0  # the bulk existing fill ran
+    if runs["family"] in ("bulk", "anti", "refmix"):
+        assert int(want["bulk_n"]) > 0  # the bulk fill ran
 
 
 def test_pack_state_matches(runs):
@@ -79,6 +83,8 @@ def test_pack_state_matches(runs):
     for name in j_state._fields:
         _assert_tree_equal(np.asarray(getattr(j_state, name)),
                            getattr(t_state, name).numpy(), f"state.{name}")
+    if runs["family"] in ("spread", "affinity", "anti", "refmix"):
+        assert t_state.tcounts.shape[0] > 0 and t_state.thost.any()
 
 
 def test_cpu_path_never_launches_the_kernel(runs):

@@ -58,6 +58,11 @@ def test_encode_and_device_args_match_reference(family):
     ]
     assert [p.metadata.name for p in js.pods] == [p.metadata.name for p in ts.pods]
     assert js.item_members == ts.item_members
+    if js.topo_meta is None:
+        assert ts.topo_meta is None
+    else:
+        np.testing.assert_array_equal(js.item_of_pod, ts.item_of_pod)
+        assert tsolver.topo_meta_from(js.topo_meta) == ts.topo_meta
     assert jsolver.solve_geometry(js, max_nodes) == tsolver.solve_geometry(ts, max_nodes)
     _assert_tree_equal(
         dict(zip(jsolver.RUN_ARG_NAMES, jsolver.device_args(js, jprov))),
@@ -79,36 +84,67 @@ def test_torch_solver_placements_match_reference(family):
     # the port's own serializer (chip_smoke.py's comparison unit) agrees
     assert tsolver.placements_json(got) == placements_json(canonical_placements(got))
     assert got.rounds == want.rounds
-    # each family opens machines; two leave pods unschedulable on purpose
+    # each family opens machines; some leave pods unschedulable on purpose
     assert got.new_machines
-    if family in ("mixed", "relax"):
+    if family in ("mixed", "relax", "spread", "affinity", "anti"):
         assert got.failed_pods
     if family != "relax":
         assert got.pod_count_existing() > 0
 
 
-@pytest.mark.parametrize("what", ["spread", "pod_affinity", "anti_affinity",
-                                  "host_port"])
+@pytest.mark.parametrize("what", ["host_port"])
 def test_unported_constraints_are_refused(what):
-    from karpenter_core_tpu_torch.kube.objects import (
-        LabelSelector,
-        PodAffinityTerm,
-        TopologySpreadConstraint,
-    )
-
-    term = PodAffinityTerm(topology_key=ZONE,
-                           label_selector=LabelSelector(match_labels={"app": "a"}))
-    kw = {
-        "spread": {"topology_spread": [TopologySpreadConstraint(1, ZONE, "DoNotSchedule")]},
-        "pod_affinity": {"pod_affinity_required": [term]},
-        "anti_affinity": {"pod_anti_affinity_required": [term]},
-        "host_port": {"host_ports": [8080]},
-    }[what]
+    kw = {"host_port": {"host_ports": [8080]}}[what]
     pods = [tt.make_pod(requests={"cpu": "1"}), tt.make_pod(requests={"cpu": "1"}, **kw)]
     solver = tsolver.TorchSolver(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.solve(pods, [tt.make_provisioner(name="default")],
                      {"default": tfake.instance_types(4)})
+
+
+def _refused_before(m, what):
+    """The three constraint kinds the first slices refused, on a pod with
+    no selector match besides itself, beside a plain pod."""
+    sel = m.o.LabelSelector(match_labels={"app": "a"})
+    term = m.o.PodAffinityTerm(topology_key=ZONE, label_selector=sel)
+    kw = {
+        "spread": {"topology_spread": [m.o.TopologySpreadConstraint(
+            1, ZONE, "DoNotSchedule", sel)]},
+        "pod_affinity": {"pod_affinity_required": [term]},
+        "anti_affinity": {"pod_anti_affinity_required": [term]},
+    }[what]
+    pods = []
+    for i in range(4):
+        p = m.t.make_pod(name=f"{what}-{i}", labels={"app": "a"},
+                         requests={"cpu": "1"}, **(kw if i else {}))
+        p.metadata.uid = f"uid-{what}-{i}"
+        p.metadata.creation_timestamp = 1000.0 + i
+        pods.append(p)
+    return pods, [m.t.make_provisioner(name="default")], {
+        "default": m.fake.instance_types(4)}
+
+
+@pytest.mark.parametrize("what", ["spread", "pod_affinity", "anti_affinity"])
+def test_formerly_refused_constraints_match_reference(what):
+    from tests.test_torch_cuda import _mods
+
+    jp, jprov, jits = _refused_before(_mods("jax"), what)
+    tp, tprov, tits = _refused_before(_mods("torch"), what)
+    want = jsolver.TPUSolver(max_nodes=32, backend="mxu", incremental="off").solve(
+        jp, jprov, jits)
+    got = tsolver.TorchSolver(max_nodes=32, device="cpu").solve(tp, tprov, tits)
+    assert placements_json(canonical_placements(got)) == placements_json(
+        canonical_placements(want))
+    assert got.new_machines
+
+
+@pytest.mark.parametrize("arg", ["kube_client", "cluster"])
+def test_cluster_sources_are_refused(arg):
+    solver = tsolver.TorchSolver(device="cpu")
+    pods = [tt.make_pod(requests={"cpu": "1"})]
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        solver.solve(pods, [tt.make_provisioner(name="default")],
+                     {"default": tfake.instance_types(4)}, **{arg: object()})
 
 
 def test_volume_pods_are_refused():
