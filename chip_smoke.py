@@ -30,20 +30,36 @@ Phases, each fatal on failure:
      slots, solved cold then warm; every placement is checked on the host,
      and both kernels, the screen in its block form, must have been
      launched by these solves;
-  5. the main path at full width: the whole 50k-pod reference mix (21,428
-     generic pods, 7,143 zonal-spread, 7,143 hostname-spread and 14,286
-     zonal pod-affinity pods) with the same types and nodes, cold then
-     warm; every placement and every topology constraint is checked on the
-     host, and screen_prep and the screen in its block and row_n1 forms
-     must have been launched by these solves.
+  3c. parity on a live cluster's inputs: 5,000 pending pods (the
+     reference mix over 400 types, host-port and claim pods among them)
+     against 200 nodes registered through a Cluster with CSINode attach
+     limits and 6,000 pods bound through the kube client (claims, host
+     ports, skewed topology cohorts, zonal anti-affinity), placed
+     byte-identically on the card and on the CPU, every placement checked;
+  5. the whole 50k-pod reference mix (21,428 generic pods, 7,143
+     zonal-spread, 7,143 hostname-spread and 14,286 zonal pod-affinity
+     pods) with the same types and nodes, cold then warm; every placement
+     and every topology constraint is checked on the host, and
+     screen_prep and the screen in its block and row_n1 forms must have
+     been launched by these solves;
+  6. the main path at full width: phase 5's mix as the backlog of a live
+     cluster (live_cluster: 1,000 nodes through a Cluster with EBS attach
+     limits of 25, 30,000 bound pods in the kube client, 1,000 hostPort-443
+     ingress pods and 500 StatefulSet pods with their own claims on top),
+     cold then warm through TorchSolver.solve(..., kube_client=...,
+     cluster=...); every pod must be placed, every placement, host port,
+     attach limit and topology constraint is checked with the cluster's
+     pods counted, and screen_prep and the screen in its block and row_n1
+     forms must have been launched.
 It prints one JSON line describing every kernel, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
 
-adds a third full-mix solve under torch.profiler and prints the device's
-busy share of that solve and its costliest device operations.
+adds a third main-path (phase 6) solve under torch.profiler and prints the
+device's busy share of that solve and its costliest device operations.
 """
+import gc
 import json
 import os
 import subprocess
@@ -63,6 +79,7 @@ from karpenter_core_tpu_torch.api.labels import (  # noqa: E402
     PROVISIONER_NAME_LABEL_KEY,
 )
 from karpenter_core_tpu_torch.cloudprovider import fake  # noqa: E402
+from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient  # noqa: E402
 from karpenter_core_tpu_torch.kube.objects import (  # noqa: E402
     LABEL_HOSTNAME,
     LABEL_INSTANCE_TYPE_STABLE,
@@ -80,6 +97,7 @@ from karpenter_core_tpu_torch.scheduling.requirement import Requirement  # noqa:
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements  # noqa: E402
 from karpenter_core_tpu_torch.solver import torch_solver  # noqa: E402
 from karpenter_core_tpu_torch.solver.encode import encode_snapshot  # noqa: E402
+from karpenter_core_tpu_torch.state.cluster import Cluster  # noqa: E402
 from karpenter_core_tpu_torch.state.node import StateNode  # noqa: E402
 from karpenter_core_tpu_torch.utils import resources  # noqa: E402
 
@@ -101,25 +119,26 @@ def say(msg: str) -> None:
 
 # -- workloads -----------------------------------------------------------
 
+def _node(i: int, universe):
+    """Existing node i: an initialized provisioned node of type i (mod
+    the universe) in zone i % 3 (bench.py's _existing_nodes)."""
+    it = universe[i % len(universe)]
+    return testing.make_node(
+        name=f"node-{i}",
+        labels={
+            PROVISIONER_NAME_LABEL_KEY: "default",
+            LABEL_NODE_INITIALIZED: "true",
+            LABEL_INSTANCE_TYPE_STABLE: it.name,
+            LABEL_CAPACITY_TYPE: "on-demand",
+            LABEL_TOPOLOGY_ZONE: f"test-zone-{1 + i % 3}",
+        },
+        capacity={k: str(v) for k, v in it.capacity.items()},
+    )
+
+
 def existing_nodes(n: int, universe):
-    """n initialized provisioned nodes over the type universe, 3 zones
-    (bench.py's _existing_nodes)."""
-    nodes = []
-    for i in range(n):
-        it = universe[i % len(universe)]
-        node = testing.make_node(
-            name=f"node-{i}",
-            labels={
-                PROVISIONER_NAME_LABEL_KEY: "default",
-                LABEL_NODE_INITIALIZED: "true",
-                LABEL_INSTANCE_TYPE_STABLE: it.name,
-                LABEL_CAPACITY_TYPE: "on-demand",
-                LABEL_TOPOLOGY_ZONE: f"test-zone-{1 + i % 3}",
-            },
-            capacity={k: str(v) for k, v in it.capacity.items()},
-        )
-        nodes.append(StateNode(node))
-    return nodes
+    """n existing nodes over the type universe, 3 zones."""
+    return [StateNode(_node(i, universe)) for i in range(n)]
 
 
 def config2(n_pods=5000, n_types=100, n_nodes=200):
@@ -191,6 +210,90 @@ def full_mix(n_pods=50000, n_types=500, n_nodes=1000, distinct=1000):
     """Phase 5: the whole reference mix plus bench.py's existing nodes."""
     pods, provisioners, its = reference_mix(n_pods, n_types, distinct)
     return pods, provisioners, its, existing_nodes(n_nodes, its["default"])
+
+
+EBS = "ebs.csi.aws.com"
+# Kubernetes' default EBS attach limit on Nitro instances
+# (DefaultMaxEBSNitroVolumeLimit)
+EBS_NITRO_LIMIT = 25
+
+
+def live_cluster(n_pods=50000, n_types=500, n_nodes=1000, distinct=1000, per_node=30,
+                 n_ingress=1000, n_sets=5, replicas=100):
+    """Phase 6: the reference mix as a live cluster's backlog. Every node
+    is registered through a Cluster with a CSINode that gives the EBS
+    driver its Nitro attach limit; `per_node` pods are bound on each node
+    through the kube client and the Cluster: on node i, i % 26 pods each
+    mounting its own EBS claim; on every fourth node one pod holding
+    hostPort 443 (on every eighth of those with a specific hostIP); the
+    zonal-spread cohort 3 : 2 : 1 over the zones, the hostname-spread
+    cohort on every fifth node, the affinity cohort in test-zone-2 only,
+    on three zone-3 nodes a pod with required zonal anti-affinity
+    against one generic class, and filler. Pending on top of the mix:
+    `n_ingress` ingress-like pods with hostPort 443 and `n_sets`
+    StatefulSets of `replicas` pods, each with its own EBS claim.
+    Returns (pods, provisioners, instance types, kube client, cluster)."""
+    pods, provisioners, its = reference_mix(n_pods, n_types, distinct)
+    universe = its["default"]
+    client = InMemoryKubeClient()
+    cluster = Cluster(client)
+    client.create(testing.make_storage_class("ebs", provisioner=EBS))
+    for i in range(n_nodes):
+        node = _node(i, universe)
+        client.create(node)
+        client.create(testing.make_csinode(node.name, EBS, allocatable=EBS_NITRO_LIMIT))
+        cluster.update_node(node)
+    guard = PodAffinityTerm(topology_key=LABEL_TOPOLOGY_ZONE, label_selector=LabelSelector(
+        match_labels={"app": f"gen-0-{4 % max(distinct, 1)}"}))
+    for i in range(n_nodes):
+        name = f"node-{i}"
+        zone = i % 3
+        bound = []
+
+        def pod(tag, **kw):
+            p = testing.make_pod(name=f"run-{i}-{tag}", node_name=name, unschedulable=False,
+                                 phase="Running", requests={"cpu": "25m", "memory": "64Mi"},
+                                 uid=f"uid-run-{i}-{tag}", creation_timestamp=900.0, **kw)
+            bound.append(p)
+            return p
+
+        for j in range(i % 26):
+            claim = f"data-{i}-{j}"
+            client.create(testing.make_pvc(claim, storage_class="ebs"))
+            pod(f"v{j}", labels={"app": f"db-{i % 7}"}).spec.volumes.append(
+                testing.pvc_volume(claim))
+        if i % 4 == 0:
+            p = pod("ingress", labels={"app": "ingress"}, host_ports=[443])
+            if i % 32 == 0:
+                p.spec.containers[0].ports[0].host_ip = f"10.{i // 256}.{i % 256}.1"
+        for j in range(3 - zone):
+            pod(f"s{j}", labels={"app": "spread"})
+        if i % 5 == 0:
+            pod("h", labels={"app": "hspread"})
+        if zone == 1:
+            pod("a", labels={"app": "aff"})
+        if zone == 2 and i < 9:
+            pod("guard", labels={"app": "guard"}, pod_anti_affinity_required=[guard])
+        for j in range(per_node - len(bound)):
+            pod(f"f{j}", labels={"app": f"web-{i % 10}"})
+        for p in bound:
+            client.create(p)
+            cluster.update_pod(p)
+    for k in range(n_ingress):
+        pods.append(testing.make_pod(
+            name=f"ingress-{k}", labels={"app": "ingress-new"}, host_ports=[443],
+            requests={"cpu": "2", "memory": "2Gi"}, uid=f"uid-ing-{k:06d}",
+            creation_timestamp=1000.0))
+    for s_ in range(n_sets):
+        for r in range(replicas):
+            claim = f"db-{s_}-{r}"
+            client.create(testing.make_pvc(claim, storage_class="ebs"))
+            p = testing.make_pod(name=claim, labels={"app": f"sts-{s_}"},
+                                 requests={"cpu": "2", "memory": "4Gi"},
+                                 uid=f"uid-sts-{s_}-{r:04d}", creation_timestamp=1000.0)
+            p.spec.volumes.append(testing.pvc_volume(claim))
+            pods.append(p)
+    return pods, provisioners, its, client, cluster
 
 
 def config3(n_pods=20000, n_types=200):
@@ -485,9 +588,11 @@ def phase_kernels(main_snapshot, int_rate: float, busy_cycles: int):
 
 # -- host-side checks ---------------------------------------------------------
 
-def check_placements(result, n_pods: int) -> None:
+def check_placements(result, n_pods: int, kube_client=None) -> dict:
     """Every placement fits its node and satisfies its pods' requirements
-    and tolerations; every pod is placed or failed exactly once."""
+    and tolerations; every pod is placed or failed exactly once. With a
+    kube client, also the cluster's host ports and attach limits, counting
+    the pods bound there (check_cluster_usage, whose counts it returns)."""
     seen = result.pod_count_new() + result.pod_count_existing() + len(result.failed_pods)
     if seen != n_pods:
         raise AssertionError(f"{seen} pods accounted for, expected {n_pods}")
@@ -521,6 +626,94 @@ def check_placements(result, n_pods: int) -> None:
                 raise AssertionError(f"{p.metadata.name} incompatible with {options[0].name}")
             if taints_mod.tolerates(m.template.taints, p) is not None:
                 raise AssertionError(f"{p.metadata.name} does not tolerate its template")
+    return check_cluster_usage(result, kube_client) if kube_client is not None else {}
+
+
+def bound_pods(kube_client, batch) -> dict:
+    """node name -> the pods the kube client shows running there: bound,
+    neither terminal nor terminating, and not of the batch."""
+    uids = {p.metadata.uid for p in batch}
+    out = {}
+    for p in kube_client.list("Pod"):
+        if (p.spec.node_name and p.status.phase not in ("Succeeded", "Failed")
+                and p.metadata.deletion_timestamp is None and p.metadata.uid not in uids):
+            out.setdefault(p.spec.node_name, []).append(p)
+    return out
+
+
+_ANY_IP = ("", "0.0.0.0", "::")
+
+
+def _host_ports(p) -> list:
+    return [(c.host_ip or "0.0.0.0", c.host_port, c.protocol or "TCP")
+            for ct in p.spec.containers for c in ct.ports if c.host_port]
+
+
+def _ports_conflict(a, b) -> bool:
+    return a[1:] == b[1:] and (a[0] == b[0] or a[0] in _ANY_IP or b[0] in _ANY_IP)
+
+
+def _claims(p, kube_client) -> set:
+    """(driver, namespace/claim) of each PVC-backed volume whose driver is
+    known: the bound PV's CSI driver, else the StorageClass provisioner."""
+    out = set()
+    for v in p.spec.volumes:
+        if v.persistent_volume_claim is None:
+            continue
+        name = v.persistent_volume_claim.claim_name
+        pvc = kube_client.get("PersistentVolumeClaim", p.metadata.namespace, name)
+        if pvc is None:
+            continue
+        driver = None
+        if pvc.spec.volume_name:
+            pv = kube_client.get("PersistentVolume", "", pvc.spec.volume_name)
+            if pv is not None and pv.spec.csi is not None:
+                driver = pv.spec.csi.driver
+        if driver is None and pvc.spec.storage_class_name:
+            sc = kube_client.get("StorageClass", "", pvc.spec.storage_class_name)
+            if sc is not None:
+                driver = sc.provisioner
+        if driver:
+            out.add((driver, f"{p.metadata.namespace}/{name}"))
+    return out
+
+
+def check_cluster_usage(result, kube_client) -> dict:
+    """Read from the pods' specs and the kube client, independently of
+    the solver: no two pods on one node hold conflicting host ports (the
+    pods bound there included), and on each existing node the distinct
+    claims per CSI driver, mounted and placed, stay within the CSINode's
+    limit. Returns counts of what was checked."""
+    batch = [p for _n, ps in result.existing_assignments for p in ps]
+    batch += [p for m in result.new_machines for p in m.pods] + list(result.failed_pods)
+    running = bound_pods(kube_client, batch)
+    checked = {"port_nodes": 0, "volume_nodes": 0, "placed_claims": 0}
+    groups = [(n.name(), running.get(n.name(), []), ps) for n, ps in result.existing_assignments]
+    groups += [(f"machine/{i}", [], m.pods) for i, m in enumerate(result.new_machines)]
+    for name, old, new in groups:
+        entries = [(p, e, placed) for placed, ps in ((False, old), (True, new))
+                   for p in ps for e in _host_ports(p)]
+        for x, (p, a, p_new) in enumerate(entries):
+            for q, b, q_new in entries[x + 1:]:
+                if q is not p and (p_new or q_new) and _ports_conflict(a, b):
+                    raise AssertionError(f"{name}: {p.metadata.name} {a} conflicts with "
+                                         f"{q.metadata.name} {b}")
+        checked["port_nodes"] += any(placed for _p, _e, placed in entries)
+    for node, ps in result.existing_assignments:
+        placed = set().union(*(_claims(p, kube_client) for p in ps))
+        if not placed:
+            continue
+        csinode = kube_client.get("CSINode", "", node.name())
+        limits = {d.name: d.allocatable_count for d in (csinode.drivers if csinode else [])
+                  if d.allocatable_count is not None}
+        mounted = set().union(*(_claims(p, kube_client) for p in running.get(node.name(), [])))
+        for driver, limit in limits.items():
+            n = len({c for d, c in mounted | placed if d == driver})
+            if n > limit:
+                raise AssertionError(f"{node.name()}: {n} {driver} claims > limit {limit}")
+        checked["volume_nodes"] += 1
+        checked["placed_claims"] += len(placed)
+    return checked
 
 
 def _machine_zone(machine):
@@ -531,21 +724,32 @@ def _machine_zone(machine):
     return None
 
 
-def check_topology(result, zones) -> dict:
+def check_topology(result, zones, kube_client=None) -> dict:
     """The batch's topology constraints hold in the placements, checked
     from the pods' own specs, independently of the solver: every
     DoNotSchedule zonal spread keeps max - min <= maxSkew over `zones`,
     every hostname spread at most maxSkew selected pods a node; the pods
-    of one zonal or hostname pod-affinity term share one zone or node (the
-    domain its first placement seeded: no cluster pod seeds another); no
+    of one zonal or hostname pod-affinity term share one zone or node; no
     pod with a required anti-affinity term shares its domain with another
-    pod its selector matches. Returns counts of what was checked."""
-    nodes = []  # (node key, zone or None, pods)
+    pod its selector matches. With a kube client the pods running in the
+    cluster count too: in the spreads' domain counts, as the domain an
+    affinity term must share, and on both sides of anti-affinity (a pair
+    of running pods is not the solve's). Returns counts of what was
+    checked."""
+    nodes = []  # (node key, zone or None, pods, placed by this solve)
     for node, pods in result.existing_assignments:
-        nodes.append((f"node/{node.name()}", node.labels().get(LABEL_TOPOLOGY_ZONE), pods))
+        nodes.append((f"node/{node.name()}", node.labels().get(LABEL_TOPOLOGY_ZONE), pods, True))
     for i, m in enumerate(result.new_machines):
-        nodes.append((f"machine/{i}", _machine_zone(m), m.pods))
-    placed = [(key, zone, p) for key, zone, pods in nodes for p in pods]
+        nodes.append((f"machine/{i}", _machine_zone(m), m.pods, True))
+    if kube_client is not None:
+        batch = [p for _k, _z, ps, _n in nodes for p in ps] + list(result.failed_pods)
+        for name, pods in bound_pods(kube_client, batch).items():
+            node = kube_client.get("Node", "", name)
+            if node is not None:
+                nodes.append((f"node/{name}", node.metadata.labels.get(LABEL_TOPOLOGY_ZONE),
+                              pods, False))
+    placed = [(key, zone, p) for key, zone, pods, new in nodes if new for p in pods]
+    everyone = [(key, zone, p, new) for key, zone, pods, new in nodes for p in pods]
 
     def selects(selector, owner, p):
         return (p.metadata.namespace == owner.metadata.namespace
@@ -571,12 +775,12 @@ def check_topology(result, zones) -> dict:
         if aff is not None and aff.pod_affinity is not None:
             for t in aff.pod_affinity.required:
                 affinities.setdefault((t.topology_key, repr(t.label_selector),
-                                       p.metadata.namespace), []).append(p)
+                                       p.metadata.namespace), (t, []))[1].append(p)
     for (tkey, skew, _sel, _ns), (c, owner) in spreads.items():
         counts = {}
-        for key, zone, p in placed:
+        for key, zone, p, new in everyone:
             if selects(c.label_selector, owner, p):
-                is_owner = c in p.spec.topology_spread_constraints
+                is_owner = new and c in p.spec.topology_spread_constraints
                 d = domain(key, zone, p, tkey, is_owner)
                 if d is not None:
                     counts[d] = counts.get(d, 0) + 1
@@ -590,24 +794,26 @@ def check_topology(result, zones) -> dict:
                 raise AssertionError(f"zonal spread skew {per_zone} > {skew}")
         checked["spread"] += 1
     placed_at = {id(p): (key, zone) for key, zone, p in placed}
-    for (tkey, _sel, _ns), owners in affinities.items():
+    for (tkey, _sel, _ns), (term, owners) in affinities.items():
         doms = {domain(*placed_at[id(p)], p, tkey, True)
                 for p in owners if id(p) in placed_at}
+        doms |= {domain(key, zone, p, tkey, False) for key, zone, p, new in everyone
+                 if not new and selects(term.label_selector, owners[0], p)}
         if len(doms) > 1:
             raise AssertionError(f"pod affinity over {tkey}: owners in {sorted(doms)}")
         checked["affinity"] += 1
     by_domain = {}
-    for key, zone, p in placed:
-        by_domain.setdefault((LABEL_HOSTNAME, key), []).append(p)
-        by_domain.setdefault((LABEL_TOPOLOGY_ZONE, zone), []).append(p)
-    for key, zone, p in placed:
+    for key, zone, p, new in everyone:
+        by_domain.setdefault((LABEL_HOSTNAME, key), []).append((p, new))
+        by_domain.setdefault((LABEL_TOPOLOGY_ZONE, zone), []).append((p, new))
+    for key, zone, p, new in everyone:
         aff = p.spec.affinity
         if aff is None or aff.pod_anti_affinity is None:
             continue
         for t in aff.pod_anti_affinity.required:
-            mine = domain(key, zone, p, t.topology_key, True)
-            for q in by_domain[(t.topology_key, mine)]:
-                if q is not p and selects(t.label_selector, p, q):
+            mine = domain(key, zone, p, t.topology_key, new)
+            for q, q_new in by_domain.get((t.topology_key, mine), []):
+                if q is not p and (new or q_new) and selects(t.label_selector, p, q):
                     raise AssertionError(
                         f"{p.metadata.name} shares {mine} with {q.metadata.name}")
             checked["anti"] += 1
@@ -616,15 +822,16 @@ def check_topology(result, zones) -> dict:
 
 # -- main ---------------------------------------------------------------------
 
-def profile_solve(solver, workload) -> None:
+def profile_solve(solver, workload, cluster) -> None:
     """One more main-path solve under torch.profiler: wall time, summed
     device time (busy share) and the costliest device operations."""
     from torch.profiler import ProfilerActivity, profile
 
-    pods, provs, its, nodes = workload
+    pods, provs, its = workload
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.solve(pods, provs, its, state_nodes=nodes)
+        solver.solve(pods, provs, its, state_nodes=cluster.nodes(),
+                     kube_client=cluster.kube_client, cluster=cluster)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -647,40 +854,58 @@ def _zones(its) -> list:
     return sorted({o.zone for it in its["default"] for o in it.offerings if o.available})
 
 
-def run_main_path(label, solver, workload, zones=None):
+def run_main_path(label, solver, workload, zones=None, cluster=None):
     """Solve `workload` cold then warm with the launch counts set to 0
     just before and read just after; check the placements (and with
-    `zones`, the topology constraints) and that both solves agree.
-    Returns (launches, launches by form, solver)."""
+    `zones`, the topology constraints) and that both solves agree. With a
+    cluster, each solve takes its state nodes from cluster.nodes() (timed
+    within the solve's wall time) and reads the cluster and its kube
+    client. Returns (launches, launches by form, solver)."""
     pods, provs, its, nodes = workload
+    client = cluster.kube_client if cluster is not None else None
     screen.reset_launches()
     runs = []
     for run in ("cold", "warm"):
+        full_gcs = gc.get_stats()[2]["collections"]
         t0 = time.perf_counter()
-        result = solver.solve(pods, provs, its, state_nodes=nodes)
+        if cluster is not None:
+            nodes = cluster.nodes()
+        nodes_s = time.perf_counter() - t0
+        result = solver.solve(pods, provs, its, state_nodes=nodes, kube_client=client,
+                              cluster=cluster)
         torch.cuda.synchronize()
-        runs.append((run, time.perf_counter() - t0, dict(solver.last_phase_ms),
-                     dict(pack.LAST_SCAN), result))
+        runs.append((run, time.perf_counter() - t0, nodes_s, dict(solver.last_phase_ms),
+                     dict(pack.LAST_SCAN), result,
+                     gc.get_stats()[2]["collections"] - full_gcs))
     launches, forms = dict(screen.LAUNCHES), dict(screen.FORM_LAUNCHES)
-    result = runs[0][4]
-    check_placements(result, len(pods))
-    checked = check_topology(result, zones) if zones else {}
-    if torch_solver.placements_json(result) != torch_solver.placements_json(runs[1][4]):
+    result = runs[0][5]
+    t0 = time.perf_counter()
+    usage = check_placements(result, len(pods), client)
+    checked = check_topology(result, zones, client) if zones else {}
+    check_s = time.perf_counter() - t0
+    if torch_solver.placements_json(result) != torch_solver.placements_json(runs[1][5]):
         raise AssertionError(f"{label}: cold and warm solves differ")
-    for run, wall, phases, scan, res in runs:
-        say(f"[{label}] {run}: {wall:.3f} s wall, scheduled "
-            f"{res.pod_count_new() + res.pod_count_existing()} (new "
+    for run, wall, nodes_s, phases, scan, res, full_gcs in runs:
+        say(f"[{label}] {run}: {wall:.3f} s wall"
+            + (f" ({nodes_s:.3f} s of it cluster.nodes())" if cluster is not None else "")
+            + f", {full_gcs} full garbage collections, scheduled {res.pod_count_new() + res.pod_count_existing()} (new "
             f"{res.pod_count_new()} on {len(res.new_machines)} machines, existing "
             f"{res.pod_count_existing()}), failed {len(res.failed_pods)}, rounds "
             f"{res.rounds}, last_phase_ms "
             + json.dumps({k: round(v, 3) for k, v in phases.items()})
             + f", scan {json.dumps(scan)}")
-    snap = solver.encode(pods, provs, its, state_nodes=nodes)
+    if result.failed_pods and cluster is not None:
+        raise AssertionError(f"{label}: {len(result.failed_pods)} pods failed, e.g. "
+                             f"{result.failed_pods[0].metadata.name}")
+    snap = solver.encode(pods, provs, its, state_nodes=nodes, kube_client=client,
+                         cluster=cluster)
     groups = len(snap.topo_meta.groups) if snap.topo_meta is not None else 0
     say(f"[{label}] {len(pods)} pods, {len(snap.item_counts)} items, G={groups} "
         f"groups, N={snap.n_slots} slots, V={snap.dictionary.V} (screen width "
-        f"{snap.screen_v}); topology checked {json.dumps(checked)}; over the two "
-        f"solves: {launches_line()}")
+        f"{snap.screen_v}), Q={snap.pod_ports_u.shape[1]} port columns, "
+        f"W={snap.pod_vols_u.shape[1]} claim columns, D={snap.exist_vol_limits.shape[1]} "
+        f"drivers; checks {check_s:.2f} s: topology {json.dumps(checked)}, cluster "
+        f"usage {json.dumps(usage)}; over the two solves: {launches_line()}")
     return launches, forms, solver
 
 
@@ -795,6 +1020,37 @@ def main() -> int:
             f"card scan {json.dumps(scan)}; {card_launches}")
     mark("phase 3b")
 
+    # phase 3c: card and CPU place a live cluster's inputs identically
+    pods, provs, its, client, cluster = live_cluster(4500, 400, 200, distinct=100,
+                                                     n_ingress=300, n_sets=2)
+    zones = _zones(its)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        screen.reset_launches()
+        t0 = time.perf_counter()
+        got[dev] = torch_solver.TorchSolver(max_nodes=1512, device=dev).solve(
+            pods, provs, its, state_nodes=cluster.nodes(), kube_client=client,
+            cluster=cluster)
+        got[dev + "_s"] = time.perf_counter() - t0
+        got[dev + "_scan"] = dict(pack.LAST_SCAN)
+        got[dev + "_launches"] = launches_line()
+    on_card = got["cuda"]
+    a, b = torch_solver.placements_json(on_card), torch_solver.placements_json(got["cpu"])
+    if a != b:
+        raise AssertionError("live cluster 5k: card and CPU placements differ")
+    if on_card.failed_pods:
+        raise AssertionError(f"live cluster 5k: {len(on_card.failed_pods)} pods failed")
+    usage = check_placements(on_card, len(pods), client)
+    checked = check_topology(on_card, zones, client)
+    say(f"[parity] live cluster 5k: {len(pods)} pods, 200 nodes, 6,000 bound pods; new "
+        f"{on_card.pod_count_new()} on {len(on_card.new_machines)} machines, existing "
+        f"{on_card.pod_count_existing()}, failed {len(on_card.failed_pods)}, rounds "
+        f"{on_card.rounds}; card {got['cuda_s']:.2f} s, cpu {got['cpu_s']:.2f} s; "
+        f"placements byte-identical ({len(a)} bytes); topology checked "
+        f"{json.dumps(checked)}; cluster usage {json.dumps(usage)}; card scan "
+        f"{json.dumps(got['cuda_scan'])}; {got['cuda_launches']}")
+    mark("phase 3c")
+
     # phase 4: the generic share at full width, cold then warm
     solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda")
     gen_launches, gen_forms, _ = run_main_path("generic", solver, gen)
@@ -806,7 +1062,7 @@ def main() -> int:
     # phase 5: the main path, the whole reference mix at full width
     mix = full_mix()
     mark("building the full mix")
-    mix_launches, mix_forms, mix_solver = run_main_path(
+    mix_launches, mix_forms, _ = run_main_path(
         "main", torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda"), mix,
         zones=_zones(mix[2]))
     if (mix_launches["screen_prep"] < 1 or mix_forms["block"] < 1
@@ -814,10 +1070,27 @@ def main() -> int:
         raise AssertionError("the main path did not launch screen_prep and the screen "
                              "in its block and row_n1 forms")
     mark("phase 5")
+
+    # phase 6: the slice's main path, the reference mix as a live cluster's
+    # backlog at full width
+    t0 = time.perf_counter()
+    pods, provs, its, client, cluster = live_cluster()
+    say(f"[cluster] built {len(pods)} pending pods, {len(cluster.nodes_by_provider_id)} "
+        f"nodes, {len(cluster.bindings)} bound pods in {time.perf_counter() - t0:.2f} s")
+    mark("building the live cluster")
+    live_launches, live_forms, live_solver = run_main_path(
+        "cluster", torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda"),
+        (pods, provs, its, None), zones=_zones(its), cluster=cluster)
+    if (live_launches["screen_prep"] < 1 or live_forms["block"] < 1
+            or live_forms["row_n1"] < 1):
+        raise AssertionError("the live-cluster path did not launch screen_prep and the "
+                             "screen in its block and row_n1 forms")
+    mark("phase 6")
     if "--profile" in sys.argv[1:]:
-        profile_solve(mix_solver, mix)
+        profile_solve(live_solver, (pods, provs, its), cluster)
         mark("the profiled solve")
-    launches = {k: gen_launches[k] + mix_launches[k] for k in gen_launches}
+    launches = {k: gen_launches[k] + mix_launches[k] + live_launches[k]
+                for k in gen_launches}
 
     blk = kstats["timed"]["existing block E x C"]
     common = {"route": "cuda", "source": "karpenter_core_tpu_torch/csrc/screen.cu",

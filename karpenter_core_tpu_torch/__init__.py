@@ -7,11 +7,10 @@ module it needs and imports nothing of the reference package.
 
 It solves one provisioning ``Solve()``: pods with requests,
 ``nodeSelector``, node affinity, tolerations, topology spread, pod affinity
-and anti-affinity, daemonset overhead, several weighted provisioners with
-limits, existing nodes and relaxation. Pods with host ports or volumes, and
-a kube client or cluster (whose running pods would seed the topology
-counts), are refused (``NotImplementedError``) until their parts are
-ported.
+and anti-affinity, host ports, PVC-backed volumes under CSINode attach
+limits, daemonset overhead, several weighted provisioners with limits,
+existing nodes and relaxation, against a live cluster when given a kube
+client (``kube/client.py``) and a ``state/cluster.Cluster``.
 
 Entry point: ``karpenter_core_tpu_torch.solver.torch_solver.TorchSolver``.
 It runs on the CUDA card by default and raises when none is present unless

@@ -4,22 +4,19 @@ The port of karpenter_core_tpu/controllers/provisioning/scheduling/
 topology.py (topology.go, topologygroup.go, topologynodefilter.go), as far
 as the device solver needs it: the groups a batch forms, hashed for sharing
 across pods, with their owners, selectors, node filters and registered
-domains. Placement-time evaluation (the skew rule, affinity seeding, the
-anti-affinity zero-count rule, Record) runs on the device
-(ops/topology.py); ops/topology.encode_topology lowers these groups to its
-tensors.
-
-Seeding from pods already in the cluster (countDomains,
-topology.go:231-276; inverse anti-affinity of running pods,
-topology.go:183-196) and namespace selectors resolved through the
-apiserver need a kube client, which the port does not have yet: the solver
-refuses a kube client or cluster (ROADMAP Queue A), and a selector's listed
-namespaces stand alone, as in the reference without a client.
+domains, and their counts seeded from the cluster: scheduled pods listed
+through a kube client (countDomains, topology.go:231-276), the inverse
+anti-affinity of bound pods (topology.go:183-196) and namespace selectors
+resolved through the client (topology.go:327-347). Placement-time
+evaluation (the skew rule, affinity seeding, the anti-affinity zero-count
+rule, Record) runs on the device (ops/topology.py);
+ops/topology.encode_topology lowers these groups to its tensors.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Set, Tuple
 
+from karpenter_core_tpu_torch.kube.objects import LABEL_HOSTNAME
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
 from karpenter_core_tpu_torch.utils import podutils
 
@@ -96,6 +93,14 @@ class TopologyNodeFilter:
     def empty(cls) -> "TopologyNodeFilter":
         return cls([])
 
+    def matches_requirements(self, requirements: Requirements) -> bool:
+        if not self.terms:
+            return True
+        return any(requirements.compatible(term) is None for term in self.terms)
+
+    def matches_labels(self, labels: Dict[str, str]) -> bool:
+        return self.matches_requirements(Requirements.from_labels(labels))
+
     def canonical(self) -> Tuple:
         return tuple(sorted(
             tuple(sorted(
@@ -124,6 +129,10 @@ class TopologyGroup:
         else:
             self.node_filter = TopologyNodeFilter.empty()
 
+    def record(self, *domains: str) -> None:
+        for domain in domains:
+            self.domains[domain] = self.domains.get(domain, 0) + 1
+
     def add_owner(self, uid: str) -> None:
         self.owners.add(uid)
 
@@ -151,38 +160,61 @@ class TopologyGroup:
 
 
 class Topology:
-    """topology.go:37-80, for a batch with no cluster pods to seed from."""
+    """topology.go:37-80."""
 
-    def __init__(self, domains: Dict[str, Set[str]], pods: List,
+    def __init__(self, kube_client, cluster, domains: Dict[str, Set[str]], pods: List,
                  update_pods: Optional[List] = None):
-        """update_pods: the subset of `pods` to register groups and
-        ownership for; the encoder passes one representative per pod-spec
+        """kube_client and cluster may be None (nothing to seed from).
+        update_pods: the subset of `pods` to register groups and ownership
+        for; the encoder passes one representative per pod-spec
         equivalence class (membership is a pure function of spec, labels
-        and namespace)."""
+        and namespace). `pods` always defines the excluded set."""
+        self.kube_client = kube_client
+        self.cluster = cluster
         self.domains = domains
         self.topologies: Dict[Tuple, TopologyGroup] = {}
         self.inverse_topologies: Dict[Tuple, TopologyGroup] = {}
+        # the batch's own pods are placed by this solve, so they never
+        # count as cluster pods (topology.go:56-58)
+        self.excluded_pods: Set[str] = {p.metadata.uid for p in pods}
+        self._update_inverse_affinities()
         for pod in pods if update_pods is None else update_pods:
             self.update(pod)
 
     def update(self, pod) -> None:
-        """Derive the pod's topology groups (topology.go:86-117)."""
+        """Derive the pod's topology groups (topology.go:86-117); a new
+        group's counts are seeded from the cluster."""
         for tg in self.topologies.values():
             tg.remove_owner(pod.metadata.uid)
         if podutils.has_pod_anti_affinity(pod):
-            self._update_inverse_anti_affinity(pod)
+            self._update_inverse_anti_affinity(pod, None)
         for tg in self._new_for_topologies(pod) + self._new_for_affinities(pod):
             key = tg.hash_key()
             existing = self.topologies.get(key)
             if existing is None:
+                self._count_domains(tg)
                 self.topologies[key] = tg
             else:
                 tg = existing
             tg.add_owner(pod.metadata.uid)
 
-    def _update_inverse_anti_affinity(self, pod) -> None:
+    def _update_inverse_affinities(self) -> None:
+        """Inverse anti-affinity of the pods bound in the cluster
+        (topology.go:183-196)."""
+        if self.cluster is None:
+            return
+
+        def visit(pod, node) -> bool:
+            if pod.metadata.uid not in self.excluded_pods:
+                self._update_inverse_anti_affinity(pod, node.metadata.labels)
+            return True
+
+        self.cluster.for_pods_with_anti_affinity(visit)
+
+    def _update_inverse_anti_affinity(self, pod, node_labels: Optional[Dict[str, str]]) -> None:
         """topology.go:200-227: an inverse group tracks where a pod with
-        anti-affinity lands, so later matching pods avoid those domains."""
+        anti-affinity landed (its node's domain, for a bound pod), so later
+        matching pods avoid those domains."""
         for term in pod.spec.affinity.pod_anti_affinity.required:
             namespaces = self._build_namespace_list(
                 pod.metadata.namespace, term.namespaces, term.namespace_selector
@@ -198,7 +230,38 @@ class Topology:
                 self.inverse_topologies[key] = tg
             else:
                 tg = existing
+            if node_labels and tg.key in node_labels:
+                tg.record(node_labels[tg.key])
             tg.add_owner(pod.metadata.uid)
+
+    def _count_domains(self, tg: TopologyGroup) -> None:
+        """Seed a group's domain counts from the scheduled cluster pods it
+        selects (topology.go:231-276): pending, terminal, terminating and
+        batch pods do not count, nor a pod whose node is unknown, has no
+        domain for the key (the hostname key falls back to the node's
+        name) or fails the group's node filter."""
+        if self.kube_client is None:
+            return
+        pods: List = []
+        for ns in tg.namespaces:
+            pods.extend(self.kube_client.list("Pod", namespace=ns, selector=tg.selector))
+        for pod in pods:
+            if (not podutils.is_scheduled(pod) or podutils.is_terminal(pod)
+                    or podutils.is_terminating(pod)):
+                continue
+            if pod.metadata.uid in self.excluded_pods:
+                continue
+            node = self.kube_client.get("Node", "", pod.spec.node_name)
+            if node is None:
+                continue
+            domain = node.metadata.labels.get(tg.key)
+            if domain is None and tg.key == LABEL_HOSTNAME:
+                domain = node.metadata.name
+            if domain is None:
+                continue
+            if not tg.node_filter.matches_labels(node.metadata.labels):
+                continue
+            tg.record(domain)
 
     def _new_for_topologies(self, pod) -> List[TopologyGroup]:
         return [
@@ -240,11 +303,16 @@ class Topology:
             for topology_type, term in terms
         ]
 
-    @staticmethod
-    def _build_namespace_list(namespace: str, namespaces: List[str],
+    def _build_namespace_list(self, namespace: str, namespaces: List[str],
                               selector) -> Set[str]:
-        """topology.go:327-347 without a kube client: a namespace selector
-        adds no namespaces beyond the listed ones."""
+        """topology.go:327-347: the listed namespaces plus those a
+        namespace selector matches through the kube client."""
         if not namespaces and selector is None:
             return {namespace}
-        return set(namespaces)
+        if selector is None:
+            return set(namespaces)
+        selected = set(namespaces)
+        if self.kube_client is not None:
+            for ns in self.kube_client.list("Namespace", selector=selector):
+                selected.add(ns.metadata.name)
+        return selected

@@ -1,4 +1,6 @@
-"""k8s-lite object model: the subset of objects a provisioning solve reads.
+"""k8s-lite object model: the subset of objects a provisioning solve reads
+(pods, nodes, and the storage and namespace kinds it resolves through a
+kube client).
 
 Quantities are plain floats in a ``dict[str, float]`` ResourceList (cpu in
 cores, memory in bytes, counts for pods and extended resources), parsed from
@@ -47,6 +49,28 @@ class ObjectMeta:
     creation_timestamp: float = field(default_factory=time.time)
     deletion_timestamp: Optional[float] = None
     owner_references: List[OwnerReference] = field(default_factory=list)
+
+
+class NamespacedName(tuple):
+    """Hashable (namespace, name) object key."""
+
+    def __new__(cls, namespace: str, name: str):
+        return super().__new__(cls, (namespace, name))
+
+    @property
+    def namespace(self) -> str:
+        return self[0]
+
+    @property
+    def name(self) -> str:
+        return self[1]
+
+    def __str__(self) -> str:
+        return f"{self[0]}/{self[1]}"
+
+
+def object_key(obj) -> NamespacedName:
+    return NamespacedName(obj.metadata.namespace, obj.metadata.name)
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +310,89 @@ class Node:
     @property
     def name(self) -> str:
         return self.metadata.name
+
+
+# ---------------------------------------------------------------------------
+# storage
+
+
+@dataclass
+class PersistentVolumeClaimSpec:
+    storage_class_name: Optional[str] = None
+    volume_name: str = ""
+
+
+@dataclass
+class PersistentVolumeClaim:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PersistentVolumeClaimSpec = field(default_factory=PersistentVolumeClaimSpec)
+
+
+@dataclass
+class CSIPersistentVolumeSource:
+    driver: str = ""
+
+
+@dataclass
+class PersistentVolumeSpec:
+    csi: Optional[CSIPersistentVolumeSource] = None
+    node_affinity_required: List[NodeSelectorTerm] = field(default_factory=list)
+    storage_class_name: str = ""
+
+
+@dataclass
+class PersistentVolume:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PersistentVolumeSpec = field(default_factory=PersistentVolumeSpec)
+
+    def __post_init__(self):
+        self.metadata.namespace = ""
+
+
+@dataclass
+class TopologySelectorLabelRequirement:
+    key: str = ""
+    values: List[str] = field(default_factory=list)
+
+
+@dataclass
+class TopologySelectorTerm:
+    match_label_expressions: List[TopologySelectorLabelRequirement] = field(
+        default_factory=list
+    )
+
+
+@dataclass
+class StorageClass:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    provisioner: str = ""
+    allowed_topologies: List[TopologySelectorTerm] = field(default_factory=list)
+
+    def __post_init__(self):
+        self.metadata.namespace = ""
+
+
+@dataclass
+class CSINodeDriver:
+    name: str = ""
+    allocatable_count: Optional[int] = None
+
+
+@dataclass
+class CSINode:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    drivers: List[CSINodeDriver] = field(default_factory=list)
+
+    def __post_init__(self):
+        self.metadata.namespace = ""
+
+
+@dataclass
+class Namespace:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+
+    def __post_init__(self):
+        self.metadata.namespace = ""
 
 
 # Well-known label constants (k8s.io/api/core/v1 well_known_labels.go)

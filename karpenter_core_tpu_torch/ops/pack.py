@@ -1,18 +1,20 @@
 """Greedy packing over FFD-ordered items, in eager PyTorch.
 
 The port of karpenter_core_tpu/ops/pack.py for the prescreen screen mode
-and a logged commit sequence, with the topology lanes and without the
-host-port and volume lanes (Q = W = 0). It replaces the serial Solve loop
+and a logged commit sequence, with the topology, host-port and CSI volume
+lanes. It replaces the serial Solve loop
 (scheduler.go:96-133,177-222) with a scan over a fixed budget of node
 slots:
 
   slot state: accumulated requests, merged requirement masks, remaining
-  instance-type mask, optimistic capacity, pod count; global state: the
+  instance-type mask, optimistic capacity, pod count, reserved host-port
+  entries, mounted volume claims (existing slots); global state: the
   topology groups' domain counts (ops/topology.py).
 
 Per item (one pod spec class with a replica count):
   1. SCREEN all slots: taints ∧ requirement verdict (a column of the [N, C]
-     prescreen tensor) ∧ optimistic fit ∧ topology viability.
+     prescreen tensor) ∧ optimistic fit ∧ topology viability ∧ no host-port
+     conflict ∧ CSI attach limits (existing slots).
   2. Rank candidates: existing nodes by index first, then open machines by
      ascending pod count (scheduler.go:179-193).
   3. Fill the bulk region in one commit (existing nodes; the whole slot
@@ -81,8 +83,8 @@ class PackState(NamedTuple):
     tcounts: torch.Tensor  # [G, V] float32 topology domain counts
     thost: torch.Tensor  # [G, N] float32 hostname-group counts per slot
     tdoms: torch.Tensor  # [G, V] bool registered domains per group
-    ports: torch.Tensor  # [N, 0]
-    vols: torch.Tensor  # [E, 0]
+    ports: torch.Tensor  # [N, Q] bool reserved host-port entries
+    vols: torch.Tensor  # [E, W] bool mounted claims (existing slots only)
 
 
 def _segment_max_alloc(tmask: torch.Tensor, type_alloc: torch.Tensor) -> torch.Tensor:
@@ -247,8 +249,8 @@ def replica_cap_rows(alloc, used_rows, req):
 def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] = None,
                      screen_v: Optional[int] = None):
     """Build the packing function for a fixed label geometry and, when the
-    batch has topology groups, their structure (prescreen mode, Q = W = 0,
-    logged commits)."""
+    batch has topology groups, their structure (prescreen mode, logged
+    commits)."""
     segments = [tuple(s) for s in segments]
     zlo, zhi = zone_seg
     clo, chi = ct_seg
@@ -283,18 +285,19 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         topo_terms: Optional[dict] = None,
         log_len: int = 0,
         n_exist: int = 0,
+        vol_limits: Optional[torch.Tensor] = None,  # [E, D] (inf: no limit)
+        vol_driver: Optional[torch.Tensor] = None,  # [W, D] claim -> driver onehot
         screen0: Optional[torch.Tensor] = None,  # [N, C] prescreen tensor
     ):
-        if state.ports.shape[1] or state.vols.shape[1]:
-            raise NotImplementedError(
-                "host-port and volume lanes are not ported yet "
-                "(ROADMAP Queue A item 7)"
-            )
         dev = state.used.device
         N, V = state.allow.shape
         K = state.out.shape[1]
         J = tmpl_daemon.shape[0]
         I = item_arrays["requests"].shape[0]
+        # host-port and volume axes; zero width skips every check
+        Q = state.ports.shape[1]
+        W = state.vols.shape[1]
+        EV = state.vols.shape[0]  # the existing prefix carrying volume state
         ops = ScreenOps(segments, V, screen_v)
         WSCR = ops.width
         sm = torch.as_tensor(compat.seg_matrix(segments, V)[:WSCR], device=dev)
@@ -336,6 +339,12 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         count_h = item_arrays["count"].cpu().numpy()
         scls_h = item_arrays["scls"].cpu().numpy()
         defined_h = item_arrays["defined"].cpu().numpy()
+        if Q:
+            has_ports_h = item_arrays["ports"].any(dim=1).cpu().numpy()
+            has_conflict_h = item_arrays["port_conflict"].any(dim=1).cpu().numpy()
+        if W:
+            has_vols_h = item_arrays["vols"].any(dim=1).cpu().numpy()
+        vol_cnt = None  # [EV, D] mounted claims per driver, rebuilt after a vols write
         G = len(groups)
         if has_topo:
             own_h = item_arrays["topo_own"].cpu().numpy()
@@ -440,6 +449,12 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
             # nothing (hostname groups narrow only the elided tail)
             plane_mut = bool((defined_h[i] & key_scr).any()) or any(
                 (own[g] or sel[g]) and seg_scr[g] for g in range(G))
+            # a pod with host ports never runs two replicas on one node: its
+            # own entries conflict (hostportusage.go:42-54)
+            port_k_cap = 1 if Q and has_ports_h[i] else BIGK
+            ports_i = item_arrays["ports"][i] if Q else None
+            vols_i = item_arrays["vols"][i] if W else None
+            writes_vols = bool(W and has_vols_h[i])
             # node-filter matches are read only for selected direct groups
             # whose filter can fail
             need_nf = any(sel[g] and not nf_trivial[g] and not gm.is_inverse
@@ -456,6 +471,23 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
             if any_topo_i:
                 sc &= topo_screen(topo_meta, state.tcounts, state.thost[:, :lim],
                                   state.tdoms, own, sel, allow_i, state.allow[:lim])
+            if Q and has_conflict_h[i]:
+                # host-port conflicts (machine.go:69, existingnode.go:77)
+                sc &= ~torch.any(
+                    state.ports[:lim] & item_arrays["port_conflict"][i][None, :], dim=-1)
+            if W:
+                # CSI volume limits on existing slots (existingnode.go:62-
+                # 115): the mounted claims per driver plus the item's NEW
+                # claims stay within the CSINode limit. 0/1 sums in float32
+                # are exact; nopen never falls below EV
+                if vol_cnt is None:
+                    vol_cnt = state.vols.to(torch.float32) @ vol_driver
+                cnt_d = vol_cnt
+                if writes_vols:
+                    new = vols_i[None, :] & ~state.vols
+                    cnt_d = cnt_d + new.to(torch.float32) @ vol_driver
+                vol_ok = torch.all(cnt_d <= vol_limits, dim=-1)
+                sc[:EV] &= vol_ok
             s0 = torch.where(
                 state.is_existing[:lim],
                 idx_f[:lim],
@@ -580,6 +612,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                                 m_allow, m_out, row_mask, k_row)
 
             def do_candidate(remaining, force, cap, gate, dead):
+                nonlocal vol_cnt
                 n_t = torch.argmin(score if gate is None else torch.where(gate, score, BIG))
                 slot_allow = state.allow[n_t]
                 if any_topo_i:
@@ -605,6 +638,8 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                 kmax_t = torch.where(state.is_existing[n_t], kmax_exist, kmax_mach)
                 if k_topo is not None:
                     kmax_t = torch.minimum(kmax_t, k_topo)
+                if port_k_cap < BIGK:
+                    kmax_t = torch.clamp(kmax_t, max=port_k_cap)
                 n, kmax, is_ex, viable = torch.stack([
                     n_t, kmax_t.to(torch.int64),
                     state.is_existing[n_t].to(torch.int64), t_viable.to(torch.int64),
@@ -622,6 +657,12 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                     if not is_ex:
                         state.tmask[n] = tmask_k
                         state.cap[n] = _segment_max_alloc(tmask_k, type_alloc)
+                    if Q:
+                        state.ports[n] |= ports_i
+                    if writes_vols and n < EV:
+                        # only the existing prefix carries volume state
+                        state.vols[n] |= vols_i
+                        vol_cnt = None
                     row_mask = arange_n == n
                     record(m_allow, m_out, m_def, row_mask,
                            torch.where(row_mask, k, 0).to(torch.int32))
@@ -646,6 +687,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                 group always has a node filter, which keeps its owners off
                 the bulk paths, so no water-fill plan (force, cap, gate)
                 reaches here."""
+                nonlocal vol_cnt
                 BRo = min(BR, nopen)
                 sa = state.allow[:BRo]
                 cands = score[:BRo] < BIG
@@ -693,7 +735,8 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                     k_slot = torch.cat([k_slot, k_mach])
                 ok = cands if viable is None else cands & viable
                 k_slot = k_slot if k_topo_e is None else torch.minimum(k_slot, k_topo_e)
-                k_eff = torch.where(ok, torch.clamp(k_slot, max=BIGK), 0).to(torch.int32)
+                k_eff = torch.where(ok, torch.clamp(k_slot, max=min(BIGK, port_k_cap)),
+                                    0).to(torch.int32)
                 budget = remaining
                 if mach_bulk:
                     # take in score order (existing rank before machines) so a
@@ -722,6 +765,12 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                     state.allow[:BRo] = torch.where(tm, m_allow_rows, sa)
                     state.out[:BRo] = torch.where(tm, m_out_rows, state.out[:BRo])
                     state.defined[:BRo] = torch.where(tm, m_def_rows, state.defined[:BRo])
+                    if Q:
+                        state.ports[:BRo] |= tm & ports_i[None, :]
+                    if writes_vols:
+                        EVB = min(EV, BRo)
+                        state.vols[:EVB] |= tm[:EVB] & vols_i[None, :]
+                        vol_cnt = None
                     if mach_bulk and mach_ok_i and BRo > KEW:
                         # touched machine rows narrow their types to those
                         # that fit the committed replicas
@@ -799,7 +848,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                 m_eff_t = torch.where(compat_o, kcap_o, 0).max()
                 if ktopos:
                     m_eff_t = torch.minimum(m_eff_t, torch.stack(ktopos)[jc_t])
-                m_eff_t = torch.clamp(m_eff_t, 0, BIGK)
+                m_eff_t = torch.clamp(m_eff_t, 0, min(BIGK, port_k_cap))
                 # provisioner-limit slot budget: pessimistic max capacity
                 # over the k >= 1 types (scheduler.go:276-293)
                 tmask_1 = compat_o & (kcap_o >= 1)
@@ -856,6 +905,8 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                 state.cap[lo:hi - 1] = _segment_max_alloc(tmask_full, type_alloc)
                 state.cap[hi - 1] = _segment_max_alloc(tmask_last, type_alloc)
                 state.remaining[jc] = state.remaining[jc] - float(s) * max_cap
+                if Q:
+                    state.ports[lo:hi] = ports_i
                 nopen = hi
                 if any_topo_i:
                     row_mask = (arange_n >= lo) & (arange_n < hi)

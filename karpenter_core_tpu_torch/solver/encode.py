@@ -14,8 +14,10 @@ and, because concrete In-sets are dictionary-closed, the nonemptiness of a
 per-key intersection is exactly (outA & outB) | any_v(allowA & allowB).
 
 Topology spread and pod (anti-)affinity lower to the domain-count tensors
-of ops/topology.py. Pods with host ports or volumes raise
-NotImplementedError: their device lanes are not ported yet.
+of ops/topology.py, seeded from the cluster when a kube client or cluster
+is given. Host ports lower to per-entry columns with a conflict matrix,
+PVC-backed volumes to per-claim columns with a claim -> CSI driver map and
+the existing nodes' per-driver attach limits.
 """
 from __future__ import annotations
 
@@ -49,7 +51,10 @@ from karpenter_core_tpu_torch.scheduling.requirement import (
     OP_NOT_IN,
     Requirement,
 )
+from karpenter_core_tpu_torch.scheduling.hostportusage import host_ports
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
+from karpenter_core_tpu_torch.scheduling.volumeusage import VolumeUsage
+from karpenter_core_tpu_torch.state.node import resolve_volume_limits
 from karpenter_core_tpu_torch.utils import resources as resources_util
 
 # resource axis order: fixed core resources then discovered extended ones
@@ -83,23 +88,6 @@ def ladder_pad(n: int, ladder, axis: str, lo: int) -> int:
     return b
 
 
-def refuse_unported(pods) -> None:
-    """Raise for the first pod whose constraints need a lane this slice
-    does not port. Refusing is deliberate: nothing is solved approximately."""
-    for p in pods:
-        s = p.spec
-        what = None
-        if any(pt.host_port for c in s.containers for pt in c.ports):
-            what = ("host ports", "Queue A item 7, host ports and volumes")
-        elif any(v.persistent_volume_claim is not None for v in s.volumes):
-            what = ("volumes", "Queue A item 7, host ports and volumes")
-        if what is not None:
-            raise NotImplementedError(
-                f"pod {p.metadata.namespace}/{p.metadata.name} uses {what[0]}, "
-                f"which the PyTorch port does not solve yet (ROADMAP {what[1]})"
-            )
-
-
 def _ids(lst):
     return tuple(map(id, lst))
 
@@ -120,9 +108,11 @@ def _memo_repr(memo: Dict, key: Tuple, obj) -> str:
 def _pod_spec_signature(p, memo: Dict) -> Tuple:
     """Content key for pod spec-equivalence: everything the encoder derives
     per pod (namespace, labels for topology selection, node selector,
-    node and pod affinity, tolerations, spread constraints, resources).
-    Pods with equal signatures are interchangeable. Constraint objects key
-    by content (repr), memoized by the identity of their leaf objects."""
+    host ports, volume claims, node and pod affinity, tolerations, spread
+    constraints, resources). Pods with equal signatures are
+    interchangeable; pods that differ only in host ports or claims are
+    not. Constraint objects key by content (repr), memoized by the
+    identity of their leaf objects."""
     s = p.spec
     aff = s.affinity
     aff_r = None if aff is None else _memo_repr(
@@ -136,6 +126,14 @@ def _pod_spec_signature(p, memo: Dict) -> Tuple:
         (tuple(c.resources.requests.items()), tuple(c.resources.limits.items()))
         for c in s.containers
     )
+    ports = tuple(
+        (pt.host_ip, pt.host_port, pt.protocol)
+        for c in s.containers for pt in c.ports if pt.host_port
+    )
+    vol_r = tuple(
+        v.persistent_volume_claim.claim_name
+        for v in s.volumes if v.persistent_volume_claim is not None
+    ) if s.volumes else None
     ic = s.init_containers
     ic_r = (
         tuple(
@@ -149,6 +147,8 @@ def _pod_spec_signature(p, memo: Dict) -> Tuple:
         p.metadata.namespace,
         tuple(p.metadata.labels.items()),
         tuple(s.node_selector.items()),
+        ports,
+        vol_r,
         aff_r,
         tol_r,
         tsc_r,
@@ -308,14 +308,15 @@ class EncodedSnapshot:
     tol_exist_us: np.ndarray = None  # [U, S+1] bool; column S: pad rows
     sig_of_node: np.ndarray = None  # [E] int64 -> taint signature
 
-    # host-port and volume lanes: zero-width in this slice
-    pod_ports_u: np.ndarray = None  # [U, 0]
-    pod_port_conflict_u: np.ndarray = None  # [U, 0]
-    exist_ports: np.ndarray = None  # [E, 0]
-    pod_vols_u: np.ndarray = None  # [U, 0]
-    exist_vols: np.ndarray = None  # [E, 0]
-    exist_vol_limits: np.ndarray = None  # [E, 0]
-    vol_driver_onehot: np.ndarray = None  # [0, 0]
+    # host ports (Q entry columns) and CSI volumes (W claim columns, D
+    # drivers); zero-width when the batch and the nodes use none
+    pod_ports_u: np.ndarray = None  # [U, Q] bool
+    pod_port_conflict_u: np.ndarray = None  # [U, Q] bool: entries it conflicts with
+    exist_ports: np.ndarray = None  # [E, Q] bool
+    pod_vols_u: np.ndarray = None  # [U, W] bool
+    exist_vols: np.ndarray = None  # [E, W] bool
+    exist_vol_limits: np.ndarray = None  # [E, D] float32 (inf: no limit)
+    vol_driver_onehot: np.ndarray = None  # [W, D] float32
 
     n_slots: int = 0  # E + machine slot budget
     screen_v: int = 0  # screens read allow[:, :screen_v]
@@ -345,21 +346,32 @@ def encode_snapshot(
     instance_types: Dict[str, List],
     daemonset_pods: Optional[List] = None,
     state_nodes: Optional[List] = None,
+    kube_client=None,
+    cluster=None,
     max_nodes: int = 1024,
     reuse_dictionary: Optional[LabelDictionary] = None,
     ladder=DEFAULT_BUCKET_LADDER,
 ) -> EncodedSnapshot:
     """Lower a provisioning snapshot to arrays.
 
+    kube_client (any object with get(kind, namespace, name) and
+    list(kind, namespace=, selector=)) resolves claims to CSI drivers,
+    fills the existing nodes' empty attach limits from CSINode objects and
+    seeds the topology counts with the scheduled cluster pods; cluster
+    (state/cluster.Cluster) contributes the inverse anti-affinity of its
+    bound pods.
+
     Pods are sorted first-fit-decreasing (cpu desc, mem desc, creation,
     uid: queue.go:74-110) so the pack scan consumes them in reference order.
     `reuse_dictionary`, from an earlier encode of the same batch, keeps
     V/K/segments fixed across relaxation rounds (relaxation only removes
     requirements)."""
-    refuse_unported(pods)
     daemonset_pods = daemonset_pods or []
     # only nodes launched by us participate (scheduler.go:226-229)
     state_nodes = [n for n in (state_nodes or []) if n.owned()]
+    # CSI attach limits ride the state nodes; nodes that bypassed a
+    # Cluster resolve theirs here
+    resolve_volume_limits(state_nodes, kube_client)
     provisioners = [
         p for p in order_by_weight(provisioners)
         if p.metadata.deletion_timestamp is None
@@ -431,9 +443,9 @@ def encode_snapshot(
         reqs.add(Requirement(LABEL_HOSTNAME, OP_IN, [node.hostname()]))
         exist_reqs_list.append(reqs)
 
-    # the batch's topology groups; cluster pods do not seed them (the
-    # solver refuses a kube client)
-    host_topology = Topology(build_domains(provisioners, instance_types),
+    # the batch's topology groups, seeded with the cluster's pods
+    host_topology = Topology(kube_client, cluster,
+                             build_domains(provisioners, instance_types),
                              pods_sorted, update_pods=uniq_pods)
     topo_groups = list(host_topology.topologies.values()) + list(
         host_topology.inverse_topologies.values()
@@ -590,6 +602,7 @@ def encode_snapshot(
     if S:
         tol_exist_us[:, :S] = np.stack(tol_rows_u, axis=1)
 
+    ports_vols = _port_volume_arrays(uniq_pods, state_nodes, E_pad, kube_client)
     n_slots = E_pad + min(max_nodes, bucket_pow2(max(P, 1), 64))
     topo_meta, topo_arrays = encode_topology(
         host_topology, pods_sorted, dictionary, n_slots,
@@ -646,13 +659,7 @@ def encode_snapshot(
         exist_cap=exist_cap,
         tol_exist_us=tol_exist_us,
         sig_of_node=sig_of_node,
-        pod_ports_u=np.zeros((U, 0), dtype=bool),
-        pod_port_conflict_u=np.zeros((U, 0), dtype=bool),
-        exist_ports=np.zeros((E_pad, 0), dtype=bool),
-        pod_vols_u=np.zeros((U, 0), dtype=bool),
-        exist_vols=np.zeros((E_pad, 0), dtype=bool),
-        exist_vol_limits=np.zeros((E_pad, 0), dtype=np.float32),
-        vol_driver_onehot=np.zeros((0, 0), dtype=np.float32),
+        **ports_vols,
         n_slots=n_slots,
         screen_v=screen_v,
         item_counts=item_counts,
@@ -669,6 +676,101 @@ def encode_snapshot(
         topo_meta=topo_meta,
         topo_arrays=topo_arrays,
         item_of_pod=item_of_pod,
+    )
+
+
+def _port_volume_arrays(uniq_pods, state_nodes, E_pad: int, kube_client) -> Dict:
+    """The host-port and CSI volume columns (encode.py:1166-1253): entry
+    and claim columns in first-seen order over the pod classes, then the
+    nodes, each axis padded to a power-of-two bucket whose pad columns
+    never conflict or count."""
+    U = len(uniq_pods)
+    pod_ports_u_list = [host_ports(p) for p in uniq_pods]
+    port_index: Dict[Tuple, int] = {}
+    port_entries: List = []
+
+    def _port_id(entry):
+        key = (entry.ip, entry.port, entry.protocol)
+        q = port_index.get(key)
+        if q is None:
+            q = port_index[key] = len(port_entries)
+            port_entries.append(entry)
+        return q
+
+    for entries in pod_ports_u_list:
+        for entry in entries:
+            _port_id(entry)
+    exist_port_rows: List[List[int]] = []
+    for node in state_nodes:
+        exist_port_rows.append([_port_id(entry)
+                                for entries in node.hostport_usage.reserved.values()
+                                for entry in entries])
+    Q = bucket_pow2(len(port_entries), 8)
+    pod_ports_u = np.zeros((U, Q), dtype=bool)
+    for u, entries in enumerate(pod_ports_u_list):
+        for entry in entries:
+            pod_ports_u[u, port_index[(entry.ip, entry.port, entry.protocol)]] = True
+    conflict = np.zeros((Q, Q), dtype=bool)
+    for a in range(len(port_entries)):
+        for b in range(len(port_entries)):
+            conflict[a, b] = port_entries[a].matches(port_entries[b])
+    pod_port_conflict_u = pod_ports_u @ conflict  # [U, Q]
+    exist_ports = np.zeros((E_pad, Q), dtype=bool)
+    for e, row in enumerate(exist_port_rows):
+        exist_ports[e, row] = True
+
+    vu = VolumeUsage(kube_client)
+    pod_vols_u_list = [vu._resolve(p) for p in uniq_pods]
+    vol_index: Dict[Tuple[str, str], int] = {}
+    driver_index: Dict[str, int] = {}
+
+    def _vol_id(driver, pvc_id):
+        w = vol_index.get((driver, pvc_id))
+        if w is None:
+            w = vol_index[(driver, pvc_id)] = len(vol_index)
+            if driver not in driver_index:
+                driver_index[driver] = len(driver_index)
+        return w
+
+    for vols in pod_vols_u_list:
+        for driver, ids in vols.items():
+            for pvc_id in ids:
+                _vol_id(driver, pvc_id)
+    for node in state_nodes:
+        for driver, ids in node.volume_usage.volumes.items():
+            for pvc_id in ids:
+                _vol_id(driver, pvc_id)
+        for driver in node.volume_limits:
+            if driver not in driver_index:
+                driver_index[driver] = len(driver_index)
+    W = bucket_pow2(len(vol_index), 8)
+    D = bucket_pow2(len(driver_index), 2)
+    pod_vols_u = np.zeros((U, W), dtype=bool)
+    for u, vols in enumerate(pod_vols_u_list):
+        for driver, ids in vols.items():
+            for pvc_id in ids:
+                pod_vols_u[u, vol_index[(driver, pvc_id)]] = True
+    exist_vols = np.zeros((E_pad, W), dtype=bool)
+    exist_vol_limits = np.full((E_pad, D), np.inf, dtype=np.float32)
+    for e, node in enumerate(state_nodes):
+        for driver, ids in node.volume_usage.volumes.items():
+            for pvc_id in ids:
+                exist_vols[e, vol_index[(driver, pvc_id)]] = True
+        for driver, limit in node.volume_limits.items():
+            if limit is not None:
+                exist_vol_limits[e, driver_index[driver]] = float(limit)
+    vol_driver_onehot = np.zeros((W, D), dtype=np.float32)
+    for (driver, _pvc), w in vol_index.items():
+        vol_driver_onehot[w, driver_index[driver]] = 1.0
+
+    return dict(
+        pod_ports_u=pod_ports_u,
+        pod_port_conflict_u=pod_port_conflict_u,
+        exist_ports=exist_ports,
+        pod_vols_u=pod_vols_u,
+        exist_vols=exist_vols,
+        exist_vol_limits=exist_vol_limits,
+        vol_driver_onehot=vol_driver_onehot,
     )
 
 

@@ -418,7 +418,7 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             thost=topo_hcounts0.clone(),
             tdoms=topo_doms0.clone(),
             ports=prefix(False, exist_ports, torch.bool),
-            vols=exist_vols,
+            vols=exist_vols.clone(),
         )
         item_arrays = dict(pod_arrays, tol=pod_tol_all)
         state, log, ptr = pack(
@@ -426,7 +426,8 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             {k: tmpl[k] for k in ("allow", "out", "defined")},
             tmpl_daemon, tmpl_type_mask, types, type_alloc, type_capacity,
             type_offering_ok, well_known=well_known, topo_terms=topo_terms,
-            log_len=log_len, n_exist=E, screen0=screen0,
+            log_len=log_len, n_exist=E, vol_limits=exist_vol_limits,
+            vol_driver=vol_driver, screen0=screen0,
         )
         return log, ptr, state
 
@@ -573,14 +574,19 @@ class TorchSolver:
 
     def encode(self, pods, provisioners, instance_types, daemonset_pods=None,
                state_nodes=None, kube_client=None, cluster=None):
-        _refuse_cluster(kube_client, cluster)
         return encode_snapshot(pods, provisioners, instance_types, daemonset_pods,
-                               state_nodes, max_nodes=self.max_nodes)
+                               state_nodes, kube_client, cluster,
+                               max_nodes=self.max_nodes)
 
     def solve(self, pods, provisioners, instance_types, daemonset_pods=None,
               state_nodes=None, kube_client=None, cluster=None,
               encoded=None) -> SolveResult:
-        _refuse_cluster(kube_client, cluster)
+        """Place `pods`. state_nodes are the existing nodes (for example
+        cluster.nodes()); kube_client (get/list, e.g. kube/client.py's
+        InMemoryKubeClient) resolves volume claims and CSINode limits and
+        seeds topology counts with the scheduled pods it lists; cluster
+        (state/cluster.Cluster) adds its bound pods' inverse
+        anti-affinity. Every relaxation round re-encodes with both."""
         if encoded is not None and (
             len(encoded.pods) != len(pods)
             or {id(p) for p in encoded.pods} != {id(p) for p in pods}
@@ -589,7 +595,8 @@ class TorchSolver:
         ctx = {"dictionary": None, "encoded": encoded}
         return solve_with_relaxation(
             lambda p: self._solve_once(p, provisioners, instance_types,
-                                       daemonset_pods, state_nodes, ctx),
+                                       daemonset_pods, state_nodes, kube_client,
+                                       cluster, ctx),
             pods, provisioners, instance_types, self.max_relax_rounds,
         )
 
@@ -598,7 +605,7 @@ class TorchSolver:
             torch.cuda.synchronize(self.device)
 
     def _solve_once(self, pods, provisioners, instance_types, daemonset_pods,
-                    state_nodes, ctx) -> SolveResult:
+                    state_nodes, kube_client, cluster, ctx) -> SolveResult:
         phases = self.last_phase_ms = {}
         t = time.perf_counter()
 
@@ -613,7 +620,8 @@ class TorchSolver:
         if snap is None:
             snap = encode_snapshot(
                 pods, provisioners, instance_types, daemonset_pods, state_nodes,
-                max_nodes=self.max_nodes, reuse_dictionary=ctx["dictionary"],
+                kube_client, cluster, max_nodes=self.max_nodes,
+                reuse_dictionary=ctx["dictionary"],
             )
         # relaxation rounds reuse round 1's dictionary (a superset)
         ctx["dictionary"] = snap.dictionary
@@ -642,10 +650,3 @@ class TorchSolver:
         mark("decode")
         return result
 
-
-def _refuse_cluster(kube_client, cluster) -> None:
-    if kube_client is not None or cluster is not None:
-        raise NotImplementedError(
-            "TorchSolver does not read cluster pods or CSINode limits yet "
-            "(ROADMAP Queue A items 7 and 8b); pass state_nodes instead"
-        )

@@ -1,11 +1,13 @@
 """StateNode: the cluster's view of one existing node (state/node.go).
 
-This slice reads a node's identity, labels, taints, capacity and the
-requests of the pods bound to it; nodes still backed only by a Machine
-record, host-port usage and volume attachments are not modelled here.
+This slice reads a node's identity, labels, taints and capacity, the
+requests of the pods bound to it, the host ports they hold, the volumes
+they mount and the node's CSI attach limits; nodes still backed only by a
+Machine record are not modelled here.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List
 
 from karpenter_core_tpu_torch.api import labels as api_labels
@@ -13,22 +15,25 @@ from karpenter_core_tpu_torch.kube.objects import (
     LABEL_HOSTNAME,
     TAINT_NODE_NOT_READY,
     TAINT_NODE_UNREACHABLE,
+    NamespacedName,
     ResourceList,
     Taint,
+    object_key,
 )
-from karpenter_core_tpu_torch.utils import resources
-
-
-def _pod_key(pod):
-    return (pod.metadata.namespace, pod.metadata.name)
+from karpenter_core_tpu_torch.scheduling.hostportusage import HostPortUsage
+from karpenter_core_tpu_torch.scheduling.volumeusage import VolumeCount, VolumeUsage
+from karpenter_core_tpu_torch.utils import podutils, resources
 
 
 class StateNode:
     def __init__(self, node):
         self.node = node
         self.startup_taints: List[Taint] = []
-        self.pod_requests: Dict[tuple, ResourceList] = {}
-        self.daemonset_requests: Dict[tuple, ResourceList] = {}
+        self.pod_requests: Dict[NamespacedName, ResourceList] = {}
+        self.daemonset_requests: Dict[NamespacedName, ResourceList] = {}
+        self.hostport_usage = HostPortUsage()
+        self.volume_usage = VolumeUsage()
+        self.volume_limits = VolumeCount()
 
     def name(self) -> str:
         return self.node.name
@@ -74,15 +79,54 @@ class StateNode:
         return resources.merge(*self.daemonset_requests.values())
 
     def update_for_pod(self, pod) -> None:
-        """Account a pod bound to this node (node.go:293-307)."""
-        if any(p.host_port for c in pod.spec.containers for p in c.ports) or any(
-            v.persistent_volume_claim is not None for v in pod.spec.volumes
-        ):
-            raise NotImplementedError(
-                "existing-node host ports and volumes are not ported yet "
-                "(ROADMAP Queue A item 7, host ports and volumes)"
-            )
-        key = _pod_key(pod)
+        """Account a pod bound to this node (node.go:293-307): its
+        requests, host ports and volumes."""
+        key = object_key(pod)
         self.pod_requests[key] = resources.requests_for_pods(pod)
-        if any(o.kind == "DaemonSet" for o in pod.metadata.owner_references):
+        if podutils.is_owned_by_daemonset(pod):
             self.daemonset_requests[key] = resources.requests_for_pods(pod)
+        self.hostport_usage.add(pod)
+        self.volume_usage.add(pod)
+
+    def cleanup_for_pod(self, key: NamespacedName) -> None:
+        """Forget a pod that left this node (node.go:309-321)."""
+        self.hostport_usage.delete_pod(key)
+        self.volume_usage.delete_pod(key)
+        self.pod_requests.pop(key, None)
+        self.daemonset_requests.pop(key, None)
+
+    def deep_copy(self) -> "StateNode":
+        out = StateNode(copy.deepcopy(self.node))
+        out.startup_taints = list(self.startup_taints)
+        out.pod_requests = {k: dict(v) for k, v in self.pod_requests.items()}
+        out.daemonset_requests = {k: dict(v) for k, v in self.daemonset_requests.items()}
+        out.hostport_usage = self.hostport_usage.deep_copy()
+        out.volume_usage = self.volume_usage.deep_copy()
+        out.volume_limits = VolumeCount(self.volume_limits)
+        return out
+
+
+def populate_volume_limits_from(kube_client, state_node: StateNode) -> None:
+    """The CSINode -> volume_limits rule (cluster.go:430-444): each
+    driver's allocatable count onto the state node."""
+    if state_node.node is None:
+        return
+    csinode = kube_client.get("CSINode", "", state_node.node.metadata.name)
+    if csinode is None:
+        return
+    for driver in csinode.drivers:
+        if driver.allocatable_count is not None:
+            state_node.volume_limits[driver.name] = driver.allocatable_count
+
+
+def resolve_volume_limits(state_nodes, kube_client) -> None:
+    """Fill EMPTY volume limits from the CSINode objects, for state nodes
+    that did not come through a Cluster (which applies the rule on every
+    node update). Populated nodes are left as they are: a solve's state
+    nodes are a snapshot taken for that solve."""
+    if kube_client is None:
+        return
+    for sn in state_nodes or []:
+        if sn.node is None or sn.volume_limits:
+            continue
+        populate_volume_limits_from(kube_client, sn)

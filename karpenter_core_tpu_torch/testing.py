@@ -10,25 +10,38 @@ from karpenter_core_tpu_torch.api.provisioner import (
     ProvisionerSpec,
 )
 from karpenter_core_tpu_torch.kube.objects import (
+    LABEL_TOPOLOGY_ZONE,
     Affinity,
     Condition,
     Container,
     ContainerPort,
+    CSINode,
+    CSINodeDriver,
+    CSIPersistentVolumeSource,
     Node,
     NodeAffinity,
     NodeSelectorRequirement,
     NodeSelectorTerm,
     ObjectMeta,
     OwnerReference,
+    PersistentVolume,
+    PersistentVolumeClaim,
+    PersistentVolumeClaimSpec,
+    PersistentVolumeClaimVolumeSource,
+    PersistentVolumeSpec,
     Pod,
     PodAffinity,
     PodAffinityTerm,
     PodAntiAffinity,
     PodSpec,
     ResourceRequirements,
+    StorageClass,
     Taint,
     Toleration,
+    TopologySelectorLabelRequirement,
+    TopologySelectorTerm,
     TopologySpreadConstraint,
+    Volume,
     WeightedPodAffinityTerm,
 )
 from karpenter_core_tpu_torch.utils.resources import parse_resource_list
@@ -47,6 +60,7 @@ def make_pod(
     requests: Optional[Dict[str, object]] = None,
     limits: Optional[Dict[str, object]] = None,
     node_selector: Optional[Dict[str, str]] = None,
+    node_name: str = "",
     tolerations: Optional[List[Toleration]] = None,
     topology_spread: Optional[List[TopologySpreadConstraint]] = None,
     pod_affinity_required: Optional[List[PodAffinityTerm]] = None,
@@ -57,13 +71,17 @@ def make_pod(
     node_affinity_preferred=None,
     host_ports: Optional[List[int]] = None,
     owner_kind: str = "",
+    phase: str = "Pending",
+    unschedulable: bool = True,
     init_requests: Optional[Dict[str, object]] = None,
     uid: Optional[str] = None,
     creation_timestamp: Optional[float] = None,
 ) -> Pod:
-    """A pending pod. Requests default from limits per resource, as the
-    apiserver's admission defaulting does. `uid` and `creation_timestamp`
-    pin the first-fit-decreasing tie-breakers."""
+    """A pending pod, marked with the PodScheduled Unschedulable condition,
+    by default; a pod bound to a node takes `node_name`, and a running one
+    also phase="Running". Requests default from limits per resource, as
+    the apiserver's admission defaulting does. `uid` and
+    `creation_timestamp` pin the first-fit-decreasing tie-breakers."""
 
     def _requests(reqs, lims):
         out = dict(parse_resource_list(lims or {}))
@@ -126,6 +144,7 @@ def make_pod(
     pod = Pod(
         metadata=meta,
         spec=PodSpec(
+            node_name=node_name,
             node_selector=dict(node_selector or {}),
             affinity=affinity,
             tolerations=list(tolerations or []),
@@ -134,9 +153,11 @@ def make_pod(
             topology_spread_constraints=list(topology_spread or []),
         ),
     )
-    pod.status.conditions.append(
-        Condition(type="PodScheduled", status="False", reason="Unschedulable")
-    )
+    pod.status.phase = phase
+    if unschedulable and not node_name:
+        pod.status.conditions.append(
+            Condition(type="PodScheduled", status="False", reason="Unschedulable")
+        )
     return pod
 
 
@@ -178,3 +199,46 @@ def make_node(
     node.status.allocatable = parse_resource_list(allocatable or capacity or {})
     node.status.conditions.append(Condition(type="Ready", status="True"))
     return node
+
+
+def make_storage_class(name: str, provisioner: str = "",
+                       zones: Optional[List[str]] = None) -> StorageClass:
+    sc = StorageClass(metadata=ObjectMeta(name=name), provisioner=provisioner)
+    if zones:
+        sc.allowed_topologies = [TopologySelectorTerm(match_label_expressions=[
+            TopologySelectorLabelRequirement(key=LABEL_TOPOLOGY_ZONE, values=list(zones))
+        ])]
+    return sc
+
+
+def make_pvc(name: str, namespace: str = "default", storage_class: Optional[str] = None,
+             volume_name: str = "") -> PersistentVolumeClaim:
+    return PersistentVolumeClaim(
+        metadata=ObjectMeta(name=name, namespace=namespace),
+        spec=PersistentVolumeClaimSpec(storage_class_name=storage_class,
+                                       volume_name=volume_name),
+    )
+
+
+def make_pv(name: str, driver: str = "", zones: Optional[List[str]] = None,
+            storage_class: str = "") -> PersistentVolume:
+    """A persistent volume; driver="" models a non-CSI one (NFS, say)."""
+    spec = PersistentVolumeSpec(storage_class_name=storage_class)
+    if driver:
+        spec.csi = CSIPersistentVolumeSource(driver=driver)
+    if zones:
+        spec.node_affinity_required = [NodeSelectorTerm(match_expressions=[
+            NodeSelectorRequirement(LABEL_TOPOLOGY_ZONE, "In", list(zones))
+        ])]
+    return PersistentVolume(metadata=ObjectMeta(name=name), spec=spec)
+
+
+def make_csinode(node_name: str, driver: str, allocatable: Optional[int] = None) -> CSINode:
+    """A CSINode carrying one driver's attach limit."""
+    return CSINode(metadata=ObjectMeta(name=node_name),
+                   drivers=[CSINodeDriver(name=driver, allocatable_count=allocatable)])
+
+
+def pvc_volume(claim_name: str) -> Volume:
+    return Volume(name=claim_name, persistent_volume_claim=PersistentVolumeClaimVolumeSource(
+        claim_name=claim_name))

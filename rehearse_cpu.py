@@ -1,0 +1,66 @@
+#!/usr/bin/env python3
+"""Rehearse chip_smoke.py's main path on the CPU at reduced sizes.
+
+    python3 rehearse_cpu.py 3500 7000 14000
+
+For each pending-pod count n it builds chip_smoke.live_cluster scaled by
+n / 50,000 (nodes, generic classes, ingress pods and StatefulSet replicas
+alike, 30 bound pods a node) and the reference mix alone with the same
+nodes (phase 5's shape), solves both with TorchSolver(device="cpu") and
+prints one JSON line: the scan's items and while-iterations per branch
+(ops/pack.LAST_SCAN), the solve's phases, and the encode time of each
+workload and of the cluster seeding alone (the host Topology built for
+three representative pods). These are counts and host times of this CPU,
+used to predict a chip run; they are never device metrics.
+"""
+import json
+import sys
+import time
+
+import chip_smoke as cs
+from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology import (
+    Topology,
+    build_domains,
+)
+from karpenter_core_tpu_torch.ops import pack
+from karpenter_core_tpu_torch.solver import torch_solver
+from karpenter_core_tpu_torch.solver.encode import encode_snapshot
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, round(time.perf_counter() - t0, 3)
+
+
+def rehearse(n: int) -> dict:
+    f = n / 50000
+    nodes, distinct = int(1000 * f), int(1000 * f)
+    max_nodes = n // 5 + 1536
+    (pods, provs, its, client, cluster), build_s = _timed(lambda: cs.live_cluster(
+        n, 500, nodes, distinct=distinct, n_ingress=int(1000 * f), replicas=int(100 * f)))
+    state_nodes = cluster.nodes()
+    solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cpu")
+    result, wall_s = _timed(lambda: solver.solve(pods, provs, its, state_nodes=state_nodes,
+                                                 kube_client=client, cluster=cluster))
+    scan, phases = dict(pack.LAST_SCAN), dict(solver.last_phase_ms)
+    _, encode_s = _timed(lambda: encode_snapshot(pods, provs, its, None, cluster.nodes(),
+                                                 client, cluster, max_nodes=max_nodes))
+    _, seeding_s = _timed(lambda: Topology(client, cluster, build_domains(provs, its), pods,
+                                           update_pods=pods[:3]))
+    mix_pods, mix_provs, mix_its, mix_nodes = cs.full_mix(n, 500, nodes, distinct)
+    _, mix_encode_s = _timed(lambda: encode_snapshot(mix_pods, mix_provs, mix_its, None,
+                                                     mix_nodes, max_nodes=max_nodes))
+    torch_solver.TorchSolver(max_nodes=max_nodes, device="cpu").solve(
+        mix_pods, mix_provs, mix_its, state_nodes=mix_nodes)
+    return {
+        "pending": len(pods), "bound": len(cluster.bindings), "build_s": build_s,
+        "wall_s": wall_s, "phases_ms": {k: round(v, 1) for k, v in phases.items()},
+        "scan": scan, "failed": len(result.failed_pods), "encode_s": encode_s,
+        "seeding_s": seeding_s, "mix_encode_s": mix_encode_s, "mix_scan": dict(pack.LAST_SCAN),
+    }
+
+
+if __name__ == "__main__":
+    for arg in sys.argv[1:] or ["3500"]:
+        print(json.dumps({"n": int(arg), "device": "cpu", **rehearse(int(arg))}), flush=True)

@@ -20,8 +20,10 @@ from karpenter_core_tpu_torch import testing as tt
 from karpenter_core_tpu_torch.cloudprovider import fake as tfake
 from karpenter_core_tpu_torch.cloudprovider import types as ttypes
 from karpenter_core_tpu_torch.kube import objects as tobj
+from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient as TClient
 from karpenter_core_tpu_torch.ops import screen
 from karpenter_core_tpu_torch.solver import torch_solver as tsolver
+from karpenter_core_tpu_torch.state.cluster import Cluster as TCluster
 from karpenter_core_tpu_torch.state.node import StateNode as TStateNode
 
 ZONE = "topology.kubernetes.io/zone"
@@ -38,11 +40,15 @@ def _mods(pkg):
         from karpenter_core_tpu.cloudprovider import fake as jfake
         from karpenter_core_tpu.cloudprovider import types as jtypes
         from karpenter_core_tpu.kube import objects as jobj
+        from karpenter_core_tpu.kube.client import InMemoryKubeClient as JClient
+        from karpenter_core_tpu.state.cluster import Cluster as JCluster
         from karpenter_core_tpu.state.node import StateNode as JStateNode
 
         return SimpleNamespace(t=jt, o=jobj, fake=jfake, types=jtypes,
-                               node=lambda n: JStateNode(node=n))
-    return SimpleNamespace(t=tt, o=tobj, fake=tfake, types=ttypes, node=TStateNode)
+                               node=lambda n: JStateNode(node=n), client=JClient,
+                               cluster=JCluster)
+    return SimpleNamespace(t=tt, o=tobj, fake=tfake, types=ttypes, node=TStateNode,
+                           client=TClient, cluster=TCluster)
 
 
 def _term(m, *exprs):
@@ -92,7 +98,15 @@ def _nodes(m, its, n, bound=(), daemons_on=(), labels=None):
 
 def workload(family, pkg):
     """(pods, provisioners, instance types, daemonset pods, state nodes,
-    max_nodes) for one family, built with `pkg`'s builders."""
+    max_nodes, kube client, cluster) for one family, built with `pkg`'s
+    builders; the client and cluster are None but for the cluster
+    family."""
+    if family == "cluster":
+        return cluster_workload(_mods(pkg), family)
+    return _workload(family, pkg) + (None, None)
+
+
+def _workload(family, pkg):
     m = _mods(pkg)
     its = m.fake.instance_types(16)
     if family == "mixed":
@@ -359,7 +373,122 @@ def reference_mix(m, n_pods, n_types, distinct=1, tag="mix"):
         "default": m.fake.instance_types(n_types)}
 
 
-FAMILIES = ("mixed", "relax", "bulk", "wide", "spread", "affinity", "anti", "refmix")
+EBS = "ebs.csi.aws.com"
+
+
+def cluster_workload(m, family, n_nodes=9, n_pending=280, n_types=16):
+    """A live cluster: nodes registered through a Cluster with CSINode
+    attach limits, bound pods in the kube client (claims, host ports,
+    spread and affinity cohorts skewed over the zones, a pod in another
+    namespace, terminal and terminating pods, a bound copy of one batch
+    pod, zonal anti-affinity against one generic class), and a pending
+    batch of the reference mix plus host-port pods (wildcard, specific
+    IP, UDP), StatefulSet-like claim pods, a shared claim, a claim bound
+    to a PV of another driver, a claim of an unknown class and a missing
+    claim."""
+    client = m.client()
+    cluster = m.cluster(client)
+    client.create(m.t.make_storage_class("ebs", provisioner=EBS))
+    client.create(m.t.make_pv("pv-efs", driver="efs.csi.aws.com"))
+    its = m.fake.instance_types(n_types)
+    for e in range(n_nodes):
+        it = its[(3 * e + 5) % len(its)]
+        node = m.t.make_node(
+            name=f"node-{e}",
+            labels={PROV: "default", "karpenter.sh/initialized": "true",
+                    "node.kubernetes.io/instance-type": it.name,
+                    ZONE: f"test-zone-{1 + e % 3}", CT: "on-demand"},
+            capacity={k: str(v) for k, v in it.capacity.items()},
+        )
+        client.create(node)
+        if e % 4 != 3:
+            client.create(m.t.make_csinode(f"node-{e}", EBS, allocatable=2 + e % 3))
+        cluster.update_node(node)
+
+    def bound(e, j, **kw):
+        p = m.t.make_pod(name=f"bound-{e}-{j}", node_name=f"node-{e}",
+                         unschedulable=False, phase=kw.pop("phase", "Running"),
+                         requests={"cpu": "0.25"}, **kw)
+        p.metadata.uid = f"uid-bound-{e}-{j}"
+        p.metadata.creation_timestamp = 900.0
+        return p
+
+    zonal_spread = m.o.TopologySpreadConstraint(1, ZONE, "DoNotSchedule", _sel(m, "spread"))
+    guard = m.o.PodAffinityTerm(topology_key=ZONE, label_selector=_sel(m, "gen-0-1"))
+    running = []
+    for e in range(n_nodes):
+        zone = e % 3
+        for j in range(e % 4):  # e % 4 claims; node 2 sits at its limit of 2
+            claim = f"data-{e}-{j}"
+            client.create(m.t.make_pvc(claim, storage_class="ebs"))
+            p = bound(e, f"v{j}")
+            p.spec.volumes.append(m.t.pvc_volume(claim))
+            running.append(p)
+        if e % 3 == 0:
+            p = bound(e, "port", host_ports=[443])
+            if e == 3:
+                p.spec.containers[0].ports[0].host_ip = "10.0.0.3"
+            running.append(p)
+        # zonal-spread cohort skewed 3 : 2 : 1, hostname spread on one node,
+        # the affinity cohort's matches in zone 2 only
+        running += [bound(e, f"s{j}", labels={"app": "spread"}) for j in range(3 - zone)]
+        if e == 4:
+            running.append(bound(e, "h", labels={"app": "hspread"}))
+        if zone == 1:
+            running.append(bound(e, "a", labels={"app": "aff"}))
+        if e == 5:
+            running.append(bound(e, "guard", labels={"app": "guard"},
+                                 pod_anti_affinity_required=[guard]))
+    # not counted: another namespace, terminal, terminating
+    running.append(bound(0, "ns", labels={"app": "spread"}, namespace="other"))
+    running.append(bound(1, "done", labels={"app": "spread"}, phase="Succeeded"))
+    term = bound(2, "term", labels={"app": "spread"})
+    term.metadata.deletion_timestamp = 1.0
+    running.append(term)
+
+    pods, provs, its_map = reference_mix(m, n_pending, n_types, distinct=3, tag=family)
+    udp = m.o.ContainerPort(host_port=53, protocol="UDP")
+    extra = []
+    for i in range(32):
+        kind = i % 8
+        # larger than the mix: first in FFD order, onto the existing nodes
+        kw = {"requests": {"cpu": "2", "memory": "2Gi"}}
+        if kind in (0, 1):
+            kw["host_ports"] = [443]
+        elif kind == 2:
+            kw["host_ports"] = [8080]
+        p = _pod(m, f"{family}-x", i, labels={"app": f"sts-{i % 3}"}, **kw)
+        if kind == 3:
+            p.spec.containers[0].ports.append(udp)
+        elif kind == 2 and i % 16 == 2:
+            p.spec.containers[0].ports[0].host_ip = "10.0.0.9"
+        elif kind in (4, 5):
+            claim = f"sts-{i}"
+            client.create(m.t.make_pvc(claim, storage_class="ebs"))
+            p.spec.volumes.append(m.t.pvc_volume(claim))
+        elif kind == 6:
+            p.spec.volumes.append(m.t.pvc_volume("shared"))
+        elif kind == 7:
+            p.spec.volumes.append(m.t.pvc_volume(
+                ("efs-claim", "no-class", "missing")[i // 8 % 3]))
+        extra.append(p)
+    client.create(m.t.make_pvc("shared", storage_class="ebs"))
+    client.create(m.t.make_pvc("efs-claim", storage_class="ebs", volume_name="pv-efs"))
+    client.create(m.t.make_pvc("no-class", storage_class="ghost"))
+    pods = pods + extra
+    # a batch pod the client still shows bound: excluded from the counts
+    stale = copy.deepcopy(pods[0])
+    stale.spec.node_name = "node-1"
+    stale.status.phase = "Running"
+    running.append(stale)
+    for p in running:
+        client.create(p)
+        cluster.update_pod(p)
+    return pods, provs, its_map, [], cluster.nodes(), 128, client, cluster
+
+
+FAMILIES = ("mixed", "relax", "bulk", "wide", "spread", "affinity", "anti", "refmix",
+            "cluster")
 
 
 def _card():
@@ -496,8 +625,9 @@ def test_card_and_cpu_scan_state_bit_identical(family):
     from karpenter_core_tpu_torch.ops.pack import make_prescreen_kernel
     from karpenter_core_tpu_torch.solver.encode import encode_snapshot
 
-    pods, provs, its, daemons, nodes, max_nodes = workload(family, "torch")
-    snap = encode_snapshot(pods, provs, its, daemons, nodes, max_nodes=max_nodes)
+    pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload(family, "torch")
+    snap = encode_snapshot(pods, provs, its, daemons, nodes, client, cluster,
+                           max_nodes=max_nodes)
     geom = tsolver.solve_geometry(snap, max_nodes)
     N, segs, zs, cs, log_len, screen_v = (geom[7], geom[8], geom[9], geom[10],
                                           geom[12], geom[16])
@@ -526,10 +656,11 @@ def test_card_and_cpu_scan_state_bit_identical(family):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_card_and_cpu_placements_identical(family):
     _card()
-    pods, provs, its, daemons, nodes, max_nodes = workload(family, "torch")
+    pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload(family, "torch")
     got = {}
     for dev in ("cpu", "cuda"):
         result = tsolver.TorchSolver(max_nodes=max_nodes, device=dev).solve(
-            copy.deepcopy(pods), provs, its, daemonset_pods=daemons, state_nodes=nodes)
+            copy.deepcopy(pods), provs, its, daemonset_pods=daemons, state_nodes=nodes,
+            kube_client=client, cluster=cluster)
         got[dev] = tsolver.placements_json(result)
     assert got["cpu"] == got["cuda"]

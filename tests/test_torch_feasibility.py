@@ -17,9 +17,9 @@ from tests.test_torch_cuda import FAMILIES, workload
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_feasibility_static_and_openable_match(family):
-    pods, provs, its, daemons, nodes, max_nodes = workload(family, "jax")
-    snap = jencode.encode_snapshot(pods, provs, its, daemons, nodes,
-                                   max_nodes=max_nodes)
+    pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload(family, "jax")
+    snap = jencode.encode_snapshot(pods, provs, its, daemons, nodes, kube_client=client,
+                                   cluster=cluster, max_nodes=max_nodes)
     args = jsolver.device_args(snap, provs)
     segments = [snap.dictionary.segment(k) for k in snap.dictionary.keys]
     pa, tmpl, daemon, tmask, types = args[0], args[1], args[2], args[3], args[4]

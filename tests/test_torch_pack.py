@@ -21,12 +21,12 @@ from tests.test_torch_solver import _assert_tree_equal
 
 
 @pytest.fixture(scope="module", params=["mixed", "bulk", "wide", "spread", "affinity",
-                                        "anti", "refmix"])
+                                        "anti", "refmix", "cluster"])
 def runs(request):
     family = request.param
-    pods, provs, its, daemons, nodes, max_nodes = workload(family, "jax")
-    snap = jencode.encode_snapshot(pods, provs, its, daemons, nodes,
-                                   max_nodes=max_nodes)
+    pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload(family, "jax")
+    snap = jencode.encode_snapshot(pods, provs, its, daemons, nodes, kube_client=client,
+                                   cluster=cluster, max_nodes=max_nodes)
     geom = jsolver.solve_geometry(snap, max_nodes)
     N, segs, zs, cs, log_len, screen_v = (
         geom[7], geom[8], geom[9], geom[10], geom[12], geom[16]

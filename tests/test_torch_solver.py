@@ -19,8 +19,6 @@ from karpenter_core_tpu.obs.flightrec import canonical_placements, placements_js
 from karpenter_core_tpu.solver import encode as jencode
 from karpenter_core_tpu.solver import tpu_solver as jsolver
 
-from karpenter_core_tpu_torch import testing as tt
-from karpenter_core_tpu_torch.cloudprovider import fake as tfake
 from karpenter_core_tpu_torch.solver import encode as tencode
 from karpenter_core_tpu_torch.solver import torch_solver as tsolver
 
@@ -48,10 +46,12 @@ def _assert_tree_equal(a, b, path="args"):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_encode_and_device_args_match_reference(family):
-    jp, jprov, jits, jds, jnodes, max_nodes = workload(family, "jax")
-    tp, tprov, tits, tds, tnodes, _ = workload(family, "torch")
-    js = jencode.encode_snapshot(jp, jprov, jits, jds, jnodes, max_nodes=max_nodes)
-    ts = tencode.encode_snapshot(tp, tprov, tits, tds, tnodes, max_nodes=max_nodes)
+    jp, jprov, jits, jds, jnodes, max_nodes, jkc, jcl = workload(family, "jax")
+    tp, tprov, tits, tds, tnodes, _, tkc, tcl = workload(family, "torch")
+    js = jencode.encode_snapshot(jp, jprov, jits, jds, jnodes, kube_client=jkc,
+                                 cluster=jcl, max_nodes=max_nodes)
+    ts = tencode.encode_snapshot(tp, tprov, tits, tds, tnodes, tkc, tcl,
+                                 max_nodes=max_nodes)
     assert js.dictionary.keys == ts.dictionary.keys
     assert [js.dictionary.values_of(k) for k in js.dictionary.keys] == [
         ts.dictionary.values_of(k) for k in ts.dictionary.keys
@@ -72,13 +72,15 @@ def test_encode_and_device_args_match_reference(family):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_torch_solver_placements_match_reference(family):
-    jp, jprov, jits, jds, jnodes, max_nodes = workload(family, "jax")
-    tp, tprov, tits, tds, tnodes, _ = workload(family, "torch")
+    jp, jprov, jits, jds, jnodes, max_nodes, jkc, jcl = workload(family, "jax")
+    tp, tprov, tits, tds, tnodes, _, tkc, tcl = workload(family, "torch")
     want = jsolver.TPUSolver(max_nodes=max_nodes, backend="mxu",
                              incremental="off").solve(
-        jp, jprov, jits, daemonset_pods=jds, state_nodes=jnodes)
+        jp, jprov, jits, daemonset_pods=jds, state_nodes=jnodes, kube_client=jkc,
+        cluster=jcl)
     got = tsolver.TorchSolver(max_nodes=max_nodes, device="cpu").solve(
-        tp, tprov, tits, daemonset_pods=tds, state_nodes=tnodes)
+        tp, tprov, tits, daemonset_pods=tds, state_nodes=tnodes, kube_client=tkc,
+        cluster=tcl)
     assert placements_json(canonical_placements(got)) == placements_json(
         canonical_placements(want))
     # the port's own serializer (chip_smoke.py's comparison unit) agrees
@@ -90,16 +92,6 @@ def test_torch_solver_placements_match_reference(family):
         assert got.failed_pods
     if family != "relax":
         assert got.pod_count_existing() > 0
-
-
-@pytest.mark.parametrize("what", ["host_port"])
-def test_unported_constraints_are_refused(what):
-    kw = {"host_port": {"host_ports": [8080]}}[what]
-    pods = [tt.make_pod(requests={"cpu": "1"}), tt.make_pod(requests={"cpu": "1"}, **kw)]
-    solver = tsolver.TorchSolver(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.solve(pods, [tt.make_provisioner(name="default")],
-                     {"default": tfake.instance_types(4)})
 
 
 def _refused_before(m, what):
@@ -138,28 +130,28 @@ def test_formerly_refused_constraints_match_reference(what):
     assert got.new_machines
 
 
-@pytest.mark.parametrize("arg", ["kube_client", "cluster"])
-def test_cluster_sources_are_refused(arg):
-    solver = tsolver.TorchSolver(device="cpu")
-    pods = [tt.make_pod(requests={"cpu": "1"})]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        solver.solve(pods, [tt.make_provisioner(name="default")],
-                     {"default": tfake.instance_types(4)}, **{arg: object()})
+@pytest.mark.parametrize("case", ["host_port", "volume", "kube_client_seeding",
+                                  "cluster_inverse_anti"])
+def test_formerly_refused_cluster_inputs_match_reference(case):
+    """Host ports, volume claims, a kube client and a cluster, which the
+    earlier slices refused: device_args, scan state and placements equal
+    the reference's (tests/test_torch_cluster.py's check_case)."""
+    from tests.test_torch_cluster import FORMERLY_REFUSED, check_case
 
-
-def test_volume_pods_are_refused():
-    from karpenter_core_tpu_torch.kube.objects import (
-        PersistentVolumeClaimVolumeSource,
-        Volume,
-    )
-
-    pod = tt.make_pod(requests={"cpu": "1"})
-    pod.spec.volumes.append(Volume(
-        name="data", persistent_volume_claim=PersistentVolumeClaimVolumeSource("data")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolver.TorchSolver(device="cpu").solve(
-            [pod], [tt.make_provisioner(name="default")],
-            {"default": tfake.instance_types(4)})
+    got, snap = check_case(FORMERLY_REFUSED[case])
+    assert not got.failed_pods
+    if case == "host_port":
+        assert snap.pod_ports_u.shape[1] > 0
+        assert all(sum(bool(p.spec.containers[0].ports) for p in mc.pods) <= 1
+                   for mc in got.new_machines)
+    elif case == "volume":
+        assert snap.pod_vols_u.shape[1] > 0
+        # the two nodes' attach limits (1 and 2) take three of the claims
+        assert got.pod_count_existing() == 3
+    elif case == "kube_client_seeding":
+        assert snap.topo_arrays.counts0.sum() > 0 and snap.topo_arrays.hcounts0.sum() > 0
+    else:
+        assert len(snap.topo_meta.groups) == 1 and snap.topo_meta.groups[0].is_inverse
 
 
 def test_default_device_is_the_card():
@@ -171,7 +163,7 @@ def test_default_device_is_the_card():
 
 
 def test_relaxation_never_mutates_caller_pods():
-    tp, tprov, tits, tds, tnodes, max_nodes = workload("relax", "torch")
+    tp, tprov, tits, tds, tnodes, max_nodes, _, _ = workload("relax", "torch")
     before = copy.deepcopy(tp)
     tsolver.TorchSolver(max_nodes=max_nodes, device="cpu").solve(tp, tprov, tits)
     assert tp == before

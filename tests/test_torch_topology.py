@@ -223,12 +223,14 @@ def test_first_true_onehot_matches():
         jt._first_true_onehot(jnp.asarray(mask)), "onehot")
 
 
-@pytest.mark.parametrize("family", ["spread", "affinity", "anti", "refmix"])
+@pytest.mark.parametrize("family", ["spread", "affinity", "anti", "refmix", "cluster"])
 def test_encode_topology_matches(family):
-    jp, jprov, jits, jds, jnodes, max_nodes = workload(family, "jax")
-    tp, tprov, tits, tds, tnodes, _ = workload(family, "torch")
-    js = jencode.encode_snapshot(jp, jprov, jits, jds, jnodes, max_nodes=max_nodes)
-    ts = tencode.encode_snapshot(tp, tprov, tits, tds, tnodes, max_nodes=max_nodes)
+    jp, jprov, jits, jds, jnodes, max_nodes, jkc, jcl = workload(family, "jax")
+    tp, tprov, tits, tds, tnodes, _, tkc, tcl = workload(family, "torch")
+    js = jencode.encode_snapshot(jp, jprov, jits, jds, jnodes, kube_client=jkc,
+                                 cluster=jcl, max_nodes=max_nodes)
+    ts = tencode.encode_snapshot(tp, tprov, tits, tds, tnodes, tkc, tcl,
+                                 max_nodes=max_nodes)
     assert topo_meta_from(js.topo_meta) == ts.topo_meta
     kinds = {(g.gtype, g.is_hostname, g.is_inverse) for g in ts.topo_meta.groups}
     assert len(kinds) >= 2
@@ -248,8 +250,8 @@ def test_encode_topology_matches(family):
     )
 
     assert build_domains(tprov, tits) == j_build_domains(jprov, jits)
-    t_host = TTopology(build_domains(tprov, tits), ts.pods)
-    j_host = JTopology(None, None, j_build_domains(jprov, jits), js.pods)
+    t_host = TTopology(tkc, tcl, build_domains(tprov, tits), ts.pods)
+    j_host = JTopology(jkc, jcl, j_build_domains(jprov, jits), js.pods)
     hostnames = [n.hostname() for n in ts.state_nodes]
     tmeta, tarr = tt.encode_topology(t_host, ts.pods, ts.dictionary, ts.n_slots, hostnames)
     jmeta, jarr = jt.encode_topology(j_host, js.pods, js.dictionary, js.n_slots, hostnames)
