@@ -50,15 +50,41 @@ Phases, each fatal on failure:
      cluster=...); every pod must be placed, every placement, host port,
      attach limit and topology constraint is checked with the cluster's
      pods counted, and screen_prep and the screen in its block and row_n1
-     forms must have been launched.
-It prints one JSON line describing every kernel, then as its last line
-{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
+     forms must have been launched;
+  2 (the tiered shape). the row_b1 form at the tiered screen's real
+     shape, after phase 6: the slot planes of a scan of phase 6's snapshot
+     on the card (the ~7,500 open slots) against one class row, held
+     exactly against screen_plain at several prefixes and timed beside its
+     bound;
+  6b. phase 6's workload solved with screen_mode="tiered" (the row_b1
+     form once per item) in turns with the prescreen (tiered, prescreen,
+     prescreen, tiered), each solve with the launch counts set to 0 just
+     before it and read just after: placements byte-identical to phase
+     6's; a tiered solve must launch row_b1 and no block or row_n1;
+  7. steady churn at full width: from phase 6's live cluster, fed through
+     the kube client's watches and the informers, four consecutive solves
+     by an incremental TorchSolver and one with incremental="off"; between
+     them the last placements materialise (pods bind on 20 existing nodes,
+     5 of the launched machines join as nodes with their pods), bound pods
+     terminate, and new pods arrive, among them a new deployment pinned to
+     one zone (tens of nodes touched a step). Each solve's launches are
+     read on their own; every step byte-identical, the last one checked;
+     the first step must run the full precompute, a later one must refresh
+     the resident tensor, each prescreen dispatch must launch exactly what
+     its delta needs, and no refresh may fail.
+Phases 4-6 solve with incremental="off", so their warm solves run the full
+precompute as before. It prints one JSON line describing every kernel (the
+screen, screen_prep, and the screen's three forms with their launches over
+phases 4-7), then as its last line {"ok": true, "device": {...}}. Without a
+CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
 
-adds a third main-path (phase 6) solve under torch.profiler and prints the
-device's busy share of that solve and its costliest device operations.
+adds a third main-path (phase 6) solve under torch.profiler, and one with
+screen_mode="tiered", and prints for each the device's busy share, its
+costliest device operations and the host's operator count and time.
 """
+import copy
 import gc
 import json
 import os
@@ -96,7 +122,9 @@ from karpenter_core_tpu_torch.scheduling import taints as taints_mod  # noqa: E4
 from karpenter_core_tpu_torch.scheduling.requirement import Requirement  # noqa: E402
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements  # noqa: E402
 from karpenter_core_tpu_torch.solver import torch_solver  # noqa: E402
+from karpenter_core_tpu_torch.solver import incremental  # noqa: E402
 from karpenter_core_tpu_torch.solver.encode import encode_snapshot  # noqa: E402
+from karpenter_core_tpu_torch.state import informer  # noqa: E402
 from karpenter_core_tpu_torch.state.cluster import Cluster  # noqa: E402
 from karpenter_core_tpu_torch.state.node import StateNode  # noqa: E402
 from karpenter_core_tpu_torch.utils import resources  # noqa: E402
@@ -475,6 +503,99 @@ def _segments(lengths):
     return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
 
 
+def time_shape(name, rows, items_pl, layout, b, int_rate: float, busy_cycles: int) -> dict:
+    """One screen shape of the main path: the wrapper checked exactly
+    against screen_plain, then timed (the wrapper, the kernel alone, the
+    slot prep, the plain version) beside the card's bounds. `b` is the
+    item row of the B = 1 form, or None for every item."""
+    K = rows["out"].shape[1]
+    N = rows["allow"].shape[0]
+    form = screen.form_of(N, items_pl.B if b is None else 1)
+    s_args = (rows["allow"], rows["out"], rows["defined"])
+    if b is None:
+        wrapper = lambda: screen.screen_block(*s_args, items_pl, layout)  # noqa: E731
+        plain = lambda: _plain(rows, items_pl.planes, layout)  # noqa: E731
+    else:
+        wrapper = lambda: screen.screen_row(*s_args, items_pl, b, layout)  # noqa: E731
+        plain = lambda: _plain(rows, items_pl.planes, layout, slice(b, b + 1))  # noqa: E731
+    want = plain()
+    got = wrapper()
+    torch.cuda.synchronize()
+    if not torch.equal(got.reshape(want.shape), want):
+        raise AssertionError(f"screen disagrees with screen_plain at {name}")
+    slot_prep = screen.screen_prep(*s_args, layout, words=form != "block",
+                                   planes=form == "block")
+    kernel = lambda: screen._launch(form, slot_prep, items_pl, b or 0, layout, N)  # noqa: E731
+    prep_kernel = lambda: screen.screen_prep(*s_args, layout, words=form != "block",  # noqa: E731
+                                             planes=form == "block")
+    B = items_pl.B if b is None else 1
+    # ms: a wrapper call as the caller sees it (screen_block / screen_row:
+    # slot prep and screen; screen_prep alone for prep_ms), host gaps
+    # included; kernel_ms: the one launch alone, the card kept busy
+    stats = {
+        "form": form, "N": N, "B": B,
+        "ms": time_on_card(wrapper, reps=50),
+        "host_ms": host_ms(wrapper),
+        "kernel_ms": time_on_card(kernel, reps=50, busy_cycles=busy_cycles),
+        "prep_ms": time_on_card(prep_kernel, reps=50),
+        "prep_kernel_ms": time_on_card(prep_kernel, reps=50, busy_cycles=busy_cycles),
+        "plain_ms": time_on_card(plain, reps=5),
+        **screen_bound(form, N, B, layout, int_rate),
+    }
+    prep_b = prep_bound(N, layout, False, form != "block", form == "block", int_rate)
+    stats["prep_bound_ms"], stats["prep_bound_by"] = prep_b["bound_ms"], prep_b["bound_by"]
+    say(f"[screen] {name} ({form}, N={N} B={B} width={layout.width} K={K} "
+        f"words={layout.n_words}): wrapper {stats['ms']:.4f} ms ({stats['host_ms']:.4f} ms "
+        f"of it host time), screen kernel {stats['kernel_ms']:.4f} ms, slot prep "
+        f"wrapper {stats['prep_ms']:.4f} ms, kernel {stats['prep_kernel_ms']:.4f} ms, "
+        f"plain {stats['plain_ms']:.4f} ms; screen bound {stats['bound_ms']:.6f} ms by "
+        f"{stats['bound_detail']} ({stats['bytes']} bytes, {stats['tensor_ops']} tensor "
+        f"ops, {stats['int_ops']} 32-bit ops), slot prep bound "
+        f"{stats['prep_bound_ms']:.6f} ms by {prep_b['bound_detail']}")
+    return stats
+
+
+def phase_tiered_shape(snap, provs, max_nodes: int, int_rate: float, busy_cycles: int):
+    """Phase 2's tiered shape: the row_b1 form at the tiered screen's real
+    shape, every open slot row of the main path's scan against one class
+    row. The slot planes are those of phase 6's snapshot after a scan on
+    the card (nopen ~7,500 rows); row_b1 is held exactly against
+    screen_plain at several prefixes and class rows, then timed at the
+    full prefix."""
+    dev = torch.device("cuda")
+    geom = torch_solver.solve_geometry(snap, max_nodes)
+    N, segments, zone_seg, ct_seg, log_len, screen_v = (
+        geom[7], list(geom[8]), geom[9], geom[10], geom[12], geom[16])
+    targs = torch_solver.args_to_torch(torch_solver.device_args(snap, provs), dev)
+    screen0 = pack.make_prescreen_kernel(segments, N, screen_v=screen_v)(targs[0], targs[9])
+    _log, _ptr, state = torch_solver.make_device_run(
+        segments, zone_seg, ct_seg, snap.topo_meta, N, log_len, screen_v=screen_v)(
+        screen0, *targs)
+    nopen = int(state.nopen)
+    V = state.allow.shape[1]
+    ops = ScreenOps(segments, V, screen_v)
+    items_pl = class_planes(targs[0], ops)
+    C = items_pl.B
+    bad = 0
+    for lim in sorted({min(1024, nopen), nopen // 2, nopen}):
+        rows = {k: getattr(state, k)[:lim] for k in ("allow", "out", "defined")}
+        for b in sorted({0, C // 2, C - 1}):
+            got = screen.screen_row(rows["allow"], rows["out"], rows["defined"], items_pl, b,
+                                    ops.row_layout)
+            want = _plain(rows, items_pl.planes, ops.row_layout, slice(b, b + 1))[:, 0]
+            bad += int((got != want).sum())
+    torch.cuda.synchronize()
+    say(f"[screen] tiered shape: nopen {nopen} of N={N} slots, C={C} class rows; row_b1 "
+        f"against screen_plain at prefixes up to {nopen} rows: {bad} mismatches")
+    if bad:
+        raise AssertionError("row_b1 disagrees with screen_plain at the tiered shape")
+    rows = {k: getattr(state, k)[:nopen] for k in ("allow", "out", "defined")}
+    stats = time_shape(f"tiered nopen x 1 ({nopen} open slots)", rows, items_pl,
+                       ops.row_layout, C // 2, int_rate, busy_cycles)
+    stats["max_abs_err"] = float(bad > 0)
+    return stats
+
+
 def phase_kernels(main_snapshot, int_rate: float, busy_cycles: int):
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -518,52 +639,8 @@ def phase_kernels(main_snapshot, int_rate: float, busy_cycles: int):
         ("virgin row 1 x C", virgin, ops.row_layout, None),
         ("one class N x 1", e_rows, ops.row_layout, 0),
     ]
-    timed = {}
-    for name, rows, layout, b in shapes:
-        N = rows["allow"].shape[0]
-        form = screen.form_of(N, items_pl.B if b is None else 1)
-        s_args = (rows["allow"], rows["out"], rows["defined"])
-        if b is None:
-            wrapper = lambda: screen.screen_block(*s_args, items_pl, layout)  # noqa: E731
-            plain = lambda: _plain(rows, items_pl.planes, layout)  # noqa: E731
-        else:
-            wrapper = lambda: screen.screen_row(*s_args, items_pl, b, layout)  # noqa: E731
-            plain = lambda: _plain(rows, items_pl.planes, layout, slice(b, b + 1))  # noqa: E731
-        want = plain()
-        got = wrapper()
-        torch.cuda.synchronize()
-        if not torch.equal(got.reshape(want.shape), want):
-            raise AssertionError(f"screen disagrees with screen_plain at {name}")
-        slot_prep = screen.screen_prep(*s_args, layout, words=form != "block",
-                                       planes=form == "block")
-        kernel = lambda: screen._launch(form, slot_prep, items_pl, b or 0, layout, N)  # noqa: E731
-        prep_kernel = lambda: screen.screen_prep(*s_args, layout, words=form != "block",  # noqa: E731
-                                                 planes=form == "block")
-        B = items_pl.B if b is None else 1
-        # ms: a wrapper call as the caller sees it (screen_block / screen_row:
-        # slot prep and screen; screen_prep alone for prep_ms), host gaps
-        # included; kernel_ms: the one launch alone, the card kept busy
-        stats = {
-            "form": form, "N": N, "B": B,
-            "ms": time_on_card(wrapper, reps=50),
-            "host_ms": host_ms(wrapper),
-            "kernel_ms": time_on_card(kernel, reps=50, busy_cycles=busy_cycles),
-            "prep_ms": time_on_card(prep_kernel, reps=50),
-            "prep_kernel_ms": time_on_card(prep_kernel, reps=50, busy_cycles=busy_cycles),
-            "plain_ms": time_on_card(plain, reps=5),
-            **screen_bound(form, N, B, layout, int_rate),
-        }
-        prep_b = prep_bound(N, layout, False, form != "block", form == "block", int_rate)
-        stats["prep_bound_ms"], stats["prep_bound_by"] = prep_b["bound_ms"], prep_b["bound_by"]
-        timed[name] = stats
-        say(f"[screen] {name} ({form}, N={N} B={B} width={layout.width} K={K} "
-            f"words={layout.n_words}): wrapper {stats['ms']:.4f} ms ({stats['host_ms']:.4f} ms "
-            f"of it host time), screen kernel {stats['kernel_ms']:.4f} ms, slot prep "
-            f"wrapper {stats['prep_ms']:.4f} ms, kernel {stats['prep_kernel_ms']:.4f} ms, "
-            f"plain {stats['plain_ms']:.4f} ms; screen bound {stats['bound_ms']:.6f} ms by "
-            f"{stats['bound_detail']} ({stats['bytes']} bytes, {stats['tensor_ops']} tensor "
-            f"ops, {stats['int_ops']} 32-bit ops), slot prep bound "
-            f"{stats['prep_bound_ms']:.6f} ms by {prep_b['bound_detail']}")
+    timed = {name: time_shape(name, rows, items_pl, layout, b, int_rate, busy_cycles)
+             for name, rows, layout, b in shapes}
     blk = timed["existing block E x C"]
 
     # the item side's prep (once per ScreenItems: twice per solve)
@@ -822,9 +899,10 @@ def check_topology(result, zones, kube_client=None) -> dict:
 
 # -- main ---------------------------------------------------------------------
 
-def profile_solve(solver, workload, cluster) -> None:
+def profile_solve(solver, workload, cluster, label="profile") -> None:
     """One more main-path solve under torch.profiler: wall time, summed
-    device time (busy share) and the costliest device operations."""
+    device time (busy share), the costliest device operations, and the
+    host's operator count and time with its costliest operators."""
     from torch.profiler import ProfilerActivity, profile
 
     pods, provs, its = workload
@@ -840,12 +918,17 @@ def profile_solve(solver, workload, cluster) -> None:
     on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in on_device) / 1e3
     launches = sum(e.count for e in on_device)
-    say(f"[profile] solve {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
-        f"({100.0 * busy_ms / wall_ms:.1f}%), {launches} device operations; "
-        f"phases {json.dumps({k: round(v, 3) for k, v in solver.last_phase_ms.items()})}")
     host_ops = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+    host_ms = sum(e.self_cpu_time_total for e in host_ops) / 1e3
+    say(f"[{label}] solve {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
+        f"({100.0 * busy_ms / wall_ms:.1f}%), {launches} device operations; host "
+        f"operators {sum(e.count for e in host_ops)}, {host_ms:.1f} ms of self time; "
+        f"phases {json.dumps({k: round(v, 3) for k, v in solver.last_phase_ms.items()})}")
     for e in sorted(host_ops, key=dev_us, reverse=True)[:10]:
-        say(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<7d} {e.key[:90]}")
+        say(f"[{label}]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<7d} {e.key[:90]}")
+    say(f"[{label}] by host self time:")
+    for e in sorted(host_ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]:
+        say(f"[{label}]   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<7d} {e.key[:90]}")
     if busy_ms <= 0.0:
         raise AssertionError("the profiler saw no device time")
 
@@ -860,7 +943,8 @@ def run_main_path(label, solver, workload, zones=None, cluster=None):
     `zones`, the topology constraints) and that both solves agree. With a
     cluster, each solve takes its state nodes from cluster.nodes() (timed
     within the solve's wall time) and reads the cluster and its kube
-    client. Returns (launches, launches by form, solver)."""
+    client. Returns (launches, launches by form, solver, the cold
+    solve's result, the workload's snapshot)."""
     pods, provs, its, nodes = workload
     client = cluster.kube_client if cluster is not None else None
     screen.reset_launches()
@@ -906,7 +990,225 @@ def run_main_path(label, solver, workload, zones=None, cluster=None):
         f"W={snap.pod_vols_u.shape[1]} claim columns, D={snap.exist_vol_limits.shape[1]} "
         f"drivers; checks {check_s:.2f} s: topology {json.dumps(checked)}, cluster "
         f"usage {json.dumps(usage)}; over the two solves: {launches_line()}")
-    return launches, forms, solver
+    return launches, forms, solver, result, snap
+
+
+def _bound_copy(pod, node_name: str):
+    """The running copy of a pending pod that the scheduler bound to
+    `node_name`: its whole spec (ports, claims, constraints) kept."""
+    bound = copy.deepcopy(pod)
+    bound.spec.node_name = node_name
+    bound.status.phase = "Running"
+    bound.status.conditions = []
+    return bound
+
+
+def _joined_node(machine, name: str, zones):
+    """The node a new machine registers as once it launches: the
+    machine's first (cheapest) instance-type option, in the zone its
+    requirements pin or else the first zone they allow, on-demand."""
+    it = machine.instance_type_options[0]
+    zone = _machine_zone(machine)
+    if zone is None:
+        r = machine.requirements.get(LABEL_TOPOLOGY_ZONE)
+        zone = next(z for z in zones if r is None or r.has(z))
+    return testing.make_node(
+        name=name,
+        labels={PROVISIONER_NAME_LABEL_KEY: machine.provisioner_name,
+                LABEL_NODE_INITIALIZED: "true", LABEL_INSTANCE_TYPE_STABLE: it.name,
+                LABEL_CAPACITY_TYPE: "on-demand", LABEL_TOPOLOGY_ZONE: zone},
+        capacity={k: str(v) for k, v in it.capacity.items()},
+    )
+
+
+def churn_step(step, pending, result, client, queues, zones, gen_apps,
+               n_bind_nodes=20, per_node=3, n_join=5, n_terminate=15, n_pinned=20) -> list:
+    """Steady-state churn between two solves, through the kube client and
+    the informers, as a provisioning loop sees it:
+      - the scheduler binds part of the last placements on existing
+        nodes (up to `per_node` pods on each of `n_bind_nodes` nodes);
+      - `n_join` of the machines the last solve launched register as
+        nodes (with their CSINode, inside the existing-axis bucket) and
+        their pods bind there;
+      - one bound filler pod on each of `n_terminate` nodes terminates;
+      - new pods arrive at the end of the batch: one replica of a generic
+        deployment (of `gen_apps`, in turn) for each pod bound, and `n_pinned` replicas of a new
+        deployment pinned to one zone by a nodeSelector (the zone turns
+        with the step), so the class mix changes.
+    Returns the new pending batch and the counts and nodes touched."""
+    taken, touched = set(), set()
+
+    def bind(p, node_name):
+        client.create(_bound_copy(p, node_name))
+        taken.add(id(p))
+
+    for node, pods in sorted(result.existing_assignments, key=lambda a: a[0].name()):
+        if len(touched) >= n_bind_nodes:
+            break
+        for p in pods[:per_node]:
+            bind(p, node.name())
+        touched.add(node.name())
+    for k, m in enumerate(result.new_machines[:n_join]):
+        node = _joined_node(m, f"joined-{step}-{k}", zones)
+        client.create(testing.make_csinode(node.name, EBS, allocatable=EBS_NITRO_LIMIT))
+        client.create(node)
+        for p in m.pods:
+            bind(p, node.name)
+        touched.add(node.name)
+    terminated = 0
+    n_base = sum(1 for n in client.list("Node") if n.metadata.name.startswith("node-"))
+    for k in range(n_terminate):
+        i = (step * n_terminate + k) * 7 % n_base
+        victim = client.get("Pod", "default", f"run-{i}-f{step}")
+        if victim is not None:
+            client.delete(victim)
+            touched.add(f"node-{i}")
+            terminated += 1
+    bound = len(taken)
+    arrivals = [testing.make_pod(
+        name=f"gen-s{step}-{k}", labels={"app": gen_apps[(step * 131 + k) % len(gen_apps)]},
+        requests={"cpu": "1", "memory": "1Gi"}, uid=f"uid-gen-s{step}-{k:05d}",
+        creation_timestamp=1000.0 + step) for k in range(bound)]
+    zone = zones[step % len(zones)]
+    arrivals += [testing.make_pod(
+        name=f"pinned-{step}-{k}", labels={"app": f"pinned-{step}"},
+        node_selector={LABEL_TOPOLOGY_ZONE: zone}, requests={"cpu": "1", "memory": "1Gi"},
+        uid=f"uid-pinned-{step}-{k:04d}", creation_timestamp=1000.0 + step)
+        for k in range(n_pinned)]
+    events = sum(informer.drain(q, handler) for q, handler in queues)
+    return [p for p in pending if id(p) not in taken] + arrivals, {
+        "bound": bound, "joined": min(n_join, len(result.new_machines)),
+        "terminated": terminated, "arrived": len(arrivals), "pinned_zone": zone,
+        "nodes_touched": len(touched), "events": events}
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def dispatch_launches(mode: str, delta, n_exist: int, n_cols: int) -> dict:
+    """The launches a prescreen dispatch must make (TorchSolver's
+    last_prescreen_launches): one screen_prep of the class planes, then one
+    slot-side screen_prep and one screen launch, in the form its shape
+    takes (screen.form_of), for each block it computes. The full
+    precompute computes the existing block (n_exist x n_cols) and the
+    virgin row (1 x n_cols); a refresh the changed rows against every
+    column and the changed columns' existing block and virgin row."""
+    if mode == "full":
+        shapes = [(n_exist, n_cols), (1, n_cols)]
+    else:
+        rows, cols = delta["rows"], delta["cols"]
+        shapes = ([(rows, n_cols)] if rows else []) + (
+            [(n_exist, cols), (1, cols)] if cols else [])
+    forms = [screen.form_of(n, b) for n, b in shapes]
+    out = {"screen": len(forms), "screen_prep": 1 + len(forms)}
+    out.update({f: forms.count(f) for f in screen.FORM_LAUNCHES})
+    return out
+
+
+def phase_churn(pods, provs, its, client, cluster, max_nodes: int, zones, steps: int = 4,
+                device: str = "cuda"):
+    """Phase 7: steady churn at full width, from phase 6's live cluster.
+    An incremental TorchSolver and one with incremental="off", both on the
+    card, solve `steps` consecutive batches over the same Cluster, which
+    the kube client's watches feed through the informers between steps
+    (churn_step). Each solve runs with the launch counts set to 0 just
+    before it and read just after. Every step's placements must be
+    byte-identical; the last step's pass check_placements and
+    check_topology with the bound pods counted. The first incremental
+    step must run the full precompute, a later one must refresh, every
+    prescreen dispatch must have launched exactly the kernels and forms
+    its delta needs (dispatch_launches), and no refresh may fail
+    (full_deg). Returns (launches, launches by form, per-step records)."""
+    if len(cluster.nodes_by_provider_id) < 2:
+        raise ValueError("phase_churn: the cluster needs at least two nodes")
+    queues = [(client.watch("Node", backlog=False), informer.NodeInformer(cluster)),
+              (client.watch("Pod", backlog=False), informer.PodInformer(cluster))]
+    inc = torch_solver.TorchSolver(max_nodes=max_nodes, device=device)
+    full = torch_solver.TorchSolver(max_nodes=max_nodes, device=device, incremental="off")
+    pending = list(pods)
+    gen_apps = sorted({p.metadata.labels["app"] for p in pods
+                       if p.metadata.labels.get("app", "").startswith("gen-")})
+    incremental.reset_outcomes()
+    total, modes, steps_out, result = {}, [], [], None
+    for step in range(steps):
+        churn = None
+        if step:
+            t0 = time.perf_counter()
+            pending, churn = churn_step(step, pending, result, client, queues, zones,
+                                        gen_apps)
+            churn["s"] = round(time.perf_counter() - t0, 3)
+        walls, placed, counts = {}, {}, {}
+        for name, solver in (("incremental", inc), ("full", full)):
+            screen.reset_launches()
+            t0 = time.perf_counter()
+            res = solver.solve(pending, provs, its, state_nodes=cluster.nodes(),
+                               kube_client=client, cluster=cluster)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            counts[name] = screen.launch_counts()
+            _add_counts(total, counts[name])
+            placed[name] = torch_solver.placements_json(res)
+            if name == "incremental":
+                result = res
+        if placed["incremental"] != placed["full"]:
+            raise AssertionError(f"churn step {step}: incremental and full placements differ")
+        if result.failed_pods:
+            raise AssertionError(f"churn step {step}: {len(result.failed_pods)} pods failed")
+        mode, delta, pre = inc.last_prescreen_mode, inc.last_prescreen_delta, \
+            inc.last_prescreen_launches
+        modes.append(mode)
+        say(f"[churn] step {step}: churn {json.dumps(churn)}; {len(pending)} pending; "
+            f"incremental {walls['incremental']:.3f} s wall, prescreen {mode} delta "
+            f"{json.dumps(delta)} {inc.last_phase_ms['prescreen']:.3f} ms against the full "
+            f"solver's {full.last_phase_ms['prescreen']:.3f} ms; full {walls['full']:.3f} s "
+            f"wall; incremental phases "
+            + json.dumps({k: round(v, 3) for k, v in inc.last_phase_ms.items()})
+            + f"; placed {result.pod_count_new() + result.pod_count_existing()} (existing "
+            f"{result.pod_count_existing()}, new {result.pod_count_new()} on "
+            f"{len(result.new_machines)} machines); byte-identical; outcomes "
+            f"{json.dumps(incremental.OUTCOMES)}; launches: incremental solve "
+            f"{json.dumps(counts['incremental'])} (its prescreen dispatch "
+            f"{json.dumps(pre)}), full solve {json.dumps(counts['full'])} (its "
+            f"prescreen dispatch {json.dumps(full.last_prescreen_launches)})")
+        # launches are counted on the card only (the CPU runs the plain
+        # versions). Every batch here has more than one class column and
+        # more than one existing node, which is all the forms depend on
+        n_exist = len(cluster.nodes_by_provider_id)
+        for name, solver, got in (("incremental", inc, pre),
+                                  ("full", full, full.last_prescreen_launches)):
+            want = dispatch_launches(solver.last_prescreen_mode, solver.last_prescreen_delta,
+                                     n_exist, 2)
+            if device == "cuda" and got != want:
+                raise AssertionError(
+                    f"churn step {step}: the {name} solver's {solver.last_prescreen_mode} "
+                    f"dispatch of {json.dumps(solver.last_prescreen_delta)} launched "
+                    f"{json.dumps(got)}, expected {json.dumps(want)}")
+        steps_out.append({"mode": mode, "delta": delta, "churn": churn,
+                          "refresh_ms": inc.last_phase_ms["prescreen"],
+                          "full_ms": full.last_phase_ms["prescreen"],
+                          "incremental_launches": counts["incremental"],
+                          "prescreen_launches": pre, "full_launches": counts["full"]})
+    for kind, (q, _handler) in zip(("Node", "Pod"), queues):
+        client.unwatch(kind, q)
+    t0 = time.perf_counter()
+    usage = check_placements(result, len(pending), client)
+    checked = check_topology(result, zones, client)
+    say(f"[churn] {steps} steps, modes {modes}; the last step's checks "
+        f"{time.perf_counter() - t0:.2f} s: topology {json.dumps(checked)}, cluster usage "
+        f"{json.dumps(usage)}; outcomes {json.dumps(incremental.OUTCOMES)}; summed over "
+        f"the phase's solves: {json.dumps(total)}")
+    if modes[0] != "full":
+        raise AssertionError(f"churn: the first step ran {modes[0]}, not the full precompute")
+    if "refresh" not in modes[1:]:
+        raise AssertionError(f"churn: no step refreshed the resident tensor: {modes}")
+    if incremental.OUTCOMES["full_deg"]:
+        raise AssertionError(f"churn: {incremental.OUTCOMES['full_deg']} refreshes failed; "
+                             f"the last: {inc.last_refresh_error}")
+    return ({k: total.get(k, 0) for k in screen.LAUNCHES},
+            {k: total.get(k, 0) for k in screen.FORM_LAUNCHES}, steps_out)
 
 
 def launches_line() -> str:
@@ -1052,8 +1354,10 @@ def main() -> int:
     mark("phase 3c")
 
     # phase 4: the generic share at full width, cold then warm
-    solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda")
-    gen_launches, gen_forms, _ = run_main_path("generic", solver, gen)
+    # phases 4-6 solve each workload cold then warm with the full
+    # precompute, as they always have; phase 7 drives the incremental path
+    solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda", incremental="off")
+    gen_launches, gen_forms, *_ = run_main_path("generic", solver, gen)
     if gen_launches["screen"] < 1 or gen_launches["screen_prep"] < 1 or gen_forms["block"] < 1:
         raise AssertionError("the generic path did not launch screen_prep and the "
                              "block-form screen")
@@ -1062,8 +1366,9 @@ def main() -> int:
     # phase 5: the main path, the whole reference mix at full width
     mix = full_mix()
     mark("building the full mix")
-    mix_launches, mix_forms, _ = run_main_path(
-        "main", torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda"), mix,
+    mix_launches, mix_forms, *_ = run_main_path(
+        "main", torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda",
+                                         incremental="off"), mix,
         zones=_zones(mix[2]))
     if (mix_launches["screen_prep"] < 1 or mix_forms["block"] < 1
             or mix_forms["row_n1"] < 1):
@@ -1078,8 +1383,9 @@ def main() -> int:
     say(f"[cluster] built {len(pods)} pending pods, {len(cluster.nodes_by_provider_id)} "
         f"nodes, {len(cluster.bindings)} bound pods in {time.perf_counter() - t0:.2f} s")
     mark("building the live cluster")
-    live_launches, live_forms, live_solver = run_main_path(
-        "cluster", torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda"),
+    live_launches, live_forms, live_solver, live_result, live_snap = run_main_path(
+        "cluster", torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda",
+                                            incremental="off"),
         (pods, provs, its, None), zones=_zones(its), cluster=cluster)
     if (live_launches["screen_prep"] < 1 or live_forms["block"] < 1
             or live_forms["row_n1"] < 1):
@@ -1088,17 +1394,81 @@ def main() -> int:
     mark("phase 6")
     if "--profile" in sys.argv[1:]:
         profile_solve(live_solver, (pods, provs, its), cluster)
-        mark("the profiled solve")
-    launches = {k: gen_launches[k] + mix_launches[k] + live_launches[k]
-                for k in gen_launches}
+        profile_solve(torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda",
+                                               screen_mode="tiered"),
+                      (pods, provs, its), cluster, label="profile tiered")
+        mark("the profiled solves")
+
+    # phase 2's tiered shape: row_b1 on the main path's slot planes
+    tiered_shape = phase_tiered_shape(live_snap, provs, max_nodes, int_rate, busy_cycles)
+    mark("phase 2 (the tiered shape)")
+
+    # phase 6b: the live cluster solved with the tiered screen, in turns
+    # with the prescreen (tiered, prescreen, prescreen, tiered) so the two
+    # compare within one call
+    # compare within one call; each solve runs with the launch counts set
+    # to 0 just before it and read just after
+    turns, tiered_total = [], {}
+    for mode in ("tiered", "prescreen", "prescreen", "tiered"):
+        solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda",
+                                          screen_mode=mode, incremental="off")
+        screen.reset_launches()
+        t0 = time.perf_counter()
+        res = solver.solve(pods, provs, its, state_nodes=cluster.nodes(), kube_client=client,
+                           cluster=cluster)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = screen.launch_counts()
+        _add_counts(tiered_total, counts)
+        a = torch_solver.placements_json(res)
+        if a != torch_solver.placements_json(live_result):
+            raise AssertionError(f"{mode}: placements differ from the prescreen solve's "
+                                 "(phase 6)")
+        if mode == "tiered" and (counts["row_b1"] < 1 or counts["block"] or counts["row_n1"]):
+            raise AssertionError(f"tiered: the solve launched {json.dumps(counts)}; expected "
+                                 "row_b1 and no block or row_n1")
+        if mode == "prescreen" and (counts["block"] < 1 or counts["row_b1"]):
+            raise AssertionError(f"prescreen: the solve launched {json.dumps(counts)}")
+        turns.append((mode, wall, solver.last_phase_ms["device"]))
+        say(f"[tiered] live cluster, {mode}: {wall:.3f} s wall, last_phase_ms "
+            + json.dumps({k: round(v, 3) for k, v in solver.last_phase_ms.items()})
+            + f", scan {json.dumps(pack.LAST_SCAN)}, launches {json.dumps(counts)}; "
+            f"placements byte-identical to phase 6 ({len(a)} bytes)")
+    tiered_launches = {k: tiered_total.get(k, 0) for k in screen.LAUNCHES}
+    tiered_forms = {k: tiered_total.get(k, 0) for k in screen.FORM_LAUNCHES}
+    dev_ms = {m: [d for mode, _w, d in turns if mode == m] for m in ("tiered", "prescreen")}
+    say(f"[tiered] device ms in turns: tiered {dev_ms['tiered']}, prescreen "
+        f"{dev_ms['prescreen']}; summed over the phase's solves: {json.dumps(tiered_total)}")
+    mark("phase 6b")
+
+    # phase 7: steady churn over the live cluster, incremental against full
+    churn_launches, churn_forms, _steps = phase_churn(
+        pods, provs, its, client, cluster, max_nodes, _zones(its))
+    mark("phase 7")
+
+    runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches)
+    form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms)
+    launches = {k: sum(r[k] for r in runs) for k in gen_launches}
+    forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
 
     blk = kstats["timed"]["existing block E x C"]
+    row_n1 = kstats["timed"]["virgin row 1 x C"]
     common = {"route": "cuda", "source": "karpenter_core_tpu_torch/csrc/screen.cu",
               "replaces": "karpenter_core_tpu/ops/pallas_kernels.py:29",
               "max_abs_err": kstats["max_abs_err"], "library_ms": None}
+
+    def form_entry(form, stats, replaces):
+        return dict(common, name=f"screen/{form}", replaces=replaces,
+                    launches=forms[form], ms=stats["ms"], kernel_ms=stats["kernel_ms"],
+                    plain_ms=stats["plain_ms"], bound_ms=stats["bound_ms"],
+                    bound_by=stats["bound_by"],
+                    max_abs_err=max(kstats["max_abs_err"], stats.get("max_abs_err", 0.0)))
+
     # ms is the wrapper's time at the block shape (screen: screen_block, its
     # slot prep included; screen_prep: the slot side's screen_prep call);
-    # kernel_ms is that kernel's launch alone
+    # kernel_ms is that kernel's launch alone. The per-form entries time
+    # each form at its main-path shape: the existing block, the virgin
+    # row, and the tiered screen's open slots against one class row
     kernels = [
         dict(common, name="screen", launches=launches["screen"],
              ms=blk["ms"], kernel_ms=blk["kernel_ms"], plain_ms=blk["plain_ms"],
@@ -1107,6 +1477,9 @@ def main() -> int:
              ms=blk["prep_ms"], kernel_ms=blk["prep_kernel_ms"],
              plain_ms=kstats["slot_prep_plain_ms"],
              bound_ms=blk["prep_bound_ms"], bound_by=blk["prep_bound_by"]),
+        form_entry("block", blk, "karpenter_core_tpu/ops/pallas_kernels.py:160"),
+        form_entry("row_n1", row_n1, "karpenter_core_tpu/ops/pallas_kernels.py:160"),
+        form_entry("row_b1", tiered_shape, "karpenter_core_tpu/ops/pallas_kernels.py:104"),
     ]
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,11 @@
 """Greedy packing over FFD-ordered items, in eager PyTorch.
 
-The port of karpenter_core_tpu/ops/pack.py for the prescreen screen mode
-and a logged commit sequence, with the topology, host-port and CSI volume
-lanes. It replaces the serial Solve loop
-(scheduler.go:96-133,177-222) with a scan over a fixed budget of node
-slots:
+The port of karpenter_core_tpu/ops/pack.py for both screen modes
+(prescreen and tiered) and a logged commit sequence, with the topology,
+host-port and CSI volume lanes, and the delta refresh of a resident
+prescreen tensor (screen_refresh). It replaces the serial
+Solve loop (scheduler.go:96-133,177-222) with a scan over a fixed budget
+of node slots:
 
   slot state: accumulated requests, merged requirement masks, remaining
   instance-type mask, optimistic capacity, pod count, reserved host-port
@@ -13,8 +14,9 @@ slots:
 
 Per item (one pod spec class with a replica count):
   1. SCREEN all slots: taints ∧ requirement verdict (a column of the [N, C]
-     prescreen tensor) ∧ optimistic fit ∧ topology viability ∧ no host-port
-     conflict ∧ CSI attach limits (existing slots).
+     prescreen tensor, or under tiered the open slot rows screened against
+     the item on the spot) ∧ optimistic fit ∧ topology viability ∧ no
+     host-port conflict ∧ CSI attach limits (existing slots).
   2. Rank candidates: existing nodes by index first, then open machines by
      ascending pod count (scheduler.go:179-193).
   3. Fill the bulk region in one commit (existing nodes; the whole slot
@@ -42,7 +44,12 @@ import numpy as np
 import torch
 
 from karpenter_core_tpu_torch.ops import compat
-from karpenter_core_tpu_torch.ops.screen import ScreenItems, ScreenLayout, screen_block
+from karpenter_core_tpu_torch.ops.screen import (
+    ScreenItems,
+    ScreenLayout,
+    screen_block,
+    screen_row,
+)
 from karpenter_core_tpu_torch.ops.topology import (
     TOPO_AFFINITY,
     TOPO_ANTI,
@@ -182,6 +189,40 @@ def make_prescreen_kernel(segments, n_slots: int, screen_v: Optional[int] = None
     return prescreen
 
 
+def screen_refresh(screen, ops: ScreenOps, items_pl: ScreenItems, exist, rows, cols):
+    """Delta refresh of a resident [N, C] verdict tensor, in place (the
+    reference's make_screen_refresh_kernel, pack.py:255-344): the
+    incremental re-solve's device work (solver/incremental.py).
+
+    verdict[n, c] depends only on slot row n's planes and class column c's
+    planes, so a solve at an unchanged geometry recomputes only the
+    existing rows whose planes changed (`rows`), against every column
+    (rows_vs_items), and the columns whose class planes changed (`cols`),
+    in full: the block over the existing prefix (rows_vs_items) and the
+    virgin row (items_vs_row) broadcast over the machine region, as
+    initial_screen builds them. `items_pl` is the solve's class planes.
+    Rows outside the existing prefix and columns outside the tensor are
+    dropped, never clamped, wrapped or written; an empty side is skipped.
+    The writes are index ops on the tensor."""
+    dev = screen.device
+    N, C = screen.shape
+    E = exist["allow"].shape[0]
+    rows = np.asarray(rows, dtype=np.int64)
+    rows = rows[(rows >= 0) & (rows < E)]
+    cols = np.asarray(cols, dtype=np.int64)
+    cols = cols[(cols >= 0) & (cols < C)]
+    if len(rows):
+        ri = torch.as_tensor(rows, device=dev)
+        screen[ri] = ops.rows_vs_items(items_pl, exist["allow"][ri], exist["out"][ri],
+                                       exist["defined"][ri])  # [rows, C]
+    if len(cols):
+        ci = torch.as_tensor(cols, device=dev)
+        col_items = items_pl.take(ci)
+        screen[:, ci] = ops.initial_screen(col_items, exist["allow"], exist["out"],
+                                           exist["defined"], N)  # [N, cols]
+    return screen
+
+
 class _Log:
     """The commit log on the host (its scalars are host values already:
     the scan's control flow reads them), with the bulk take matrix on the
@@ -246,11 +287,22 @@ def replica_cap_rows(alloc, used_rows, req):
     return torch.where(valid, kmin, 0.0).to(torch.int32)
 
 
+SCREEN_MODES = ("prescreen", "tiered")
+
+
 def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] = None,
-                     screen_v: Optional[int] = None):
+                     screen_v: Optional[int] = None, screen_mode: str = "prescreen"):
     """Build the packing function for a fixed label geometry and, when the
-    batch has topology groups, their structure (prescreen mode, logged
-    commits)."""
+    batch has topology groups, their structure (logged commits).
+
+    screen_mode "prescreen" reads each item's requirement verdicts from a
+    column of the [N, C] prescreen tensor, which the commits keep in step
+    with the slot planes; "tiered" screens every open slot row against the
+    item at its step (the reference's slot_compat_screen) on the screen
+    kernel's B = 1 form and keeps no tensor."""
+    if screen_mode not in SCREEN_MODES:
+        raise ValueError(f"screen_mode must be one of {SCREEN_MODES}, got {screen_mode!r}")
+    tiered = screen_mode == "tiered"
     segments = [tuple(s) for s in segments]
     zlo, zhi = zone_seg
     clo, chi = ct_seg
@@ -288,6 +340,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         vol_limits: Optional[torch.Tensor] = None,  # [E, D] (inf: no limit)
         vol_driver: Optional[torch.Tensor] = None,  # [W, D] claim -> driver onehot
         screen0: Optional[torch.Tensor] = None,  # [N, C] prescreen tensor
+        items_pl: Optional[ScreenItems] = None,  # the class planes, if built
     ):
         dev = state.used.device
         N, V = state.allow.shape
@@ -319,20 +372,24 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
             LB = min(2 * I + V + 64, 4096)
         log = _Log(L, LB, BR, dev)
 
-        items_pl = class_planes(item_arrays, ops)
-        if screen0 is not None:
-            screen = screen0.clone()  # refreshed in place below
+        if items_pl is None:
+            items_pl = class_planes(item_arrays, ops)
+        if tiered:
+            screen = tmpl_rows = None
         else:
-            screen = ops.initial_screen(
-                items_pl, state.allow[:n_exist], state.out[:n_exist],
-                state.defined[:n_exist], N,
-            )
-        # per-template verdict rows, computed once per solve: a plane-
-        # neutral item merges as the identity, so the row an open writes
-        # for it IS its template's planes
-        tmpl_rows = ops.rows_vs_items(
-            items_pl, tmpl_reqs["allow"], tmpl_reqs["out"], tmpl_reqs["defined"]
-        )  # [J, C]
+            if screen0 is not None:
+                screen = screen0.clone()  # refreshed in place below
+            else:
+                screen = ops.initial_screen(
+                    items_pl, state.allow[:n_exist], state.out[:n_exist],
+                    state.defined[:n_exist], N,
+                )
+            # per-template verdict rows, computed once per solve: a plane-
+            # neutral item merges as the identity, so the row an open
+            # writes for it IS its template's planes
+            tmpl_rows = ops.rows_vs_items(
+                items_pl, tmpl_reqs["allow"], tmpl_reqs["out"], tmpl_reqs["defined"]
+            )  # [J, C]
 
         # host copies of what the control flow reads per item
         valid_h = item_arrays["valid"].cpu().numpy()
@@ -461,12 +518,26 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                           for g, gm in enumerate(groups))
 
             # -- screen once per item: slots at or past nopen are closed
+            # (open is False there), so the screen runs on the prefix
+            # [:nopen] and the rest scores BIG. The reference's tiers
+            # (pack.py:1412-1426) only size its XLA programs: their
+            # prefixes cover nopen and add closed slots, which verdict
+            # False either way
             lim = nopen
+            if tiered:
+                # every open slot row against this item's class row: the
+                # B = 1 form, every key evaluated on its clipped segment
+                # as the reference's rows_compat_m on allow[:, :screen_v]
+                req_l = screen_row(state.allow[:lim], state.out[:lim],
+                                   state.defined[:lim], items_pl, int(scls_h[i]),
+                                   ops.row_layout)
+            else:
+                req_l = screen[:lim, int(scls_h[i])]
             sc = (
                 state.open[:lim]
                 & tol_i[state.tol_idx[:lim].to(torch.int64)]
                 & compat.fits(state.used[:lim] + req_i[None, :], state.cap[:lim])
-                & screen[:lim, int(scls_h[i])]
+                & req_l
             )
             if any_topo_i:
                 sc &= topo_screen(topo_meta, state.tcounts, state.thost[:, :lim],
@@ -668,7 +739,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                            torch.where(row_mask, k, 0).to(torch.int32))
                     log.write(i, n, 1, k, k)
                     remaining -= k
-                    if plane_mut:
+                    if plane_mut and not tiered:
                         screen[n] = ops.items_vs_row(
                             items_pl, state.allow[n], state.out[n], state.defined[n]
                         )
@@ -786,7 +857,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                     log.write(i, 0, -1, log.bulk_n, placed)
                     log.bulk_n += 1
                     remaining -= placed
-                    if plane_mut:
+                    if plane_mut and not tiered:
                         rows = torch.nonzero(touched).flatten()
                         screen[rows] = ops.rows_vs_items(
                             items_pl, state.allow[rows], state.out[rows],
@@ -917,6 +988,8 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                 remaining -= placed
                 # opened slots become candidates for later fill rounds
                 score[lo:hi] = float(N) + k_row.to(torch.float32) * N + idx_f[lo:hi]
+                if tiered:
+                    return remaining, False, dead  # no tensor to keep in step
                 if s > min(64, N):
                     # the reference re-screens wide opens row by row
                     screen[lo:hi] = ops.rows_vs_items(

@@ -67,6 +67,11 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
+def launch_counts() -> Dict[str, int]:
+    """A copy of the launch counts, by kernel and by form of the screen."""
+    return {**LAUNCHES, **FORM_LAUNCHES}
+
+
 def _clip(segments, width: int, every_key: bool):
     """Per key: (on, lo, hi) with the segment clipped to the screen width."""
     return [
@@ -323,6 +328,22 @@ class ScreenItems:
         if self.device.type == "cuda":
             self.prepared = screen_prep(p["allow"], p["out"], p["defined"], layout,
                                         escape=p["escape"], custom_deny=p["custom_deny"])
+
+    def take(self, idx: torch.Tensor) -> "ScreenItems":
+        """Item rows `idx`, gathered from these planes and prepared arrays
+        (no second prep launch)."""
+        out = ScreenItems.__new__(ScreenItems)
+        out.planes = {k: v[idx] for k, v in self.planes.items()}
+        out.B, out.device, out.pack_key = int(idx.shape[0]), self.device, self.pack_key
+        out.prepared = None
+        if self.prepared is not None:
+            p = self.prepared
+            out.prepared = {
+                "words": None if p["words"] is None else p["words"][:, idx].contiguous(),
+                "bytes": None if p["bytes"] is None else p["bytes"][idx].contiguous(),
+                "flags": p["flags"][:, :, idx].contiguous(),
+            }
+        return out
 
     def check_packing(self, layout: ScreenLayout) -> None:
         if layout.pack_key != self.pack_key:

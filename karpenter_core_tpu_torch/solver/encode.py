@@ -21,6 +21,7 @@ the existing nodes' per-driver attach limits.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -223,6 +224,66 @@ class LabelDictionary:
         return int(self.offsets[k]), int(self.offsets[k + 1])
 
 
+def dictionary_covers(carrier: LabelDictionary, fresh: LabelDictionary) -> bool:
+    """True when `carrier` (an earlier batch's dictionary) can encode all
+    that `fresh` (this batch's closure) mentions: every key and value
+    mapped, the hostname segment still last (the screens' tail elision),
+    and the carrier no larger than twice the live vocabulary (stale
+    hostnames of departed nodes would otherwise grow V for ever)."""
+    if carrier.V > max(2 * fresh.V, fresh.V + 32):
+        return False
+    if LABEL_HOSTNAME in carrier.key_index:
+        _lo, hi = carrier.segment(LABEL_HOSTNAME)
+        if hi != carrier.V:
+            return False
+    for key in fresh.keys:
+        k = carrier.key_index.get(key)
+        if k is None:
+            return False
+        have = carrier._values[k]
+        for value in fresh._values[fresh.key_index[key]]:
+            if value not in have:
+                return False
+    return True
+
+
+def dictionary_rebind_hostnames(carrier: LabelDictionary,
+                                fresh: LabelDictionary) -> bool:
+    """For a growing cluster: when the only values `carrier` lacks are
+    hostnames (a node joined or was replaced), rename hostname entries
+    that `fresh` no longer mentions (pad sentinels, departed nodes) to
+    them. A value index is a column, so the planes' content changes and
+    V, K and the segments stay. Mutates `carrier` on success; False leaves
+    it as it was."""
+    k_host = carrier.key_index.get(LABEL_HOSTNAME)
+    if k_host is None:
+        return False
+    _lo, hi = carrier.segment(LABEL_HOSTNAME)
+    if hi != carrier.V:
+        return False
+    missing = []
+    for key in fresh.keys:
+        k = carrier.key_index.get(key)
+        if k is None:
+            return False
+        have = carrier._values[k]
+        for value in fresh._values[fresh.key_index[key]]:
+            if value not in have:
+                if key != LABEL_HOSTNAME:
+                    return False
+                missing.append(value)
+    if not missing:
+        return True
+    host_vals = carrier._values[k_host]
+    fresh_hosts = fresh._values[fresh.key_index[LABEL_HOSTNAME]]
+    rebindable = [v for v in host_vals if v not in fresh_hosts]
+    if len(missing) > len(rebindable):
+        return False
+    for value, stale in zip(missing, rebindable):
+        host_vals[value] = host_vals.pop(stale)
+    return True
+
+
 @dataclass
 class ReqSetArrays:
     """Dense form of a batch of Requirements (one row each)."""
@@ -340,6 +401,56 @@ class EncodedSnapshot:
     item_of_pod: np.ndarray = None  # [P] int32 item of sorted pod i
 
 
+class EncodeReuse:
+    """The instance-type planes carried across solves. A cluster's type
+    universe is the same objects solve after solve, and their planes
+    depend only on (the type objects, the dictionary's content, the
+    resource names, the offerings' state, the types' resources), which
+    the key holds whole, so any change there misses and re-encodes. It
+    keeps the keyed type objects alive (the key holds their ids) and is
+    thread-safe. A solver owns one and passes it to
+    encode_snapshot(reuse=...)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._key = None
+        self._planes = None
+        self._keyed_types = None
+
+    def get(self, key):
+        with self._lock:
+            return self._planes if self._key == key else None
+
+    def put(self, key, planes, all_types) -> None:
+        with self._lock:
+            self._key = key
+            self._planes = planes
+            self._keyed_types = list(all_types)
+
+    @staticmethod
+    def dict_signature(dictionary: LabelDictionary) -> Tuple:
+        return tuple((k, tuple(dictionary.values_of(k))) for k in dictionary.keys)
+
+    @staticmethod
+    def offering_signature(all_types) -> Tuple:
+        # availability and price change in place between solves
+        return tuple(
+            tuple((o.zone, o.capacity_type, o.available, o.price) for o in it.offerings)
+            for it in all_types
+        )
+
+    @staticmethod
+    def resource_signature(all_types) -> Tuple:
+        # capacity and overhead are mutable attributes of the same type
+        # objects; requirements are keyed by identity
+        return tuple(
+            (tuple(sorted(it.capacity.items())),
+             tuple(sorted(it.allocatable().items())),
+             id(it.requirements))
+            for it in all_types
+        )
+
+
 def encode_snapshot(
     pods: List,
     provisioners: List,
@@ -351,6 +462,8 @@ def encode_snapshot(
     max_nodes: int = 1024,
     reuse_dictionary: Optional[LabelDictionary] = None,
     ladder=DEFAULT_BUCKET_LADDER,
+    reuse: Optional[EncodeReuse] = None,
+    carry_dictionary: Optional[LabelDictionary] = None,
 ) -> EncodedSnapshot:
     """Lower a provisioning snapshot to arrays.
 
@@ -365,7 +478,13 @@ def encode_snapshot(
     uid: queue.go:74-110) so the pack scan consumes them in reference order.
     `reuse_dictionary`, from an earlier encode of the same batch, keeps
     V/K/segments fixed across relaxation rounds (relaxation only removes
-    requirements)."""
+    requirements). `reuse` (an EncodeReuse) carries the instance-type
+    planes across solves. `carry_dictionary`, the previous solve's
+    dictionary, is offered, not trusted: the fresh closure is built first
+    and the carrier replaces it only when it covers it
+    (dictionary_covers) or covers it once new hostnames are rebound onto
+    unused ones (dictionary_rebind_hostnames), so consecutive batches of a
+    churning cluster keep one geometry."""
     daemonset_pods = daemonset_pods or []
     # only nodes launched by us participate (scheduler.go:226-229)
     state_nodes = [n for n in (state_nodes or []) if n.owned()]
@@ -479,6 +598,17 @@ def encode_snapshot(
             for i in range(E_real, E_pad):
                 dictionary.add_value(LABEL_HOSTNAME, f"__exist-pad-{i}")
         dictionary.canonicalize(last_key=LABEL_HOSTNAME)
+        if carry_dictionary is not None and (
+            dictionary_covers(carry_dictionary, dictionary)
+            or (
+                # the same size bound, then new node hostnames rebound onto
+                # unused pad or stale entries (a cluster growing inside one
+                # existing-axis bucket)
+                carry_dictionary.V <= max(2 * dictionary.V, dictionary.V + 32)
+                and dictionary_rebind_hostnames(carry_dictionary, dictionary)
+            )
+        ):
+            dictionary = carry_dictionary
 
     extended = sorted(
         set().union(
@@ -525,31 +655,49 @@ def encode_snapshot(
     zlo, zhi = dictionary.segment(LABEL_TOPOLOGY_ZONE)
     clo, chi = dictionary.segment(api_labels.LABEL_CAPACITY_TYPE)
 
-    type_alloc = np.full((T, R), -1.0, dtype=np.float32)
-    type_capacity = np.zeros((T, R), dtype=np.float32)
-    if T_real:
-        type_alloc[:T_real] = np.stack(
-            [encode_resources(it.allocatable()) for it in all_types]
-        )
-        type_capacity[:T_real] = np.stack(
-            [encode_resources(it.capacity) for it in all_types]
-        )
-    z_index = {z: i for i, z in enumerate(dictionary.values_of(LABEL_TOPOLOGY_ZONE))}
-    c_index = {
-        c: i for i, c in enumerate(dictionary.values_of(api_labels.LABEL_CAPACITY_TYPE))
-    }
-    type_offering_ok = np.zeros((T, zhi - zlo, chi - clo), dtype=bool)
-    for t, it in enumerate(all_types):
-        for o in it.offerings:
-            if not o.available:
-                continue
-            zi, ci = z_index.get(o.zone), c_index.get(o.capacity_type)
-            if zi is not None and ci is not None:
-                type_offering_ok[t, zi, ci] = True
-    type_reqs_arr = encode_reqsets(
-        type_reqs_list + [Requirements() for _ in range(T_pad - T_real)],
-        dictionary,
+    # the instance-type planes, a pure function of the type key, carried
+    # across solves by `reuse`
+    type_key = (
+        _ids(all_types),
+        T_pad,
+        EncodeReuse.dict_signature(dictionary),
+        tuple(resource_names),
+        EncodeReuse.offering_signature(all_types),
+        EncodeReuse.resource_signature(all_types),
     )
+    cached = reuse.get(type_key) if reuse is not None else None
+    if cached is not None:
+        type_reqs_arr, type_alloc, type_capacity, type_offering_ok = cached
+    else:
+        type_alloc = np.full((T, R), -1.0, dtype=np.float32)
+        type_capacity = np.zeros((T, R), dtype=np.float32)
+        if T_real:
+            type_alloc[:T_real] = np.stack(
+                [encode_resources(it.allocatable()) for it in all_types]
+            )
+            type_capacity[:T_real] = np.stack(
+                [encode_resources(it.capacity) for it in all_types]
+            )
+        z_index = {z: i for i, z in enumerate(dictionary.values_of(LABEL_TOPOLOGY_ZONE))}
+        c_index = {
+            c: i for i, c in enumerate(dictionary.values_of(api_labels.LABEL_CAPACITY_TYPE))
+        }
+        type_offering_ok = np.zeros((T, zhi - zlo, chi - clo), dtype=bool)
+        for t, it in enumerate(all_types):
+            for o in it.offerings:
+                if not o.available:
+                    continue
+                zi, ci = z_index.get(o.zone), c_index.get(o.capacity_type)
+                if zi is not None and ci is not None:
+                    type_offering_ok[t, zi, ci] = True
+        type_reqs_arr = encode_reqsets(
+            type_reqs_list + [Requirements() for _ in range(T_pad - T_real)],
+            dictionary,
+        )
+        if reuse is not None:
+            reuse.put(type_key,
+                      (type_reqs_arr, type_alloc, type_capacity, type_offering_ok),
+                      all_types)
 
     pod_tol_u = np.zeros((U, J), dtype=bool)
     for j, template in enumerate(templates):

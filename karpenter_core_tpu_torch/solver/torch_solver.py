@@ -13,11 +13,22 @@ Pipeline per solve (the reference's TPUSolver, tpu_solver.py):
 `last_phase_ms` holds the wall-clock milliseconds of each phase of the last
 device solve; on the card every phase ends with a device synchronize, so
 the phases partition the solve.
+
+A solver that solves batch after batch over one cluster (incremental="on",
+the default under screen_mode="prescreen") keeps the prescreen tensor of
+each geometry resident and replays only the rows and columns whose planes
+changed (solver/incremental.py, ops/pack.screen_refresh),
+carries its label dictionary so a churning cluster keeps one geometry,
+and carries the instance-type planes (encode.EncodeReuse); the cluster's
+change feed gates the residency. `last_prescreen_mode` ("full" or
+"refresh") and `last_prescreen_delta` report the last dispatch.
 """
 from __future__ import annotations
 
 import copy
 import time
+import traceback
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -25,11 +36,15 @@ import numpy as np
 import torch
 
 from karpenter_core_tpu_torch.api.labels import PROVISIONER_NAME_LABEL_KEY
+from karpenter_core_tpu_torch.ops import screen as screen_ops
 from karpenter_core_tpu_torch.ops.feasibility import feasibility_static, openable_mask
 from karpenter_core_tpu_torch.ops.pack import (
+    SCREEN_MODES,
     PackState,
+    ScreenOps,
+    class_planes,
     make_pack_kernel,
-    make_prescreen_kernel,
+    screen_refresh,
 )
 from karpenter_core_tpu_torch.ops.topology import TopoGroupMeta, TopoMeta
 from karpenter_core_tpu_torch.scheduling.preferences import Preferences
@@ -37,10 +52,12 @@ from karpenter_core_tpu_torch.scheduling.requirement import Requirement
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
 from karpenter_core_tpu_torch.solver.encode import (
     EncodedSnapshot,
+    EncodeReuse,
     ReqSetArrays,
     bucket_pow2,
     encode_snapshot,
 )
+from karpenter_core_tpu_torch.solver.incremental import DiffGate, IncrementalScreen
 
 # run()'s positional argument order, as device_args() produces it
 RUN_ARG_NAMES = (
@@ -365,19 +382,23 @@ def topo_meta_from(obj) -> Optional[TopoMeta]:
 
 
 def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
-                    log_len: int, screen_v: Optional[int] = None):
+                    log_len: int, screen_v: Optional[int] = None,
+                    screen_mode: str = "prescreen"):
     """The solve program (make_device_run with an external prescreen):
     feasibility + openable + the pack scan, a function of args_to_torch's
-    tensors and the prescreen tensor. Returns (log, ptr, state)."""
+    tensors and the prescreen tensor (None under screen_mode="tiered"),
+    with the class planes the prescreen built (items_pl) reused by the
+    scan. Returns (log, ptr, state)."""
     segments = [tuple(s) for s in segments]
     pack = make_pack_kernel(segments, zone_seg, ct_seg,
-                            topo_meta=topo_meta_from(topo_meta), screen_v=screen_v)
+                            topo_meta=topo_meta_from(topo_meta), screen_v=screen_v,
+                            screen_mode=screen_mode)
 
     def run(screen0, pod_arrays, tmpl, tmpl_daemon, tmpl_type_mask, types,
             type_alloc, type_capacity, type_offering_ok, pod_tol_all, exist,
             exist_used, exist_cap, well_known, remaining0, topo_counts0,
             topo_hcounts0, topo_doms0, topo_terms, exist_ports, exist_vols,
-            exist_vol_limits, vol_driver):
+            exist_vol_limits, vol_driver, items_pl=None):
         dev = exist_used.device
         E = exist_used.shape[0]
         N = n_slots
@@ -427,7 +448,7 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             tmpl_daemon, tmpl_type_mask, types, type_alloc, type_capacity,
             type_offering_ok, well_known=well_known, topo_terms=topo_terms,
             log_len=log_len, n_exist=E, vol_limits=exist_vol_limits,
-            vol_driver=vol_driver, screen0=screen0,
+            vol_driver=vol_driver, screen0=screen0, items_pl=items_pl,
         )
         return log, ptr, state
 
@@ -551,14 +572,48 @@ class _HostState:
             setattr(self, f, getattr(state, f)[:nopen].cpu().numpy())
 
 
+INCREMENTAL_MODES = ("on", "off")
+
+
+# the planes the [N, C] verdict tensor is computed from (the prescreen's
+# inputs), by run() argument
+_SCREEN_PLANES = {
+    "pod_arrays": ("allow", "out", "defined", "escape", "custom_deny", "scls_first"),
+    "exist": ("allow", "out", "defined"),
+}
+
+
+def _residency_key(geom, args, screen_mode: str) -> tuple:
+    """The key of a resident verdict tensor: what its shape and contents
+    depend on besides the planes' values (which plan() fingerprints): N,
+    the label segments, the screen width, the shape and dtype of every
+    plane the prescreen reads, and the screen mode."""
+    N, segments, screen_v = geom[7], geom[8], geom[16]
+    named = dict(zip(RUN_ARG_NAMES, args))
+    shapes = tuple((name, k, named[name][k].shape, str(named[name][k].dtype))
+                   for name, keys in _SCREEN_PLANES.items() for k in keys)
+    return (N, segments, screen_v, shapes, screen_mode)
+
+
 class TorchSolver:
     """The solver on one device: `device="cuda"` (the default) runs on the
     card and raises when there is none; `device="cpu"` runs the same
-    program on the CPU, with each kernel's plain PyTorch version."""
+    program on the CPU, with each kernel's plain PyTorch version.
+
+    screen_mode: "prescreen" (the default) computes the [N, C] verdict
+    tensor before the scan; "tiered" screens the open slots against each
+    item inside the scan. incremental: "on" (the default) keeps the
+    prescreen tensor resident across solves and refreshes only what
+    changed; "off" runs the full precompute every solve. It applies only
+    under "prescreen", as the reference resolves it."""
+
+    # resident tensors kept, least recently used first out
+    MAX_INC_SCREENS = 8
 
     def __init__(self, max_nodes: int = 1024,
                  max_relax_rounds: int = DEFAULT_MAX_RELAX_ROUNDS,
-                 device="cuda"):
+                 device="cuda", screen_mode: str = "prescreen",
+                 incremental: str = "on"):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -568,15 +623,42 @@ class TorchSolver:
                 )
         elif self.device.type != "cpu":
             raise ValueError(f"TorchSolver: unsupported device {self.device}")
+        if screen_mode not in SCREEN_MODES:
+            raise ValueError(f"TorchSolver: screen_mode must be one of {SCREEN_MODES}")
+        if incremental not in INCREMENTAL_MODES:
+            raise ValueError(f"TorchSolver: incremental must be one of {INCREMENTAL_MODES}")
         self.max_nodes = max_nodes
         self.max_relax_rounds = max_relax_rounds
+        self.screen_mode = screen_mode
+        self.incremental = incremental
         self.last_phase_ms: Dict[str, float] = {}
+        # the last prescreen dispatch: "full" or "refresh" (None under
+        # tiered), and the refresh's delta sizes and budgets
+        self.last_prescreen_mode: Optional[str] = None
+        self.last_prescreen_delta: Optional[Dict[str, int]] = None
+        # the screen kernels' launches of the last prescreen dispatch, by
+        # kernel and form
+        self.last_prescreen_launches: Optional[Dict[str, int]] = None
+        # the traceback of the last refresh that failed (full_deg)
+        self.last_refresh_error: Optional[str] = None
+        # the type planes carried across solves, the previous solve's
+        # dictionary, the resident tensors by key, the change-feed gate
+        self._encode_reuse = EncodeReuse()
+        self._carry_dictionary = None
+        self._inc_screens: "OrderedDict[tuple, IncrementalScreen]" = OrderedDict()
+        self._diff_gate = DiffGate()
+        self._gate_ok = True
+
+    def _inc_enabled(self) -> bool:
+        """The delta re-solve applies only under prescreen: tiered keeps
+        no tensor to refresh."""
+        return self.screen_mode == "prescreen" and self.incremental == "on"
 
     def encode(self, pods, provisioners, instance_types, daemonset_pods=None,
                state_nodes=None, kube_client=None, cluster=None):
         return encode_snapshot(pods, provisioners, instance_types, daemonset_pods,
                                state_nodes, kube_client, cluster,
-                               max_nodes=self.max_nodes)
+                               max_nodes=self.max_nodes, reuse=self._encode_reuse)
 
     def solve(self, pods, provisioners, instance_types, daemonset_pods=None,
               state_nodes=None, kube_client=None, cluster=None,
@@ -586,12 +668,18 @@ class TorchSolver:
         InMemoryKubeClient) resolves volume claims and CSINode limits and
         seeds topology counts with the scheduled pods it lists; cluster
         (state/cluster.Cluster) adds its bound pods' inverse
-        anti-affinity. Every relaxation round re-encodes with both."""
+        anti-affinity, and its change feed gates the resident tensor.
+        Every relaxation round re-encodes with both."""
         if encoded is not None and (
             len(encoded.pods) != len(pods)
             or {id(p) for p in encoded.pods} != {id(p) for p in pods}
         ):
             raise ValueError("encoded snapshot was built from a different pod batch")
+        # the change feed is read once per solve (relaxation rounds see no
+        # churn): a fault or a gap sends this solve's prescreen down the
+        # full path and drops every resident tensor
+        if self._inc_enabled():
+            self._gate_ok = self._diff_gate.gate(cluster)
         ctx = {"dictionary": None, "encoded": encoded}
         return solve_with_relaxation(
             lambda p: self._solve_once(p, provisioners, instance_types,
@@ -603,6 +691,56 @@ class TorchSolver:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _dispatch_prescreen(self, key, geom, host_args, targs):
+        """The [N, C] verdict tensor of this solve (_dispatch_prescreen,
+        tpu_solver.py:1369-1458): the resident tensor at this key with its
+        changed rows and columns refreshed when the delta is narrow, the
+        full precompute otherwise. A failed plan or refresh degrades to
+        the full precompute. Returns (tensor, "full" | "refresh", delta,
+        the class planes)."""
+        N, segments, screen_v = geom[7], geom[8], geom[16]
+        pod_arrays, exist = targs[0], targs[9]
+        ops = ScreenOps(segments, pod_arrays["allow"].shape[1], screen_v)
+        items_pl = class_planes(pod_arrays, ops)
+        screen0, mode, delta, inc = None, "full", None, None
+        if self._inc_enabled():
+            gate_ok, self._gate_ok = self._gate_ok, True
+            if not gate_ok:
+                # a feed fault poisons every key's residency
+                for other in self._inc_screens.values():
+                    other.invalidate()
+            inc = self._inc_screens.setdefault(key, IncrementalScreen())
+            self._inc_screens.move_to_end(key)
+            while len(self._inc_screens) > self.MAX_INC_SCREENS:
+                self._inc_screens.popitem(last=False)
+            try:
+                delta = inc.plan(key, host_args[0], host_args[9], gate_ok=gate_ok)
+            except Exception:
+                inc.invalidate()
+                delta = None
+            if delta is not None:
+                prev = inc.resident(key)
+                if prev is not None:
+                    try:
+                        screen0 = screen_refresh(prev, ops, items_pl, exist, delta.rows,
+                                                 delta.cols)
+                        mode = "refresh"
+                        inc.count_refresh()
+                    except Exception:
+                        # the resident tensor may be half written: drop it,
+                        # keep the staged fingerprints for the full tensor;
+                        # counted as full_deg, the traceback kept
+                        self.last_refresh_error = traceback.format_exc()
+                        inc.drop_resident()
+                        inc.count_degraded()
+                        screen0 = None
+        if screen0 is None:
+            screen0 = ops.initial_screen(items_pl, exist["allow"], exist["out"],
+                                         exist["defined"], N)
+        if inc is not None:
+            inc.adopt(key, screen0)
+        return screen0, mode, delta, items_pl
 
     def _solve_once(self, pods, provisioners, instance_types, daemonset_pods,
                     state_nodes, kube_client, cluster, ctx) -> SolveResult:
@@ -621,10 +759,13 @@ class TorchSolver:
             snap = encode_snapshot(
                 pods, provisioners, instance_types, daemonset_pods, state_nodes,
                 kube_client, cluster, max_nodes=self.max_nodes,
-                reuse_dictionary=ctx["dictionary"],
+                reuse_dictionary=ctx["dictionary"], reuse=self._encode_reuse,
+                # offered, not trusted: adopted only when it covers the batch
+                carry_dictionary=self._carry_dictionary if self._inc_enabled() else None,
             )
         # relaxation rounds reuse round 1's dictionary (a superset)
         ctx["dictionary"] = snap.dictionary
+        self._carry_dictionary = snap.dictionary
         mark("encode")
         geom = solve_geometry(snap, self.max_nodes)
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
@@ -634,12 +775,25 @@ class TorchSolver:
         mark("args")
         targs = args_to_torch(args, self.device)
         mark("upload")
-        prescreen = make_prescreen_kernel(segments, N, screen_v=screen_v)
-        screen0 = prescreen(targs[0], targs[9])
-        mark("prescreen")
+        self.last_prescreen_mode = self.last_prescreen_delta = None
+        self.last_prescreen_launches = None
+        screen0 = items_pl = None
+        if self.screen_mode == "prescreen":
+            key = _residency_key(geom, args, self.screen_mode)
+            before = screen_ops.launch_counts()
+            screen0, mode, delta, items_pl = self._dispatch_prescreen(key, geom, args, targs)
+            self.last_prescreen_mode = mode
+            self.last_prescreen_launches = {
+                k: v - before[k] for k, v in screen_ops.launch_counts().items()}
+            if mode == "refresh":
+                self.last_prescreen_delta = {
+                    "rows": len(delta.rows), "cols": len(delta.cols),
+                    "rb": delta.rb, "cb": delta.cb,
+                }
+            mark("prescreen")
         run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
-                              screen_v=screen_v)
-        log, ptr, state = run(screen0, *targs)
+                              screen_v=screen_v, screen_mode=self.screen_mode)
+        log, ptr, state = run(screen0, *targs, items_pl=items_pl)
         mark("device")
         nopen = int(state.nopen)
         log = dict(log)
@@ -649,4 +803,3 @@ class TorchSolver:
         result = decode_solve(snap, (log, ptr), host_state)
         mark("decode")
         return result
-

@@ -4,14 +4,16 @@ provisioning solve reads (state/cluster.go:44-532).
 The part of the reference's Cluster the solve path needs: nodes keyed by
 provider id, pod -> node bindings that keep each node's requests, host
 ports and volumes, the index of bound pods with required anti-affinity,
-and CSINode attach limits applied on every node update. Machines, the
-diff feed, consolidation state and in-flight capacity from the cloud
-provider are not here.
+CSINode attach limits applied on every node update, and the change feed
+that tells an incremental solver whether it has seen every mutation since
+its last solve (`changes_since`). Machines, consolidation state and
+in-flight capacity from the cloud provider are not here.
 """
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Optional
+from collections import deque
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from karpenter_core_tpu_torch.kube.objects import NamespacedName, object_key
 from karpenter_core_tpu_torch.state.node import StateNode, populate_volume_limits_from
@@ -21,6 +23,10 @@ from karpenter_core_tpu_torch.utils import podutils
 class Cluster:
     """cluster.go:44-60."""
 
+    # change-feed history bound: a consumer further behind than this many
+    # mutations gets a full-resync verdict instead of a partial diff
+    CHANGE_RING = 8192
+
     def __init__(self, kube_client):
         self.kube_client = kube_client
         self._mu = threading.RLock()
@@ -28,6 +34,45 @@ class Cluster:
         self.node_name_to_provider_id: Dict[str, str] = {}
         self.bindings: Dict[NamespacedName, str] = {}  # pod -> node name
         self.anti_affinity_pods: Dict[NamespacedName, object] = {}
+        # the change feed: every mutation bumps the revision and appends
+        # (revision, token); the token is the touched node's provider id,
+        # or "*" for a change with no single node (a provisioner update, a
+        # delete of an unknown name)
+        self._revision = 0
+        self._changes = deque(maxlen=self.CHANGE_RING)
+
+    # -- change feed ----------------------------------------------------------
+
+    def _record_change(self, token: str) -> None:
+        """Append one change to the bounded feed (under self._mu)."""
+        self._revision += 1
+        self._changes.append((self._revision, token))
+
+    def revision(self) -> int:
+        with self._mu:
+            return self._revision
+
+    def changes_since(self, cursor: Optional[int]) -> Tuple[int, Optional[Set[str]]]:
+        """(new cursor, the tokens changed since `cursor`), or (new cursor,
+        None) when the feed cannot prove it holds the whole history: a
+        cursor that is None, from the future, or older than the ring
+        remembers. Revisions are dense, so a gap is detected, never
+        skipped; repeated changes collapse into one token."""
+        with self._mu:
+            rev = self._revision
+            if cursor is None or cursor > rev:
+                return rev, None
+            if cursor == rev:
+                return rev, set()
+            oldest = self._changes[0][0] if self._changes else rev + 1
+            if cursor + 1 < oldest:
+                return rev, None  # history fell off the ring
+            changed: Set[str] = set()
+            for r, token in reversed(self._changes):
+                if r <= cursor:
+                    break
+                changed.add(token)
+            return rev, changed
 
     # -- queries (cluster.go:116-156) ---------------------------------------
 
@@ -68,6 +113,21 @@ class Cluster:
                 existing.node = node
             self.node_name_to_provider_id[node.metadata.name] = provider_id
             populate_volume_limits_from(self.kube_client, existing)
+            self._record_change(provider_id)
+
+    def delete_node(self, name: str) -> None:
+        """cluster.go:239-251 for a node no Machine record backs."""
+        with self._mu:
+            pid = self.node_name_to_provider_id.pop(name, None)
+            if pid is not None:
+                self.nodes_by_provider_id.pop(pid, None)
+            self._record_change(pid or "*")
+
+    def update_provisioner(self, provisioner) -> None:
+        """A provisioner changed (informer/provisioner.go:52): templates,
+        not node rows, so the change has no node scope."""
+        with self._mu:
+            self._record_change("*")
 
     def update_pod(self, pod) -> None:
         """cluster.go:446-505: bindings, per-node usage and the
@@ -86,6 +146,7 @@ class Cluster:
                 node = self.node_for(pod.spec.node_name)
                 if node is not None:
                     node.update_for_pod(pod)
+                    self._record_change(node.provider_id() or "*")
                 if podutils.has_pod_anti_affinity(pod):
                     self.anti_affinity_pods[key] = pod
 
@@ -100,3 +161,5 @@ class Cluster:
             node = self.node_for(node_name)
             if node is not None:
                 node.cleanup_for_pod(key)
+                # a termination frees room on the node
+                self._record_change(node.provider_id() or "*")

@@ -38,6 +38,9 @@ class StateNode:
     def name(self) -> str:
         return self.node.name
 
+    def provider_id(self) -> str:
+        return self.node.spec.provider_id
+
     def hostname(self) -> str:
         return self.labels().get(LABEL_HOSTNAME) or self.name()
 

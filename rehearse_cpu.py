@@ -12,6 +12,15 @@ prints one JSON line: the scan's items and while-iterations per branch
 workload and of the cluster seeding alone (the host Topology built for
 three representative pods). These are counts and host times of this CPU,
 used to predict a chip run; they are never device metrics.
+
+    python3 rehearse_cpu.py --churn 3500 7000
+
+runs chip_smoke's phases 6b and 7 at those sizes on the CPU instead: the
+live cluster solved with screen_mode="tiered" beside the prescreen solve
+(wall and device times, items), then phase_churn's steady churn, four
+steps of bindings, joining machines, terminations and arrivals through
+an incremental and a full solver (each step's churn counts, prescreen
+mode, delta rows, columns and budgets, and prescreen times).
 """
 import json
 import sys
@@ -61,6 +70,31 @@ def rehearse(n: int) -> dict:
     }
 
 
+def rehearse_churn(n: int) -> dict:
+    f = n / 50000
+    nodes, distinct = int(1000 * f), int(1000 * f)
+    max_nodes = n // 5 + 1536
+    pods, provs, its, client, cluster = cs.live_cluster(
+        n, 500, nodes, distinct=distinct, n_ingress=int(1000 * f), replicas=int(100 * f))
+    solve = {}
+    for mode in ("prescreen", "tiered"):
+        solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cpu",
+                                          screen_mode=mode, incremental="off")
+        _, wall_s = _timed(lambda: solver.solve(pods, provs, its, state_nodes=cluster.nodes(),
+                                                kube_client=client, cluster=cluster))
+        solve[mode] = {"wall_s": wall_s, "scan": dict(pack.LAST_SCAN),
+                       "phases_ms": {k: round(v, 1) for k, v in solver.last_phase_ms.items()}}
+    (_l, _f, steps), churn_s = _timed(lambda: cs.phase_churn(
+        pods, provs, its, client, cluster, max_nodes, cs._zones(its), device="cpu"))
+    return {"pending": len(pods), "nodes": nodes, "solve": solve, "churn_s": churn_s,
+            "steps": [{"mode": st["mode"], "delta": st["delta"], "churn": st["churn"],
+                       "refresh_ms": round(st["refresh_ms"], 2),
+                       "full_ms": round(st["full_ms"], 2)} for st in steps]}
+
+
 if __name__ == "__main__":
-    for arg in sys.argv[1:] or ["3500"]:
-        print(json.dumps({"n": int(arg), "device": "cpu", **rehearse(int(arg))}), flush=True)
+    args = sys.argv[1:]
+    churn = "--churn" in args
+    for arg in [a for a in args if a != "--churn"] or ["3500"]:
+        fn = rehearse_churn if churn else rehearse
+        print(json.dumps({"n": int(arg), "device": "cpu", **fn(int(arg))}), flush=True)

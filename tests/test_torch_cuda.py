@@ -664,3 +664,88 @@ def test_card_and_cpu_placements_identical(family):
             kube_client=client, cluster=cluster)
         got[dev] = tsolver.placements_json(result)
     assert got["cpu"] == got["cuda"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb, cb", [(8, 8), (16, 0), (0, 16), (8, 1)])
+def test_card_and_cpu_refresh_identical(rb, cb):
+    """The delta refresh of a stale resident tensor on seeded planes, on
+    the card and on the CPU: rb changed rows and cb changed columns, with
+    indices outside the tensor that must be dropped."""
+    _card()
+    from karpenter_core_tpu_torch.ops.pack import ScreenOps, class_planes, screen_refresh
+
+    rng = np.random.default_rng(21 + rb + cb)
+    segments = _segments([3, 0, 40, 1, 300, 7, 90])
+    E, I, C, N = 300, 200, 150, 700
+    slot, items = _random_case(rng, E, I, segments)
+    items["scls_first"] = torch.from_numpy(rng.permutation(I)[:C].astype(np.int32))
+    prev = torch.from_numpy(rng.random((N, C)) < 0.5)
+    rows = np.r_[rng.integers(0, E, size=rb), E, N - 1, -1][: rb + 3 * (rb > 0)]
+    cols = np.r_[rng.integers(0, C, size=cb), C, -1][: cb + 2 * (cb > 0)]
+
+    def refresh(scr, its, exist, screen_v):
+        ops = ScreenOps(segments, its["allow"].shape[1], screen_v)
+        return screen_refresh(scr, ops, class_planes(its, ops), exist, rows, cols)
+
+    for screen_v in (None, 350):
+        want = refresh(prev.clone(), items, slot, screen_v)
+        got = refresh(prev.cuda(), {k: v.cuda() for k, v in items.items()},
+                      {k: v.cuda() for k, v in slot.items()}, screen_v)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), screen_v
+        assert not torch.equal(want, prev), screen_v
+
+
+@pytest.mark.cuda
+def test_card_tiered_solve_matches_cpu():
+    """A tiered solve on the card (the row_b1 form once per item) places
+    as the CPU's tiered and prescreen solves do."""
+    _card()
+    pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload("cluster", "torch")
+    got = {}
+    for dev, mode in (("cuda", "tiered"), ("cpu", "tiered"), ("cpu", "prescreen")):
+        screen.reset_launches()
+        result = tsolver.TorchSolver(max_nodes=max_nodes, device=dev, screen_mode=mode).solve(
+            copy.deepcopy(pods), provs, its, daemonset_pods=daemons, state_nodes=nodes,
+            kube_client=client, cluster=cluster)
+        got[dev, mode] = tsolver.placements_json(result)
+        if dev == "cuda":
+            assert screen.FORM_LAUNCHES["row_b1"] > 0
+            assert screen.FORM_LAUNCHES["block"] == 0
+    assert len(set(got.values())) == 1
+
+
+@pytest.mark.cuda
+def test_card_incremental_resolve_matches_cpu_full():
+    """Two solves of one cluster on the card with the incremental path on,
+    a pod bound between them: the second refreshes the changed row and
+    places as a full solve on the CPU does."""
+    _card()
+    from karpenter_core_tpu_torch.solver import incremental
+
+    pods, provs, its, daemons, _nodes_, max_nodes, client, cluster = workload(
+        "cluster", "torch")
+    m = _mods("torch")
+    inc = tsolver.TorchSolver(max_nodes=max_nodes, device="cuda")
+    incremental.reset_outcomes()
+    for step in range(2):
+        if step:
+            # a pod binds to node-0 and node-1 moves zone: one changed row
+            p = m.t.make_pod(name="late", node_name="node-0", unschedulable=False,
+                             phase="Running", requests={"cpu": "0.5"})
+            client.create(p)
+            cluster.update_pod(p)
+            node = client.get("Node", "", "node-1")
+            node.metadata.labels[ZONE] = "test-zone-3"
+            cluster.update_node(client.update(node))
+        kw = dict(daemonset_pods=daemons, state_nodes=cluster.nodes(), kube_client=client,
+                  cluster=cluster)
+        a = tsolver.placements_json(inc.solve(copy.deepcopy(pods), provs, its, **kw))
+        b = tsolver.placements_json(tsolver.TorchSolver(
+            max_nodes=max_nodes, device="cpu", incremental="off").solve(
+            copy.deepcopy(pods), provs, its, **kw))
+        assert a == b, step
+    assert inc.last_prescreen_mode == "refresh"
+    assert inc.last_prescreen_delta["rows"] == 1
+    assert incremental.OUTCOMES["full_deg"] == 0

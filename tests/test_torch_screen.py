@@ -115,6 +115,34 @@ def test_screen_row_matches_pallas_row_form(name, segments, n_slots, n_items, se
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("width_cut", [0, 37, 95])
+def test_screen_row_matches_pallas_at_the_tiered_shape(width_cut):
+    """The tiered screen's shape: several thousand open slot rows (a ragged
+    count) against one item row, on the value axis cut to the screen width
+    with every key evaluated, as the reference's tiered screen calls
+    slot_screen_pallas on allow[:, :screen_v] with the cut segment
+    matrix (a cut of 95 leaves the last key wholly past the width)."""
+    segments = WIDE
+    rng = np.random.default_rng(30 + width_cut)
+    slot, items = structured_case(rng, 3001, 2, segments)
+    V = segments[-1][1]
+    w = V - width_cut
+    layout = ScreenLayout(segments, w, every_key=True)
+    sm = jcompat.seg_matrix(segments, V)[:w]
+    ts, ti = _t(slot), ScreenItems(_t(items), layout)
+    for b in range(2):
+        want = slot_screen_pallas(
+            jnp.asarray(slot["allow"][:, :w]), jnp.asarray(slot["out"]),
+            jnp.asarray(slot["defined"]),
+            {k: jnp.asarray(v[b, :w] if k == "allow" else v[b]) for k, v in items.items()},
+            sm, interpret=True,
+        )
+        got = screen_row(ts["allow"], ts["out"], ts["defined"], ti, b, layout)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        if width_cut < 90:  # past it, the random rows mostly fail the last key
+            assert np.asarray(want).any() and not np.asarray(want).all()
+
+
 @pytest.mark.parametrize("name,segments,n_slots,n_items,seed", CASES)
 def test_screen_block_matches_pallas_batched_form(name, segments, n_slots, n_items,
                                                   seed):
