@@ -72,10 +72,27 @@ Phases, each fatal on failure:
      the first step must run the full precompute, a later one must refresh
      the resident tensor, each prescreen dispatch must launch exactly what
      its delta needs, and no refresh may fail.
+  8. consolidation at full width: phase 6's live cluster built afresh
+     without its backlog (1,000 nodes, 30,000 bound pods) and a
+     provisioner with consolidation enabled; through the port's
+     deprovisioning modules (candidate_nodes, Provisioning, the
+     consolidation deprovisioners, solver/replan.py) on a FakeClock with
+     validation_ttl = 0, MultiNodeConsolidation (the prefix ladder of <= 8
+     rungs and the ride-along empty subset in one replan) and then
+     SingleNodeConsolidation (every candidate a singleton, chunks of 64).
+     Each replan's phases, K, chunks, prescreen mode, launches and device
+     ms per subset, the winning Commands, the feasible subsets and the
+     gen-2 collections inside solves are printed; fatal: a fallback to the
+     sequential path, no block-form launch, a ladder winner not confirmed
+     by an exact solve on the card, a second replan of the unchanged
+     cluster that ran the full precompute;
+  8b. phase 3c's cluster without its backlog: the ladder and every
+     singleton screened on the card and on the CPU must give equal
+     verdicts, equal per-slot counts and the same Commands.
 Phases 4-6 solve with incremental="off", so their warm solves run the full
 precompute as before. It prints one JSON line describing every kernel (the
 screen, screen_prep, and the screen's three forms with their launches over
-phases 4-7), then as its last line {"ok": true, "device": {...}}. Without a
+phases 4-8), then as its last line {"ok": true, "device": {...}}. Without a
 CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
@@ -105,6 +122,15 @@ from karpenter_core_tpu_torch.api.labels import (  # noqa: E402
     PROVISIONER_NAME_LABEL_KEY,
 )
 from karpenter_core_tpu_torch.cloudprovider import fake  # noqa: E402
+from karpenter_core_tpu_torch.controllers.deprovisioning import (  # noqa: E402
+    consolidation,
+)
+from karpenter_core_tpu_torch.controllers.deprovisioning.core import (  # noqa: E402
+    candidate_nodes,
+)
+from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (  # noqa: E402
+    Provisioning,
+)
 from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient  # noqa: E402
 from karpenter_core_tpu_torch.kube.objects import (  # noqa: E402
     LABEL_HOSTNAME,
@@ -123,6 +149,7 @@ from karpenter_core_tpu_torch.scheduling.requirement import Requirement  # noqa:
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements  # noqa: E402
 from karpenter_core_tpu_torch.solver import torch_solver  # noqa: E402
 from karpenter_core_tpu_torch.solver import incremental  # noqa: E402
+from karpenter_core_tpu_torch.solver import replan  # noqa: E402
 from karpenter_core_tpu_torch.solver.encode import encode_snapshot  # noqa: E402
 from karpenter_core_tpu_torch.state import informer  # noqa: E402
 from karpenter_core_tpu_torch.state.cluster import Cluster  # noqa: E402
@@ -247,7 +274,7 @@ EBS_NITRO_LIMIT = 25
 
 
 def live_cluster(n_pods=50000, n_types=500, n_nodes=1000, distinct=1000, per_node=30,
-                 n_ingress=1000, n_sets=5, replicas=100):
+                 n_ingress=1000, n_sets=5, replicas=100, clock=None):
     """Phase 6: the reference mix as a live cluster's backlog. Every node
     is registered through a Cluster with a CSINode that gives the EBS
     driver its Nitro attach limit; `per_node` pods are bound on each node
@@ -259,12 +286,13 @@ def live_cluster(n_pods=50000, n_types=500, n_nodes=1000, distinct=1000, per_nod
     on three zone-3 nodes a pod with required zonal anti-affinity
     against one generic class, and filler. Pending on top of the mix:
     `n_ingress` ingress-like pods with hostPort 443 and `n_sets`
-    StatefulSets of `replicas` pods, each with its own EBS claim.
+    StatefulSets of `replicas` pods, each with its own EBS claim. `clock`
+    is the Cluster's (time.time by default).
     Returns (pods, provisioners, instance types, kube client, cluster)."""
     pods, provisioners, its = reference_mix(n_pods, n_types, distinct)
     universe = its["default"]
     client = InMemoryKubeClient()
-    cluster = Cluster(client)
+    cluster = Cluster(client, clock=clock)
     client.create(testing.make_storage_class("ebs", provisioner=EBS))
     for i in range(n_nodes):
         node = _node(i, universe)
@@ -615,31 +643,44 @@ def phase_kernels(main_snapshot, int_rate: float, busy_cycles: int):
     worst = max(worst, check_screen_case("40-keys", slot, items, segs, segs[-1][1] - 9))
 
     # the exact planes of the main path's prescreen and template rows
-    snap = main_snapshot
-    args = torch_solver.args_to_torch(torch_solver.device_args(snap), dev)
+    shapes = snapshot_shapes("main path", main_snapshot, None, int_rate, busy_cycles,
+                             one_class=True)
+    shapes["max_abs_err"] = float(max(worst, shapes["max_abs_err"]))
+    return shapes
+
+
+def snapshot_shapes(label, snap, provisioners, int_rate: float, busy_cycles: int,
+                    one_class: bool = False) -> dict:
+    """The screen's shapes on one snapshot's own planes, as its prescreen
+    and scan call them (ops/pack.py): screen_prep and every form held
+    exactly against their plain versions on the existing rows and the
+    class planes (check_screen_case), then each shape timed beside its
+    bound (time_shape): the existing block E x C, the template rows, the
+    virgin row 1 x C (a slot's in-scan re-screen has this shape) and,
+    with one_class, one class row N x 1; and the item side's prep."""
+    dev = torch.device("cuda")
+    args = torch_solver.args_to_torch(torch_solver.device_args(snap, provisioners), dev)
     geom = torch_solver.solve_geometry(snap, 0)
     segments, screen_v = list(geom[8]), geom[16]
     pod_arrays, tmpl, exist = args[0], args[1], args[9]
     V, K = exist["allow"].shape[1], exist["out"].shape[1]
     ops = ScreenOps(segments, V, screen_v)
     items_pl = class_planes(pod_arrays, ops)
-    worst = max(worst, check_screen_case(
-        "snapshot", {k: exist[k] for k in ("allow", "out", "defined")},
-        items_pl.planes, segments, screen_v))
+    e_rows = {k: exist[k] for k in ("allow", "out", "defined")}
+    worst = check_screen_case(f"{label} snapshot", e_rows, items_pl.planes, segments,
+                              screen_v)
 
-    # timing at the main path's four screen shapes (ops/pack.py's calls)
     virgin = {"allow": torch.ones((1, V), dtype=torch.bool, device=dev),
               "out": torch.ones((1, K), dtype=torch.bool, device=dev),
               "defined": torch.zeros((1, K), dtype=torch.bool, device=dev)}
-    e_rows = {k: exist[k] for k in ("allow", "out", "defined")}
     t_rows = {k: tmpl[k] for k in ("allow", "out", "defined")}
     shapes = [  # (name, slot rows, layout, item row or None for every item)
         ("existing block E x C", e_rows, ops.rows_layout, None),
         ("template rows J x C", t_rows, ops.rows_layout, None),
         ("virgin row 1 x C", virgin, ops.row_layout, None),
-        ("one class N x 1", e_rows, ops.row_layout, 0),
-    ]
-    timed = {name: time_shape(name, rows, items_pl, layout, b, int_rate, busy_cycles)
+    ] + ([("one class N x 1", e_rows, ops.row_layout, 0)] if one_class else [])
+    timed = {name: time_shape(f"{label}: {name}", rows, items_pl, layout, b, int_rate,
+                              busy_cycles)
              for name, rows, layout, b in shapes}
     blk = timed["existing block E x C"]
 
@@ -652,13 +693,14 @@ def phase_kernels(main_snapshot, int_rate: float, busy_cycles: int):
     item_prep_plain_ms = time_on_card(lambda: screen.screen_prep_plain(*i_args, **i_extra),
                                       reps=5)
     ib = prep_bound(items_pl.B, ops.rows_layout, True, True, True, int_rate)
-    say(f"[screen_prep] item side C={items_pl.B}: kernel {item_prep_ms:.4f} ms, plain "
-        f"{item_prep_plain_ms:.4f} ms, bound {ib['bound_ms']:.6f} ms by {ib['bound_detail']}")
+    say(f"[screen_prep] {label}: item side C={items_pl.B}: kernel {item_prep_ms:.4f} ms, "
+        f"plain {item_prep_plain_ms:.4f} ms, bound {ib['bound_ms']:.6f} ms by "
+        f"{ib['bound_detail']}")
     # the slot side's prep of the block shape: the kernels line's screen_prep
     s_plain_ms = time_on_card(lambda: screen.screen_prep_plain(
         e_rows["allow"], e_rows["out"], e_rows["defined"], ops.rows_layout), reps=5)
-    say(f"[screen_prep] slot side E={blk['N']} (block form: bytes and bitmasks): wrapper "
-        f"{blk['prep_ms']:.4f} ms, kernel {blk['prep_kernel_ms']:.4f} ms, plain "
+    say(f"[screen_prep] {label}: slot side E={blk['N']} (block form: bytes and bitmasks): "
+        f"wrapper {blk['prep_ms']:.4f} ms, kernel {blk['prep_kernel_ms']:.4f} ms, plain "
         f"{s_plain_ms:.4f} ms, bound {blk['prep_bound_ms']:.6f} ms")
     return {"max_abs_err": float(worst), "timed": timed, "slot_prep_plain_ms": s_plain_ms}
 
@@ -955,12 +997,13 @@ def run_main_path(label, solver, workload, zones=None, cluster=None):
         if cluster is not None:
             nodes = cluster.nodes()
         nodes_s = time.perf_counter() - t0
+        nodes_gcs = gc.get_stats()[2]["collections"]
         result = solver.solve(pods, provs, its, state_nodes=nodes, kube_client=client,
                               cluster=cluster)
         torch.cuda.synchronize()
         runs.append((run, time.perf_counter() - t0, nodes_s, dict(solver.last_phase_ms),
                      dict(pack.LAST_SCAN), result,
-                     gc.get_stats()[2]["collections"] - full_gcs))
+                     (nodes_gcs - full_gcs, gc.get_stats()[2]["collections"] - nodes_gcs)))
     launches, forms = dict(screen.LAUNCHES), dict(screen.FORM_LAUNCHES)
     result = runs[0][5]
     t0 = time.perf_counter()
@@ -972,8 +1015,10 @@ def run_main_path(label, solver, workload, zones=None, cluster=None):
     for run, wall, nodes_s, phases, scan, res, full_gcs in runs:
         say(f"[{label}] {run}: {wall:.3f} s wall"
             + (f" ({nodes_s:.3f} s of it cluster.nodes())" if cluster is not None else "")
-            + f", {full_gcs} full garbage collections, scheduled {res.pod_count_new() + res.pod_count_existing()} (new "
-            f"{res.pod_count_new()} on {len(res.new_machines)} machines, existing "
+            + f", full garbage collections {full_gcs[0]} in cluster.nodes() and "
+            f"{full_gcs[1]} in the solve, scheduled "
+            f"{res.pod_count_new() + res.pod_count_existing()} (new {res.pod_count_new()} "
+            f"on {len(res.new_machines)} machines, existing "
             f"{res.pod_count_existing()}), failed {len(res.failed_pods)}, rounds "
             f"{res.rounds}, last_phase_ms "
             + json.dumps({k: round(v, 3) for k, v in phases.items()})
@@ -1211,6 +1256,199 @@ def phase_churn(pods, provs, its, client, cluster, max_nodes: int, zones, steps:
             {k: total.get(k, 0) for k in screen.FORM_LAUNCHES}, steps_out)
 
 
+# -- phase 8: consolidation over a live cluster --------------------------------
+
+def settled_cluster(*args, **kw):
+    """live_cluster(*args, **kw) without its pending backlog: the settled
+    cluster consolidation runs on, on a FakeClock, with the provisioner
+    (consolidation enabled) in the kube client. Returns (instance types,
+    kube client, cluster, clock)."""
+    clock = testing.FakeClock()
+    _pods, _provs, its, client, cluster = live_cluster(*args, clock=clock, **kw)
+    client.create(testing.make_provisioner(name="default", consolidation_enabled=True))
+    return its, client, cluster, clock
+
+
+class _GenTwo:
+    """Counts gen-2 collections, and those that start inside a solve."""
+
+    def __init__(self):
+        self.total = self.in_solve = 0
+        self.solving = False
+
+    def __call__(self, phase, info):
+        if phase == "start" and info["generation"] == 2:
+            self.total += 1
+            self.in_solve += self.solving
+
+
+def phase_consolidation(label, its, client, cluster, clock, device="cuda",
+                        want_slots=False) -> dict:
+    """Phase 8 (and each half of 8b): MultiNodeConsolidation.compute_command
+    (the prefix ladder and the ride-along empty subset in one replan) and
+    then SingleNodeConsolidation.compute_command (every candidate a
+    singleton, in chunks of 64) over the cluster, through the port's
+    modules: candidate_nodes, Provisioning, a TorchSolver(max_nodes=1024)
+    on `device` (incremental, the operator's defaults), validation_ttl = 0
+    on `clock`. Each run's screen launches are zeroed just
+    before it and read just after; each replan's phases, K, chunks,
+    prescreen mode, own launches and device ms per scanned subset, every
+    exact solve, and the gen-2 collections inside solves are recorded.
+    Returns the runs' candidates, screens, commands and records."""
+    solver = torch_solver.TorchSolver(max_nodes=1024, device=device)
+    cp = fake.FakeCloudProvider(its["default"])
+    provisioning = Provisioning(client, cp, solver)
+    args = (client, cluster, provisioning, cp, None)
+    deps = {
+        "multi": consolidation.MultiNodeConsolidation(*args, clock=clock, validation_ttl=0.0),
+        "single": consolidation.SingleNodeConsolidation(*args, clock=clock,
+                                                        validation_ttl=0.0),
+    }
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    replans, solves = [], []
+    gen2 = _GenTwo()
+    real_replan, real_solve = solver.replan_screen, solver.solve
+
+    def replan_screen(*a, **kw):
+        out = real_replan(*a, **kw)
+        st = solver.last_replan_stats
+        ph = solver.last_replan_phase_ms
+        # the union snapshot and its provisioners: the planes the replan's
+        # kernels screened, for snapshot_shapes
+        replans.append({"union": (a[0], a[1]),
+                        "K": st["K"], "chunks": st["chunks"], "prescreen": st["prescreen"],
+                        "launches": st["launches"], "scans": st["scans"],
+                        "phases_ms": {k: round(v, 3) for k, v in ph.items()},
+                        "device_ms_per_subset": ph["device"] / max(st["scans"]["subsets"], 1)})
+        return out
+
+    def solve(*a, **kw):
+        gen2.solving = True
+        t0 = time.perf_counter()
+        try:
+            res = real_solve(*a, **kw)
+            sync()
+        finally:
+            gen2.solving = False
+        solves.append({"wall_s": time.perf_counter() - t0, "pods": len(a[0]),
+                       "phases_ms": {k: round(v, 3) for k, v in solver.last_phase_ms.items()}})
+        return res
+
+    solver.replan_screen, solver.solve = replan_screen, solve
+    real_batched = replan.batched_subset_screen
+    if want_slots:
+        replan.batched_subset_screen = lambda *a, **kw: real_batched(
+            *a, **dict(kw, want_slots=True))
+    gc.callbacks.append(gen2)
+    out = {"runs": {}}
+    try:
+        for kind, dep in deps.items():
+            captured = []
+            dep._record_pass = lambda c, s, cmd, scenario=None: captured.append(s)
+            screen.reset_launches()
+            consolidation.reset_fallbacks()
+            n_replans, n_solves = len(replans), len(solves)
+            t0 = time.perf_counter()
+            raw = candidate_nodes(cluster, client, cp, dep.should_deprovision, clock)
+            scan_s = time.perf_counter() - t0
+            cmd = dep.compute_command(raw)
+            sync()
+            wall = time.perf_counter() - t0
+            counts = screen.launch_counts()
+            fallbacks = dict(consolidation.FALLBACKS)
+            if any(fallbacks.values()):
+                raise AssertionError(f"{label} {kind}: the batched screen fell back to the "
+                                     f"sequential path: {fallbacks}")
+            screens = [s for pass_screens in captured for s in pass_screens]
+            feasible = [s for s in screens
+                        if s.all_scheduled and s.conclusive and s.n_new_machines <= 1]
+            run = {
+                "candidates": [c.name for c in dep.sort_and_filter_candidates(raw)],
+                "screens": screens, "feasible": len(feasible), "cmd": cmd,
+                "wall_s": wall, "scan_s": scan_s, "launches": counts,
+                "replans": replans[n_replans:], "solves": solves[n_solves:],
+            }
+            out["runs"][kind] = run
+            repl = cmd.replacement_machines
+            say(f"[{label}] {kind}: {len(run['candidates'])} candidates (scan "
+                f"{scan_s:.3f} s), {len(screens)} subsets screened, {len(feasible)} "
+                f"feasible; command {cmd.action}: {len(cmd.nodes_to_remove)} nodes "
+                f"{[n.metadata.name for n in cmd.nodes_to_remove][:6]}"
+                + (f", replacement options {len(repl[0].instance_type_options)}"
+                   if repl else "")
+                + f"; {wall:.3f} s wall, {len(run['solves'])} exact solves "
+                f"({sum(s['wall_s'] for s in run['solves']):.3f} s), launches "
+                f"{json.dumps(counts)}")
+            for rp in run["replans"]:
+                say(f"[{label}] {kind} replan: K {rp['K']} in chunks {rp['chunks']}, "
+                    f"prescreen {rp['prescreen']}, last_replan_phase_ms "
+                    f"{json.dumps(rp['phases_ms'])}, device ms per subset "
+                    f"{rp['device_ms_per_subset']:.3f}, scans {json.dumps(rp['scans'])}, "
+                    f"launches {json.dumps(rp['launches'])}")
+            for sv in run["solves"]:
+                say(f"[{label}] {kind} exact solve: {sv['pods']} pods, {sv['wall_s']:.3f} s, "
+                    f"last_phase_ms {json.dumps(sv['phases_ms'])}")
+    finally:
+        gc.callbacks.remove(gen2)
+        replan.batched_subset_screen = real_batched
+        solver.replan_screen, solver.solve = real_replan, real_solve
+    out["gen2"] = {"total": gen2.total, "in_solves": gen2.in_solve}
+    say(f"[{label}] gen-2 collections: {gen2.total} in the phase, {gen2.in_solve} inside "
+        f"solves")
+    return out
+
+
+def check_consolidation(out: dict, on_card: bool = True) -> None:
+    """Phase 8's fatal checks beyond phase_consolidation's own (no
+    sequential fallback): the screen's block form launched (counted on
+    the card only), the ladder's winner confirmed through an exact solve,
+    and the second replan of the unchanged cluster refreshed the resident
+    tensor."""
+    multi, single = out["runs"]["multi"], out["runs"]["single"]
+    if on_card and multi["launches"]["block"] + single["launches"]["block"] < 1:
+        raise AssertionError("consolidation: the block-form screen was not launched")
+    if multi["cmd"].action not in ("delete", "replace"):
+        raise AssertionError(f"consolidation: the ladder decided {multi['cmd'].action}")
+    if not multi["solves"]:
+        raise AssertionError("consolidation: the ladder's winner was not confirmed by an "
+                             "exact solve")
+    if not multi["replans"] or not single["replans"]:
+        raise AssertionError("consolidation: a deprovisioner ran no replan")
+    if single["replans"][0]["prescreen"] == "full":
+        raise AssertionError("consolidation: the second replan of the unchanged cluster "
+                             "ran the full precompute")
+
+
+def _screens_key(screens):
+    return [(s.subset, s.all_scheduled, s.n_new_machines, s.conclusive, s.price,
+             s.disruption, s.savings, s.priceless) for s in screens]
+
+
+def _cmd_key(cmd):
+    return (cmd.action, [n.metadata.name for n in cmd.nodes_to_remove],
+            [[it.name for it in m.instance_type_options] for m in cmd.replacement_machines])
+
+
+def compare_consolidation(card: dict, cpu: dict) -> dict:
+    """Phase 8b: the card's and the CPU's runs agree on candidates, every
+    subset's verdict and per-slot counts, and the Command."""
+    checked = {}
+    for kind in ("multi", "single"):
+        a, b = card["runs"][kind], cpu["runs"][kind]
+        if a["candidates"] != b["candidates"]:
+            raise AssertionError(f"8b {kind}: card and CPU candidates differ")
+        if _screens_key(a["screens"]) != _screens_key(b["screens"]):
+            raise AssertionError(f"8b {kind}: card and CPU verdicts differ")
+        for sa, sb in zip(a["screens"], b["screens"]):
+            if not np.array_equal(sa.pods_per_slot, sb.pods_per_slot):
+                raise AssertionError(f"8b {kind}: pods_per_slot of {sa.subset} differ")
+        if _cmd_key(a["cmd"]) != _cmd_key(b["cmd"]):
+            raise AssertionError(f"8b {kind}: card and CPU commands differ")
+        checked[kind] = {"subsets": len(a["screens"]), "action": a["cmd"].action,
+                         "card_s": round(a["wall_s"], 3), "cpu_s": round(b["wall_s"], 3)}
+    return checked
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -1405,7 +1643,6 @@ def main() -> int:
 
     # phase 6b: the live cluster solved with the tiered screen, in turns
     # with the prescreen (tiered, prescreen, prescreen, tiered) so the two
-    # compare within one call
     # compare within one call; each solve runs with the launch counts set
     # to 0 just before it and read just after
     turns, tiered_total = [], {}
@@ -1445,41 +1682,110 @@ def main() -> int:
     churn_launches, churn_forms, _steps = phase_churn(
         pods, provs, its, client, cluster, max_nodes, _zones(its))
     mark("phase 7")
+    del pods, provs, its, client, cluster, live_solver, live_result, live_snap
+    gc.collect()
 
-    runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches)
-    form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms)
+    # phase 8: consolidation over a settled live cluster at full width
+    t0 = time.perf_counter()
+    c_its, c_client, c_cluster, c_clock = settled_cluster()
+    say(f"[consolidation] built {len(c_cluster.nodes_by_provider_id)} nodes, "
+        f"{len(c_cluster.bindings)} bound pods in {time.perf_counter() - t0:.2f} s")
+    cons = phase_consolidation("consolidation", c_its, c_client, c_cluster, c_clock)
+    check_consolidation(cons)
+    # the kernels at this path's own shapes: each deprovisioner's union
+    # snapshot, held exactly against the plain versions and timed
+    union = {}
+    for kind in ("multi", "single"):
+        u_snap, u_provs = cons["runs"][kind]["replans"][0]["union"]
+        union[kind] = snapshot_shapes(f"union ({kind})", u_snap, u_provs, int_rate,
+                                      busy_cycles)
+    cons_launches = {}
+    for run in cons["runs"].values():
+        _add_counts(cons_launches, run["launches"])
+    cons_forms = {k: cons_launches.get(k, 0) for k in screen.FORM_LAUNCHES}
+    cons_launches = {k: cons_launches.get(k, 0) for k in screen.LAUNCHES}
+    del c_its, c_client, c_cluster, cons
+    gc.collect()
+    mark("phase 8")
+
+    # phase 8b: the card and the CPU decide alike at phase 3c's size
+    s_its, s_client, s_cluster, s_clock = settled_cluster(4500, 400, 200, distinct=100,
+                                                          n_ingress=300, n_sets=2)
+    on_card = phase_consolidation("consolidation 8b card", s_its, s_client, s_cluster,
+                                  s_clock, want_slots=True)
+    on_cpu = phase_consolidation("consolidation 8b cpu", s_its, s_client, s_cluster,
+                                 s_clock, device="cpu", want_slots=True)
+    say(f"[consolidation 8b] card and CPU agree: "
+        f"{json.dumps(compare_consolidation(on_card, on_cpu))}")
+    mark("phase 8b")
+
+    runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
+            cons_launches)
+    form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
 
-    blk = kstats["timed"]["existing block E x C"]
-    row_n1 = kstats["timed"]["virgin row 1 x C"]
+    # the line's numbers are those of this slice's main path, phase 8's
+    # ladder union (1,024 existing rows by its class axis); "shapes" keeps
+    # each shape the script timed: the earlier slices' (phase 2 on the main
+    # path's snapshot) and both unions of phase 8. row_b1 is not on phase
+    # 8's path (prescreen mode): it keeps the tiered screen's shape
+    cons_shapes = union["multi"]
+    err = max(kstats["max_abs_err"], *(u["max_abs_err"] for u in union.values()))
     common = {"route": "cuda", "source": "karpenter_core_tpu_torch/csrc/screen.cu",
               "replaces": "karpenter_core_tpu/ops/pallas_kernels.py:29",
-              "max_abs_err": kstats["max_abs_err"], "library_ms": None}
+              "max_abs_err": err, "library_ms": None}
+    by_shape = {"main path (phase 2)": kstats, "union multi (phase 8)": union["multi"],
+                "union single (phase 8)": union["single"]}
 
-    def form_entry(form, stats, replaces):
+    def times(stats, prep=False):
+        if prep:
+            return {"ms": stats["prep_ms"], "kernel_ms": stats["prep_kernel_ms"],
+                    "bound_ms": stats["prep_bound_ms"], "bound_by": stats["prep_bound_by"],
+                    "N": stats["N"]}
+        return {k: stats[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "form", "N", "B")}
+
+    def shapes_of(shape_name, prep=False):
+        out = {}
+        for where, sh in by_shape.items():
+            st = times(sh["timed"][shape_name], prep)
+            if prep:
+                st["plain_ms"] = sh["slot_prep_plain_ms"]
+            out[where] = st
+        return out
+
+    def form_entry(form, stats, replaces, shapes):
         return dict(common, name=f"screen/{form}", replaces=replaces,
                     launches=forms[form], ms=stats["ms"], kernel_ms=stats["kernel_ms"],
                     plain_ms=stats["plain_ms"], bound_ms=stats["bound_ms"],
-                    bound_by=stats["bound_by"],
-                    max_abs_err=max(kstats["max_abs_err"], stats.get("max_abs_err", 0.0)))
+                    bound_by=stats["bound_by"], shapes=shapes,
+                    max_abs_err=max(err, stats.get("max_abs_err", 0.0)))
 
     # ms is the wrapper's time at the block shape (screen: screen_block, its
     # slot prep included; screen_prep: the slot side's screen_prep call);
     # kernel_ms is that kernel's launch alone. The per-form entries time
-    # each form at its main-path shape: the existing block, the virgin
-    # row, and the tiered screen's open slots against one class row
+    # each form at its shape on the path: the existing block, the virgin
+    # row (a slot's in-scan re-screen), and the tiered screen's open slots
+    # against one class row
+    blk = cons_shapes["timed"]["existing block E x C"]
+    row_n1 = cons_shapes["timed"]["virgin row 1 x C"]
     kernels = [
         dict(common, name="screen", launches=launches["screen"],
              ms=blk["ms"], kernel_ms=blk["kernel_ms"], plain_ms=blk["plain_ms"],
-             bound_ms=blk["bound_ms"], bound_by=blk["bound_by"]),
+             bound_ms=blk["bound_ms"], bound_by=blk["bound_by"],
+             shapes=shapes_of("existing block E x C")),
         dict(common, name="screen_prep", launches=launches["screen_prep"],
              ms=blk["prep_ms"], kernel_ms=blk["prep_kernel_ms"],
-             plain_ms=kstats["slot_prep_plain_ms"],
-             bound_ms=blk["prep_bound_ms"], bound_by=blk["prep_bound_by"]),
-        form_entry("block", blk, "karpenter_core_tpu/ops/pallas_kernels.py:160"),
-        form_entry("row_n1", row_n1, "karpenter_core_tpu/ops/pallas_kernels.py:160"),
-        form_entry("row_b1", tiered_shape, "karpenter_core_tpu/ops/pallas_kernels.py:104"),
+             plain_ms=cons_shapes["slot_prep_plain_ms"],
+             bound_ms=blk["prep_bound_ms"], bound_by=blk["prep_bound_by"],
+             shapes=shapes_of("existing block E x C", prep=True)),
+        form_entry("block", blk, "karpenter_core_tpu/ops/pallas_kernels.py:160",
+                   shapes_of("existing block E x C")),
+        form_entry("row_n1", row_n1, "karpenter_core_tpu/ops/pallas_kernels.py:160",
+                   shapes_of("virgin row 1 x C")),
+        form_entry("row_b1", tiered_shape, "karpenter_core_tpu/ops/pallas_kernels.py:104",
+                   {"tiered nopen x 1 (phase 6)": times(tiered_shape)}),
     ]
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

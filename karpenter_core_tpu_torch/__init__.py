@@ -10,9 +10,13 @@ It solves one provisioning ``Solve()``: pods with requests,
 and anti-affinity, host ports, PVC-backed volumes under CSINode attach
 limits, daemonset overhead, several weighted provisioners with limits,
 existing nodes and relaxation, against a live cluster when given a kube
-client (``kube/client.py``) and a ``state/cluster.Cluster``.
+client (``kube/client.py``) and a ``state/cluster.Cluster``. It screens
+consolidation candidate subsets in batches (``TorchSolver.replan_screen``,
+``solver/replan.py``) for the multi- and single-node consolidation
+deprovisioners (``controllers/deprovisioning/consolidation.py``).
 
-Entry point: ``karpenter_core_tpu_torch.solver.torch_solver.TorchSolver``.
+Entry points: ``karpenter_core_tpu_torch.solver.torch_solver.TorchSolver``
+and the deprovisioners' ``compute_command``.
 It runs on the CUDA card by default and raises when none is present unless
 the caller asks for ``device="cpu"``.
 """

@@ -21,6 +21,10 @@ PROVISIONER_NAME_LABEL_KEY = f"{GROUP}/provisioner-name"
 LABEL_NODE_INITIALIZED = f"{GROUP}/initialized"
 LABEL_CAPACITY_TYPE = f"{GROUP}/capacity-type"
 
+# a pod that must not be evicted, a node that must not be consolidated
+DO_NOT_EVICT_POD_ANNOTATION_KEY = f"{GROUP}/do-not-evict"
+DO_NOT_CONSOLIDATE_NODE_ANNOTATION_KEY = f"{GROUP}/do-not-consolidate"
+
 # Labels in restricted domains the framework understands and can narrow
 # (labels.go:78-89). Mutable: the fake cloud provider registers its extra
 # well-known keys, as the reference's fake does.
@@ -48,3 +52,28 @@ NORMALIZED_LABELS = {
     LABEL_INSTANCE_TYPE_BETA: LABEL_INSTANCE_TYPE_STABLE,
     LABEL_FAILURE_DOMAIN_BETA_REGION: LABEL_TOPOLOGY_REGION,
 }
+
+
+# Label domains prohibited by the kubelet or reserved by the framework
+# (labels.go:62-76), the allowed sub-domains, and labels never injected on
+# nodes (labels.go:91-96).
+RESTRICTED_LABEL_DOMAINS = frozenset({"kubernetes.io", "k8s.io", GROUP})
+LABEL_DOMAIN_EXCEPTIONS = frozenset({"kops.k8s.io", "node.kubernetes.io",
+                                     "testing.karpenter.sh"})
+RESTRICTED_LABELS = frozenset({f"{GROUP}/emptiness-timestamp", "kubernetes.io/hostname"})
+
+
+def is_restricted_label(key: str):
+    """An error message if a requirement may not use the label, else None
+    (labels.go:107-134)."""
+    if key in WELL_KNOWN_LABELS:
+        return None
+    domain = key.split("/", 1)[0] if "/" in key else ""
+    if domain in LABEL_DOMAIN_EXCEPTIONS:
+        return None
+    if any(domain.endswith(d) for d in RESTRICTED_LABEL_DOMAINS) or key in RESTRICTED_LABELS:
+        return (
+            f"label {key} is restricted; specify a well known label or a custom "
+            f"label that does not use a restricted domain"
+        )
+    return None

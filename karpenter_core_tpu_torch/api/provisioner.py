@@ -1,5 +1,6 @@
 """Provisioner: the declarative node-pool spec (provisioner.go:32-136,
-limits.go): labels, taints, requirements, capacity limits and weight."""
+limits.go): labels, taints, requirements, capacity limits, weight, the
+expiry TTL and consolidation."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -21,6 +22,14 @@ class Limits:
 
 
 @dataclass
+class Consolidation:
+    """provisioner.go:83: whether the provisioner's nodes may be
+    consolidated."""
+
+    enabled: Optional[bool] = None
+
+
+@dataclass
 class ProvisionerSpec:
     labels: Dict[str, str] = field(default_factory=dict)
     taints: List[Taint] = field(default_factory=list)
@@ -28,6 +37,8 @@ class ProvisionerSpec:
     requirements: List[NodeSelectorRequirement] = field(default_factory=list)
     limits: Optional[Limits] = None
     weight: Optional[int] = None
+    ttl_seconds_until_expired: Optional[int] = None
+    consolidation: Optional[Consolidation] = None
 
 
 @dataclass
@@ -41,6 +52,9 @@ class Provisioner:
     @property
     def name(self) -> str:
         return self.metadata.name
+
+    def consolidation_enabled(self) -> bool:
+        return bool(self.spec.consolidation and self.spec.consolidation.enabled)
 
 
 def order_by_weight(provisioners: List[Provisioner]) -> List[Provisioner]:

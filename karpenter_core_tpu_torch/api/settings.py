@@ -1,8 +1,10 @@
-"""The solver's geometry bucket ladder.
+"""Global settings (settings.go:32-68) as far as the port reads them, and
+the solver's geometry bucket ladder.
 
 Every batch axis the solve is shaped by (items, instance types, existing
 nodes) pads up to a tier value, so the padded shapes, and with them the
 commit log and slot state, match the reference solver's for the same batch.
+`current()` is the process-wide Settings; `set_current()` replaces it.
 """
 from __future__ import annotations
 
@@ -28,3 +30,24 @@ DEFAULT_BUCKET_LADDER: Tuple[GeometryTier, ...] = (
     GeometryTier("XL", pods=65536, items=2048, instance_types=512,
                  existing_nodes=1024),
 )
+
+
+@dataclass
+class Settings:
+    # the provisioning batch window's upper bound, seconds; a node
+    # nominated for a pod stays nominated for twice this (at least 10 s)
+    batch_max_duration: float = 10.0
+    # victims per consolidation pass; 0 is unbounded
+    consolidation_disruption_budget: int = 0
+
+
+_current = Settings()
+
+
+def current() -> Settings:
+    return _current
+
+
+def set_current(settings: Settings) -> None:
+    global _current
+    _current = settings

@@ -1,5 +1,7 @@
-"""Instance-type universe generators of the reference's fake provider
-(fake/instancetype.go:48-167)."""
+"""The reference's fake cloud provider, reduced to what the solve and the
+consolidation search read: the instance-type universe generators
+(fake/instancetype.go:48-167) and FakeCloudProvider.get_instance_types
+(fake/cloudprovider.go:41-160 without machine creation)."""
 from __future__ import annotations
 
 from typing import List, Optional
@@ -121,3 +123,17 @@ def instance_types(total: int) -> List[InstanceType]:
         )
         for i in range(total)
     ]
+
+
+class FakeCloudProvider:
+    """Serves one instance-type universe to every provisioner; the ladder
+    of five types when none is given."""
+
+    def __init__(self, instance_types: Optional[List[InstanceType]] = None):
+        self.instance_types: List[InstanceType] = list(instance_types or [])
+
+    def get_instance_types(self, provisioner=None) -> List[InstanceType]:
+        return self.instance_types if self.instance_types else instance_types(5)
+
+    def name(self) -> str:
+        return "fake"

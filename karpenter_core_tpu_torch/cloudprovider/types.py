@@ -25,6 +25,14 @@ class Offerings(list):
     def available(self) -> "Offerings":
         return Offerings(o for o in self if o.available)
 
+    def get(self, capacity_type: str, zone: str):
+        """The offering of a capacity type in a zone, or None
+        (types.go:127-133)."""
+        for o in self:
+            if o.capacity_type == capacity_type and o.zone == zone:
+                return o
+        return None
+
 
 @dataclass
 class InstanceTypeOverhead:

@@ -2,13 +2,15 @@
 cluster's informers use.
 
 The analog of the reference's InMemoryKubeClient (kube/client.py), cut to
-what those paths call: objects are created, updated and deleted in a store
-keyed by (kind, namespace, name), read back by key, listed by kind,
-namespace and label selector, and watched. The store holds its own copies
-and hands out copies, as an apiserver does. A watch delivers ("ADDED" |
-"MODIFIED" | "DELETED", object) tuples to a queue.Queue per subscriber.
-Left out: the status subresource writes, compare-and-update, eviction and
-finalizers (the consolidation path's surface).
+what those paths and the consolidation search call: objects are created,
+updated and deleted in a store keyed by (kind, namespace, name), read back
+by key, listed by kind, namespace, label selector and a field filter, and
+watched; pods are evicted under their PodDisruptionBudgets. The store
+holds its own copies and hands out copies, as an apiserver does, unless a
+read-only reader asks for shared references (list(copy_objects=False)). A
+watch delivers ("ADDED" | "MODIFIED" | "DELETED", object) tuples to a
+queue.Queue per subscriber. Left out: the status subresource writes,
+compare-and-update and finalizers (the operator's surface).
 
 A solve accepts any object with this `get` / `list` surface (an adapter
 over a real apiserver included).
@@ -18,7 +20,7 @@ from __future__ import annotations
 import copy
 import queue
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from karpenter_core_tpu_torch.kube.objects import LabelSelector, NamespacedName
 
@@ -35,6 +37,10 @@ class AlreadyExistsError(Exception):
 
 class NotFoundError(Exception):
     pass
+
+
+class EvictionBlockedError(Exception):
+    """The eviction API's 429: a PodDisruptionBudget allows no disruption."""
 
 
 def _kind_of(obj) -> str:
@@ -101,9 +107,15 @@ class InMemoryKubeClient:
             self._notify(kind, "DELETED", existing)
 
     def list(self, kind: str, namespace: Optional[str] = None,
-             selector: Optional[LabelSelector] = None) -> List[object]:
+             selector: Optional[LabelSelector] = None,
+             field_filter: Optional[Callable[[object], bool]] = None,
+             copy_objects: bool = True) -> List[object]:
         """Objects of `kind`, in creation order, optionally of one
-        namespace and matching a label selector (None selects all)."""
+        namespace, matching a label selector (None selects all) and a
+        field filter. copy_objects=False hands out the stored objects
+        themselves, for readers that never mutate what they list (an
+        informer cache's read idiom): the consolidation search reads
+        every bound pod of the cluster each pass."""
         with self._mu:
             out = []
             for key, obj in self._objects.get(kind, {}).items():
@@ -111,8 +123,41 @@ class InMemoryKubeClient:
                     continue
                 if selector is not None and not selector.matches(obj.metadata.labels):
                     continue
-                out.append(copy.deepcopy(obj))
+                if field_filter is not None and not field_filter(obj):
+                    continue
+                out.append(copy.deepcopy(obj) if copy_objects else obj)
             return out
+
+    def evict(self, namespace: str, name: str) -> None:
+        """The pods/eviction call with the server's PDB check
+        (eviction.go:111-124): raises EvictionBlockedError when more than
+        one budget covers the pod or its budget allows no disruption;
+        otherwise deletes the pod and takes one disruption from the
+        budget. A missing pod is already evicted."""
+        with self._mu:
+            pod = self._objects.get("Pod", {}).get(NamespacedName(namespace, name))
+            if pod is None:
+                return
+            matching = [
+                pdb for pdb in self._objects.get("PodDisruptionBudget", {}).values()
+                if pdb.spec.selector is not None
+                and pdb.metadata.namespace == namespace
+                and pdb.spec.selector.matches(pod.metadata.labels)
+            ]
+            if len(matching) > 1:
+                raise EvictionBlockedError(
+                    "This pod has more than one PodDisruptionBudget: "
+                    + ", ".join(p.metadata.name for p in matching)
+                )
+            if matching:
+                pdb = matching[0]
+                if pdb.status.disruptions_allowed <= 0:
+                    raise EvictionBlockedError(
+                        "Cannot evict pod as it would violate the pod's disruption "
+                        f"budget {pdb.metadata.namespace}/{pdb.metadata.name}"
+                    )
+                pdb.status.disruptions_allowed -= 1
+            self.delete("Pod", namespace, name)
 
     # -- watches -------------------------------------------------------------
 

@@ -259,6 +259,7 @@ class PodSpec:
         default_factory=list
     )
     volumes: List[Volume] = field(default_factory=list)
+    priority: Optional[int] = None
 
 
 @dataclass
@@ -385,6 +386,36 @@ class CSINode:
 
     def __post_init__(self):
         self.metadata.namespace = ""
+
+
+# ---------------------------------------------------------------------------
+# policy and workloads
+
+
+@dataclass
+class PodDisruptionBudgetSpec:
+    selector: Optional[LabelSelector] = None
+
+
+@dataclass
+class PodDisruptionBudgetStatus:
+    disruptions_allowed: int = 0
+
+
+@dataclass
+class PodDisruptionBudget:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodDisruptionBudgetSpec = field(default_factory=PodDisruptionBudgetSpec)
+    status: PodDisruptionBudgetStatus = field(default_factory=PodDisruptionBudgetStatus)
+
+
+@dataclass
+class DaemonSet:
+    """A DaemonSet reduced to its pod template: the scheduler counts the
+    template's requests as per-node daemon overhead."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    pod_template_spec: Optional[PodSpec] = None
 
 
 @dataclass

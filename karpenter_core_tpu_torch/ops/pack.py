@@ -28,6 +28,10 @@ Per item (one pod spec class with a replica count):
      per-iteration water-fill over the domains.
   4. Record each commit into the topology counts (topology.go:120-143).
 
+The consolidation replan (make_batched_replan_kernel) runs the same scan
+once per candidate subset, in rung mode: no commit log, the subset's
+replica counts, and its victims' existing slots closed.
+
 The reference's lax.scan is a Python loop here, and its lax.while_loop and
 lax.cond are Python control flow on small scalars read from the device,
 batched into one read per decision. Every float is computed with the
@@ -226,11 +230,17 @@ def screen_refresh(screen, ops: ScreenOps, items_pl: ScreenItems, exist, rows, c
 class _Log:
     """The commit log on the host (its scalars are host values already:
     the scan's control flow reads them), with the bulk take matrix on the
-    device. Layout and budgets are the reference's (pack.py:963-1000)."""
+    device. Layout and budgets are the reference's (pack.py:963-1000).
 
-    def __init__(self, L: int, LB: int, BR: int, device):
+    A disabled log (log_commits=False, the consolidation replan's rung
+    scan, which reads only the final slot state) writes nothing and never
+    gates a commit on log space, as the reference's rung mode skips every
+    log write and its space gating (pack.py:960-975,1214-1226)."""
+
+    def __init__(self, L: int, LB: int, BR: int, device, enabled: bool = True):
         self.L = L
         self.LB = LB
+        self.enabled = enabled
         self.rows: List[tuple] = []  # (item, slot, ns, k, k_last)
         self.bulk_take = torch.zeros((LB, BR), dtype=torch.int32, device=device)
         self.bulk_n = 0
@@ -240,10 +250,21 @@ class _Log:
         return len(self.rows)
 
     def has_room(self) -> bool:
-        return self.ptr < self.L
+        return self.ptr < self.L or not self.enabled
+
+    def bulk_room(self) -> bool:
+        return self.bulk_n < self.LB or not self.enabled
 
     def write(self, item, slot, ns, k, k_last) -> None:
-        self.rows.append((item, slot, ns, k, k_last))
+        if self.enabled:
+            self.rows.append((item, slot, ns, k, k_last))
+
+    def write_bulk(self, item, take, width: int, placed: int) -> None:
+        """A bulk commit: its take row and the ns=-1 marker entry."""
+        if self.enabled:
+            self.bulk_take[self.bulk_n, :width] = take
+            self.write(item, 0, -1, self.bulk_n, placed)
+            self.bulk_n += 1
 
     def arrays(self):
         L = self.L
@@ -288,6 +309,55 @@ def replica_cap_rows(alloc, used_rows, req):
 
 
 SCREEN_MODES = ("prescreen", "tiered")
+
+
+def _scan_constants(segments, V, screen_v, type_reqs, type_offering_ok, item_arrays,
+                    items_pl, tmpl_reqs, tiered, Q, W, groups, topo_terms, dev) -> dict:
+    """What a scan reads that depends only on the geometry, the item
+    planes, the templates and the types: the screen ops and the type rows
+    at the screen width, the class planes and, under prescreen, each
+    template's verdict row (a plane-neutral item merges as the identity,
+    so the row an open writes for it IS its template's), and the host
+    copies of the per-item flags the control flow reads."""
+    ops = ScreenOps(segments, V, screen_v)
+    WSCR = ops.width
+    if items_pl is None:
+        items_pl = class_planes(item_arrays, ops)
+    tmpl_rows = None
+    if not tiered:
+        tmpl_rows = ops.rows_vs_items(
+            items_pl, tmpl_reqs["allow"], tmpl_reqs["out"], tmpl_reqs["defined"]
+        )  # [J, C]
+    out = {
+        "ops": ops,
+        "sm": torch.as_tensor(compat.seg_matrix(segments, V)[:WSCR], device=dev),
+        "type_rows": dict(type_reqs, allow=type_reqs["allow"][:, :WSCR]),
+        "offer_f": type_offering_ok.to(torch.float32),
+        "key_scr": np.asarray([lo < WSCR for (lo, _hi) in segments], dtype=bool),
+        "items_pl": items_pl,
+        "tmpl_rows": tmpl_rows,
+        "valid_h": item_arrays["valid"].cpu().numpy(),
+        "scls_h": item_arrays["scls"].cpu().numpy(),
+        "defined_h": item_arrays["defined"].cpu().numpy(),
+        "has_ports_h": item_arrays["ports"].any(dim=1).cpu().numpy() if Q else None,
+        "has_conflict_h": (item_arrays["port_conflict"].any(dim=1).cpu().numpy()
+                           if Q else None),
+        "has_vols_h": item_arrays["vols"].any(dim=1).cpu().numpy() if W else None,
+        "own_h": None, "sel_h": None, "nf_trivial": None, "seg_scr": None,
+    }
+    if groups:
+        out["own_h"] = item_arrays["topo_own"].cpu().numpy()
+        out["sel_h"] = item_arrays["topo_sel"].cpu().numpy()
+        # a group whose node filter has an empty term (a spread pod with no
+        # node selector or affinity) matches every merged row
+        term_def = topo_terms["defined"].cpu().numpy()
+        out["nf_trivial"] = [
+            not gm.filter_term_rows
+            or any(not term_def[r].any() for r in gm.filter_term_rows)
+            for gm in groups
+        ]
+        out["seg_scr"] = [gm.seg[0] < WSCR for gm in groups]
+    return out
 
 
 def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] = None,
@@ -341,7 +411,18 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         vol_driver: Optional[torch.Tensor] = None,  # [W, D] claim -> driver onehot
         screen0: Optional[torch.Tensor] = None,  # [N, C] prescreen tensor
         items_pl: Optional[ScreenItems] = None,  # the class planes, if built
+        log_commits: bool = True,
+        counts_host: Optional[np.ndarray] = None,  # [I] replica counts, host
+        shared: Optional[dict] = None,
     ):
+        """One scan. log_commits=False is the consolidation replan's rung
+        mode: no log is written and no commit waits on log space (so the
+        bulk take matrix is one row). counts_host overrides the replica
+        counts with a host array (the rung's count row). `shared` is a
+        dict the caller keeps across scans of one geometry whose item
+        planes, templates and types do not change (the K subsets of a
+        replan chunk): what depends only on those is computed by the
+        first scan and read back by the rest."""
         dev = state.used.device
         N, V = state.allow.shape
         K = state.out.shape[1]
@@ -351,17 +432,22 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         Q = state.ports.shape[1]
         W = state.vols.shape[1]
         EV = state.vols.shape[0]  # the existing prefix carrying volume state
-        ops = ScreenOps(segments, V, screen_v)
+        G = len(groups)
+        pre = shared if shared is not None else {}
+        if "ops" not in pre:
+            pre.update(_scan_constants(
+                segments, V, screen_v, type_reqs, type_offering_ok, item_arrays,
+                items_pl, tmpl_reqs, tiered, Q, W, groups, topo_terms, dev))
+        ops = pre["ops"]
         WSCR = ops.width
-        sm = torch.as_tensor(compat.seg_matrix(segments, V)[:WSCR], device=dev)
-        type_rows = dict(type_reqs, allow=type_reqs["allow"][:, :WSCR])
-        offer_f = type_offering_ok.to(torch.float32)
-        key_scr = np.asarray([lo < WSCR for (lo, _hi) in segments], dtype=bool)
+        sm, type_rows, offer_f, key_scr = (
+            pre["sm"], pre["type_rows"], pre["offer_f"], pre["key_scr"])
+        items_pl, tmpl_rows = pre["items_pl"], pre["tmpl_rows"]
 
         EB = n_exist
         BR = N if mach_bulk else EB  # bulk-fill region
         L = log_len
-        if BR == 0:
+        if BR == 0 or not log_commits:
             LB = 1
         elif mach_bulk:
             # take rows per bulk commit: ~2 per plain bulk item plus one per
@@ -370,51 +456,27 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
             LB = min(3 * I + spread_w + 64, 2048)
         else:
             LB = min(2 * I + V + 64, 4096)
-        log = _Log(L, LB, BR, dev)
+        log = _Log(L, LB, BR, dev, enabled=log_commits)
 
-        if items_pl is None:
-            items_pl = class_planes(item_arrays, ops)
         if tiered:
-            screen = tmpl_rows = None
+            screen = None
+        elif screen0 is not None:
+            screen = screen0.clone()  # refreshed in place below
         else:
-            if screen0 is not None:
-                screen = screen0.clone()  # refreshed in place below
-            else:
-                screen = ops.initial_screen(
-                    items_pl, state.allow[:n_exist], state.out[:n_exist],
-                    state.defined[:n_exist], N,
-                )
-            # per-template verdict rows, computed once per solve: a plane-
-            # neutral item merges as the identity, so the row an open
-            # writes for it IS its template's planes
-            tmpl_rows = ops.rows_vs_items(
-                items_pl, tmpl_reqs["allow"], tmpl_reqs["out"], tmpl_reqs["defined"]
-            )  # [J, C]
+            screen = ops.initial_screen(
+                items_pl, state.allow[:n_exist], state.out[:n_exist],
+                state.defined[:n_exist], N,
+            )
 
         # host copies of what the control flow reads per item
-        valid_h = item_arrays["valid"].cpu().numpy()
-        count_h = item_arrays["count"].cpu().numpy()
-        scls_h = item_arrays["scls"].cpu().numpy()
-        defined_h = item_arrays["defined"].cpu().numpy()
-        if Q:
-            has_ports_h = item_arrays["ports"].any(dim=1).cpu().numpy()
-            has_conflict_h = item_arrays["port_conflict"].any(dim=1).cpu().numpy()
-        if W:
-            has_vols_h = item_arrays["vols"].any(dim=1).cpu().numpy()
+        valid_h, scls_h, defined_h = pre["valid_h"], pre["scls_h"], pre["defined_h"]
+        count_h = (counts_host if counts_host is not None
+                   else item_arrays["count"].cpu().numpy())
+        has_ports_h, has_conflict_h, has_vols_h = (
+            pre["has_ports_h"], pre["has_conflict_h"], pre["has_vols_h"])
         vol_cnt = None  # [EV, D] mounted claims per driver, rebuilt after a vols write
-        G = len(groups)
-        if has_topo:
-            own_h = item_arrays["topo_own"].cpu().numpy()
-            sel_h = item_arrays["topo_sel"].cpu().numpy()
-            # a group whose node filter has an empty term (a spread pod with
-            # no node selector or affinity) matches every merged row
-            term_def = topo_terms["defined"].cpu().numpy()
-            nf_trivial = [
-                not gm.filter_term_rows
-                or any(not term_def[r].any() for r in gm.filter_term_rows)
-                for gm in groups
-            ]
-            seg_scr = [gm.seg[0] < WSCR for gm in groups]
+        own_h, sel_h, nf_trivial, seg_scr = (
+            pre["own_h"], pre["sel_h"], pre["nf_trivial"], pre["seg_scr"])
         nopen = int(state.nopen)
         idx_f = torch.arange(N, dtype=torch.float32, device=dev)
         arange_n = torch.arange(N, device=dev)
@@ -824,7 +886,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                     take = torch.minimum(torch.clamp(budget - (csum - k_eff), min=0),
                                          k_eff).to(torch.int32)
                 placed = int(take.sum())
-                do = placed >= 1 and log.has_room() and log.bulk_n < LB
+                do = placed >= 1 and log.has_room() and log.bulk_room()
                 if do:
                     touched = take > 0
                     tm = touched[:, None]
@@ -853,9 +915,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                         topo_record_bulk(topo_meta, state.tcounts, state.thost,
                                          state.tdoms, own, sel, m_allow_rows,
                                          m_out_rows, take)
-                    log.bulk_take[log.bulk_n, :BRo] = take
-                    log.write(i, 0, -1, log.bulk_n, placed)
-                    log.bulk_n += 1
+                    log.write_bulk(i, take, BRo, placed)
                     remaining -= placed
                     if plane_mut and not tiered:
                         rows = torch.nonzero(touched).flatten()
@@ -1030,7 +1090,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                     BR > 0
                     and ((item_bulk_ok and exist_cand) or (mach_ok_i and has_cand))
                     and not any(seed)
-                    and log.bulk_n < LB
+                    and log.bulk_room()
                 )
                 if use_bulk:
                     LAST_SCAN["bulk"] += 1
@@ -1050,3 +1110,78 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         return state, log.arrays(), log.ptr
 
     return pack
+
+
+def make_replan_verdict_kernel(n_exist: int):
+    """Per-subset verdict of the batched consolidation replan
+    (solver/replan.py), reduced on the device: how many pods the rung
+    re-packed, how many it had to, how many new machine slots opened, and
+    whether an uninitialized existing node took pods (inconclusive), as
+    int32 [4]. The caller fetches [K, 4], never the [K, N] slot plane."""
+
+    def verdict(pods_per_slot, count_row, uninit):
+        scheduled = pods_per_slot.sum()
+        expected = count_row.sum()
+        n_new = (pods_per_slot[n_exist:] > 0).sum()
+        incon = (pods_per_slot[:n_exist] * uninit[:n_exist]).sum() > 0
+        return torch.stack(
+            [scheduled, expected, n_new, incon.to(torch.int64)]
+        ).to(torch.int32)
+
+    return verdict
+
+
+# the last replan chunk's work: subsets scanned and skipped, and the scans'
+# items and while-iterations per branch, summed
+LAST_REPLAN = {"subsets": 0, "skipped": 0, "items": 0, "bulk": 0, "candidate": 0,
+               "open": 0}
+
+
+def make_batched_replan_kernel(rung_run, n_exist: int):
+    """The batched consolidation replan: K candidate subsets of one union
+    snapshot, each re-packed by a rung-mode solve program
+    (torch_solver.make_device_run(..., rung_mode=True)). Subset k closes
+    its victims' existing slots (exist_open[k] False) and activates their
+    pods' replica counts (count_rows[k]).
+
+    The candidate axis enters only through those two planes, so what does
+    not depend on it (the feasibility planes, the openable mask, the class
+    planes and screen ops, the template verdict rows) is computed by the
+    first scan of the call and shared by the rest (`shared`). Every subset
+    scans its own copy of the slot state and of the [N, C] verdict tensor
+    (the caller's screen0, which no subset writes; None under the tiered
+    screen, so the reference's external_screen flag has nothing to
+    choose here). A subset with no active pod (the chunk's pad rungs
+    among them) re-packs nothing, so it is not scanned: its row is the
+    zero verdict and zero slot counts, what its scan would leave.
+
+    Returns replan(count_rows [K, I] int32 (host), exist_open [K, E] bool
+    (host), uninit [E] bool, screen0, *run_args, items_pl=None) ->
+    (pods_per_slot [K, N] int32, verdicts [K, 4] int32), on the device."""
+    verdict_of = make_replan_verdict_kernel(n_exist)
+
+    def replan(count_rows, exist_open, uninit, screen0, *run_args, items_pl=None):
+        K = int(count_rows.shape[0])
+        dev = uninit.device
+        counts_dev = torch.from_numpy(np.ascontiguousarray(count_rows)).to(dev)
+        open_dev = torch.from_numpy(np.ascontiguousarray(exist_open)).to(dev)
+        shared: dict = {}
+        for k in LAST_REPLAN:
+            LAST_REPLAN[k] = 0
+        pods = torch.zeros((K, rung_run.n_slots), dtype=torch.int32, device=dev)
+        verdicts = torch.zeros((K, 4), dtype=torch.int32, device=dev)
+        for r in range(K):
+            if not (count_rows[r] > 0).any():
+                LAST_REPLAN["skipped"] += 1
+                continue
+            LAST_REPLAN["subsets"] += 1
+            _log, _ptr, state = rung_run(
+                count_rows[r], open_dev[r], screen0,
+                *run_args, items_pl=items_pl, shared=shared)
+            for key in ("items", "bulk", "candidate", "open"):
+                LAST_REPLAN[key] += LAST_SCAN[key]
+            pods[r] = state.pods
+            verdicts[r] = verdict_of(state.pods, counts_dev[r], uninit)
+        return pods, verdicts
+
+    return replan

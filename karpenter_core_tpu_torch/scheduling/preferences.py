@@ -31,6 +31,26 @@ class Preferences:
                 return True
         return False
 
+    def is_relaxable(self, pod) -> bool:
+        """True when relax(pod) would still change something: the pod
+        carries a soft constraint the fixed order can drop. Mutates
+        nothing; the consolidation search reads it to tell whether a
+        negative round-0 screen is conclusive."""
+        affinity = pod.spec.affinity
+        if affinity is not None:
+            node_aff = affinity.node_affinity
+            if node_aff is not None and (len(node_aff.required) > 1 or node_aff.preferred):
+                return True
+            if affinity.pod_affinity is not None and affinity.pod_affinity.preferred:
+                return True
+            if (affinity.pod_anti_affinity is not None
+                    and affinity.pod_anti_affinity.preferred):
+                return True
+        return any(
+            tsc.when_unsatisfiable == "ScheduleAnyway"
+            for tsc in pod.spec.topology_spread_constraints
+        )
+
     def _remove_required_node_affinity_term(self, pod) -> Optional[str]:
         """Required terms are ORed; drop the head term only while >1 remain
         (preferences.go:73-86)."""

@@ -89,6 +89,50 @@ def ladder_pad(n: int, ladder, axis: str, lo: int) -> int:
     return b
 
 
+# -- the candidate-subset axis of the batched consolidation replan --------
+# The replan screens K candidate subsets per dispatch; K rides its own
+# small ladder (the multi-node prefix ladder of <= 8 rungs fits the bottom
+# bucket; single-node sweeps chunk at the top one).
+
+REPLAN_K_BUCKETS = (8, 16, 32, 64)
+
+
+def replan_k_pad(k: int) -> int:
+    """Round a subset count up to REPLAN_K_BUCKETS; a count above the top
+    bucket is a caller error (replan_chunks chunks at it)."""
+    if k <= 0:
+        return REPLAN_K_BUCKETS[0]
+    for v in REPLAN_K_BUCKETS:
+        if k <= v:
+            return v
+    raise ValueError(
+        f"subset axis {k} exceeds the replan chunk cap "
+        f"{REPLAN_K_BUCKETS[-1]} (callers must chunk)"
+    )
+
+
+def replan_chunks(count_rows, exist_open):
+    """Yield (k_real, k_pad, counts, open) dispatch chunks along the
+    candidate axis: slices of at most REPLAN_K_BUCKETS[-1] subsets, padded
+    up to the ladder with no-op subsets (zero active pods, nothing
+    closed), whose verdict rows the caller drops."""
+    K = int(count_rows.shape[0])
+    CH = REPLAN_K_BUCKETS[-1]
+    for lo in range(0, K, CH):
+        counts = np.ascontiguousarray(count_rows[lo: lo + CH])
+        opened = np.ascontiguousarray(exist_open[lo: lo + CH])
+        k = counts.shape[0]
+        kp = replan_k_pad(k)
+        if kp > k:
+            counts = np.concatenate(
+                [counts, np.zeros((kp - k,) + counts.shape[1:], counts.dtype)]
+            )
+            opened = np.concatenate(
+                [opened, np.ones((kp - k,) + opened.shape[1:], opened.dtype)]
+            )
+        yield k, kp, counts, opened
+
+
 def _ids(lst):
     return tuple(map(id, lst))
 

@@ -22,6 +22,11 @@ carries its label dictionary so a churning cluster keeps one geometry,
 and carries the instance-type planes (encode.EncodeReuse); the cluster's
 change feed gates the residency. `last_prescreen_mode` ("full" or
 "refresh") and `last_prescreen_delta` report the last dispatch.
+
+`replan_screen` screens K consolidation candidate subsets of one union
+snapshot (solver/replan.py) through the same prescreen dispatch and
+residency, then one rung-mode scan per subset; `last_replan_phase_ms`
+holds its phases (args, upload, prescreen, device, fetch).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from karpenter_core_tpu_torch.api.labels import PROVISIONER_NAME_LABEL_KEY
+from karpenter_core_tpu_torch.ops import pack as pack_ops
 from karpenter_core_tpu_torch.ops import screen as screen_ops
 from karpenter_core_tpu_torch.ops.feasibility import feasibility_static, openable_mask
 from karpenter_core_tpu_torch.ops.pack import (
@@ -43,6 +49,7 @@ from karpenter_core_tpu_torch.ops.pack import (
     PackState,
     ScreenOps,
     class_planes,
+    make_batched_replan_kernel,
     make_pack_kernel,
     screen_refresh,
 )
@@ -56,8 +63,10 @@ from karpenter_core_tpu_torch.solver.encode import (
     ReqSetArrays,
     bucket_pow2,
     encode_snapshot,
+    replan_chunks,
 )
 from karpenter_core_tpu_torch.solver.incremental import DiffGate, IncrementalScreen
+from karpenter_core_tpu_torch.utils.gctuning import gc_paused
 
 # run()'s positional argument order, as device_args() produces it
 RUN_ARG_NAMES = (
@@ -74,7 +83,8 @@ DEFAULT_MAX_RELAX_ROUNDS = 16
 
 class SolvedMachine:
     """A new node computed by the solver. `instance_type_options` and
-    `requirements` are built from the slot masks on first access."""
+    `requirements` are built from the slot masks on first access; both
+    may then be narrowed in place."""
 
     def __init__(self, provisioner_name, template, pods, requests,
                  options_fn, requirements_fn):
@@ -92,6 +102,11 @@ class SolvedMachine:
         if self._options is None:
             self._options = self._options_fn()
         return self._options
+
+    @instance_type_options.setter
+    def instance_type_options(self, options) -> None:
+        """Narrow the options (the consolidation price filters do)."""
+        self._options = list(options)
 
     @property
     def requirements(self) -> Requirements:
@@ -383,35 +398,50 @@ def topo_meta_from(obj) -> Optional[TopoMeta]:
 
 def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
                     log_len: int, screen_v: Optional[int] = None,
-                    screen_mode: str = "prescreen"):
+                    screen_mode: str = "prescreen", rung_mode: bool = False):
     """The solve program (make_device_run with an external prescreen):
     feasibility + openable + the pack scan, a function of args_to_torch's
     tensors and the prescreen tensor (None under screen_mode="tiered"),
     with the class planes the prescreen built (items_pl) reused by the
-    scan. Returns (log, ptr, state)."""
+    scan. Returns (log, ptr, state).
+
+    rung_mode=True is the consolidation replan's form
+    (tpu_solver.py:345-370,558-570): run(count_row, exist_open, screen0,
+    *args, items_pl=None, shared=None) replaces the replica counts with
+    the host row count_row [I] and opens only the existing slots
+    exist_open [E] leaves open (closed ones are neither open nor
+    existing); no commit log is written. `shared` (a dict kept across
+    the calls of one replan chunk) holds what does not depend on the
+    subset: the feasibility planes, the openable mask and the scan's
+    constants."""
     segments = [tuple(s) for s in segments]
     pack = make_pack_kernel(segments, zone_seg, ct_seg,
                             topo_meta=topo_meta_from(topo_meta), screen_v=screen_v,
                             screen_mode=screen_mode)
 
-    def run(screen0, pod_arrays, tmpl, tmpl_daemon, tmpl_type_mask, types,
-            type_alloc, type_capacity, type_offering_ok, pod_tol_all, exist,
-            exist_used, exist_cap, well_known, remaining0, topo_counts0,
-            topo_hcounts0, topo_doms0, topo_terms, exist_ports, exist_vols,
-            exist_vol_limits, vol_driver, items_pl=None):
+    def run_impl(count_row, exist_open, screen0, pod_arrays, tmpl, tmpl_daemon,
+                 tmpl_type_mask, types, type_alloc, type_capacity, type_offering_ok,
+                 pod_tol_all, exist, exist_used, exist_cap, well_known, remaining0,
+                 topo_counts0, topo_hcounts0, topo_doms0, topo_terms, exist_ports,
+                 exist_vols, exist_vol_limits, vol_driver, items_pl=None, shared=None):
         dev = exist_used.device
         E = exist_used.shape[0]
         N = n_slots
         T = type_alloc.shape[0]
         J = tmpl_daemon.shape[0]
-        f_static = feasibility_static(
-            {k: pod_arrays[k] for k in ("allow", "out", "defined", "escape")},
-            tmpl, types, pod_arrays["tol_tmpl"], tmpl_type_mask,
-            type_offering_ok, zone_seg, ct_seg, segments, well_known,
-        )
-        openable = openable_mask(f_static, pod_arrays["requests"], tmpl_daemon,
-                                 type_alloc)
+        pre = shared if shared is not None else {}
+        if "f_static" not in pre:
+            pre["f_static"] = feasibility_static(
+                {k: pod_arrays[k] for k in ("allow", "out", "defined", "escape")},
+                tmpl, types, pod_arrays["tol_tmpl"], tmpl_type_mask,
+                type_offering_ok, zone_seg, ct_seg, segments, well_known,
+            )
+            pre["openable"] = openable_mask(pre["f_static"], pod_arrays["requests"],
+                                            tmpl_daemon, type_alloc)
+        f_static, openable = pre["f_static"], pre["openable"]
         open0 = torch.arange(N, device=dev) < E
+        if exist_open is not None:
+            open0[:E] &= exist_open
 
         def prefix(fill, rows, dtype):
             out = torch.full((N,) + tuple(rows.shape[1:]), fill, dtype=dtype, device=dev)
@@ -449,8 +479,21 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             type_offering_ok, well_known=well_known, topo_terms=topo_terms,
             log_len=log_len, n_exist=E, vol_limits=exist_vol_limits,
             vol_driver=vol_driver, screen0=screen0, items_pl=items_pl,
+            log_commits=count_row is None, counts_host=count_row,
+            shared=pre.setdefault("scan", {}),
         )
         return log, ptr, state
+
+    if rung_mode:
+        def rung_run(count_row, exist_open, screen0, *args, items_pl=None, shared=None):
+            return run_impl(np.asarray(count_row), exist_open, screen0, *args,
+                            items_pl=items_pl, shared=shared)
+
+        rung_run.n_slots = n_slots
+        return rung_run
+
+    def run(screen0, *args, items_pl=None):
+        return run_impl(None, None, screen0, *args, items_pl=items_pl)
 
     return run
 
@@ -609,6 +652,9 @@ class TorchSolver:
 
     # resident tensors kept, least recently used first out
     MAX_INC_SCREENS = 8
+    # the consolidation search screens its candidate subsets through
+    # replan_screen (solver/replan.py)
+    supports_batched_replan = True
 
     def __init__(self, max_nodes: int = 1024,
                  max_relax_rounds: int = DEFAULT_MAX_RELAX_ROUNDS,
@@ -632,6 +678,10 @@ class TorchSolver:
         self.screen_mode = screen_mode
         self.incremental = incremental
         self.last_phase_ms: Dict[str, float] = {}
+        # the last replan_screen's phases (args, upload, prescreen, device,
+        # fetch), its K and chunks, and its screen launches by form
+        self.last_replan_phase_ms: Dict[str, float] = {}
+        self.last_replan_stats: Optional[Dict[str, object]] = None
         # the last prescreen dispatch: "full" or "refresh" (None under
         # tiered), and the refresh's delta sizes and budgets
         self.last_prescreen_mode: Optional[str] = None
@@ -681,12 +731,15 @@ class TorchSolver:
         if self._inc_enabled():
             self._gate_ok = self._diff_gate.gate(cluster)
         ctx = {"dictionary": None, "encoded": encoded}
-        return solve_with_relaxation(
-            lambda p: self._solve_once(p, provisioners, instance_types,
-                                       daemonset_pods, state_nodes, kube_client,
-                                       cluster, ctx),
-            pods, provisioners, instance_types, self.max_relax_rounds,
-        )
+        # cyclic GC waits for the window to close: a gen-2 collection over
+        # the batch and the cluster would otherwise land inside the solve
+        with gc_paused():
+            return solve_with_relaxation(
+                lambda p: self._solve_once(p, provisioners, instance_types,
+                                           daemonset_pods, state_nodes, kube_client,
+                                           cluster, ctx),
+                pods, provisioners, instance_types, self.max_relax_rounds,
+            )
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -803,3 +856,89 @@ class TorchSolver:
         result = decode_solve(snap, (log, ptr), host_state)
         mark("decode")
         return result
+
+    # -- the batched consolidation replan ------------------------------------
+
+    def replan_screen(self, snap: EncodedSnapshot, provisioners, count_rows: np.ndarray,
+                      exist_open: np.ndarray, uninitialized: Optional[np.ndarray] = None,
+                      cluster=None, want_slots: bool = False):
+        """Screen K candidate subsets of one union snapshot
+        (tpu_solver.py:1907-2055). Subset k closes the existing slots
+        exist_open[k] [E] leaves False and activates the replica counts
+        count_rows[k] [I]; the rung-mode solve program re-packs them
+        against the rest of the cluster (ops/pack.make_batched_replan_kernel).
+
+        One device_args and upload serve the whole call; the prescreen is
+        dispatched once, at the residency key a solve at this geometry
+        uses, so a replan refreshes the resident [N, C] tensor instead of
+        recomputing it (the change feed of `cluster` gates it, as in
+        solve()); then the subsets go through in chunks of the K ladder
+        (encode.replan_chunks). Under screen_mode="tiered" there is no
+        tensor and each scan screens per item.
+
+        Returns (verdicts [K, 4] int32: scheduled, expected, n_new,
+        inconclusive per subset; pods_per_slot [K, N] int32 when
+        want_slots, else None). Only the verdicts are fetched otherwise."""
+        phases = self.last_replan_phase_ms = {}
+        t = time.perf_counter()
+
+        def mark(name):
+            nonlocal t
+            self._sync()
+            now = time.perf_counter()
+            phases[name] = (now - t) * 1e3
+            t = now
+
+        before = screen_ops.launch_counts()
+        geom = solve_geometry(snap, self.max_nodes)
+        N, segments, zone_seg, ct_seg, log_len, screen_v = (
+            geom[7], geom[8], geom[9], geom[10], geom[12], geom[16]
+        )
+        E = geom[3]
+        args = device_args(snap, provisioners)
+        mark("args")
+        if self._inc_enabled():
+            self._gate_ok = self._diff_gate.gate(cluster)
+        targs = args_to_torch(args, self.device)
+        uninit = np.zeros(E, dtype=bool)
+        if uninitialized is not None:
+            m = min(len(uninitialized), E)
+            uninit[:m] = np.asarray(uninitialized, dtype=bool)[:m]
+        uninit_t = torch.from_numpy(uninit).to(self.device)
+        mark("upload")
+        self.last_prescreen_mode = self.last_prescreen_delta = None
+        screen0 = items_pl = None
+        if self.screen_mode == "prescreen":
+            key = _residency_key(geom, args, self.screen_mode)
+            screen0, mode, _delta, items_pl = self._dispatch_prescreen(key, geom, args, targs)
+            self.last_prescreen_mode = mode
+            mark("prescreen")
+        rung_run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
+                                   screen_v=screen_v, screen_mode=self.screen_mode,
+                                   rung_mode=True)
+        replan = make_batched_replan_kernel(rung_run, E)
+        verdict_parts, pods_parts, chunks = [], [], []
+        scans = dict.fromkeys(pack_ops.LAST_REPLAN, 0)
+        for k, kp, sub_counts, sub_open in replan_chunks(count_rows, exist_open):
+            pods_dev, verd_dev = replan(sub_counts, sub_open, uninit_t, screen0, *targs,
+                                        items_pl=items_pl)
+            verdict_parts.append(verd_dev[:k])
+            if want_slots:
+                pods_parts.append(pods_dev[:k])
+            chunks.append(kp)
+            for name, v in pack_ops.LAST_REPLAN.items():
+                scans[name] += v
+        mark("device")
+        K = int(count_rows.shape[0])
+        if verdict_parts:
+            verdicts = torch.cat(verdict_parts).cpu().numpy()
+        else:
+            verdicts = np.zeros((0, 4), np.int32)
+        pods = torch.cat(pods_parts).cpu().numpy() if want_slots and pods_parts else None
+        mark("fetch")
+        self.last_replan_stats = {
+            "K": K, "chunks": chunks, "prescreen": self.last_prescreen_mode,
+            "launches": {k: v - before[k] for k, v in screen_ops.launch_counts().items()},
+            "scans": scans,
+        }
+        return verdicts, pods

@@ -1,17 +1,21 @@
 """Cluster: the in-memory mirror of nodes and pod bindings that a
 provisioning solve reads (state/cluster.go:44-532).
 
-The part of the reference's Cluster the solve path needs: nodes keyed by
-provider id, pod -> node bindings that keep each node's requests, host
-ports and volumes, the index of bound pods with required anti-affinity,
-CSINode attach limits applied on every node update, and the change feed
-that tells an incremental solver whether it has seen every mutation since
-its last solve (`changes_since`). Machines, consolidation state and
-in-flight capacity from the cloud provider are not here.
+The part of the reference's Cluster the solve path and the consolidation
+search need: nodes keyed by provider id, pod -> node bindings that keep
+each node's requests, host ports and volumes, the index of bound pods with
+required anti-affinity, CSINode attach limits applied on every node
+update, the change feed that tells an incremental solver whether it has
+seen every mutation since its last solve (`changes_since`), node
+nomination, mark-for-deletion, and the consolidated bit that every
+mutation clears and that expires after CONSOLIDATED_TTL on the cluster's
+clock. Machines and in-flight capacity from the cloud provider are not
+here.
 """
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
@@ -26,10 +30,15 @@ class Cluster:
     # change-feed history bound: a consumer further behind than this many
     # mutations gets a full-resync verdict instead of a partial diff
     CHANGE_RING = 8192
+    # the consolidated bit's forced re-check interval (cluster.go:277-286)
+    CONSOLIDATED_TTL = 5 * 60.0
 
-    def __init__(self, kube_client):
+    def __init__(self, kube_client, clock=None):
         self.kube_client = kube_client
+        self.clock = clock if clock is not None else time.time
         self._mu = threading.RLock()
+        self._consolidated = False
+        self._consolidated_at = 0.0
         self.nodes_by_provider_id: Dict[str, StateNode] = {}
         self.node_name_to_provider_id: Dict[str, str] = {}
         self.bindings: Dict[NamespacedName, str] = {}  # pod -> node name
@@ -81,6 +90,14 @@ class Cluster:
         with self._mu:
             return [n.deep_copy() for n in self.nodes_by_provider_id.values()]
 
+    def for_each_node(self, fn: Callable[[StateNode], bool]) -> None:
+        """Visit the live nodes (not copies) until fn returns False."""
+        with self._mu:
+            nodes = list(self.nodes_by_provider_id.values())
+        for node in nodes:
+            if not fn(node):
+                return
+
     def for_pods_with_anti_affinity(self, fn: Callable[[object, object], bool]) -> None:
         """Visit bound pods with required anti-affinity and their nodes,
         until fn returns False (cluster.go:116-132)."""
@@ -98,6 +115,46 @@ class Cluster:
             pid = self.node_name_to_provider_id.get(name)
             return None if pid is None else self.nodes_by_provider_id.get(pid)
 
+    # -- nomination and deletion marks (cluster.go:160-202) -----------------
+
+    def nominate_node_for_pod(self, node_name: str) -> None:
+        with self._mu:
+            node = self.node_for(node_name)
+            if node is not None:
+                node.nominate()
+
+    def mark_for_deletion(self, *node_names: str) -> None:
+        with self._mu:
+            for name in node_names:
+                node = self.node_for(name)
+                if node is not None:
+                    node.marked_for_deletion = True
+                    self._record_change(node.provider_id() or "*")
+
+    def unmark_for_deletion(self, *node_names: str) -> None:
+        with self._mu:
+            for name in node_names:
+                node = self.node_for(name)
+                if node is not None:
+                    node.marked_for_deletion = False
+                    self._record_change(node.provider_id() or "*")
+
+    # -- the consolidated bit (cluster.go:269-286) ---------------------------
+
+    def set_consolidated(self, consolidated: bool) -> None:
+        with self._mu:
+            self._consolidated = consolidated
+            if consolidated:
+                self._consolidated_at = self.clock()
+
+    def consolidated(self) -> bool:
+        """True while nothing changed since the last full consolidation
+        pass, for at most CONSOLIDATED_TTL."""
+        with self._mu:
+            if self.clock() - self._consolidated_at > self.CONSOLIDATED_TTL:
+                self._consolidated = False
+            return self._consolidated
+
     # -- ingestion (cluster.go:204-267,341-505) -------------------------------
 
     def update_node(self, node) -> None:
@@ -105,7 +162,7 @@ class Cluster:
             provider_id = node.spec.provider_id or f"node:///{node.metadata.name}"
             existing = self.nodes_by_provider_id.get(provider_id)
             if existing is None:
-                existing = StateNode(node)
+                existing = StateNode(node, clock=self.clock)
                 # claims resolve to their drivers through the store
                 existing.volume_usage.kube_client = self.kube_client
                 self.nodes_by_provider_id[provider_id] = existing
@@ -114,6 +171,7 @@ class Cluster:
             self.node_name_to_provider_id[node.metadata.name] = provider_id
             populate_volume_limits_from(self.kube_client, existing)
             self._record_change(provider_id)
+            self.set_consolidated(False)
 
     def delete_node(self, name: str) -> None:
         """cluster.go:239-251 for a node no Machine record backs."""
@@ -122,12 +180,14 @@ class Cluster:
             if pid is not None:
                 self.nodes_by_provider_id.pop(pid, None)
             self._record_change(pid or "*")
+            self.set_consolidated(False)
 
     def update_provisioner(self, provisioner) -> None:
         """A provisioner changed (informer/provisioner.go:52): templates,
         not node rows, so the change has no node scope."""
         with self._mu:
             self._record_change("*")
+            self.set_consolidated(False)
 
     def update_pod(self, pod) -> None:
         """cluster.go:446-505: bindings, per-node usage and the
@@ -137,6 +197,7 @@ class Cluster:
             if podutils.is_terminal(pod):
                 self._unbind(key)
                 self.anti_affinity_pods.pop(key, None)
+                self.set_consolidated(False)
                 return
             old_node_name = self.bindings.get(key)
             if pod.spec.node_name:
@@ -149,11 +210,13 @@ class Cluster:
                     self._record_change(node.provider_id() or "*")
                 if podutils.has_pod_anti_affinity(pod):
                     self.anti_affinity_pods[key] = pod
+            self.set_consolidated(False)
 
     def delete_pod(self, key: NamespacedName) -> None:
         with self._mu:
             self._unbind(key)
             self.anti_affinity_pods.pop(key, None)
+            self.set_consolidated(False)
 
     def _unbind(self, key: NamespacedName) -> None:
         node_name = self.bindings.pop(key, None)

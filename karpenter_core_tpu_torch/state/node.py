@@ -1,13 +1,16 @@
 """StateNode: the cluster's view of one existing node (state/node.go).
 
-This slice reads a node's identity, labels, taints and capacity, the
-requests of the pods bound to it, the host ports they hold, the volumes
-they mount and the node's CSI attach limits; nodes still backed only by a
-Machine record are not modelled here.
+The port reads a node's identity, labels, annotations, taints and
+capacity, the requests of the pods bound to it, the host ports they hold,
+the volumes they mount and the node's CSI attach limits, and keeps the
+consolidation state: marked for deletion, and nominated for pods until a
+deadline on the node's clock. Nodes still backed only by a Machine record
+are not modelled here.
 """
 from __future__ import annotations
 
 import copy
+import time
 from typing import Dict, List
 
 from karpenter_core_tpu_torch.api import labels as api_labels
@@ -26,8 +29,11 @@ from karpenter_core_tpu_torch.utils import podutils, resources
 
 
 class StateNode:
-    def __init__(self, node):
+    def __init__(self, node, clock=None):
         self.node = node
+        self.clock = clock if clock is not None else time.time
+        self.marked_for_deletion = False
+        self.nominated_until = 0.0
         self.startup_taints: List[Taint] = []
         self.pod_requests: Dict[NamespacedName, ResourceList] = {}
         self.daemonset_requests: Dict[NamespacedName, ResourceList] = {}
@@ -46,6 +52,22 @@ class StateNode:
 
     def labels(self) -> Dict[str, str]:
         return self.node.metadata.labels
+
+    def annotations(self) -> Dict[str, str]:
+        return self.node.metadata.annotations
+
+    def is_marked_for_deletion(self) -> bool:
+        """Marked by the deprovisioner, or the Node itself is terminating
+        (node.go:223-231 for a node without a Machine record)."""
+        return self.marked_for_deletion or self.node.metadata.deletion_timestamp is not None
+
+    def nominate(self, settings=None) -> None:
+        """Hold the node for pods the provisioner bound to it in
+        simulation, for one nomination window (node.go:75-113)."""
+        self.nominated_until = self.clock() + nomination_window(settings)
+
+    def nominated(self) -> bool:
+        return self.nominated_until > self.clock()
 
     def initialized(self) -> bool:
         """node.go:181-192 for a node without a Machine record."""
@@ -99,7 +121,9 @@ class StateNode:
         self.daemonset_requests.pop(key, None)
 
     def deep_copy(self) -> "StateNode":
-        out = StateNode(copy.deepcopy(self.node))
+        out = StateNode(copy.deepcopy(self.node), clock=self.clock)
+        out.marked_for_deletion = self.marked_for_deletion
+        out.nominated_until = self.nominated_until
         out.startup_taints = list(self.startup_taints)
         out.pod_requests = {k: dict(v) for k, v in self.pod_requests.items()}
         out.daemonset_requests = {k: dict(v) for k, v in self.daemonset_requests.items()}
@@ -107,6 +131,14 @@ class StateNode:
         out.volume_usage = self.volume_usage.deep_copy()
         out.volume_limits = VolumeCount(self.volume_limits)
         return out
+
+
+def nomination_window(settings=None) -> float:
+    """max(10 s, 2 x batchMaxDuration) (node.go:328-334)."""
+    from karpenter_core_tpu_torch.api.settings import current
+
+    s = settings or current()
+    return max(10.0, 2.0 * s.batch_max_duration)
 
 
 def populate_volume_limits_from(kube_client, state_node: StateNode) -> None:

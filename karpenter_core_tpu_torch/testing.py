@@ -2,9 +2,13 @@
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from karpenter_core_tpu_torch.api.provisioner import (
+    Consolidation,
     Limits,
     Provisioner,
     ProvisionerSpec,
@@ -18,6 +22,8 @@ from karpenter_core_tpu_torch.kube.objects import (
     CSINode,
     CSINodeDriver,
     CSIPersistentVolumeSource,
+    DaemonSet,
+    LabelSelector,
     Node,
     NodeAffinity,
     NodeSelectorRequirement,
@@ -33,6 +39,9 @@ from karpenter_core_tpu_torch.kube.objects import (
     PodAffinity,
     PodAffinityTerm,
     PodAntiAffinity,
+    PodDisruptionBudget,
+    PodDisruptionBudgetSpec,
+    PodDisruptionBudgetStatus,
     PodSpec,
     ResourceRequirements,
     StorageClass,
@@ -47,6 +56,37 @@ from karpenter_core_tpu_torch.kube.objects import (
 from karpenter_core_tpu_torch.utils.resources import parse_resource_list
 
 _counter = itertools.count(1)
+
+
+class FakeClock:
+    """A steppable clock for the TTL-driven controllers. `sleep` blocks
+    while another thread advances the clock past the deadline, and jumps
+    to the deadline itself once the clock has stood still for `grace`
+    real seconds (no stepping thread), so a TTL wait never deadlocks."""
+
+    def __init__(self, t: float = 1_700_000_000.0, grace: float = 0.05):
+        self._t = t
+        self._grace = grace
+        self._cond = threading.Condition()
+
+    def __call__(self) -> float:
+        with self._cond:
+            return self._t
+
+    def advance(self, seconds: float) -> None:
+        with self._cond:
+            self._t += seconds
+            self._cond.notify_all()
+
+    def sleep(self, seconds: float) -> None:
+        with self._cond:
+            deadline = self._t + seconds
+            while self._t < deadline:
+                last = self._t
+                self._cond.wait(timeout=self._grace)
+                if self._t == last:
+                    self._t = deadline
+                    self._cond.notify_all()
 
 
 def unique_name(prefix: str = "obj") -> str:
@@ -169,6 +209,8 @@ def make_provisioner(
     startup_taints: Optional[List[Taint]] = None,
     limits: Optional[Dict[str, object]] = None,
     weight: Optional[int] = None,
+    ttl_seconds_until_expired: Optional[int] = None,
+    consolidation_enabled: Optional[bool] = None,
 ) -> Provisioner:
     spec = ProvisionerSpec(
         requirements=list(requirements or []),
@@ -176,9 +218,12 @@ def make_provisioner(
         taints=list(taints or []),
         startup_taints=list(startup_taints or []),
         weight=weight,
+        ttl_seconds_until_expired=ttl_seconds_until_expired,
     )
     if limits is not None:
         spec.limits = Limits(resources=parse_resource_list(limits))
+    if consolidation_enabled is not None:
+        spec.consolidation = Consolidation(enabled=consolidation_enabled)
     return Provisioner(
         metadata=ObjectMeta(name=name or unique_name("provisioner")), spec=spec
     )
@@ -242,3 +287,43 @@ def make_csinode(node_name: str, driver: str, allocatable: Optional[int] = None)
 def pvc_volume(claim_name: str) -> Volume:
     return Volume(name=claim_name, persistent_volume_claim=PersistentVolumeClaimVolumeSource(
         claim_name=claim_name))
+
+
+def make_pdb(name: str, match_labels: Dict[str, str], disruptions_allowed: int = 0,
+             namespace: str = "default") -> PodDisruptionBudget:
+    """A PodDisruptionBudget over the pods matching `match_labels`, with
+    `disruptions_allowed` left."""
+    return PodDisruptionBudget(
+        metadata=ObjectMeta(name=name, namespace=namespace),
+        spec=PodDisruptionBudgetSpec(selector=LabelSelector(match_labels=dict(match_labels))),
+        status=PodDisruptionBudgetStatus(disruptions_allowed=disruptions_allowed),
+    )
+
+
+def make_daemonset(name: Optional[str] = None, namespace: str = "default",
+                   requests: Optional[Dict[str, object]] = None,
+                   tolerations: Optional[List[Toleration]] = None) -> DaemonSet:
+    """A DaemonSet whose pod template requests `requests`."""
+    template = make_pod(requests=requests, tolerations=tolerations,
+                        unschedulable=False).spec
+    return DaemonSet(metadata=ObjectMeta(name=name or unique_name("ds"), namespace=namespace),
+                     pod_template_spec=template)
+
+
+def subset_planes(snap, K: int, seed: int = 0):
+    """K replan subset planes over an encoded snapshot (count_rows [K, I]
+    int32, exist_open [K, E] bool): each subset activates a random ~60% of
+    the items at their full replica counts and closes 0-2 existing slots;
+    with K > 1 the last subset activates nothing (a zero row, as a pad
+    rung)."""
+    rng = np.random.default_rng(seed)
+    E = snap.exist_used.shape[0]
+    I = len(snap.item_counts)
+    count_rows = np.zeros((K, snap.item_pad), np.int32)
+    exist_open = np.ones((K, E), bool)
+    n_nodes = len(snap.state_nodes)
+    for r in range(K - 1 if K > 1 else K):
+        count_rows[r, :I] = snap.item_counts * (rng.random(I) < 0.6)
+        if n_nodes:
+            exist_open[r, rng.choice(n_nodes, size=min(n_nodes, r % 3), replace=False)] = False
+    return count_rows, exist_open

@@ -13,6 +13,14 @@ workload and of the cluster seeding alone (the host Topology built for
 three representative pods). These are counts and host times of this CPU,
 used to predict a chip run; they are never device metrics.
 
+    python3 rehearse_cpu.py --replan 3500 7000
+
+runs chip_smoke's phase 8 at those sizes on the CPU: the settled live
+cluster (nodes scaled by n / 50,000, 30 bound pods a node, no backlog),
+the multi-node ladder and the single-node sweep through the port's
+consolidation modules, with each replan's K, chunks, prescreen mode,
+scanned items and per-subset time, the exact solves, and the commands.
+
     python3 rehearse_cpu.py --churn 3500 7000
 
 runs chip_smoke's phases 6b and 7 at those sizes on the CPU instead: the
@@ -92,9 +100,32 @@ def rehearse_churn(n: int) -> dict:
                        "full_ms": round(st["full_ms"], 2)} for st in steps]}
 
 
+def rehearse_replan(n: int) -> dict:
+    nodes = int(1000 * n / 50000)
+    (its, client, cluster, clock), build_s = _timed(lambda: cs.settled_cluster(
+        n, 500, nodes, distinct=nodes))
+    out = cs.phase_consolidation("rehearse", its, client, cluster, clock, device="cpu")
+    cs.check_consolidation(out, on_card=False)
+    runs = {}
+    for kind, run in out["runs"].items():
+        runs[kind] = {
+            "candidates": len(run["candidates"]), "screened": len(run["screens"]),
+            "feasible": run["feasible"], "action": run["cmd"].action,
+            "removed": len(run["cmd"].nodes_to_remove), "wall_s": round(run["wall_s"], 3),
+            "replans": [{k: rp[k] for k in ("K", "chunks", "prescreen", "scans",
+                                            "phases_ms")}
+                        | {"ms_per_subset": round(rp["device_ms_per_subset"], 2)}
+                        for rp in run["replans"]],
+            "solves": [{"pods": s["pods"], "wall_s": round(s["wall_s"], 3)}
+                       for s in run["solves"]],
+        }
+    return {"nodes": nodes, "bound": len(cluster.bindings), "build_s": build_s,
+            "runs": runs, "gen2": out["gen2"]}
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
-    churn = "--churn" in args
-    for arg in [a for a in args if a != "--churn"] or ["3500"]:
-        fn = rehearse_churn if churn else rehearse
+    modes = {"--churn": rehearse_churn, "--replan": rehearse_replan}
+    fn = next((modes[a] for a in args if a in modes), rehearse)
+    for arg in [a for a in args if a not in modes] or ["3500"]:
         print(json.dumps({"n": int(arg), "device": "cpu", **fn(int(arg))}), flush=True)

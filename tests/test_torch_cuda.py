@@ -749,3 +749,30 @@ def test_card_incremental_resolve_matches_cpu_full():
     assert inc.last_prescreen_mode == "refresh"
     assert inc.last_prescreen_delta["rows"] == 1
     assert incremental.OUTCOMES["full_deg"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("screen_mode", ["prescreen", "tiered"])
+def test_card_replan_matches_cpu(screen_mode):
+    """replan_screen on the card gives the CPU port's verdicts and per-slot
+    counts exactly, with an uninitialized node among the existing ones;
+    the card's replan launches the screen."""
+    _card()
+    pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload("cluster", "torch")
+    got = []
+    for dev in ("cuda", "cpu"):
+        solver = tsolver.TorchSolver(max_nodes=max_nodes, device=dev, screen_mode=screen_mode)
+        snap = solver.encode(pods, provs, its, daemons, nodes, client, cluster)
+        count_rows, exist_open = tt.subset_planes(snap, 11)
+        uninit = np.zeros(len(snap.state_nodes), bool)
+        uninit[1] = True
+        screen.reset_launches()
+        got.append(solver.replan_screen(snap, provs, count_rows, exist_open,
+                                        uninitialized=uninit, want_slots=True))
+        if dev == "cuda":
+            form = "block" if screen_mode == "prescreen" else "row_b1"
+            assert screen.FORM_LAUNCHES[form] > 0
+    (cv, cp), (hv, hp) = got
+    assert cv.shape == (11, 4) and np.array_equal(cv, hv)
+    assert np.array_equal(cp, hp)
+    assert cv[:, 0].sum() > 0
