@@ -89,10 +89,37 @@ Phases, each fatal on failure:
   8b. phase 3c's cluster without its backlog: the ladder and every
      singleton screened on the card and on the CPU must give equal
      verdicts, equal per-slot counts and the same Commands.
+  9. the deprovisioning chain executed at full width, on phase 8's
+     cluster and FakeClock through testing.ControlLoop (its own Cluster fed
+     by watches, the machine, node and termination controllers, the
+     Terminator and the DeprovisioningController; a TorchSolver on the
+     card): one set-up step puts the termination finalizer on every node;
+     phase 8's ladder Command is executed, and steps run until no node
+     terminates (fatal unless exactly its nodes are gone from the client
+     and the Cluster and the evictions equal their pods); then, with
+     consolidation off, three Expiration passes (most expired first, the
+     second a replacement launched through the fake provider, a Machine
+     and a Node that the machine controller registers and initializes), a
+     Drift pass (the node controller annotates the nodes) and an Emptiness
+     pass (two empty nodes). Each pass must run the named deprovisioner;
+     after each the remaining bound pods pass check_placements and
+     check_cluster_usage, the Cluster's bindings are the client's, and the
+     nodes are those at the start plus the launches minus the deletions.
+     Each pass's Command, compute_command and execute times, steps, screen
+     launches and exact solves are printed; fatal: a fallback, or no
+     block, row_n1 or screen_prep launch in the phase. Then the first
+     Expiration pass's simulate snapshot (the remaining nodes against the
+     expired node's pods): screen_prep and every screen form exact against
+     their plain versions on its planes, and its block, template and
+     virgin-row shapes timed beside their bounds (the kernels line's
+     numbers);
+  9b. at phase 8b's size, Expiration, Drift, Emptiness and a consolidation
+     pass executed on the card and on the CPU: the same Commands and the
+     same final cluster.
 Phases 4-6 solve with incremental="off", so their warm solves run the full
 precompute as before. It prints one JSON line describing every kernel (the
 screen, screen_prep, and the screen's three forms with their launches over
-phases 4-8), then as its last line {"ok": true, "device": {...}}. Without a
+phases 4-9), then as its last line {"ok": true, "device": {...}}. Without a
 CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
@@ -116,14 +143,22 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from karpenter_core_tpu_torch import testing  # noqa: E402
+from karpenter_core_tpu_torch.api import settings as api_settings  # noqa: E402
 from karpenter_core_tpu_torch.api.labels import (  # noqa: E402
     LABEL_CAPACITY_TYPE,
     LABEL_NODE_INITIALIZED,
     PROVISIONER_NAME_LABEL_KEY,
+    VOLUNTARY_DISRUPTION_ANNOTATION_KEY,
+)
+from karpenter_core_tpu_torch.api.provisioner import (  # noqa: E402
+    Consolidation as ProvisionerConsolidation,
 )
 from karpenter_core_tpu_torch.cloudprovider import fake  # noqa: E402
 from karpenter_core_tpu_torch.controllers.deprovisioning import (  # noqa: E402
     consolidation,
+)
+from karpenter_core_tpu_torch.controllers.deprovisioning import (  # noqa: E402
+    controller as deprovisioning_ctrl,
 )
 from karpenter_core_tpu_torch.controllers.deprovisioning.core import (  # noqa: E402
     candidate_nodes,
@@ -134,6 +169,7 @@ from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (  # n
 from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient  # noqa: E402
 from karpenter_core_tpu_torch.kube.objects import (  # noqa: E402
     LABEL_HOSTNAME,
+    Condition,
     LABEL_INSTANCE_TYPE_STABLE,
     LABEL_TOPOLOGY_ZONE,
     LabelSelector,
@@ -155,6 +191,10 @@ from karpenter_core_tpu_torch.state import informer  # noqa: E402
 from karpenter_core_tpu_torch.state.cluster import Cluster  # noqa: E402
 from karpenter_core_tpu_torch.state.node import StateNode  # noqa: E402
 from karpenter_core_tpu_torch.utils import resources  # noqa: E402
+from karpenter_core_tpu_torch.utils.podutils import (  # noqa: E402
+    is_owned_by_daemonset as pod_of_daemonset,
+    is_terminal as pod_terminal,
+)
 
 # H100 SXM peaks at the 700 W limit (NVIDIA H100 data sheet): HBM
 # bandwidth, and the dense int8 tensor-core rate (without sparsity)
@@ -1449,6 +1489,393 @@ def compare_consolidation(card: dict, cpu: dict) -> dict:
     return checked
 
 
+# -- phase 9: the deprovisioning chain executed -----------------------------------
+
+def mark_launched_ready(client) -> int:
+    """Play the kubelet of each launched node: it reports Ready with its
+    machine's capacity and allocatable, so that the machine controller
+    initializes it. Returns how many nodes it marked."""
+    n = 0
+    for node in client.list("Node"):
+        if node.name.startswith("fake-machine-") and not node.ready():
+            machine = client.get("Machine", "", node.name)
+            node.status.capacity = dict(machine.status.capacity)
+            node.status.allocatable = dict(machine.status.allocatable)
+            node.status.conditions = [Condition(type="Ready", status="True")]
+            client.update_status(node)
+            n += 1
+    return n
+
+
+def _launched(name: str) -> str:
+    return "<launched>" if name.startswith("fake-machine-") else name
+
+
+class Lifecycle:
+    """Phases 9 and 9b: testing.ControlLoop over a settled cluster's kube
+    client (a Cluster fed by its own watches, the machine, node and
+    termination controllers, the Terminator and the
+    DeprovisioningController) with a TorchSolver(max_nodes=1024) on
+    `device`, on the cluster's FakeClock, validation_ttl = 0. It times
+    every pass, records each Command, the screen launches and the exact
+    solves, and checks the cluster after each."""
+
+    def __init__(self, label, its, client, clock, device="cuda"):
+        self.label, self.client, self.clock = label, client, clock
+        self.cp = fake.FakeCloudProvider(its["default"])
+        self.solver = torch_solver.TorchSolver(max_nodes=1024, device=device)
+        self.sync_card = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        t0 = time.perf_counter()
+        self.loop = testing.ControlLoop(client, self.cp, self.solver, clock=clock,
+                                        validation_ttl=0.0)
+        self.loop.sync()
+        self.build_s = time.perf_counter() - t0
+        self.n0 = len(client.list("Node", copy_objects=False))
+        # live_cluster binds 30 pods on every node, more than the two
+        # smallest types' pod capacity: those nodes start overfilled, and
+        # check() leaves them out of the fit check
+        self.overfilled = {
+            sn.name() for sn in self.loop.cluster.nodes()
+            if not resources.fits(sn.total_pod_requests(), sn.allocatable())}
+        deprovisioning_ctrl.reset_counts()
+        self.solves, self.passes, self.commands = [], [], []
+        real_solve = self.solver.solve
+
+        real_encode = torch_solver.encode_snapshot
+
+        def solve(*a, **kw):
+            # the solve's first snapshot and its provisioners: the planes
+            # its kernels screened, for snapshot_shapes
+            snaps = []
+            torch_solver.encode_snapshot = lambda *ea, **ekw: (
+                snaps.append(real_encode(*ea, **ekw)) or snaps[-1])
+            t0 = time.perf_counter()
+            try:
+                res = real_solve(*a, **kw)
+                self.sync_card()
+            finally:
+                torch_solver.encode_snapshot = real_encode
+            self.solves.append({"wall_s": time.perf_counter() - t0, "pods": len(a[0]),
+                                "snapshot": (snaps[0], a[1]) if snaps else None,
+                                "prescreen": self.solver.last_prescreen_mode,
+                                "phases_ms": {k: round(v, 3) for k, v in
+                                              self.solver.last_phase_ms.items()}})
+            return res
+
+        self.solver.solve = solve
+        real_execute = self.loop.deprovisioning.execute_command
+
+        def execute(dep, cmd):
+            t0 = time.perf_counter()
+            real_execute(dep, cmd)
+            self.sync_card()
+            self.executed = (str(dep), cmd, time.perf_counter() - t0)
+
+        self.loop.deprovisioning.execute_command = execute
+        say(f"[{label}] control loop over {self.n0} nodes and "
+            f"{len(self.loop.cluster.bindings)} bound pods built in {self.build_s:.2f} s; "
+            f"overfilled from the start (left out of the fit check): "
+            f"{sorted(self.overfilled)}")
+
+    def step(self) -> float:
+        t0 = time.perf_counter()
+        self.loop.step()
+        mark_launched_ready(self.client)
+        return time.perf_counter() - t0
+
+    def settle(self, limit: int = 6) -> list:
+        """Step until no node is terminating and every launched node is
+        initialized; the wall of each step."""
+        walls = []
+        for _ in range(limit):
+            walls.append(self.step())
+            self.loop.sync()
+            nodes = self.client.list("Node", copy_objects=False)
+            if not any(n.metadata.deletion_timestamp is not None
+                       or (n.name.startswith("fake-machine-")
+                           and n.metadata.labels.get(LABEL_NODE_INITIALIZED) != "true")
+                       for n in nodes):
+                return walls
+        raise AssertionError(f"{self.label}: the cluster did not settle in {limit} steps")
+
+    def command_key(self, dep: str, cmd) -> tuple:
+        def req(m, key):
+            r = m.requirements.get(key)
+            return None if r is None else (r.operator(), r.values_list())
+
+        return (dep, cmd.action, [n.metadata.name for n in cmd.nodes_to_remove],
+                [(sorted(it.name for it in m.instance_type_options),
+                  req(m, LABEL_TOPOLOGY_ZONE), req(m, LABEL_CAPACITY_TYPE))
+                 for m in cmd.replacement_machines])
+
+    def run_pass(self, name: str, want: str) -> dict:
+        """One reconcile of the chain, which must execute a Command of the
+        `want` deprovisioner, then steps until the cluster settles; the
+        pass's screen launches counted on their own."""
+        self.loop.sync()
+        screen.reset_launches()
+        consolidation.reset_fallbacks()
+        self.executed = None
+        n_solves = len(self.solves)
+        t0 = time.perf_counter()
+        acted = self.loop.deprovisioning.reconcile()
+        self.sync_card()
+        wall = time.perf_counter() - t0
+        launches = screen.launch_counts()
+        if any(consolidation.FALLBACKS.values()):
+            raise AssertionError(f"{self.label} {name}: the batched screen fell back to the "
+                                 f"sequential path: {consolidation.FALLBACKS}")
+        if not acted or self.executed is None:
+            raise AssertionError(f"{self.label} {name}: no Command was executed")
+        dep, cmd, execute_s = self.executed
+        if dep != want:
+            raise AssertionError(f"{self.label} {name}: {dep} acted, not {want}")
+        steps = self.settle()
+        checked = self.check(name)
+        rec = {"name": name, "key": self.command_key(dep, cmd), "cmd": cmd,
+               "compute_ms": (wall - execute_s) * 1e3, "execute_ms": execute_s * 1e3,
+               "steps_s": steps, "launches": launches, "solves": self.solves[n_solves:],
+               "checked": checked}
+        self.passes.append(rec)
+        self.commands.append(rec["key"])
+        repl = cmd.replacement_machines
+        say(f"[{self.label}] {name}: {dep} {cmd.action} of {len(cmd.nodes_to_remove)} nodes "
+            f"{[n.metadata.name for n in cmd.nodes_to_remove][:4]}"
+            + (f", {len(repl)} replacement(s): options "
+               f"{[len(m.instance_type_options) for m in repl]}, zone / capacity type "
+               f"{[rec['key'][3][i][1:] for i in range(len(repl))]}" if repl else "")
+            + f"; compute_command {rec['compute_ms']:.1f} ms, execute "
+            f"{rec['execute_ms']:.1f} ms, steps {[round(w, 3) for w in steps]} s; launches "
+            f"{json.dumps(launches)}; checked {json.dumps(checked)}")
+        for sv in rec["solves"]:
+            say(f"[{self.label}] {name} exact solve: {sv['pods']} pods, {sv['wall_s']:.3f} s, "
+                f"prescreen {sv['prescreen']}, last_phase_ms {json.dumps(sv['phases_ms'])}")
+        return rec
+
+    def check(self, name: str) -> dict:
+        """After a pass: the bound pods that remain pass check_placements
+        and check_cluster_usage on their nodes (those overfilled from the
+        start left out), every pod is bound to a
+        node that exists, the Cluster's bindings are the client's, and the
+        nodes are the ones at the start plus the launches minus the
+        deletions, the Cluster tracking each node and each Machine."""
+        client, cluster = self.client, self.loop.cluster
+        nodes = {n.name: n for n in client.list("Node", copy_objects=False)}
+        machines = client.list("Machine", copy_objects=False)
+        by_node, bindings = {}, {}
+        for p in client.list("Pod", copy_objects=False):
+            if p.spec.node_name and p.status.phase not in ("Succeeded", "Failed"):
+                by_node.setdefault(p.spec.node_name, []).append(p)
+                bindings[(p.metadata.namespace, p.metadata.name)] = p.spec.node_name
+        missing = sorted(set(by_node) - set(nodes))
+        if missing:
+            raise AssertionError(f"{self.label} {name}: pods bound to deleted nodes "
+                                 f"{missing[:5]}")
+        if {tuple(k): v for k, v in cluster.bindings.items()} != bindings:
+            raise AssertionError(f"{self.label} {name}: the Cluster's bindings are not "
+                                 f"the client's")
+        want = self.n0 + deprovisioning_ctrl.NODES["created"] - \
+            deprovisioning_ctrl.NODES["terminated"]
+        if len(nodes) != want:
+            raise AssertionError(f"{self.label} {name}: {len(nodes)} nodes, expected "
+                                 f"{want} (launches minus deletions)")
+        tracked = {n.spec.provider_id for n in nodes.values()} | {
+            m.status.provider_id for m in machines}
+        if set(cluster.nodes_by_provider_id) != tracked:
+            raise AssertionError(f"{self.label} {name}: the Cluster does not track the "
+                                 f"nodes and machines")
+        state = {sn.name(): sn for sn in cluster.nodes()}
+        result = torch_solver.SolveResult()
+        for node_name, pods in by_node.items():
+            if node_name in self.overfilled:
+                continue
+            sn = state[node_name]
+            sn.pod_requests, sn.daemonset_requests = {}, {}
+            result.existing_assignments.append((sn, pods))
+        counts = check_placements(
+            result, sum(len(pods) for _sn, pods in result.existing_assignments), client)
+        return dict(counts, nodes=len(nodes), machines=len(machines), pods=len(bindings))
+
+    def final_state(self) -> tuple:
+        """The nodes, machines and the pods left per node, launched names
+        made generic."""
+        c = self.client
+        return (
+            sorted((_launched(n.name), n.metadata.labels.get(LABEL_INSTANCE_TYPE_STABLE),
+                    n.metadata.labels.get(LABEL_TOPOLOGY_ZONE),
+                    n.metadata.labels.get(LABEL_CAPACITY_TYPE), n.spec.unschedulable)
+                   for n in c.list("Node", copy_objects=False)),
+            sorted((m.metadata.labels.get(LABEL_INSTANCE_TYPE_STABLE),
+                    m.metadata.labels.get(LABEL_TOPOLOGY_ZONE),
+                    m.metadata.labels.get(LABEL_CAPACITY_TYPE))
+                   for m in c.list("Machine", copy_objects=False)),
+            sorted((p.metadata.name, _launched(p.spec.node_name))
+                   for p in c.list("Pod", copy_objects=False)),
+        )
+
+
+def execute_ladder(lc: "Lifecycle", cmd) -> dict:
+    """Phase 9's first part: phase 8's multi-node Command executed through
+    the DeprovisioningController, then steps until no node terminates.
+    Fatal unless exactly its nodes are gone from the client and the
+    Cluster, no pod is left on them, and the evictions equal the
+    non-daemon pods they held."""
+    client, loop = lc.client, lc.loop
+    removed = [n.metadata.name for n in cmd.nodes_to_remove]
+    held = sum(1 for name in removed
+               for p in client.list("Pod", node_name=name, copy_objects=False)
+               if not pod_terminal(p) and not pod_of_daemonset(p))
+    before = {n.name for n in client.list("Node", copy_objects=False)}
+    evicted0 = loop.eviction_queue.evicted
+    multi = next(d for d in loop.deprovisioning.deprovisioners
+                 if type(d).__name__ == "MultiNodeConsolidation")
+    t0 = time.perf_counter()
+    loop.deprovisioning.execute_command(multi, cmd)
+    execute_s = time.perf_counter() - t0
+    walls = lc.settle()
+    after = {n.name for n in client.list("Node", copy_objects=False)}
+    if before - after != set(removed):
+        raise AssertionError(f"{lc.label}: the ladder removed {len(before - after)} nodes, "
+                             f"not its {len(removed)}")
+    if any(loop.cluster.node_for(name) is not None for name in removed):
+        raise AssertionError(f"{lc.label}: the Cluster still holds a removed node")
+    evicted = loop.eviction_queue.evicted - evicted0
+    if evicted != held:
+        raise AssertionError(f"{lc.label}: {evicted} evictions for {held} pods")
+    checked = lc.check("ladder")
+    out = {"nodes": len(removed), "pods": held, "execute_s": execute_s,
+           "drain_s": walls[0], "terminate_s": walls[1:], "checked": checked}
+    say(f"[{lc.label}] phase 8's ladder Command executed: {len(removed)} nodes deleted, "
+        f"{held} pods evicted; execute {execute_s:.3f} s, drain step {walls[0]:.3f} s "
+        f"(cordons, drains, evictions), termination steps "
+        f"{[round(w, 3) for w in walls[1:]]} s; checked {json.dumps(checked)}")
+    return out
+
+
+def ttl_passes(lc: "Lifecycle", expire: int, spot_pinned: int) -> list:
+    """The TTL deprovisioners in turn, consolidation off: `expire`
+    Expiration passes (as many nodes past the TTL, most expired first; the
+    `spot_pinned`-th holds a pod that needs a spot node, so its pass
+    launches a replacement through the fake provider, a Machine and a
+    Node, and the evicted pod comes back bound to the replacement), one
+    Drift pass (the node controller annotates the nodes the provider
+    reports drifted; the gate closes after it) and one Emptiness pass (two
+    empty nodes past TTLSecondsAfterEmpty, both deleted)."""
+    client, clock = lc.client, lc.clock
+    prov = client.get("Provisioner", "", "default")
+    prov.spec.ttl_seconds_until_expired = 3600
+    prov.spec.consolidation = ProvisionerConsolidation(enabled=False)
+    client.update(prov)
+    names = [n.name for n in client.list("Node", copy_objects=False)][:expire]
+    for k, name in enumerate(names):
+        node = client.get("Node", "", name)
+        node.metadata.creation_timestamp = clock() - 3600 - 600 * (expire - k)
+        if k == spot_pinned:
+            node.metadata.labels[LABEL_CAPACITY_TYPE] = "spot"
+        client.update(node)
+        if k == spot_pinned:
+            pin = testing.make_pod(name=f"spot-only-{k}", node_name=name, unschedulable=False,
+                                   phase="Running", requests={"cpu": "25m"},
+                                   node_selector={LABEL_CAPACITY_TYPE: "spot"},
+                                   uid=f"uid-spot-only-{k}", creation_timestamp=900.0)
+            client.create(pin)
+    out = []
+    for k, name in enumerate(names):
+        rec = lc.run_pass(f"expiration {k + 1}", "expiration")
+        if rec["key"][2] != [name]:
+            raise AssertionError(f"{lc.label}: expiration {k + 1} removed {rec['key'][2]}, "
+                                 f"not the most expired {name}")
+        if lc.solver.device.type == "cuda" and not all(
+                rec["launches"][form] for form in ("screen_prep", "block", "row_n1")):
+            raise AssertionError(f"{lc.label}: expiration {k + 1}'s simulate solve did not "
+                                 f"launch screen_prep, the block and row_n1: "
+                                 f"{rec['launches']}")
+        if k == spot_pinned:
+            if rec["cmd"].action != "replace":
+                raise AssertionError(f"{lc.label}: the spot-pinned node was not replaced")
+            # the pod's controller recreates the evicted pod and the
+            # scheduler binds it to the replacement launched for it (an
+            # empty replacement would be deleted by Emptiness, leaving its
+            # Machine record behind: ROADMAP Queue C)
+            spot = [n.name for n in client.list("Node", copy_objects=False)
+                    if n.name.startswith("fake-machine-")
+                    and n.metadata.labels.get(LABEL_CAPACITY_TYPE) == "spot"]
+            client.create(testing.make_pod(
+                name=f"spot-only-{k}-again", node_name=spot[-1], unschedulable=False,
+                phase="Running", requests={"cpu": "25m"},
+                node_selector={LABEL_CAPACITY_TYPE: "spot"}, uid=f"uid-spot-only-{k}-again",
+                creation_timestamp=900.0))
+        out.append(rec)
+    api_settings.set_current(api_settings.Settings(drift_enabled=True))
+    try:
+        lc.cp.drifted = True
+        annotate_s = lc.step()
+        lc.cp.drifted = False
+        lc.loop.sync()
+        drifted = sum(1 for n in client.list("Node", copy_objects=False)
+                      if n.metadata.annotations.get(VOLUNTARY_DISRUPTION_ANNOTATION_KEY))
+        say(f"[{lc.label}] the node controller annotated {drifted} nodes drifted in a "
+            f"{annotate_s:.3f} s step")
+        out.append(lc.run_pass("drift", "drift"))
+    finally:
+        api_settings.set_current(api_settings.Settings())
+    prov = client.get("Provisioner", "", "default")
+    prov.spec.ttl_seconds_after_empty = 30
+    client.update(prov)
+    universe = lc.cp.get_instance_types()
+    empty = []
+    for k in range(2):
+        node = _node(len(universe) + 7 + k, universe)
+        node.metadata.name = f"empty-{k}"
+        node.spec.provider_id = f"fake:///empty-{k}"
+        client.create(node)
+        lc.n0 += 1
+        empty.append(node.name)
+    lc.step()
+    clock.advance(31)
+    rec = lc.run_pass("emptiness", "emptiness")
+    if not set(empty) <= set(rec["key"][2]):
+        raise AssertionError(f"{lc.label}: emptiness removed {rec['key'][2]}, not both "
+                             f"empty nodes")
+    out.append(rec)
+    return out
+
+
+def phase_lifecycle_pair(devices=("cuda", "cpu"), size=(4500, 400, 200, 100)) -> dict:
+    """Phase 9b: at phase 8b's size the same sequence on the card and on
+    the CPU (Expiration x1, Drift x1, Emptiness x1, then one pass with
+    consolidation enabled, executed) must give the same Commands and
+    leave the same cluster. `devices` and `size` (pods, types, nodes,
+    distinct classes) let a CPU rehearsal run it small."""
+    runs = {}
+    for i, device in enumerate(devices):
+        n_pods, n_types, n_nodes, distinct = size
+        its, client, _cluster, clock = settled_cluster(n_pods, n_types, n_nodes,
+                                                       distinct=distinct, n_ingress=300,
+                                                       n_sets=2)
+        del _cluster
+        lc = Lifecycle(f"lifecycle 9b {device}", its, client, clock, device)
+        lc.step()
+        ttl_passes(lc, expire=1, spot_pinned=0)
+        prov = client.get("Provisioner", "", "default")
+        prov.spec.consolidation = ProvisionerConsolidation(enabled=True)
+        client.update(prov)
+        lc.run_pass("consolidation", "consolidation")
+        runs[i] = lc
+    card, cpu = runs[0], runs[1]
+    if card.commands != cpu.commands:
+        raise AssertionError(f"9b: card and CPU Commands differ: {card.commands} vs "
+                             f"{cpu.commands}")
+    if card.final_state() != cpu.final_state():
+        raise AssertionError("9b: card and CPU leave different clusters")
+    return {"passes": [(k[0], k[1], len(k[2]), len(k[3])) for k in card.commands],
+            "nodes": len(card.final_state()[0]),
+            "card_s": [round((p["compute_ms"] + p["execute_ms"]) / 1e3, 3)
+                       for p in card.passes],
+            "cpu_s": [round((p["compute_ms"] + p["execute_ms"]) / 1e3, 3)
+                      for p in cpu.passes]}
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -1704,9 +2131,42 @@ def main() -> int:
         _add_counts(cons_launches, run["launches"])
     cons_forms = {k: cons_launches.get(k, 0) for k in screen.FORM_LAUNCHES}
     cons_launches = {k: cons_launches.get(k, 0) for k in screen.LAUNCHES}
-    del c_its, c_client, c_cluster, cons
-    gc.collect()
     mark("phase 8")
+
+    # phase 9: the chain executed on phase 8's cluster: phase 8's ladder
+    # Command, then the TTL deprovisioners, through the lifecycle
+    lc = Lifecycle("lifecycle", c_its, c_client, c_clock)
+    t0 = time.perf_counter()
+    lc.step()
+    say(f"[lifecycle] set-up step (termination finalizers on "
+        f"{sum(1 for n in c_client.list('Node', copy_objects=False) if n.metadata.finalizers)}"
+        f" nodes) in {time.perf_counter() - t0:.3f} s")
+    ladder = execute_ladder(lc, cons["runs"]["multi"]["cmd"])
+    ttl_passes(lc, expire=3, spot_pinned=1)
+    # the kernels at this path's own shapes: the first Expiration pass's
+    # simulate snapshot (the remaining nodes against the class axis of the
+    # expired node's pods), held exactly against the plain versions and
+    # timed
+    first = lc.passes[0]["solves"]
+    if not first or first[0]["snapshot"] is None:
+        raise AssertionError("lifecycle: expiration 1 ran no simulate solve")
+    simulate = snapshot_shapes("simulate (expiration 1)", *first[0]["snapshot"], int_rate,
+                               busy_cycles)
+    life_launches = {}
+    for rec in lc.passes:
+        _add_counts(life_launches, rec["launches"])
+    for k in ("screen_prep", "block", "row_n1"):
+        if not life_launches.get(k):
+            raise AssertionError(f"lifecycle: phase 9's passes launched no {k}")
+    life_forms = {k: life_launches.get(k, 0) for k in screen.FORM_LAUNCHES}
+    life_launches = {k: life_launches.get(k, 0) for k in screen.LAUNCHES}
+    say(f"[lifecycle] passes {[(r['name'], r['key'][1], len(r['key'][2])) for r in lc.passes]}"
+        f", ladder {json.dumps({k: ladder[k] for k in ('nodes', 'pods')})}, launches "
+        f"{json.dumps(life_launches)} by form {json.dumps(life_forms)}, deprovisioning "
+        f"{json.dumps(deprovisioning_ctrl.ACTIONS)}")
+    del c_its, c_client, c_cluster, cons, lc
+    gc.collect()
+    mark("phase 9")
 
     # phase 8b: the card and the CPU decide alike at phase 3c's size
     s_its, s_client, s_cluster, s_clock = settled_cluster(4500, 400, 200, distinct=100,
@@ -1719,24 +2179,32 @@ def main() -> int:
         f"{json.dumps(compare_consolidation(on_card, on_cpu))}")
     mark("phase 8b")
 
+    # phase 9b: the card and the CPU execute alike at phase 8b's size
+    say(f"[lifecycle 9b] card and CPU agree: {json.dumps(phase_lifecycle_pair())}")
+    mark("phase 9b")
+
     runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
-            cons_launches)
-    form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms)
+            cons_launches, life_launches)
+    form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms,
+                 life_forms)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
 
-    # the line's numbers are those of this slice's main path, phase 8's
-    # ladder union (1,024 existing rows by its class axis); "shapes" keeps
-    # each shape the script timed: the earlier slices' (phase 2 on the main
-    # path's snapshot) and both unions of phase 8. row_b1 is not on phase
-    # 8's path (prescreen mode): it keeps the tiered screen's shape
-    cons_shapes = union["multi"]
-    err = max(kstats["max_abs_err"], *(u["max_abs_err"] for u in union.values()))
+    # the line's numbers are those of this slice's main path, phase 9's
+    # first Expiration simulate solve (the remaining existing rows by its
+    # class axis); "shapes" keeps each shape the script timed: the earlier
+    # slices' (phase 2 on the main path's snapshot, both unions of phase 8)
+    # and phase 9's. row_b1 is not on phase 8's or 9's path (prescreen
+    # mode): it keeps the tiered screen's shape
+    main_shapes = simulate
+    err = max(kstats["max_abs_err"], simulate["max_abs_err"],
+              *(u["max_abs_err"] for u in union.values()))
     common = {"route": "cuda", "source": "karpenter_core_tpu_torch/csrc/screen.cu",
               "replaces": "karpenter_core_tpu/ops/pallas_kernels.py:29",
               "max_abs_err": err, "library_ms": None}
     by_shape = {"main path (phase 2)": kstats, "union multi (phase 8)": union["multi"],
-                "union single (phase 8)": union["single"]}
+                "union single (phase 8)": union["single"],
+                "simulate expiration 1 (phase 9)": simulate}
 
     def times(stats, prep=False):
         if prep:
@@ -1768,8 +2236,8 @@ def main() -> int:
     # each form at its shape on the path: the existing block, the virgin
     # row (a slot's in-scan re-screen), and the tiered screen's open slots
     # against one class row
-    blk = cons_shapes["timed"]["existing block E x C"]
-    row_n1 = cons_shapes["timed"]["virgin row 1 x C"]
+    blk = main_shapes["timed"]["existing block E x C"]
+    row_n1 = main_shapes["timed"]["virgin row 1 x C"]
     kernels = [
         dict(common, name="screen", launches=launches["screen"],
              ms=blk["ms"], kernel_ms=blk["kernel_ms"], plain_ms=blk["plain_ms"],
@@ -1777,7 +2245,7 @@ def main() -> int:
              shapes=shapes_of("existing block E x C")),
         dict(common, name="screen_prep", launches=launches["screen_prep"],
              ms=blk["prep_ms"], kernel_ms=blk["prep_kernel_ms"],
-             plain_ms=cons_shapes["slot_prep_plain_ms"],
+             plain_ms=main_shapes["slot_prep_plain_ms"],
              bound_ms=blk["prep_bound_ms"], bound_by=blk["prep_bound_by"],
              shapes=shapes_of("existing block E x C", prep=True)),
         form_entry("block", blk, "karpenter_core_tpu/ops/pallas_kernels.py:160",

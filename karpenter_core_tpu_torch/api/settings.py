@@ -9,7 +9,7 @@ commit log and slot state, match the reference solver's for the same batch.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -39,6 +39,11 @@ class Settings:
     batch_max_duration: float = 10.0
     # victims per consolidation pass; 0 is unbounded
     consolidation_disruption_budget: int = 0
+    # a machine whose node has not registered after this many seconds is
+    # deleted (None turns the reaper off)
+    ttl_after_not_registered: Optional[float] = 15 * 60.0
+    # the Drift deprovisioner's feature gate (settings.go:44)
+    drift_enabled: bool = False
 
 
 _current = Settings()

@@ -376,7 +376,7 @@ def _simulate_scheduling_traced(
             p
             for p in kube_client.list(
                 "Pod",
-                field_filter=lambda p, n=node: p.spec.node_name == n.name(),
+                node_name=node.name(),
                 copy_objects=False,  # cloned for mutation two lines down
             )
             if not podutils.is_terminal(p) and not podutils.is_owned_by_daemonset(p)

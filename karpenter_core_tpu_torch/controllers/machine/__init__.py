@@ -1,0 +1,1 @@
+"""controllers/machine of the PyTorch port (see the package docstring)."""

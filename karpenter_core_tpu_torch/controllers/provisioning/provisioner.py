@@ -1,19 +1,27 @@
-"""The provisioning controller, reduced to what the deprovisioning search
-reads (provisioner.go:62-126,152-174,365-434): the solver it shares, the
-pending pods a consolidation must still place, and the daemonset pods
-every new machine carries. Batching, schedule() and machine launch belong
-to the operator and are not here."""
+"""The provisioning controller, reduced to what the deprovisioning chain
+uses (provisioner.go:62-174,304-434): the solver it shares, the pending
+pods a consolidation must still place, the daemonset pods every new
+machine carries, and the launch of solved machines (a replacement's):
+the provisioner-limits check, the create through the cloud provider, the
+Machine record, the eager Node and the nomination. Batching, schedule(),
+the insufficient-capacity cache, the launch retry, the launch-failure
+metrics and the nomination events belong to the operator and are not
+here."""
 from __future__ import annotations
 
+import concurrent.futures
 import copy
+import logging
 from typing import List, Optional
 
 from karpenter_core_tpu_torch.api import labels as api_labels
 from karpenter_core_tpu_torch.api.validation import validate_requirement
-from karpenter_core_tpu_torch.kube.objects import Pod
+from karpenter_core_tpu_torch.kube.client import AlreadyExistsError
+from karpenter_core_tpu_torch.kube.objects import NodeStatus, Pod
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
 from karpenter_core_tpu_torch.utils import podutils
 
+LOG = logging.getLogger("karpenter.provisioning")
 
 def validate_volumes(kube_client, pod) -> Optional[str]:
     """validatePersistentVolumeClaims (volumetopology.go:146-199): an
@@ -36,13 +44,14 @@ def validate_volumes(kube_client, pod) -> Optional[str]:
 
 
 class Provisioning:
-    """The kube client, the cloud provider and the solver of the
-    provisioning controller, with its two readers."""
+    """The kube client, the cloud provider, the cluster and the solver of
+    the provisioning controller, with its two readers and the launch."""
 
-    def __init__(self, kube_client, cloud_provider, solver):
+    def __init__(self, kube_client, cloud_provider, solver, cluster=None):
         self.kube_client = kube_client
         self.cloud_provider = cloud_provider
         self.solver = solver
+        self.cluster = cluster
 
     def get_pending_pods(self) -> List[Pod]:
         """Provisionable pods (provisioner.go:152-174); a pod that fails
@@ -80,3 +89,66 @@ class Provisioning:
                 pod.metadata.namespace = ds.metadata.namespace
                 out.append(pod)
         return out
+
+    # -- launching (provisioner.go:130-148,304-361) ---------------------------
+
+    def launch_machines(self, machines) -> List[str]:
+        """Launch the machines in parallel; the node name of each, "" where
+        its launch failed."""
+        if not machines:
+            return []
+        names: List[str] = []
+        with concurrent.futures.ThreadPoolExecutor(max_workers=len(machines)) as pool:
+            futures = [pool.submit(self._launch_one, m) for m in machines]
+            for f in futures:
+                try:
+                    names.append(f.result())
+                except Exception as e:  # noqa: BLE001 — the caller sees ""
+                    names.append("")
+                    LOG.warning("machine launch failed: %s: %s", type(e).__name__, e)
+        return names
+
+    def _launch_one(self, machine) -> str:
+        """provisioner.go:304-361: the limits check, the create, the
+        Machine record (its status through the status subresource), the
+        eager Node, the nomination."""
+        latest = self.kube_client.get("Provisioner", "", machine.provisioner_name)
+        if latest is None:
+            raise RuntimeError(f"provisioner {machine.provisioner_name} not found")
+        if latest.spec.limits is not None:
+            err = latest.spec.limits.exceeded_by(latest.status.resources)
+            if err:
+                raise RuntimeError(err)
+
+        template = copy.copy(machine.template)  # templates are shared across machines
+        template.instance_type_options = list(machine.instance_type_options)
+        template.requirements = Requirements(machine.requirements.values())
+        template.requests = dict(machine.requests)
+        machine_cr = template.to_machine()
+        created = self.cloud_provider.create(machine_cr)
+
+        # the Machine record, named after the created node (node and machine
+        # look each other up 1:1); provider id, capacity and allocatable
+        # live under the status subresource, written on apply's version
+        machine_cr.metadata.name = created.metadata.name
+        machine_cr.status.provider_id = created.status.provider_id
+        machine_cr.status.capacity = dict(created.status.capacity)
+        machine_cr.status.allocatable = dict(created.status.allocatable)
+        machine_cr.metadata.labels.update(created.metadata.labels)
+        applied = self.kube_client.apply(machine_cr)
+        machine_cr.metadata.resource_version = applied.metadata.resource_version
+        self.kube_client.update_status(machine_cr)
+
+        # the Node, created eagerly (provisioner.go:337-349)
+        node = template.to_node()
+        node.metadata.name = created.metadata.name
+        node.metadata.labels.update(created.metadata.labels)
+        node.spec.provider_id = created.status.provider_id
+        node.status = NodeStatus()
+        try:
+            self.kube_client.create(node)
+        except AlreadyExistsError:
+            pass  # the node registered itself first
+        self.cluster.update_node(node)
+        self.cluster.nominate_node_for_pod(node.metadata.name)
+        return node.metadata.name

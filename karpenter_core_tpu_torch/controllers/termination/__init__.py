@@ -1,0 +1,1 @@
+"""controllers/termination of the PyTorch port (see the package docstring)."""

@@ -1,16 +1,24 @@
-"""In-memory kube store: the surface a provisioning solve and the
-cluster's informers use.
+"""In-memory kube store: the surface a provisioning solve, the cluster's
+informers and the node lifecycle use.
 
-The analog of the reference's InMemoryKubeClient (kube/client.py), cut to
-what those paths and the consolidation search call: objects are created,
-updated and deleted in a store keyed by (kind, namespace, name), read back
-by key, listed by kind, namespace, label selector and a field filter, and
-watched; pods are evicted under their PodDisruptionBudgets. The store
-holds its own copies and hands out copies, as an apiserver does, unless a
+The analog of the reference's InMemoryKubeClient (kube/client.py): objects
+are created, updated and deleted in a store keyed by (kind, namespace,
+name), read back by key, listed by kind, namespace, label selector and a
+field filter, and watched; pods are evicted under their
+PodDisruptionBudgets. Every write bumps a store-wide resource version.
+The status-subresource kinds keep their stored status on a plain update
+and take it only through update_status; compare_and_update is the
+optimistic-concurrency write (ConflictError on a stale version); a delete
+of an object that still has finalizers only stamps its deletion time, and
+the object goes once finalize() removes the last of them. The store holds
+its own copies and hands out copies, as an apiserver does, unless a
 read-only reader asks for shared references (list(copy_objects=False)). A
 watch delivers ("ADDED" | "MODIFIED" | "DELETED", object) tuples to a
-queue.Queue per subscriber. Left out: the status subresource writes,
-compare-and-update and finalizers (the operator's surface).
+queue.Queue per subscriber.
+
+The store also keeps the pods of each node (list(node_name=...)): the
+drain and the emptiness check read one node's pods, which would otherwise
+be a filter over every pod of the cluster per node.
 
 A solve accepts any object with this `get` / `list` surface (an adapter
 over a real apiserver included).
@@ -18,8 +26,10 @@ over a real apiserver included).
 from __future__ import annotations
 
 import copy
+import itertools
 import queue
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from karpenter_core_tpu_torch.kube.objects import LabelSelector, NamespacedName
@@ -29,6 +39,10 @@ WatchEvent = Tuple[str, object]  # ("ADDED" | "MODIFIED" | "DELETED", object)
 # kinds served with a status subresource: a plain update keeps the stored
 # status, as an apiserver's PUT to the main resource does
 STATUS_SUBRESOURCE_KINDS = frozenset({"Machine", "Provisioner", "Node", "Pod"})
+
+
+class ConflictError(Exception):
+    """A resource-version conflict on update (the apiserver's 409)."""
 
 
 class AlreadyExistsError(Exception):
@@ -49,22 +63,63 @@ def _kind_of(obj) -> str:
 
 class InMemoryKubeClient:
     """Object store keyed (kind, namespace, name) with watch fan-out; kinds
-    are class names ("Pod", "Node", "PersistentVolumeClaim", "CSINode",
-    ...)."""
+    are class names ("Pod", "Node", "Machine", "PersistentVolumeClaim",
+    "CSINode", ...)."""
 
     def __init__(self):
         self._mu = threading.RLock()
         self._objects: Dict[str, Dict[NamespacedName, object]] = {}
         self._watchers: Dict[str, List[queue.Queue]] = {}
+        self._rv = 0
+        # node name -> {pod key: creation sequence}; the sequence orders a
+        # node's pods as the store does (creation order)
+        self._pods_by_node: Dict[str, Dict[NamespacedName, int]] = {}
+        self._pod_seq: Dict[NamespacedName, int] = {}
+        self._seq = itertools.count()
+
+    # -- the store and its pod index (under self._mu) ------------------------
+
+    def _put(self, kind: str, key: NamespacedName, stored) -> None:
+        store = self._objects.setdefault(kind, {})
+        if kind == "Pod":
+            old = store.get(key)
+            if key not in self._pod_seq:
+                self._pod_seq[key] = next(self._seq)
+            if old is not None and old.spec.node_name != stored.spec.node_name:
+                self._unindex(old.spec.node_name, key)
+            if stored.spec.node_name:
+                self._pods_by_node.setdefault(stored.spec.node_name, {})[key] = (
+                    self._pod_seq[key])
+        store[key] = stored
+
+    def _drop(self, kind: str, key: NamespacedName) -> None:
+        existing = self._objects[kind].pop(key)
+        if kind == "Pod":
+            self._pod_seq.pop(key, None)
+            self._unindex(existing.spec.node_name, key)
+
+    def _unindex(self, node_name: str, key: NamespacedName) -> None:
+        pods = self._pods_by_node.get(node_name)
+        if pods is not None:
+            pods.pop(key, None)
+            if not pods:
+                del self._pods_by_node[node_name]
+
+    def _bump(self, obj) -> None:
+        self._rv += 1
+        obj.metadata.resource_version = self._rv
+
+    # -- writes ---------------------------------------------------------------
 
     def create(self, obj) -> object:
         kind = _kind_of(obj)
         with self._mu:
             key = NamespacedName(obj.metadata.namespace, obj.metadata.name)
-            store = self._objects.setdefault(kind, {})
-            if key in store:
+            if key in self._objects.get(kind, {}):
                 raise AlreadyExistsError(f"{kind} {key} already exists")
-            stored = store[key] = copy.deepcopy(obj)
+            self._bump(obj)
+            stored = copy.deepcopy(obj)
+            self._put(kind, key, stored)
             self._notify(kind, "ADDED", stored)
             return copy.deepcopy(stored)
 
@@ -82,16 +137,66 @@ class InMemoryKubeClient:
             store = self._objects.setdefault(kind, {})
             if key not in store:
                 raise NotFoundError(f"{kind} {key} not found")
+            self._bump(obj)
             stored = copy.deepcopy(obj)
             if kind in STATUS_SUBRESOURCE_KINDS and hasattr(stored, "status"):
                 stored.status = copy.deepcopy(store[key].status)
-            store[key] = stored
+            self._put(kind, key, stored)
             self._notify(kind, "MODIFIED", stored)
             return copy.deepcopy(stored)
 
+    def update_status(self, obj) -> object:
+        """The status subresource's PUT: only obj.status is written; the
+        stored spec and metadata stay as they are."""
+        kind = _kind_of(obj)
+        with self._mu:
+            key = NamespacedName(obj.metadata.namespace, obj.metadata.name)
+            store = self._objects.setdefault(kind, {})
+            if key not in store:
+                raise NotFoundError(f"{kind} {key} not found")
+            # a fresh copy, so that a watcher's earlier object never changes
+            stored = copy.deepcopy(store[key])
+            self._bump(stored)
+            obj.metadata.resource_version = stored.metadata.resource_version
+            stored.status = copy.deepcopy(obj.status)
+            self._put(kind, key, stored)
+            self._notify(kind, "MODIFIED", stored)
+            return copy.deepcopy(stored)
+
+    def compare_and_update(self, obj, expected_rv: int) -> object:
+        """Replace the stored object only if its resource version is still
+        `expected_rv`; ConflictError otherwise (the apiserver's 409)."""
+        kind = _kind_of(obj)
+        with self._mu:
+            key = NamespacedName(obj.metadata.namespace, obj.metadata.name)
+            cur = self._objects.setdefault(kind, {}).get(key)
+            if cur is None:
+                raise NotFoundError(f"{kind} {key} not found")
+            if cur.metadata.resource_version != expected_rv:
+                raise ConflictError(
+                    f"{kind} {key} resource_version "
+                    f"{cur.metadata.resource_version} != expected {expected_rv}"
+                )
+            self._bump(obj)
+            stored = copy.deepcopy(obj)
+            self._put(kind, key, stored)
+            self._notify(kind, "MODIFIED", stored)
+            return copy.deepcopy(stored)
+
+    def apply(self, obj) -> object:
+        """Create or update."""
+        kind = _kind_of(obj)
+        with self._mu:
+            key = NamespacedName(obj.metadata.namespace, obj.metadata.name)
+            if key in self._objects.get(kind, {}):
+                return self.update(obj)
+            return self.create(obj)
+
     def delete(self, obj_or_kind, namespace: Optional[str] = None,
                name: Optional[str] = None) -> None:
-        """delete(obj) or delete(kind, namespace, name)."""
+        """delete(obj) or delete(kind, namespace, name). While the object
+        has finalizers this only stamps its deletion time (wall clock) and
+        emits MODIFIED; it is removed once finalize() clears them."""
         if isinstance(obj_or_kind, str):
             kind = obj_or_kind
         else:
@@ -100,25 +205,62 @@ class InMemoryKubeClient:
             name = obj_or_kind.metadata.name
         with self._mu:
             key = NamespacedName(namespace, name)
-            store = self._objects.get(kind, {})
-            existing = store.pop(key, None)
+            existing = self._objects.get(kind, {}).get(key)
             if existing is None:
                 raise NotFoundError(f"{kind} {key} not found")
+            if existing.metadata.finalizers:
+                if existing.metadata.deletion_timestamp is None:
+                    existing.metadata.deletion_timestamp = time.time()
+                    self._bump(existing)
+                    self._notify(kind, "MODIFIED", existing)
+                return
+            self._drop(kind, key)
             self._notify(kind, "DELETED", existing)
+
+    def finalize(self, obj) -> None:
+        """Write obj's finalizer list; a terminating object whose last
+        finalizer went is removed."""
+        kind = _kind_of(obj)
+        with self._mu:
+            key = NamespacedName(obj.metadata.namespace, obj.metadata.name)
+            existing = self._objects.get(kind, {}).get(key)
+            if existing is None:
+                raise NotFoundError(f"{kind} {key} not found")
+            existing.metadata.finalizers = list(obj.metadata.finalizers)
+            if (existing.metadata.deletion_timestamp is not None
+                    and not existing.metadata.finalizers):
+                self._drop(kind, key)
+                self._notify(kind, "DELETED", existing)
+            else:
+                self._bump(existing)
+                obj.metadata.resource_version = existing.metadata.resource_version
+                self._notify(kind, "MODIFIED", existing)
+
+    # -- reads ----------------------------------------------------------------
 
     def list(self, kind: str, namespace: Optional[str] = None,
              selector: Optional[LabelSelector] = None,
              field_filter: Optional[Callable[[object], bool]] = None,
-             copy_objects: bool = True) -> List[object]:
+             copy_objects: bool = True, node_name: Optional[str] = None) -> List[object]:
         """Objects of `kind`, in creation order, optionally of one
         namespace, matching a label selector (None selects all) and a
-        field filter. copy_objects=False hands out the stored objects
-        themselves, for readers that never mutate what they list (an
-        informer cache's read idiom): the consolidation search reads
-        every bound pod of the cluster each pass."""
+        field filter; for pods, optionally only those bound to
+        `node_name` (read from the store's index). copy_objects=False
+        hands out the stored objects themselves, for readers that never
+        mutate what they list (an informer cache's read idiom): the
+        consolidation search reads every bound pod of the cluster each
+        pass."""
         with self._mu:
+            store = self._objects.get(kind, {})
+            if node_name is not None:
+                if kind != "Pod":
+                    raise ValueError("node_name selects pods only")
+                keys = self._pods_by_node.get(node_name, {})
+                items = [(k, store[k]) for k in sorted(keys, key=keys.__getitem__)]
+            else:
+                items = store.items()
             out = []
-            for key, obj in self._objects.get(kind, {}).items():
+            for key, obj in items:
                 if namespace is not None and key.namespace != namespace:
                     continue
                 if selector is not None and not selector.matches(obj.metadata.labels):
@@ -181,3 +323,4 @@ class InMemoryKubeClient:
         """Fan one event out to the kind's subscribers (under self._mu)."""
         for q in self._watchers.get(kind, []):
             q.put((event, copy.deepcopy(obj)))
+

@@ -1,6 +1,6 @@
-"""k8s-lite object model: the subset of objects a provisioning solve reads
-(pods, nodes, and the storage and namespace kinds it resolves through a
-kube client).
+"""k8s-lite object model: the subset of objects a provisioning solve and
+the node lifecycle read (pods, nodes, and the storage, policy and
+namespace kinds they resolve through a kube client).
 
 Quantities are plain floats in a ``dict[str, float]`` ResourceList (cpu in
 cores, memory in bytes, counts for pods and extended resources), parsed from
@@ -37,6 +37,7 @@ class OwnerReference:
     name: str = ""
     uid: str = ""
     controller: bool = False
+    block_owner_deletion: bool = False
 
 
 @dataclass
@@ -48,7 +49,10 @@ class ObjectMeta:
     uid: str = field(default_factory=_new_uid)
     creation_timestamp: float = field(default_factory=time.time)
     deletion_timestamp: Optional[float] = None
+    # deletion waits until every finalizer is removed (kube/client.py)
+    finalizers: List[str] = field(default_factory=list)
     owner_references: List[OwnerReference] = field(default_factory=list)
+    resource_version: int = 0
 
 
 class NamespacedName(tuple):
@@ -189,6 +193,10 @@ class Taint:
     value: str = ""
     effect: str = "NoSchedule"
 
+    def match_taint(self, other: "Taint") -> bool:
+        """v1.Taint.MatchTaint: the same key and effect (value ignored)."""
+        return self.key == other.key and self.effect == other.effect
+
 
 @dataclass
 class Toleration:
@@ -260,6 +268,8 @@ class PodSpec:
     )
     volumes: List[Volume] = field(default_factory=list)
     priority: Optional[int] = None
+    # system-cluster-critical and system-node-critical pods drain last
+    priority_class_name: str = ""
 
 
 @dataclass
@@ -267,6 +277,8 @@ class Condition:
     type: str = ""
     status: str = ""  # True | False | Unknown
     reason: str = ""
+    message: str = ""
+    last_transition_time: float = 0.0
 
 
 @dataclass
@@ -290,6 +302,7 @@ class Pod:
 class NodeSpec:
     provider_id: str = ""
     taints: List[Taint] = field(default_factory=list)
+    unschedulable: bool = False
 
 
 @dataclass
@@ -311,6 +324,13 @@ class Node:
     @property
     def name(self) -> str:
         return self.metadata.name
+
+    def ready(self) -> bool:
+        """The kubelet's Ready condition is True."""
+        for c in self.status.conditions:
+            if c.type == "Ready":
+                return c.status == "True"
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -439,3 +459,4 @@ LABEL_INSTANCE_TYPE_BETA = "beta.kubernetes.io/instance-type"
 
 TAINT_NODE_NOT_READY = "node.kubernetes.io/not-ready"
 TAINT_NODE_UNREACHABLE = "node.kubernetes.io/unreachable"
+TAINT_NODE_UNSCHEDULABLE = "node.kubernetes.io/unschedulable"

@@ -8,6 +8,7 @@ closed value dictionary plus a complement bit.
 """
 from __future__ import annotations
 
+import random
 from typing import Iterable, Optional, Set
 
 OP_IN = "In"
@@ -89,8 +90,40 @@ class Requirement:
             value, self.greater_than, self.less_than
         )
 
+    def any(self) -> str:
+        """A representative allowed value (requirement.go:152-168): the
+        least of an In set; for NotIn / Exists a random integer within the
+        bounds that the set does not exclude."""
+        op = self.operator()
+        if op == OP_IN:
+            return min(self.values)
+        if op in (OP_NOT_IN, OP_EXISTS):
+            lo = 0 if self.greater_than is None else self.greater_than + 1
+            hi = MAX_LEN if self.less_than is None else self.less_than
+            if hi <= lo:
+                return str(lo)
+            for _ in range(32):
+                v = str(random.randrange(lo, hi))
+                if v not in self.values:
+                    return v
+            return str(lo)
+        return ""
+
     def insert(self, *items: str) -> None:
         self.values.update(items)
+
+    def to_node_selector_requirement(self):
+        """The v1.NodeSelectorRequirement form (requirement.go:70-113)."""
+        from karpenter_core_tpu_torch.kube.objects import NodeSelectorRequirement
+
+        if self.greater_than is not None:
+            return NodeSelectorRequirement(self.key, OP_GT, [str(self.greater_than)])
+        if self.less_than is not None:
+            return NodeSelectorRequirement(self.key, OP_LT, [str(self.less_than)])
+        op = self.operator()
+        if op in (OP_IN, OP_NOT_IN):
+            return NodeSelectorRequirement(self.key, op, self.values_list())
+        return NodeSelectorRequirement(self.key, op, [])
 
     def values_list(self):
         return sorted(self.values)

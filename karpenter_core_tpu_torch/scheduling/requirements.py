@@ -99,3 +99,16 @@ class Requirements(Dict[str, Requirement]):
                     continue
                 errs.append(f"key {key}, {incoming!r} not in {existing!r}")
         return "; ".join(errs) if errs else None
+
+    def labels(self) -> Dict[str, str]:
+        """Representative node labels (requirements.go:208-218): a value
+        for each key a node may carry."""
+        from karpenter_core_tpu_torch.api.labels import is_restricted_node_label
+
+        out: Dict[str, str] = {}
+        for key, requirement in self.items():
+            if not is_restricted_node_label(key):
+                value = requirement.any()
+                if value:
+                    out[key] = value
+        return out

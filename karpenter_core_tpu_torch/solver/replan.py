@@ -162,7 +162,7 @@ def build_union_scenario(
     for node in deleting_nodes:
         for p in kube_client.list(
             "Pod",
-            field_filter=lambda p, n=node: p.spec.node_name == n.name(),
+            node_name=node.name(),
             copy_objects=False,  # read-only below; see clone note
         ):
             if not podutils.is_terminal(p) and not podutils.is_owned_by_daemonset(p):

@@ -1,16 +1,17 @@
-"""Cluster: the in-memory mirror of nodes and pod bindings that a
-provisioning solve reads (state/cluster.go:44-532).
+"""Cluster: the in-memory mirror of nodes, machines and pod bindings
+that a provisioning solve and the deprovisioners read
+(state/cluster.go:44-532).
 
-The part of the reference's Cluster the solve path and the consolidation
-search need: nodes keyed by provider id, pod -> node bindings that keep
+Nodes and Machine records keyed by provider id (a launched machine is a
+state node before its Node registers), pod -> node bindings that keep
 each node's requests, host ports and volumes, the index of bound pods with
 required anti-affinity, CSINode attach limits applied on every node
-update, the change feed that tells an incremental solver whether it has
-seen every mutation since its last solve (`changes_since`), node
-nomination, mark-for-deletion, and the consolidated bit that every
-mutation clears and that expires after CONSOLIDATED_TTL on the cluster's
-clock. Machines and in-flight capacity from the cloud provider are not
-here.
+update, the in-flight capacity of a node's instance type from the cloud
+provider until the node reports its own, the change feed that tells an
+incremental solver whether it has seen every mutation since its last
+solve (`changes_since`), node nomination, mark-for-deletion, and the
+consolidated bit that every mutation clears and that expires after
+CONSOLIDATED_TTL on the cluster's clock.
 """
 from __future__ import annotations
 
@@ -19,7 +20,11 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
-from karpenter_core_tpu_torch.kube.objects import NamespacedName, object_key
+from karpenter_core_tpu_torch.kube.objects import (
+    LABEL_INSTANCE_TYPE_STABLE,
+    NamespacedName,
+    object_key,
+)
 from karpenter_core_tpu_torch.state.node import StateNode, populate_volume_limits_from
 from karpenter_core_tpu_torch.utils import podutils
 
@@ -33,14 +38,16 @@ class Cluster:
     # the consolidated bit's forced re-check interval (cluster.go:277-286)
     CONSOLIDATED_TTL = 5 * 60.0
 
-    def __init__(self, kube_client, clock=None):
+    def __init__(self, kube_client, cloud_provider=None, clock=None):
         self.kube_client = kube_client
+        self.cloud_provider = cloud_provider
         self.clock = clock if clock is not None else time.time
         self._mu = threading.RLock()
         self._consolidated = False
         self._consolidated_at = 0.0
         self.nodes_by_provider_id: Dict[str, StateNode] = {}
         self.node_name_to_provider_id: Dict[str, str] = {}
+        self.machine_name_to_provider_id: Dict[str, str] = {}
         self.bindings: Dict[NamespacedName, str] = {}  # pod -> node name
         self.anti_affinity_pods: Dict[NamespacedName, object] = {}
         # the change feed: every mutation bumps the revision and appends
@@ -111,8 +118,10 @@ class Cluster:
                 return
 
     def node_for(self, name: str) -> Optional[StateNode]:
+        """The state node of a Node or Machine name."""
         with self._mu:
-            pid = self.node_name_to_provider_id.get(name)
+            pid = (self.node_name_to_provider_id.get(name)
+                   or self.machine_name_to_provider_id.get(name))
             return None if pid is None else self.nodes_by_provider_id.get(pid)
 
     # -- nomination and deletion marks (cluster.go:160-202) -----------------
@@ -169,18 +178,77 @@ class Cluster:
             else:
                 existing.node = node
             self.node_name_to_provider_id[node.metadata.name] = provider_id
+            self._populate_inflight(existing)
             populate_volume_limits_from(self.kube_client, existing)
             self._record_change(provider_id)
             self.set_consolidated(False)
 
     def delete_node(self, name: str) -> None:
-        """cluster.go:239-251 for a node no Machine record backs."""
+        """cluster.go:239-251: a node backed by a Machine record leaves the
+        machine's state node behind."""
         with self._mu:
             pid = self.node_name_to_provider_id.pop(name, None)
             if pid is not None:
-                self.nodes_by_provider_id.pop(pid, None)
+                state_node = self.nodes_by_provider_id.get(pid)
+                if state_node is not None:
+                    if state_node.machine is not None:
+                        state_node.node = None
+                    else:
+                        del self.nodes_by_provider_id[pid]
             self._record_change(pid or "*")
             self.set_consolidated(False)
+
+    def update_machine(self, machine) -> None:
+        """cluster.go:204-236: a machine is tracked once the cloud provider
+        gave it a provider id."""
+        with self._mu:
+            if not machine.status.provider_id:
+                return
+            provider_id = machine.status.provider_id
+            existing = self.nodes_by_provider_id.get(provider_id)
+            if existing is None:
+                # as the reference's: this state node's volume usage gets no
+                # kube client, also once its Node registers (ROADMAP Queue C)
+                existing = StateNode(machine=machine, clock=self.clock)
+                self.nodes_by_provider_id[provider_id] = existing
+            else:
+                existing.machine = machine
+            self.machine_name_to_provider_id[machine.name] = provider_id
+            self._record_change(provider_id)
+            self.set_consolidated(False)
+
+    def delete_machine(self, name: str) -> None:
+        """cluster.go:299-317: a machine whose Node lives on leaves the
+        node's state node behind."""
+        with self._mu:
+            pid = self.machine_name_to_provider_id.pop(name, None)
+            if pid is not None:
+                state_node = self.nodes_by_provider_id.get(pid)
+                if state_node is not None:
+                    if state_node.node is not None:
+                        state_node.machine = None
+                    else:
+                        del self.nodes_by_provider_id[pid]
+            self._record_change(pid or "*")
+            self.set_consolidated(False)
+
+    def _populate_inflight(self, state_node: StateNode) -> None:
+        """The capacity and allocatable of the node's instance type, which
+        stand in for the node's own until it reports them
+        (cluster.go:388-428)."""
+        if self.cloud_provider is None or state_node.node is None:
+            return
+        it_name = state_node.labels().get(LABEL_INSTANCE_TYPE_STABLE)
+        if not it_name:
+            return
+        try:
+            for it in self.cloud_provider.get_instance_types(None):
+                if it.name == it_name:
+                    state_node.inflight_capacity = dict(it.capacity)
+                    state_node.inflight_allocatable = dict(it.allocatable())
+                    break
+        except Exception:  # noqa: BLE001 — in-flight capacity is best effort
+            pass
 
     def update_provisioner(self, provisioner) -> None:
         """A provisioner changed (informer/provisioner.go:52): templates,

@@ -1,10 +1,9 @@
 """Informers: watch events of the kube client into Cluster calls.
 
-The reference's informer controllers (state/informer/{node,pod,
+The reference's informer controllers (state/informer/{node,pod,machine,
 provisioner}.go), as in its state/informer.py: thin handlers that turn
 each ("ADDED" | "MODIFIED" | "DELETED", object) event of a watch into a
-Cluster update or delete. The Machine informer waits for the Cluster's
-machines (the consolidation path).
+Cluster update or delete.
 """
 from __future__ import annotations
 
@@ -33,6 +32,17 @@ class PodInformer:
             self.cluster.delete_pod(NamespacedName(pod.metadata.namespace, pod.metadata.name))
         else:
             self.cluster.update_pod(pod)
+
+
+class MachineInformer:
+    def __init__(self, cluster):
+        self.cluster = cluster
+
+    def handle(self, event: str, machine) -> None:
+        if event == "DELETED":
+            self.cluster.delete_machine(machine.metadata.name)
+        else:
+            self.cluster.update_machine(machine)
 
 
 class ProvisionerInformer:

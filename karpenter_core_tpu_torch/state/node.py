@@ -1,11 +1,18 @@
-"""StateNode: the cluster's view of one existing node (state/node.go).
+"""StateNode: the cluster's view of one node and/or its Machine record
+(state/node.go).
 
-The port reads a node's identity, labels, annotations, taints and
-capacity, the requests of the pods bound to it, the host ports they hold,
-the volumes they mount and the node's CSI attach limits, and keeps the
+A node launched by a provisioner is first a Machine (a launch intent the
+cloud provider resolved to a provider id, capacity and allocatable), then
+a Machine with a registered Node, and is initialized once the machine
+controller has seen the node ready. Until then the name, labels,
+annotations, taints, capacity and allocatable read through the Machine,
+the node's zero values backfilled from the machine's; a node without a
+Machine record that is not initialized yet backfills from the in-flight
+capacity of its instance type (node.go:137-221). The state node also
+keeps the requests of the pods bound to it, the host ports they hold, the
+volumes they mount and the node's CSI attach limits, and the
 consolidation state: marked for deletion, and nominated for pods until a
-deadline on the node's clock. Nodes still backed only by a Machine record
-are not modelled here.
+deadline on the node's clock.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import time
 from typing import Dict, List
 
 from karpenter_core_tpu_torch.api import labels as api_labels
+from karpenter_core_tpu_torch.api.machine import CONDITION_MACHINE_INITIALIZED
 from karpenter_core_tpu_torch.kube.objects import (
     LABEL_HOSTNAME,
     TAINT_NODE_NOT_READY,
@@ -29,11 +37,14 @@ from karpenter_core_tpu_torch.utils import podutils, resources
 
 
 class StateNode:
-    def __init__(self, node, clock=None):
+    def __init__(self, node=None, machine=None, clock=None):
         self.node = node
+        self.machine = machine
         self.clock = clock if clock is not None else time.time
         self.marked_for_deletion = False
         self.nominated_until = 0.0
+        self.inflight_allocatable: ResourceList = {}
+        self.inflight_capacity: ResourceList = {}
         self.startup_taints: List[Taint] = []
         self.pod_requests: Dict[NamespacedName, ResourceList] = {}
         self.daemonset_requests: Dict[NamespacedName, ResourceList] = {}
@@ -41,25 +52,63 @@ class StateNode:
         self.volume_usage = VolumeUsage()
         self.volume_limits = VolumeCount()
 
+    # -- identity (node.go:108-146) ------------------------------------------
+
+    def _machine_view(self) -> bool:
+        """Read through the Machine: it exists and the node is not
+        initialized yet."""
+        return self.machine is not None and not self.initialized()
+
     def name(self) -> str:
-        return self.node.name
+        if self._machine_view():
+            return self.machine.name
+        return self.node.name if self.node is not None else ""
 
     def provider_id(self) -> str:
-        return self.node.spec.provider_id
+        if self.node is not None and self.node.spec.provider_id:
+            return self.node.spec.provider_id
+        if self.machine is not None:
+            return self.machine.status.provider_id
+        return ""
 
     def hostname(self) -> str:
         return self.labels().get(LABEL_HOSTNAME) or self.name()
 
     def labels(self) -> Dict[str, str]:
-        return self.node.metadata.labels
+        if self._machine_view():
+            return self.machine.metadata.labels
+        return self.node.metadata.labels if self.node is not None else {}
 
     def annotations(self) -> Dict[str, str]:
-        return self.node.metadata.annotations
+        if self._machine_view():
+            return self.machine.metadata.annotations
+        return self.node.metadata.annotations if self.node is not None else {}
+
+    # -- lifecycle (node.go:75-113,181-231) -----------------------------------
+
+    def initialized(self) -> bool:
+        """A machine's node is initialized once the machine says so; a node
+        without a Machine record once it carries the initialized label."""
+        if self.machine is not None:
+            return self.node is not None and self.machine.condition_true(
+                CONDITION_MACHINE_INITIALIZED)
+        if self.node is not None:
+            return self.node.metadata.labels.get(api_labels.LABEL_NODE_INITIALIZED) == "true"
+        return False
+
+    def owned(self) -> bool:
+        return self.labels().get(api_labels.PROVISIONER_NAME_LABEL_KEY, "") != ""
 
     def is_marked_for_deletion(self) -> bool:
-        """Marked by the deprovisioner, or the Node itself is terminating
-        (node.go:223-231 for a node without a Machine record)."""
-        return self.marked_for_deletion or self.node.metadata.deletion_timestamp is not None
+        """Marked by the deprovisioner, or terminating: the Machine record,
+        or the Node when no Machine backs it."""
+        return (
+            self.marked_for_deletion
+            or (self.machine is not None
+                and self.machine.metadata.deletion_timestamp is not None)
+            or (self.node is not None and self.machine is None
+                and self.node.metadata.deletion_timestamp is not None)
+        )
 
     def nominate(self, settings=None) -> None:
         """Hold the node for pods the provisioner bound to it in
@@ -69,28 +118,53 @@ class StateNode:
     def nominated(self) -> bool:
         return self.nominated_until > self.clock()
 
-    def initialized(self) -> bool:
-        """node.go:181-192 for a node without a Machine record."""
-        return self.labels().get(api_labels.LABEL_NODE_INITIALIZED) == "true"
-
-    def owned(self) -> bool:
-        return self.labels().get(api_labels.PROVISIONER_NAME_LABEL_KEY, "") != ""
+    # -- scheduling views (node.go:148-221) ------------------------------------
 
     def taints(self) -> List[Taint]:
-        """Ephemeral and startup taints are masked (node.go:148-176)."""
+        """Ephemeral and, before initialization, startup taints are
+        masked (node.go:148-176)."""
         ephemeral = [
             Taint(key=TAINT_NODE_NOT_READY, effect="NoSchedule"),
             Taint(key=TAINT_NODE_UNREACHABLE, effect="NoSchedule"),
         ]
-        if not self.initialized() and self.owned():
-            ephemeral.extend(self.startup_taints)
-        return [t for t in self.node.spec.taints if t not in ephemeral]
+        initialized = self.initialized()
+        if not initialized and self.owned():
+            if self.machine is not None:
+                ephemeral.extend(self.machine.spec.startup_taints)
+            else:
+                ephemeral.extend(self.startup_taints)
+        if not initialized and self.machine is not None:
+            taints = self.machine.spec.taints
+        else:
+            taints = self.node.spec.taints if self.node is not None else []
+        return [t for t in taints if t not in ephemeral]
 
     def capacity(self) -> ResourceList:
-        return dict(self.node.status.capacity)
+        return self._capacity_like(lambda o: o.status.capacity, self.inflight_capacity)
 
     def allocatable(self) -> ResourceList:
-        return dict(self.node.status.allocatable)
+        return self._capacity_like(lambda o: o.status.allocatable, self.inflight_allocatable)
+
+    def _capacity_like(self, view, inflight: ResourceList) -> ResourceList:
+        """node.go:194-221: before initialization the machine's (or, with
+        no Machine record, the in-flight) values fill the node's zero
+        values; after it, the node's alone."""
+        if not self.initialized():
+            if self.machine is not None:
+                if self.node is None:
+                    return dict(view(self.machine))
+                ret = dict(view(self.node))
+                for name, q in view(self.machine).items():
+                    if not ret.get(name):
+                        ret[name] = q
+                return ret
+            if self.owned() and self.node is not None:
+                ret = dict(view(self.node))
+                for name, q in inflight.items():
+                    if not ret.get(name):
+                        ret[name] = q
+                return ret
+        return dict(view(self.node)) if self.node is not None else {}
 
     def available(self) -> ResourceList:
         return resources.subtract(self.allocatable(), self.total_pod_requests())
@@ -121,7 +195,10 @@ class StateNode:
         self.daemonset_requests.pop(key, None)
 
     def deep_copy(self) -> "StateNode":
-        out = StateNode(copy.deepcopy(self.node), clock=self.clock)
+        out = StateNode(copy.deepcopy(self.node), copy.deepcopy(self.machine),
+                        clock=self.clock)
+        out.inflight_allocatable = dict(self.inflight_allocatable)
+        out.inflight_capacity = dict(self.inflight_capacity)
         out.marked_for_deletion = self.marked_for_deletion
         out.nominated_until = self.nominated_until
         out.startup_taints = list(self.startup_taints)

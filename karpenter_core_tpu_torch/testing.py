@@ -1,12 +1,33 @@
-"""Object builders for tests and smoke runs (the analog of pkg/test)."""
+"""Object builders for tests and smoke runs (the analog of pkg/test), and
+a synchronous control loop over the lifecycle controllers."""
 from __future__ import annotations
 
 import itertools
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from karpenter_core_tpu_torch.controllers.deprovisioning.controller import (
+    DeprovisioningController,
+)
+from karpenter_core_tpu_torch.controllers.machine.controller import MachineController
+from karpenter_core_tpu_torch.controllers.machine.terminator import EvictionQueue, Terminator
+from karpenter_core_tpu_torch.controllers.node.controller import NodeController
+from karpenter_core_tpu_torch.controllers.provisioning.provisioner import Provisioning
+from karpenter_core_tpu_torch.controllers.termination.controller import TerminationController
+from karpenter_core_tpu_torch.state import informer
+from karpenter_core_tpu_torch.state.cluster import Cluster
+
+from karpenter_core_tpu_torch.api.machine import (
+    CONDITION_MACHINE_INITIALIZED,
+    CONDITION_MACHINE_LAUNCHED,
+    CONDITION_MACHINE_REGISTERED,
+    Machine,
+    MachineSpec,
+    MachineStatus,
+)
 from karpenter_core_tpu_torch.api.provisioner import (
     Consolidation,
     Limits,
@@ -205,25 +226,32 @@ def make_provisioner(
     name: Optional[str] = None,
     requirements: Optional[List[NodeSelectorRequirement]] = None,
     labels: Optional[Dict[str, str]] = None,
+    annotations: Optional[Dict[str, str]] = None,
     taints: Optional[List[Taint]] = None,
     startup_taints: Optional[List[Taint]] = None,
     limits: Optional[Dict[str, object]] = None,
     weight: Optional[int] = None,
+    ttl_seconds_after_empty: Optional[int] = None,
     ttl_seconds_until_expired: Optional[int] = None,
     consolidation_enabled: Optional[bool] = None,
 ) -> Provisioner:
+    """A provisioner; like the reference's test builder it carries an
+    inline provider config when it names no provider reference."""
     spec = ProvisionerSpec(
         requirements=list(requirements or []),
         labels=dict(labels or {}),
+        annotations=dict(annotations or {}),
         taints=list(taints or []),
         startup_taints=list(startup_taints or []),
         weight=weight,
+        ttl_seconds_after_empty=ttl_seconds_after_empty,
         ttl_seconds_until_expired=ttl_seconds_until_expired,
     )
     if limits is not None:
         spec.limits = Limits(resources=parse_resource_list(limits))
     if consolidation_enabled is not None:
         spec.consolidation = Consolidation(enabled=consolidation_enabled)
+    spec.provider = {"fake": True}
     return Provisioner(
         metadata=ObjectMeta(name=name or unique_name("provisioner")), spec=spec
     )
@@ -235,15 +263,49 @@ def make_node(
     capacity: Optional[Dict[str, object]] = None,
     allocatable: Optional[Dict[str, object]] = None,
     taints: Optional[List[Taint]] = None,
+    provider_id: str = "",
+    ready: bool = True,
 ) -> Node:
     node = Node(metadata=ObjectMeta(name=name or unique_name("node"),
                                     labels=dict(labels or {})))
     node.spec.taints = list(taints or [])
-    node.spec.provider_id = f"fake:///{node.metadata.name}"
+    node.spec.provider_id = provider_id or f"fake:///{node.metadata.name}"
     node.status.capacity = parse_resource_list(capacity or {})
     node.status.allocatable = parse_resource_list(allocatable or capacity or {})
-    node.status.conditions.append(Condition(type="Ready", status="True"))
+    node.status.conditions.append(Condition(type="Ready", status="True" if ready else "False"))
     return node
+
+
+def make_machine(
+    name: Optional[str] = None,
+    provider_id: str = "",
+    labels: Optional[Dict[str, str]] = None,
+    requirements: Optional[List[NodeSelectorRequirement]] = None,
+    capacity: Optional[Dict[str, object]] = None,
+    allocatable: Optional[Dict[str, object]] = None,
+    launched: bool = False,
+    registered: bool = False,
+    initialized: bool = False,
+) -> Machine:
+    """A Machine record, with lifecycle conditions optionally set (the
+    reference's test.Machine)."""
+    machine = Machine(
+        metadata=ObjectMeta(name=name or unique_name("machine"), labels=dict(labels or {})),
+        spec=MachineSpec(requirements=list(requirements or [])),
+        status=MachineStatus(
+            provider_id=provider_id,
+            capacity=parse_resource_list(capacity or {}),
+            allocatable=parse_resource_list(
+                (capacity if allocatable is None else allocatable) or {}),
+        ),
+    )
+    if launched:
+        machine.set_condition(CONDITION_MACHINE_LAUNCHED, "True")
+    if registered:
+        machine.set_condition(CONDITION_MACHINE_REGISTERED, "True")
+    if initialized:
+        machine.set_condition(CONDITION_MACHINE_INITIALIZED, "True")
+    return machine
 
 
 def make_storage_class(name: str, provisioner: str = "",
@@ -327,3 +389,67 @@ def subset_planes(snap, K: int, seed: int = 0):
         if n_nodes:
             exist_open[r, rng.choice(n_nodes, size=min(n_nodes, r % 3), replace=False)] = False
     return count_rows, exist_open
+
+
+class ControlLoop:
+    """A synchronous control loop over one kube client: the reduced
+    counterpart of the reference operator's sync_state and step
+    (operator/__init__.py:88-151). It wires an informer-fed Cluster (one
+    watch per kind: Node, Machine, Pod, Provisioner), Provisioning with
+    `solver`, the machine, node and termination controllers, the
+    Terminator with its EvictionQueue, and the DeprovisioningController.
+    step() runs them in the reference's order, without the provisioning
+    reconcile, the counters and the metrics controllers."""
+
+    KINDS = ("Node", "Machine", "Pod", "Provisioner")
+
+    def __init__(self, kube_client, cloud_provider, solver, clock=None,
+                 validation_ttl: float = 15.0):
+        clock = clock if clock is not None else time.time
+        self.kube_client = kube_client
+        self.cloud_provider = cloud_provider
+        self.clock = clock
+        self.cluster = Cluster(kube_client, cloud_provider, clock=clock)
+        handlers = {
+            "Node": informer.NodeInformer(self.cluster),
+            "Machine": informer.MachineInformer(self.cluster),
+            "Pod": informer.PodInformer(self.cluster),
+            "Provisioner": informer.ProvisionerInformer(self.cluster),
+        }
+        self.watches = [(kube_client.watch(kind), handlers[kind]) for kind in self.KINDS]
+        self.eviction_queue = EvictionQueue(kube_client)
+        self.terminator = Terminator(kube_client, cloud_provider, self.eviction_queue,
+                                     clock=clock)
+        self.provisioning = Provisioning(kube_client, cloud_provider, solver,
+                                         cluster=self.cluster)
+        self.machine_controller = MachineController(kube_client, cloud_provider,
+                                                    self.cluster, self.terminator,
+                                                    clock=clock)
+        self.node_controller = NodeController(kube_client, cloud_provider, self.cluster,
+                                              clock=clock)
+        self.termination_controller = TerminationController(kube_client, self.terminator,
+                                                            self.cluster)
+        self.deprovisioning = DeprovisioningController(
+            kube_client, self.cluster, self.provisioning, cloud_provider, clock=clock,
+            validation_ttl=validation_ttl)
+
+    def sync(self) -> int:
+        """Hand every waiting watch event to its informer, kind by kind in
+        KINDS order; returns how many there were."""
+        return sum(informer.drain(q, handler) for q, handler in self.watches)
+
+    def step(self) -> None:
+        """One pass over the controllers, in the order of the reference's
+        Operator.step: machines, then each node's node and termination
+        controllers, machines again, and the eviction queue. The caller
+        runs the deprovisioning chain (self.deprovisioning.reconcile())."""
+        self.sync()
+        for machine in self.kube_client.list("Machine"):
+            self.machine_controller.reconcile(machine)
+        for node in self.kube_client.list("Node"):
+            self.node_controller.reconcile(node)
+            self.termination_controller.reconcile(node)
+        self.sync()
+        for machine in self.kube_client.list("Machine"):
+            self.machine_controller.reconcile(machine)
+        self.eviction_queue.drain()

@@ -21,6 +21,16 @@ the multi-node ladder and the single-node sweep through the port's
 consolidation modules, with each replan's K, chunks, prescreen mode,
 scanned items and per-subset time, the exact solves, and the commands.
 
+    python3 rehearse_cpu.py --lifecycle 5000
+
+runs chip_smoke's phase 9 at that size on the CPU: phase 8's ladder on
+the settled cluster, its Command executed through testing.ControlLoop
+(cordons, drains, evictions, terminations), then three Expiration passes
+(one a replacement), a Drift pass and an Emptiness pass, each pass's
+Command, compute and execute times, steps and exact solves printed, and
+the shape of the first Expiration pass's simulate snapshot (the one whose
+planes chip_smoke holds the kernels to in phase 9).
+
     python3 rehearse_cpu.py --churn 3500 7000
 
 runs chip_smoke's phases 6b and 7 at those sizes on the CPU instead: the
@@ -123,9 +133,35 @@ def rehearse_replan(n: int) -> dict:
             "runs": runs, "gen2": out["gen2"]}
 
 
+def rehearse_lifecycle(n: int) -> dict:
+    nodes = int(1000 * n / 50000)
+    (its, client, cluster, clock), build_s = _timed(lambda: cs.settled_cluster(
+        n, 500, nodes, distinct=nodes))
+    out = cs.phase_consolidation("rehearse", its, client, cluster, clock, device="cpu")
+    lc = cs.Lifecycle("rehearse lifecycle", its, client, clock, device="cpu")
+    setup_s = round(lc.step(), 3)
+    ladder = cs.execute_ladder(lc, out["runs"]["multi"]["cmd"])
+    cs.ttl_passes(lc, expire=3, spot_pinned=1)
+    snap, _provs = lc.passes[0]["solves"][0]["snapshot"]
+    return {"nodes": nodes, "bound": len(cluster.bindings), "build_s": build_s,
+            "simulate_snapshot": {"existing_rows": int(snap.exist_used.shape[0]),
+                                  "items": len(snap.item_counts),
+                                  "item_pad": int(snap.item_pad)},
+            "loop_build_s": round(lc.build_s, 3), "setup_s": setup_s,
+            "ladder": {k: v for k, v in ladder.items() if k != "checked"},
+            "passes": [{"name": r["name"], "action": r["key"][1], "removed": len(r["key"][2]),
+                        "replacements": len(r["key"][3]),
+                        "compute_ms": round(r["compute_ms"], 1),
+                        "execute_ms": round(r["execute_ms"], 1),
+                        "steps_s": [round(w, 3) for w in r["steps_s"]],
+                        "solves": [(s["pods"], round(s["wall_s"], 3)) for s in r["solves"]]}
+                       for r in lc.passes]}
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
-    modes = {"--churn": rehearse_churn, "--replan": rehearse_replan}
+    modes = {"--churn": rehearse_churn, "--replan": rehearse_replan,
+             "--lifecycle": rehearse_lifecycle}
     fn = next((modes[a] for a in args if a in modes), rehearse)
     for arg in [a for a in args if a not in modes] or ["3500"]:
         print(json.dumps({"n": int(arg), "device": "cpu", **fn(int(arg))}), flush=True)

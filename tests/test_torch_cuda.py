@@ -776,3 +776,83 @@ def test_card_replan_matches_cpu(screen_mode):
     assert cv.shape == (11, 4) and np.array_equal(cv, hv)
     assert np.array_equal(cp, hp)
     assert cv[:, 0].sum() > 0
+
+
+def _deprovisioning_run(device):
+    """Expiration then consolidation through testing.ControlLoop on
+    `device`: 8 nodes with bound pods, the oldest two expired, one node
+    holding a spot-only pod (its expiry needs a replacement machine). Each
+    pass's Command (deprovisioner, action, removed nodes, the
+    replacements' options) and the final cluster, with launched machines
+    compared by type, zone and capacity type."""
+    from karpenter_core_tpu_torch.api.labels import LABEL_NODE_INITIALIZED
+    from karpenter_core_tpu_torch.kube.objects import LABEL_INSTANCE_TYPE_STABLE
+
+    clock = tt.FakeClock()
+    client = TClient()
+    cp = tfake.FakeCloudProvider(tfake.instance_types(10))
+    loop = tt.ControlLoop(client, cp, tsolver.TorchSolver(max_nodes=64, device=device),
+                          clock=clock, validation_ttl=0.0)
+    client.create(tt.make_provisioner(name="default", ttl_seconds_until_expired=3600,
+                                      consolidation_enabled=True))
+    for e in range(8):
+        it = f"fake-it-{3 + e % 7}"
+        node = tt.make_node(name=f"node-{e}", labels={
+            PROV: "default", LABEL_NODE_INITIALIZED: "true", LABEL_INSTANCE_TYPE_STABLE: it,
+            CT: "on-demand", ZONE: f"test-zone-{1 + e % 3}"},
+            capacity={"cpu": str(4 + e % 7), "memory": "20Gi", "pods": "100"})
+        node.metadata.creation_timestamp = clock() - (9000 - e if e < 2 else 100)
+        client.create(node)
+        for j in range(1 + e % 3):
+            p = _pod(_mods("torch"), f"run-{e}", j, node_name=node.name, unschedulable=False,
+                     phase="Running", requests={"cpu": "0.5"}, owner_kind="ReplicaSet")
+            if e == 0 and j == 0:
+                p.spec.node_selector = {CT: "spot"}
+            client.create(p)
+    commands = []
+    real = loop.deprovisioning.execute_command
+
+    def execute(dep, cmd):
+        commands.append((str(dep), cmd.action, [n.name for n in cmd.nodes_to_remove],
+                         [sorted(it.name for it in m.instance_type_options)
+                          for m in cmd.replacement_machines]))
+        real(dep, cmd)
+
+    loop.deprovisioning.execute_command = execute
+    loop.step()  # the termination finalizers
+    for _ in range(3):
+        loop.sync()
+        loop.deprovisioning.reconcile()
+        for _ in range(3):
+            loop.step()
+            for node in client.list("Node"):  # the kubelet of launched nodes
+                if node.name.startswith("fake-machine-") and not node.ready():
+                    machine = client.get("Machine", "", node.name)
+                    node.status.allocatable = dict(machine.status.allocatable)
+                    node.status.conditions = [tobj.Condition(type="Ready", status="True")]
+                    client.update_status(node)
+    loop.sync()
+    launched = lambda n: "<launched>" if n.startswith("fake-machine-") else n  # noqa: E731
+    state = (
+        sorted((launched(n.name), n.metadata.labels.get(LABEL_INSTANCE_TYPE_STABLE),
+                n.metadata.labels.get(ZONE), n.metadata.labels.get(CT), n.spec.unschedulable)
+               for n in client.list("Node")),
+        sorted((p.metadata.name, launched(p.spec.node_name)) for p in client.list("Pod")),
+        sorted((m.metadata.labels.get(LABEL_INSTANCE_TYPE_STABLE), m.metadata.labels.get(ZONE))
+               for m in client.list("Machine")),
+    )
+    return commands, state
+
+
+@pytest.mark.cuda
+def test_card_deprovisioning_sequence_matches_cpu():
+    """The deprovisioning chain executed on the card (its simulate solves
+    and replan launch the screen) gives the CPU's Commands and leaves the
+    CPU's cluster."""
+    _card()
+    screen.reset_launches()
+    card = _deprovisioning_run("cuda")
+    assert screen.FORM_LAUNCHES["block"] > 0 and screen.LAUNCHES["screen_prep"] > 0
+    cpu = _deprovisioning_run("cpu")
+    assert card == cpu
+    assert card[0][0][:2] == ("expiration", "replace")
