@@ -75,7 +75,7 @@ Phases, each fatal on failure:
   8. consolidation at full width: phase 6's live cluster built afresh
      without its backlog (1,000 nodes, 30,000 bound pods) and a
      provisioner with consolidation enabled; through the port's
-     deprovisioning modules (candidate_nodes, Provisioning, the
+     deprovisioning modules (candidate_nodes, the ProvisioningController, the
      consolidation deprovisioners, solver/replan.py) on a FakeClock with
      validation_ttl = 0, MultiNodeConsolidation (the prefix ladder of <= 8
      rungs and the ride-along empty subset in one replan) and then
@@ -116,10 +116,41 @@ Phases, each fatal on failure:
   9b. at phase 8b's size, Expiration, Drift, Emptiness and a consolidation
      pass executed on the card and on the CPU: the same Commands and the
      same final cluster.
+  10. the operator, the port's entry point, at full width: phase 6's live
+     cluster with its 51,500-pod backlog created in the kube client as
+     pending pods and one provisioner whose limits no solve reaches,
+     through new_operator with solver/factory.build_solver() on the card
+     and a FakeClock. Step 1 (op.step()) solves, launches and nominates:
+     one solve whose placements pass check_placements and
+     check_cluster_usage, every launch a Machine and a Node in the client,
+     the bind listener and the nominations equal to the placed pods, the
+     Nominated events kept as the recorder's token bucket allows, no
+     fallback and no launch failure; a kubelet pass (launched nodes Ready,
+     pods bound where the bind listener was told); step 2 solves nothing,
+     initializes every machine, and the counter's status.resources equals
+     the summed capacity of the provisioner's nodes; the inflight checks
+     over every node find nothing. Each step's wall is printed with its
+     parts (sync_state, the reconcile, the solve's last_phase_ms, the
+     launch, the machine, node and termination controllers, the counter);
+     fatal without a screen_prep, block and row_n1 launch. Then
+     screen_prep and every form held exactly against their plain versions
+     on step 1's snapshot and timed there (the kernels line's numbers);
+  10b. phase 10's script at 3c's size on the card and on the CPU: equal
+     placements, launched machines' instance-type options, (reason, kind)
+     events, counter resources and counters; then, on the card, an ICE
+     leg (the type step 1 launched most exhausted in every pool: its
+     launches fail and the ICE cache masks it; once the placed pods bind,
+     reconcile(wait_timeout=...) fires the re-trigger and re-solves
+     exactly the pods left, every one placed, none on the masked type) and
+     a cap leg (batch_max_pods=1000: passes of 1,000, each re-triggering
+     the batcher, until the backlog is empty);
+  10c. the background runtime: op.start() over phase 3c's settled cluster,
+     a 500-pod batch, every pod nominated within 120 s, op.stop() joining
+     every thread, no reconcile error, no fallback, the screen launched.
 Phases 4-6 solve with incremental="off", so their warm solves run the full
 precompute as before. It prints one JSON line describing every kernel (the
 screen, screen_prep, and the screen's three forms with their launches over
-phases 4-9), then as its last line {"ok": true, "device": {...}}. Without a
+phases 4-10), then as its last line {"ok": true, "device": {...}}. Without a
 CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
@@ -131,7 +162,9 @@ costliest device operations and the host's operator count and time.
 import copy
 import gc
 import json
+import logging
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -144,6 +177,7 @@ import torch  # noqa: E402
 
 from karpenter_core_tpu_torch import testing  # noqa: E402
 from karpenter_core_tpu_torch.api import settings as api_settings  # noqa: E402
+from karpenter_core_tpu_torch.api.machine import CONDITION_MACHINE_INITIALIZED  # noqa: E402
 from karpenter_core_tpu_torch.api.labels import (  # noqa: E402
     LABEL_CAPACITY_TYPE,
     LABEL_NODE_INITIALIZED,
@@ -163,8 +197,9 @@ from karpenter_core_tpu_torch.controllers.deprovisioning import (  # noqa: E402
 from karpenter_core_tpu_torch.controllers.deprovisioning.core import (  # noqa: E402
     candidate_nodes,
 )
+from karpenter_core_tpu_torch.controllers.provisioning import provisioner  # noqa: E402
 from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (  # noqa: E402
-    Provisioning,
+    ProvisioningController,
 )
 from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient  # noqa: E402
 from karpenter_core_tpu_torch.kube.objects import (  # noqa: E402
@@ -178,6 +213,8 @@ from karpenter_core_tpu_torch.kube.objects import (  # noqa: E402
     Toleration,
     TopologySpreadConstraint,
 )
+from karpenter_core_tpu_torch.operator import controller as operator_controller  # noqa: E402
+from karpenter_core_tpu_torch.operator import new_operator  # noqa: E402
 from karpenter_core_tpu_torch.ops import cuda_build, pack, screen  # noqa: E402
 from karpenter_core_tpu_torch.ops.pack import ScreenOps, class_planes  # noqa: E402
 from karpenter_core_tpu_torch.scheduling import taints as taints_mod  # noqa: E402
@@ -187,6 +224,7 @@ from karpenter_core_tpu_torch.solver import torch_solver  # noqa: E402
 from karpenter_core_tpu_torch.solver import incremental  # noqa: E402
 from karpenter_core_tpu_torch.solver import replan  # noqa: E402
 from karpenter_core_tpu_torch.solver.encode import encode_snapshot  # noqa: E402
+from karpenter_core_tpu_torch.solver.factory import build_solver  # noqa: E402
 from karpenter_core_tpu_torch.state import informer  # noqa: E402
 from karpenter_core_tpu_torch.state.cluster import Cluster  # noqa: E402
 from karpenter_core_tpu_torch.state.node import StateNode  # noqa: E402
@@ -793,7 +831,7 @@ def bound_pods(kube_client, batch) -> dict:
     neither terminal nor terminating, and not of the batch."""
     uids = {p.metadata.uid for p in batch}
     out = {}
-    for p in kube_client.list("Pod"):
+    for p in kube_client.list("Pod", copy_objects=False):
         if (p.spec.node_name and p.status.phase not in ("Succeeded", "Failed")
                 and p.metadata.deletion_timestamp is None and p.metadata.uid not in uids):
             out.setdefault(p.spec.node_name, []).append(p)
@@ -1328,7 +1366,7 @@ def phase_consolidation(label, its, client, cluster, clock, device="cuda",
     (the prefix ladder and the ride-along empty subset in one replan) and
     then SingleNodeConsolidation.compute_command (every candidate a
     singleton, in chunks of 64) over the cluster, through the port's
-    modules: candidate_nodes, Provisioning, a TorchSolver(max_nodes=1024)
+    modules: candidate_nodes, a ProvisioningController, a TorchSolver(max_nodes=1024)
     on `device` (incremental, the operator's defaults), validation_ttl = 0
     on `clock`. Each run's screen launches are zeroed just
     before it and read just after; each replan's phases, K, chunks,
@@ -1337,7 +1375,7 @@ def phase_consolidation(label, its, client, cluster, clock, device="cuda",
     Returns the runs' candidates, screens, commands and records."""
     solver = torch_solver.TorchSolver(max_nodes=1024, device=device)
     cp = fake.FakeCloudProvider(its["default"])
-    provisioning = Provisioning(client, cp, solver)
+    provisioning = ProvisioningController(client, cp, cluster, solver=solver, clock=clock)
     args = (client, cluster, provisioning, cp, None)
     deps = {
         "multi": consolidation.MultiNodeConsolidation(*args, clock=clock, validation_ttl=0.0),
@@ -1851,8 +1889,9 @@ def phase_lifecycle_pair(devices=("cuda", "cpu"), size=(4500, 400, 200, 100)) ->
     for i, device in enumerate(devices):
         n_pods, n_types, n_nodes, distinct = size
         its, client, _cluster, clock = settled_cluster(n_pods, n_types, n_nodes,
-                                                       distinct=distinct, n_ingress=300,
-                                                       n_sets=2)
+                                                       distinct=distinct,
+                                                       n_ingress=3 * n_nodes // 2,
+                                                       n_sets=max(1, n_nodes // 100))
         del _cluster
         lc = Lifecycle(f"lifecycle 9b {device}", its, client, clock, device)
         lc.step()
@@ -1876,6 +1915,431 @@ def phase_lifecycle_pair(devices=("cuda", "cpu"), size=(4500, 400, 200, 100)) ->
                       for p in cpu.passes]}
 
 
+# -- phase 10: the operator ----------------------------------------------------------
+
+OPERATOR_LIMITS = {"cpu": "100000000", "memory": "100000000Gi", "pods": "100000000"}
+
+
+def operator_cluster(*args, clock=None, **kw):
+    """live_cluster(*args, **kw) as the operator meets it: its backlog
+    created in the kube client as pending pods, and one provisioner
+    "default" with limits no solve reaches. Returns (the pending pods,
+    instance types, kube client)."""
+    pods, _provs, its, client, _cluster = live_cluster(*args, clock=clock, **kw)
+    for p in pods:
+        client.create(p)
+    client.create(testing.make_provisioner(name="default", limits=OPERATOR_LIMITS))
+    return pods, its, client
+
+
+class OperatorRun:
+    """Phase 10: new_operator over a kube client, with a solver from
+    solver/factory.build_solver on `device`, on a FakeClock. It times each
+    step's parts (sync_state, the provisioning reconcile, the solve and its
+    last_phase_ms, the launch, the machine, node and termination
+    controllers, the counter), keeps each solve's result and first
+    snapshot, what the bind listener was told, and each pod's nomination
+    calls (before the recorder's dedupe and rate limit)."""
+
+    TIMED = (("sync_state", "op", "sync_state"),
+             ("reconcile", "provisioning", "reconcile"),
+             ("machine", "machine_controller", "reconcile"),
+             ("node", "node_controller", "reconcile"),
+             ("termination", "termination_controller", "reconcile"),
+             ("counter", "counter", "reconcile"))
+
+    def __init__(self, label, its, client, clock, device="cuda", settings=None,
+                 max_nodes=50000 // 5 + 1536):
+        self.label, self.client, self.clock = label, client, clock
+        self.cp = fake.FakeCloudProvider(its["default"])
+        self.solver = build_solver(max_nodes=max_nodes, device=device)
+        self.sync_card = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        provisioner.reset_counts()
+        self.op = new_operator(self.cp, kube_client=client,
+                               settings=settings or api_settings.Settings(),
+                               solver=self.solver, clock=clock)
+        self.solves, self.bound, self.nominations, self.launched = [], {}, {}, []
+        self.binds = 0
+        self.secs = {}
+        op = self.op
+        owners = {"op": op, "provisioning": op.provisioning,
+                  "machine_controller": op.machine_controller,
+                  "node_controller": op.node_controller,
+                  "termination_controller": op.termination_controller, "counter": op.counter}
+        for key, owner, attr in self.TIMED:
+            self._time(key, owners[owner], attr)
+        real_launch = op.provisioning._launch_machines_with_errors
+
+        def launch(machines, opts=None):
+            names, errors = real_launch(machines, opts)
+            self.launched.append((list(machines), names, errors))
+            return names, errors
+
+        op.provisioning._launch_machines_with_errors = launch
+        self._time("launch", op.provisioning, "_launch_machines_with_errors")
+        real_solve, real_encode = self.solver.solve, torch_solver.encode_snapshot
+
+        def solve(*a, **kw):
+            snaps = []
+            torch_solver.encode_snapshot = lambda *ea, **ekw: (
+                snaps.append(real_encode(*ea, **ekw)) or snaps[-1])
+            t0 = time.perf_counter()
+            try:
+                res = real_solve(*a, **kw)
+                self.sync_card()
+            finally:
+                torch_solver.encode_snapshot = real_encode
+            self.solves.append({"wall_s": time.perf_counter() - t0, "pods": list(a[0]),
+                                "result": res, "snapshot": (snaps[0], a[1]) if snaps else None,
+                                "phases_ms": {k: round(v, 3) for k, v in
+                                              self.solver.last_phase_ms.items()}})
+            return res
+
+        self.solver.solve = solve
+        op.provisioning.bind_listeners.append(self._bind)
+        real_nominate = op.recorder.nominate_pod
+
+        def nominate(pod, node_name):
+            key = (pod.metadata.namespace, pod.metadata.name)
+            self.nominations[key] = self.nominations.get(key, 0) + 1
+            real_nominate(pod, node_name)
+
+        op.recorder.nominate_pod = nominate
+
+    def _time(self, key, owner, attr):
+        real = getattr(owner, attr)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                self.secs[key] = self.secs.get(key, 0.0) + time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+
+    def _bind(self, pod, node_name):
+        self.binds += 1
+        self.bound[(pod.metadata.namespace, pod.metadata.name)] = node_name
+
+    def step(self, name: str) -> dict:
+        """One op.step(); its wall and parts, seconds."""
+        self.secs = {}
+        n_solves = len(self.solves)
+        t0 = time.perf_counter()
+        summary = self.op.step()
+        self.sync_card()
+        wall = time.perf_counter() - t0
+        solves = self.solves[n_solves:]
+        parts = {k: round(v, 3) for k, v in self.secs.items()}
+        rec = {"name": name, "wall_s": round(wall, 3), "parts_s": parts, "summary": summary,
+               "solves": solves}
+        say(f"[{self.label}] {name}: {wall:.3f} s wall, launched {summary['launched']}; parts "
+            f"(s) {json.dumps(parts)}"
+            + "".join(f"; solve of {len(sv['pods'])} pods {sv['wall_s']:.3f} s, "
+                      f"last_phase_ms {json.dumps(sv['phases_ms'])}" for sv in solves))
+        return rec
+
+    def kubelet(self) -> dict:
+        """Every launched node turns Ready with its machine's capacity, and
+        every pod binds where the bind listener was told."""
+        t0 = time.perf_counter()
+        ready = mark_launched_ready(self.client)
+        for stored in self.client.list("Pod", copy_objects=False):
+            node_name = self.bound.get((stored.metadata.namespace, stored.metadata.name))
+            if node_name and not stored.spec.node_name:
+                # update() stores a deep copy of what it is given
+                pod = copy.copy(stored)
+                pod.spec, pod.status = copy.copy(stored.spec), copy.copy(stored.status)
+                pod.metadata = copy.copy(stored.metadata)
+                pod.spec.node_name = node_name
+                pod.status.phase = "Running"
+                self.client.update(pod)
+        return {"ready": ready, "bound": len(self.bound), "s": time.perf_counter() - t0}
+
+    def counters(self) -> dict:
+        return {"launch_failures": dict(provisioner.LAUNCH_FAILURES),
+                "retriggers": provisioner.LAUNCH_RESOLVE_RETRIGGERS["total"],
+                "nodes_created": provisioner.NODES_CREATED["provisioning"],
+                "fallbacks": provisioner.FALLBACKS["solver"],
+                "reconcile_errors": dict(operator_controller.RECONCILE_ERRORS)}
+
+    def pending(self) -> list:
+        return [p for p in self.client.list("Pod", copy_objects=False)
+                if not p.spec.node_name]
+
+
+def check_operator_pass(run: "OperatorRun", rec: dict, n_pods: int) -> dict:
+    """Step 1 of phase 10: one solve whose placements pass
+    check_placements and check_cluster_usage; every launched machine has
+    its Machine and its Node in the client; the bind listener was told of
+    every placed pod once; each placed pod was nominated once and the
+    recorder kept as many Nominated events as its token bucket allows;
+    no fallback and no launch failure."""
+    label, client = run.label, run.client
+    if len(rec["solves"]) != 1:
+        raise AssertionError(f"{label}: {len(rec['solves'])} solves in the first step")
+    result = rec["solves"][0]["result"]
+    if result.failed_pods:
+        raise AssertionError(f"{label}: {len(result.failed_pods)} pods failed, e.g. "
+                             f"{result.failed_pods[0].metadata.name}")
+    usage = check_placements(result, n_pods, client)
+    machines, names, errors = run.launched[-1]
+    if errors or not all(names) or len(names) != len(result.new_machines):
+        raise AssertionError(f"{label}: {len(errors)} launches failed")
+    for name in names:
+        if client.get("Machine", "", name) is None or client.get("Node", "", name) is None:
+            raise AssertionError(f"{label}: launched {name} has no Machine or Node")
+    placed = {(p.metadata.namespace, p.metadata.name) for m in result.new_machines
+              for p in m.pods}
+    placed |= {(p.metadata.namespace, p.metadata.name) for _n, ps in
+               result.existing_assignments for p in ps}
+    if set(run.bound) != placed or run.binds != len(placed):
+        raise AssertionError(f"{label}: the bind listener heard {run.binds} binds of "
+                             f"{len(run.bound)} pods for {len(placed)} placed")
+    if set(run.nominations) != placed or any(v != 1 for v in run.nominations.values()):
+        raise AssertionError(f"{label}: nominations differ from the placed pods")
+    kept = sum(1 for e in run.op.recorder.events if e.reason == "Nominated")
+    burst = run.op.recorder.POD_NOMINATION_RATE_LIMIT[1]
+    if kept != min(len(placed), burst):  # the bucket does not refill on a still clock
+        raise AssertionError(f"{label}: {kept} Nominated events kept, expected "
+                             f"{min(len(placed), burst)}")
+    counters = run.counters()
+    if counters["fallbacks"] or any(counters["launch_failures"].values()):
+        raise AssertionError(f"{label}: counters {counters}")
+    return {"placed": len(placed), "machines": len(names), "usage": usage,
+            "nominated_kept": kept}
+
+
+def check_operator_settled(run: "OperatorRun", rec: dict) -> dict:
+    """Step 2 of phase 10: no solve, every machine initialized, the
+    counter's resources the summed capacity of the provisioner's nodes,
+    and the inflight checks find nothing on any node."""
+    label, client = run.label, run.client
+    if rec["solves"]:
+        raise AssertionError(f"{label}: the settled step solved")
+    machines = client.list("Machine", copy_objects=False)
+    if not all(m.condition_true(CONDITION_MACHINE_INITIALIZED) for m in machines):
+        raise AssertionError(f"{label}: a machine is not initialized")
+    nodes = client.list("Node", copy_objects=False)
+    want = resources.merge(*(n.status.capacity for n in nodes
+                             if n.metadata.labels.get(PROVISIONER_NAME_LABEL_KEY) == "default"))
+    got = client.get("Provisioner", "", "default").status.resources
+    if got != want:
+        raise AssertionError(f"{label}: status.resources {got} != the nodes' {want}")
+    t0 = time.perf_counter()
+    for node in client.list("Node"):
+        run.op.inflight_checks.reconcile(node)
+    inflight_s = time.perf_counter() - t0
+    findings = [e for e in run.op.recorder.events if e.reason == "FailedInflightCheck"]
+    if findings:
+        raise AssertionError(f"{label}: inflight findings {findings[:3]}")
+    return {"machines": len(machines), "nodes": len(nodes), "inflight_s": round(inflight_s, 3),
+            "resources": {k: want[k] for k in sorted(want)}}
+
+
+def phase_operator(label, size, device="cuda", max_nodes=50000 // 5 + 1536) -> dict:
+    """Phase 10: the operator over operator_cluster(*size) on `device`:
+    step 1 provisions the backlog (check_operator_pass), a kubelet pass,
+    step 2 settles (check_operator_settled). The screen's launch counts are
+    zeroed just before step 1 and read after step 2."""
+    n_pods, n_types, n_nodes, distinct, kw = size
+    clock = testing.FakeClock()
+    t0 = time.perf_counter()
+    pods, its, client = operator_cluster(n_pods, n_types, n_nodes, distinct=distinct,
+                                         clock=clock, **kw)
+    build_s = time.perf_counter() - t0
+    run = OperatorRun(label, its, client, clock, device, max_nodes=max_nodes)
+    say(f"[{label}] {len(pods)} pending pods, {n_nodes} nodes, "
+        f"{len(client.list('Pod', copy_objects=False)) - len(pods)} bound pods in the "
+        f"client, built in {build_s:.2f} s")
+    screen.reset_launches()
+    first = run.step("step 1")
+    passed = check_operator_pass(run, first, len(pods))
+    kubelet = run.kubelet()
+    second = run.step("step 2")
+    settled = check_operator_settled(run, second)
+    counts = screen.launch_counts()
+    run.op.recorder.flush(timeout=60.0)
+    events = len(client.list("Event", copy_objects=False))
+    say(f"[{label}] step 1 checked {json.dumps(passed)}; kubelet {kubelet['ready']} nodes "
+        f"Ready, {kubelet['bound']} pods bound in {kubelet['s']:.2f} s; step 2 checked "
+        f"{json.dumps(settled)}; events posted {events}; counters "
+        f"{json.dumps(run.counters())}; launches {json.dumps(counts)}")
+    return {"run": run, "steps": [first, second], "launches": counts, "events": events,
+            "passed": passed, "settled": settled}
+
+
+def operator_outcome(run: "OperatorRun") -> dict:
+    """What phase 10b compares between the card and the CPU."""
+    result = run.solves[0]["result"]
+    options = sorted(
+        tuple(sorted(v for r in c.spec.requirements if r.key == LABEL_INSTANCE_TYPE_STABLE
+                     for v in r.values))
+        for c in run.cp.create_calls)
+    return {"placements": torch_solver.placements_json(result), "options": options,
+            "events": sorted((e.reason, e.involved_kind) for e in run.op.recorder.events),
+            "resources": run.client.get("Provisioner", "", "default").status.resources,
+            "counters": run.counters()}
+
+
+PAIR_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=2))
+
+
+def phase_operator_pair(devices=("cuda", "cpu"), size=PAIR_SIZE) -> dict:
+    """Phase 10b: phase 10's script at 3c's size on the card and on the CPU
+    (equal placements, launched machines' options, (reason, kind) events,
+    counter resources and counters); then on the card an ICE leg and a
+    batch-cap leg."""
+    runs = {dev: phase_operator(f"operator 10b {dev}", size, dev, max_nodes=1512)
+            for dev in devices}
+    outcome = {dev: operator_outcome(r["run"]) for dev, r in runs.items()}
+    if outcome[devices[0]] != outcome[devices[1]]:
+        diff = [k for k in outcome[devices[0]]
+                if outcome[devices[0]][k] != outcome[devices[1]][k]]
+        raise AssertionError(f"10b: card and CPU operator outcomes differ in {diff}")
+    card = runs[devices[0]]["run"]
+    types = {}
+    for name in card.launched[0][1]:
+        it = card.client.get("Node", "", name).metadata.labels[LABEL_INSTANCE_TYPE_STABLE]
+        types[it] = types.get(it, 0) + 1
+    pool = max(sorted(types), key=types.get)
+    out = {"machines": len(card.launched[0][1]), "ice": phase_ice(pool, size, devices[0]),
+           "cap": phase_cap(size, devices[0])}
+    say(f"[operator 10b] card and CPU agree: {len(outcome[devices[0]]['placements'])} bytes "
+        f"of placements, {len(outcome[devices[0]]['options'])} launches; ICE leg "
+        f"{json.dumps(out['ice'])}; cap leg {json.dumps(out['cap'])}")
+    return out
+
+
+def phase_ice(pool: str, size, device) -> dict:
+    """10b's ICE leg: `pool` (the instance type the first solve launched
+    most) exhausted in every zone and capacity type. Its launches fail and
+    the ICE cache masks it; once the placed pods bind, reconcile's wait
+    fires the re-trigger and the next pass re-solves the pods left, which
+    all find a machine off the masked pool."""
+    n_pods, n_types, n_nodes, distinct, kw = size
+    clock = testing.FakeClock()
+    pods, its, client = operator_cluster(n_pods, n_types, n_nodes, distinct=distinct,
+                                         clock=clock, **kw)
+    settings = api_settings.Settings(batch_idle_duration=0.05, batch_max_duration=1.0)
+    run = OperatorRun("operator 10b ice", its, client, clock, device, settings=settings,
+                      max_nodes=1512)
+    run.cp.insufficient_capacity = {(pool, "", "")}
+    quiet = logging.getLogger("karpenter.provisioning")
+    level, quiet.level = quiet.level, logging.ERROR  # a warning per failed launch
+    try:
+        first = run.step("ice step")
+    finally:
+        quiet.setLevel(level)
+    failed = run.counters()["launch_failures"]["insufficient_capacity"]
+    keys = run.op.provisioning.ice_cache.keys()
+    if not failed or keys != [(pool, "", "")]:
+        raise AssertionError(f"10b ice: {failed} ICE launch failures, cache {keys}")
+    run.kubelet()
+    run.op.sync_state()
+    residual = len(run.pending())
+    n_solves, deadline = len(run.solves), time.monotonic() + 60.0
+    while len(run.solves) == n_solves and time.monotonic() < deadline:
+        run.op.provisioning.reconcile(wait_timeout=0.5)
+    if len(run.solves) == n_solves or run.counters()["retriggers"] < 1:
+        raise AssertionError(f"10b ice: no re-trigger re-solved the {residual} pods left")
+    resolve = run.solves[-1]
+    if len(resolve["pods"]) != residual or resolve["result"].failed_pods:
+        raise AssertionError(f"10b ice: the re-solve took {len(resolve['pods'])} pods "
+                             f"for {residual} left")
+    run.kubelet()
+    run.op.sync_state()
+    if run.pending():
+        raise AssertionError(f"10b ice: {len(run.pending())} pods still pending")
+    on_pool = [n.name for n in client.list("Node", copy_objects=False)
+               if n.name.startswith("fake-machine-")
+               and n.metadata.labels.get(LABEL_INSTANCE_TYPE_STABLE) == pool]
+    if on_pool:
+        raise AssertionError(f"10b ice: nodes on the masked pool {on_pool[:3]}")
+    return {"pool": pool, "ice_failures": failed, "residual": residual,
+            "retriggers": run.counters()["retriggers"],
+            "first_wall_s": first["wall_s"], "resolve_s": round(resolve["wall_s"], 3)}
+
+
+def phase_cap(size, device, cap: int = 1000) -> dict:
+    """10b's cap leg: with batch_max_pods=`cap`, passes of `cap` pods, each
+    re-triggering the batcher, until the backlog is empty."""
+    n_pods, n_types, n_nodes, distinct, kw = size
+    clock = testing.FakeClock()
+    pods, its, client = operator_cluster(n_pods, n_types, n_nodes, distinct=distinct,
+                                         clock=clock, **kw)
+    run = OperatorRun("operator 10b cap", its, client, clock, device,
+                      settings=api_settings.Settings(batch_max_pods=cap), max_nodes=1512)
+    sizes, retriggered = [], []
+    for i in range((len(pods) + cap - 1) // cap + 2):
+        rec = run.step(f"cap pass {i}")
+        sizes += [len(sv["pods"]) for sv in rec["solves"]]
+        retriggered.append(run.op.provisioning.batcher._trigger.is_set())
+        run.op.provisioning.batcher._trigger.clear()
+        run.kubelet()
+        if not run.pending():
+            break
+    want = [cap] * (len(pods) // cap) + ([len(pods) % cap] if len(pods) % cap else [])
+    if sizes != want or run.pending() or retriggered[:len(want) - 1] != [True] * (len(want) - 1):
+        raise AssertionError(f"10b cap: passes {sizes} (want {want}), re-triggered "
+                             f"{retriggered}, {len(run.pending())} pending")
+    return {"passes": sizes, "retriggered": retriggered[:len(want)]}
+
+
+def phase_background(device="cuda", n_new: int = 500, bound_s: float = 120.0,
+                     size=PAIR_SIZE) -> dict:
+    """Phase 10c: op.start() over settled_cluster(*size) (3c's size, its
+    provisioner not consolidating), then a batch of `n_new` pods; every pod
+    must be nominated within `bound_s` seconds, op.stop() must join every
+    thread, no reconcile may fail, no fallback, and on the card the
+    screen must have launched."""
+    its, client, _cluster, clock = settled_cluster(*size[:3], distinct=size[3], **size[4])
+    del _cluster
+    prov = client.get("Provisioner", "", "default")
+    prov.spec.consolidation = ProvisionerConsolidation(enabled=False)
+    client.update(prov)
+    settings = api_settings.Settings(batch_idle_duration=0.1, batch_max_duration=2.0)
+    run = OperatorRun("operator 10c", its, client, clock, device, settings=settings,
+                      max_nodes=1512)
+    operator_controller.reset_counts()
+    run.op.sync_state()
+    new = [testing.make_pod(name=f"bg-{i}", labels={"app": f"bg-{i % 20}"},
+                            requests={"cpu": "1", "memory": "1Gi"}, uid=f"uid-bg-{i:05d}",
+                            creation_timestamp=2000.0) for i in range(n_new)]
+    keys = {(p.metadata.namespace, p.metadata.name) for p in new}
+    screen.reset_launches()
+    t0 = time.perf_counter()
+    run.op.start()
+    alive = None
+    try:
+        for p in new:
+            client.create(p)
+        while time.perf_counter() - t0 < bound_s and not keys <= set(run.bound):
+            time.sleep(0.05)
+        nominated_s = time.perf_counter() - t0
+    finally:
+        alive = run.op.stop()
+    counts = screen.launch_counts()
+    missing = keys - set(run.bound)
+    counters = run.counters()
+    if missing:
+        raise AssertionError(f"10c: {len(missing)} pods not nominated in {bound_s} s")
+    if alive:
+        raise AssertionError(f"10c: threads still alive after stop: {[t.name for t in alive]}")
+    if any(counters["reconcile_errors"].values()) or counters["fallbacks"]:
+        raise AssertionError(f"10c: counters {counters}")
+    if device == "cuda" and (counts["screen_prep"] < 1 or counts["block"] < 1):
+        raise AssertionError(f"10c: the batch was not screened on the card: {counts}")
+    out = {"nominated_s": round(nominated_s, 3), "solves": [len(s["pods"]) for s in run.solves],
+           "solve_s": [round(s["wall_s"], 3) for s in run.solves],
+           "window": run.op.provisioning.batcher.last_window, "launches": counts,
+           "durations": {k: [v[0], round(v[1], 3)] for k, v in
+                         operator_controller.RECONCILE_DURATION.items()}}
+    say(f"[operator 10c] {json.dumps(out)}")
+    return out
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -1888,7 +2352,9 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def mark(phase: str) -> None:
-        say(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+        peak_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+        say(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s, "
+            f"peak host RSS so far {peak_gib:.2f} GiB")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2183,28 +2649,62 @@ def main() -> int:
     say(f"[lifecycle 9b] card and CPU agree: {json.dumps(phase_lifecycle_pair())}")
     mark("phase 9b")
 
+    # phase 10: the operator at full width, phase 6's live cluster through
+    # new_operator and two steps
+    op10 = phase_operator("operator", (50000, 500, 1000, 1000, {}))
+    op_counts = op10["launches"]
+    for k in ("screen_prep", "block", "row_n1"):
+        if not op_counts.get(k):
+            raise AssertionError(f"operator: phase 10's steps launched no {k}")
+    op_snap = op10["run"].solves[0]["snapshot"]
+    operator_shapes = snapshot_shapes("operator (step 1)", *op_snap, int_rate, busy_cycles)
+    step_walls = [(st["name"], st["wall_s"], st["parts_s"]) for st in op10["steps"]]
+    say(f"[operator] steps {json.dumps(step_walls)}; machines launched "
+        f"{op10['passed']['machines']}, events posted {op10['events']}")
+    del op10, op_snap
+    gc.collect()
+    mark("phase 10")
+
+    # phase 10b: card against CPU at 3c's size, with the ICE and cap legs
+    phase_operator_pair()
+    gc.collect()
+    mark("phase 10b")
+
+    # phase 10c: the background runtime on the card
+    background = phase_background()
+    mark("phase 10c")
+
+    op_launches = {k: op_counts.get(k, 0) + background["launches"].get(k, 0)
+                   for k in screen.LAUNCHES}
+    op_forms = {k: op_counts.get(k, 0) + background["launches"].get(k, 0)
+                for k in screen.FORM_LAUNCHES}
     runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
-            cons_launches, life_launches)
+            cons_launches, life_launches, op_launches)
     form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms,
-                 life_forms)
+                 life_forms, op_forms)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
+    say(f"[launches] phase 10 {json.dumps(op_counts)}, phase 10c "
+        f"{json.dumps(background['launches'])}; phases 4-10 summed {json.dumps(launches)} "
+        f"by form {json.dumps(forms)}")
 
-    # the line's numbers are those of this slice's main path, phase 9's
-    # first Expiration simulate solve (the remaining existing rows by its
-    # class axis); "shapes" keeps each shape the script timed: the earlier
-    # slices' (phase 2 on the main path's snapshot, both unions of phase 8)
-    # and phase 9's. row_b1 is not on phase 8's or 9's path (prescreen
-    # mode): it keeps the tiered screen's shape
-    main_shapes = simulate
-    err = max(kstats["max_abs_err"], simulate["max_abs_err"],
+    # the line's numbers are those of this slice's main path, phase 10's
+    # first operator step (the live cluster's backlog, solved through
+    # new_operator); "shapes" keeps each shape the script timed: the
+    # earlier slices' (phase 2 on the main path's snapshot, both unions of
+    # phase 8, phase 9's simulate) and phase 10's. row_b1 is not on the
+    # paths of phases 8-10 (prescreen mode): it keeps the tiered screen's
+    # shape
+    main_shapes = operator_shapes
+    err = max(kstats["max_abs_err"], simulate["max_abs_err"], operator_shapes["max_abs_err"],
               *(u["max_abs_err"] for u in union.values()))
     common = {"route": "cuda", "source": "karpenter_core_tpu_torch/csrc/screen.cu",
               "replaces": "karpenter_core_tpu/ops/pallas_kernels.py:29",
               "max_abs_err": err, "library_ms": None}
     by_shape = {"main path (phase 2)": kstats, "union multi (phase 8)": union["multi"],
                 "union single (phase 8)": union["single"],
-                "simulate expiration 1 (phase 9)": simulate}
+                "simulate expiration 1 (phase 9)": simulate,
+                "operator step 1 (phase 10)": operator_shapes}
 
     def times(stats, prep=False):
         if prep:

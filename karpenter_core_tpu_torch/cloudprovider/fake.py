@@ -36,6 +36,7 @@ from karpenter_core_tpu_torch.kube.objects import (
 from karpenter_core_tpu_torch.scheduling.requirement import (
     OP_DOES_NOT_EXIST,
     OP_IN,
+    OP_NOT_IN,
     Requirement,
 )
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
@@ -53,15 +54,20 @@ api_labels.register_well_known_labels(
 
 _name_counter = itertools.count(1)
 
+RESOURCE_GPU_VENDOR_A = "fake.com/vendor-a"
+RESOURCE_GPU_VENDOR_B = "fake.com/vendor-b"
+
 
 def price_from_resources(resources: ResourceList) -> float:
-    """fake/instancetype.go:175-187 (without the GPU vendor resources)."""
+    """fake/instancetype.go:175-187."""
     price = 0.0
     for name, value in resources.items():
         if name == "cpu":
             price += 0.1 * value
         elif name == "memory":
             price += 0.1 * value / 1e9
+        elif name in (RESOURCE_GPU_VENDOR_A, RESOURCE_GPU_VENDOR_B):
+            price += 1.0
     return price
 
 
@@ -141,6 +147,32 @@ def instance_types(total: int) -> List[InstanceType]:
     ]
 
 
+def default_universe() -> List[InstanceType]:
+    """The fake's default universe (fake/cloudprovider.go:135-177): default,
+    small, two GPU vendors, arm (16 cpu, 128Gi, more OSes), single-pod."""
+    return [
+        new_instance_type("default-instance-type"),
+        new_instance_type("small-instance-type", resources={"cpu": 2.0, "memory": 2.0 * GI}),
+        new_instance_type("gpu-vendor-instance-type", resources={RESOURCE_GPU_VENDOR_A: 2.0}),
+        new_instance_type("gpu-vendor-b-instance-type",
+                          resources={RESOURCE_GPU_VENDOR_B: 2.0}),
+        new_instance_type("arm-instance-type", architecture="arm64",
+                          operating_systems=["ios", "linux", "windows", "darwin"],
+                          resources={"cpu": 16.0, "memory": 128.0 * GI}),
+        new_instance_type("single-pod-instance-type", resources={"pods": 1.0}),
+    ]
+
+
+def _allows_type(itype: Optional[Requirement], it: InstanceType) -> bool:
+    """The instance-type key's share of Requirements.compatible between a
+    machine's requirement `itype` and the type's own."""
+    incoming = it.requirements.get(LABEL_INSTANCE_TYPE_STABLE)
+    if itype is None or incoming is None or itype.intersection(incoming).len() != 0:
+        return True
+    escape = (OP_NOT_IN, OP_DOES_NOT_EXIST)
+    return incoming.operator() in escape and itype.operator() in escape
+
+
 class FakeCloudProvider:
     """fake/cloudprovider.go:41-160: one instance-type universe for every
     provisioner (the ladder of five types when none is given)."""
@@ -157,6 +189,7 @@ class FakeCloudProvider:
         # create with InsufficientCapacityError; an empty component
         # matches anything
         self.insufficient_capacity: set = set()
+        self._ranked_cache = (None, {})
 
     def reset(self) -> None:
         with self._mu:
@@ -181,18 +214,14 @@ class FakeCloudProvider:
                 )
 
             reqs = Requirements.from_node_selector_requirements(*machine.spec.requirements)
-            candidates = [
-                it for it in self.get_instance_types()
-                if reqs.compatible(it.requirements) is None
-                and len(it.offerings.requirements(reqs).available()) > 0
-                and resources_util.fits(machine.spec.resources.requests, it.allocatable())
-            ]
-            if not candidates:
+            itype = reqs.get(LABEL_INSTANCE_TYPE_STABLE)
+            rest = Requirements(r for k, r in reqs.items() if k != LABEL_INSTANCE_TYPE_STABLE)
+            requests = machine.spec.resources.requests
+            instance_type = next(
+                (it for it, alloc in self._ranked(self.get_instance_types(), rest)
+                 if _allows_type(itype, it) and resources_util.fits(requests, alloc)), None)
+            if instance_type is None:
                 raise IncompatibleRequirementsError("no compatible instance types for machine")
-            candidates.sort(
-                key=lambda it: it.offerings.available().requirements(reqs).cheapest().price
-            )
-            instance_type = candidates[0]
 
             labels = {
                 key: requirement.values_list()[0]
@@ -243,6 +272,31 @@ class FakeCloudProvider:
             )
             self.created_machines[machine.name] = created
             return created
+
+    def _ranked(self, universe: List[InstanceType], rest: Requirements):
+        """The types of `universe` compatible with `rest` (a machine's
+        requirements without the instance-type key) that have an available
+        offering `rest` allows, each with its allocatable, in the order of
+        that offering's cheapest price (ties in universe order). Cached per
+        universe list and requirements: a machine's choice is the first of
+        these its instance-type requirement allows and its requests fit,
+        the cheapest compatible type that fits, as create defines it. The
+        instance types are read as immutable."""
+        if self._ranked_cache[0] is not universe:
+            self._ranked_cache = (universe, {})
+        key = tuple(sorted((k, r.complement, tuple(sorted(r.values)), r.greater_than,
+                            r.less_than) for k, r in rest.items()))
+        ranked = self._ranked_cache[1].get(key)
+        if ranked is None:
+            priced = []
+            for it in universe:
+                if rest.compatible(it.requirements) is None:
+                    allowed = it.offerings.requirements(rest).available()
+                    if allowed:
+                        priced.append((allowed.cheapest().price, it))
+            priced.sort(key=lambda e: e[0])
+            ranked = self._ranked_cache[1][key] = [(it, it.allocatable()) for _p, it in priced]
+        return ranked
 
     def _exhausted(self, instance_type: str, offering: Offering) -> bool:
         return any(

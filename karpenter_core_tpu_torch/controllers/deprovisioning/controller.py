@@ -7,7 +7,8 @@ Command that acts; when none acts the cluster is marked consolidated. A
 replace cordons the nodes, launches the replacements, marks the nodes for
 deletion and waits for the replacements to initialize, rolling the
 cordons and marks back when a launch fails or the wait times out; then
-the nodes are deleted (their termination finalizer drains them) and the
+the nodes are deleted (their termination finalizer drains them, and each
+deletion is announced as a DeprovisioningTerminating event) and the
 deletion is waited for. On a clock other than time.time both waits
 return at once: the caller steps the lifecycle controllers.
 """
@@ -61,15 +62,15 @@ class DeprovisioningController:
     readiness_wait = MAX_READINESS_WAIT
     readiness_poll = 1.0
 
-    def __init__(self, kube_client, cluster, provisioning, cloud_provider, clock=None,
-                 validation_ttl: float = 15.0):
+    def __init__(self, kube_client, cluster, provisioning, cloud_provider, recorder=None,
+                 clock=None, validation_ttl: float = 15.0):
         self.kube_client = kube_client
         self.cluster = cluster
         self.provisioning = provisioning
         self.cloud_provider = cloud_provider
+        self.recorder = recorder
         self.clock = clock if clock is not None else time.time
-        # the deprovisioners' event recorder belongs to the operator
-        args = (kube_client, cluster, provisioning, cloud_provider, None)
+        args = (kube_client, cluster, provisioning, cloud_provider, recorder)
         kwargs = dict(clock=self.clock, validation_ttl=validation_ttl)
         self.deprovisioners = [
             Expiration(*args, **kwargs),
@@ -108,6 +109,8 @@ class DeprovisioningController:
             if not self._launch_replacements(cmd):
                 return
         for node in cmd.nodes_to_remove:
+            if self.recorder:
+                self.recorder.deprovisioning_terminating(node.metadata.name, str(cmd))
             try:
                 self.kube_client.delete("Node", "", node.metadata.name)
                 NODES["terminated"] += 1

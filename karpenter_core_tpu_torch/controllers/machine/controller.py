@@ -13,6 +13,7 @@ writes go through the status subresource.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Optional
 
@@ -33,11 +34,12 @@ class MachineController:
     """machine/controller.go:60-166."""
 
     def __init__(self, kube_client, cloud_provider, cluster, terminator: Terminator,
-                 clock=None):
+                 recorder=None, clock=None):
         self.kube_client = kube_client
         self.cloud_provider = cloud_provider
         self.cluster = cluster
         self.terminator = terminator
+        self.recorder = recorder
         self.clock = clock if clock is not None else time.time
 
     def reconcile(self, machine) -> Optional[float]:
@@ -181,9 +183,18 @@ class MachineController:
     # -- helpers ---------------------------------------------------------------
 
     def _node_for(self, machine):
-        for node in self.kube_client.list("Node"):
-            if node.spec.provider_id == machine.status.provider_id:
-                return node
+        """The node with the machine's provider id. A launched node is named
+        after its machine, so that name is read first; only when it is not
+        the machine's node are all nodes scanned, as the reference always
+        does (one scan per machine would make a pass over every machine
+        quadratic in the nodes)."""
+        provider_id = machine.status.provider_id
+        node = self.kube_client.get("Node", "", machine.name)
+        if node is not None and node.spec.provider_id == provider_id:
+            return node
+        for node in self.kube_client.list("Node", copy_objects=False):
+            if node.spec.provider_id == provider_id:
+                return copy.deepcopy(node)
         return None
 
     def _sync_ready(self, machine) -> None:

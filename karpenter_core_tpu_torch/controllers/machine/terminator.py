@@ -5,16 +5,19 @@ Cordon marks the node unschedulable; drain evicts the pods that can be
 evicted (daemonset and node-owned pods stay, terminal pods are skipped,
 a do-not-evict pod blocks the drain, critical pods go after the rest) and
 raises NodeDrainError until the node is empty; terminate deletes the
-instance and removes the termination finalizer. The EvictionQueue is
-synchronous here: add() queues pods once each, drain() calls the eviction
-API for every queued pod until no eviction makes progress, a pod blocked
-by its PodDisruptionBudget staying queued for the next drain. The queue's
-worker thread belongs to the operator runtime.
+instance and removes the termination finalizer. The EvictionQueue queues
+each pod once; its worker thread (start/stop, the operator's background
+runtime) evicts them as they become due, a pod blocked by its
+PodDisruptionBudget coming back after an exponential delay, and drain()
+does the same synchronously until no eviction makes progress (the
+operator's step()).
 """
 from __future__ import annotations
 
+import heapq
+import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from karpenter_core_tpu_torch.api import labels as api_labels
 from karpenter_core_tpu_torch.api.machine import Machine
@@ -36,20 +39,97 @@ class NodeDrainError(Exception):
 
 
 class EvictionQueue:
-    """eviction.go:58-131, run synchronously: pods queue once each, in the
-    order they were added."""
+    """eviction.go:58-131: pods queue once each, in the order they were
+    added; the worker takes them from a heap of due times, so that a
+    blocked pod's retry waits without a thread of its own. Each add gives
+    the key a generation that its heap entries carry, so an entry left
+    from before a synchronous drain is skipped and a key has at most one
+    live entry. `pdb_checker` (pod -> bool) is an optional extra gate
+    before the eviction call."""
 
-    def __init__(self, kube_client):
+    def __init__(self, kube_client, recorder=None, pdb_checker=None):
         self.kube_client = kube_client
-        self._queued: Dict[NamespacedName, None] = {}
+        self.recorder = recorder
+        self.pdb_checker = pdb_checker
+        self._queued: Dict[NamespacedName, int] = {}  # key -> its generation
+        self._heap: list = []  # (due, seq, key, attempts, generation)
+        self._seq = 0
+        self._cond = threading.Condition()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
         self.evicted = 0  # pods evicted
 
     def add(self, *pods) -> None:
-        for pod in pods:
-            self._queued.setdefault(object_key(pod), None)
+        with self._cond:
+            for pod in pods:
+                key = object_key(pod)
+                if key not in self._queued:
+                    self._queued[key] = self._seq
+                    heapq.heappush(self._heap, (0.0, self._seq, key, 0, self._seq))
+                    self._seq += 1
+            self._cond.notify()
 
     def __len__(self) -> int:
-        return len(self._queued)
+        with self._cond:
+            return len(self._queued)
+
+    def _requeue(self, key: NamespacedName, attempts: int, generation: int) -> None:
+        """A blocked eviction comes back after 0.1 s x 2^attempts, at most
+        10 s (eviction.go:110-124), unless its key was drained meanwhile."""
+        delay = min(0.1 * (2 ** attempts), 10.0)
+        with self._cond:
+            if self._queued.get(key) != generation:
+                return
+            heapq.heappush(self._heap, (time.monotonic() + delay, self._seq, key,
+                                        attempts + 1, generation))
+            self._seq += 1
+            self._cond.notify()
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name="eviction-queue")
+            self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        with self._cond:
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+
+    def _pop_ready(self, timeout: float = 0.1):
+        """The earliest due live (key, attempts, generation), waiting up
+        to `timeout` for one; None when none is due by then."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while not self._stop.is_set():
+                now = time.monotonic()
+                while self._heap and self._queued.get(self._heap[0][2]) != self._heap[0][4]:
+                    heapq.heappop(self._heap)  # drained synchronously meanwhile
+                if self._heap and self._heap[0][0] <= now:
+                    _, _, key, attempts, generation = heapq.heappop(self._heap)
+                    return key, attempts, generation
+                wait = (min(self._heap[0][0], deadline) if self._heap else deadline) - now
+                if wait <= 0:
+                    return None
+                self._cond.wait(wait)
+            return None
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            item = self._pop_ready()
+            if item is None:
+                continue
+            key, attempts, generation = item
+            if self.evict(key):
+                with self._cond:
+                    if self._queued.get(key) == generation:
+                        del self._queued[key]
+            else:
+                self._requeue(key, attempts, generation)
 
     def evict(self, key: NamespacedName) -> bool:
         """One eviction call (eviction.go:87-124): True when the pod is
@@ -57,6 +137,8 @@ class EvictionQueue:
         pod = self.kube_client.get("Pod", key.namespace, key.name)
         if pod is None:
             return True
+        if self.pdb_checker is not None and not self.pdb_checker(pod):
+            return False
         try:
             self.kube_client.evict(key.namespace, key.name)
         except EvictionBlockedError:
@@ -64,15 +146,22 @@ class EvictionQueue:
         except NotFoundError:
             return True  # deleted meanwhile
         self.evicted += 1
+        if self.recorder:
+            self.recorder.evict_pod(pod)
         return True
 
     def drain(self) -> None:
         """Evict everything queued, repeating while evictions progress."""
-        while self._queued:
+        while True:
+            with self._cond:
+                pending = list(self._queued)
+            if not pending:
+                return
             progressed = False
-            for key in list(self._queued):
+            for key in pending:
                 if self.evict(key):
-                    del self._queued[key]
+                    with self._cond:
+                        self._queued.pop(key, None)
                     progressed = True
             if not progressed:
                 return

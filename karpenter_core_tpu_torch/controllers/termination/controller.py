@@ -1,7 +1,8 @@
 """The node termination finalizer (termination/controller.go:50-98): a
 deleted Node that carries the termination finalizer is cordoned, drained
 (requeued while pods remain), its instance terminated and its finalizer
-removed; the Cluster forgets it."""
+removed; the Cluster forgets it. A drain still waiting is reported as a
+FailedDraining event."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,10 +11,11 @@ from karpenter_core_tpu_torch.api import labels as api_labels
 from karpenter_core_tpu_torch.controllers.machine.terminator import NodeDrainError, Terminator
 
 class TerminationController:
-    def __init__(self, kube_client, terminator: Terminator, cluster=None):
+    def __init__(self, kube_client, terminator: Terminator, cluster=None, recorder=None):
         self.kube_client = kube_client
         self.terminator = terminator
         self.cluster = cluster
+        self.recorder = recorder
 
     def reconcile(self, node) -> Optional[float]:
         if node.metadata.deletion_timestamp is None:
@@ -27,7 +29,9 @@ class TerminationController:
         self.terminator.cordon(node)
         try:
             self.terminator.drain(node)
-        except NodeDrainError:
+        except NodeDrainError as e:
+            if self.recorder:
+                self.recorder.node_failed_to_drain(node, str(e))
             return 1.0  # requeue while the node drains
         self.terminator.terminate_node(node)
         if self.cluster is not None:

@@ -77,6 +77,18 @@ class InMemoryKubeClient:
         self._pod_seq: Dict[NamespacedName, int] = {}
         self._seq = itertools.count()
 
+    def new_object(self, kind: str):
+        """An empty object of `kind` (a watch's relist builds the DELETED
+        object of a vanished key from it)."""
+        from karpenter_core_tpu_torch.api import machine, provisioner
+        from karpenter_core_tpu_torch.kube import objects
+
+        for module in (objects, machine, provisioner):
+            cls = getattr(module, kind, None)
+            if isinstance(cls, type):
+                return cls()
+        raise KeyError(f"unknown kind {kind!r}")
+
     # -- the store and its pod index (under self._mu) ------------------------
 
     def _put(self, kind: str, key: NamespacedName, stored) -> None:

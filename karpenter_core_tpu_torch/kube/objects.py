@@ -87,6 +87,13 @@ class NodeSelectorRequirement:
     operator: str  # In | NotIn | Exists | DoesNotExist | Gt | Lt
     values: List[str] = field(default_factory=list)
 
+    def __deepcopy__(self, memo):
+        # the values are strings: a new list is a deep copy, and a Machine's
+        # instance-type requirement lists hundreds of them
+        out = NodeSelectorRequirement(self.key, self.operator, list(self.values))
+        memo[id(self)] = out
+        return out
+
 
 @dataclass
 class NodeSelectorTerm:
@@ -250,9 +257,17 @@ class PersistentVolumeClaimVolumeSource:
 
 
 @dataclass
+class EphemeralVolumeSource:
+    """A generic ephemeral volume: its claim template's storage class."""
+
+    storage_class_name: Optional[str] = None
+
+
+@dataclass
 class Volume:
     name: str = ""
     persistent_volume_claim: Optional[PersistentVolumeClaimVolumeSource] = None
+    ephemeral: Optional[EphemeralVolumeSource] = None
 
 
 @dataclass
@@ -436,6 +451,32 @@ class DaemonSet:
 
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     pod_template_spec: Optional[PodSpec] = None
+
+
+@dataclass
+class ObjectReference:
+    """core/v1 ObjectReference (an Event's involvedObject)."""
+
+    kind: str = ""
+    namespace: str = ""
+    name: str = ""
+    uid: str = ""
+
+
+@dataclass
+class Event:
+    """core/v1 Event: what the event recorder posts through the client, so
+    that an object's events can be listed beside it."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    involved_object: ObjectReference = field(default_factory=ObjectReference)
+    reason: str = ""
+    message: str = ""
+    type: str = "Normal"  # Normal | Warning
+    count: int = 1
+    first_timestamp: Optional[float] = None
+    last_timestamp: Optional[float] = None
+    reporting_component: str = "karpenter"
 
 
 @dataclass

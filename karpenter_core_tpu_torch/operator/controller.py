@@ -1,0 +1,189 @@
+"""The controller runtime: self-clocked singleton loops, key-based typed
+reconciles and bounded parallel reconciles (operator/controller:
+singleton.go:58-129, typed.go:50-81).
+
+A Singleton reconcile may return its requeue interval; an exception is
+logged, counted in RECONCILE_ERRORS (the reference's
+karpenter_controller_reconcile_errors_total, by controller) and backed off
+with decorrelated jitter, never swallowed. RECONCILE_DURATION keeps each
+controller's reconcile count and summed seconds.
+"""
+from __future__ import annotations
+
+import logging
+import queue
+import random
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+from karpenter_core_tpu_torch.operator.injection import with_controller_name
+from karpenter_core_tpu_torch.utils.backoff import decorrelated_jitter
+
+LOG = logging.getLogger("karpenter.controller")
+
+RECONCILE_ERRORS: Dict[str, int] = {}
+RECONCILE_DURATION: Dict[str, List[float]] = {}  # name -> [count, seconds]
+_counts_mu = threading.Lock()
+
+# workqueue.DefaultItemBasedRateLimiter's shape: 5 ms base, 10 s cap
+ERROR_BACKOFF_BASE = 0.005
+ERROR_BACKOFF_MAX = 10.0
+
+
+def count_error(name: str) -> None:
+    with _counts_mu:
+        RECONCILE_ERRORS[name] = RECONCILE_ERRORS.get(name, 0) + 1
+
+
+def reset_counts() -> None:
+    with _counts_mu:
+        RECONCILE_ERRORS.clear()
+        RECONCILE_DURATION.clear()
+
+
+class Singleton:
+    """A self-clocked reconcile loop (singleton.go:92-129). reconcile()
+    returns the seconds until the next pass, or None for `interval`."""
+
+    def __init__(self, name: str, reconcile: Callable[[], Optional[float]],
+                 interval: float = 1.0, rng: Optional[random.Random] = None):
+        self.name = name
+        self.reconcile = reconcile
+        self.interval = interval
+        self._failures = 0
+        self._rng = rng or random.Random()
+        self._last_backoff = ERROR_BACKOFF_BASE  # the last error sleep
+        self._thread: Optional[threading.Thread] = None
+
+    def reconcile_once(self) -> Optional[float]:
+        """One reconcile; the wait before the next."""
+        start = time.perf_counter()
+        try:
+            with with_controller_name(self.name):
+                requeue_after = self.reconcile()
+        except Exception:
+            count_error(self.name)
+            self._failures += 1
+            backoff = decorrelated_jitter(self._last_backoff, ERROR_BACKOFF_BASE,
+                                          ERROR_BACKOFF_MAX, self._rng)
+            self._last_backoff = max(backoff, ERROR_BACKOFF_BASE)
+            LOG.exception("reconcile of %s failed (%d in a row), backing off %.3f s",
+                          self.name, self._failures, backoff)
+            return backoff
+        finally:
+            with _counts_mu:
+                d = RECONCILE_DURATION.setdefault(self.name, [0, 0.0])
+                d[0] += 1
+                d[1] += time.perf_counter() - start
+        self._failures = 0
+        self._last_backoff = ERROR_BACKOFF_BASE
+        return self.interval if requeue_after is None else requeue_after
+
+    def start(self, stop: threading.Event) -> threading.Thread:
+        def loop():
+            while not stop.is_set():
+                wait = self.reconcile_once()
+                if wait and wait > 0:
+                    stop.wait(wait)
+
+        self._thread = threading.Thread(target=loop, name=f"singleton-{self.name}",
+                                        daemon=True)
+        self._thread.start()
+        return self._thread
+
+
+class Typed:
+    """Reconcile by key (typed.go:50-81): the inner controller gets a fresh
+    fetch, a vanished key is a no-op, and an object being deleted goes to
+    the inner controller's finalize() when it has one."""
+
+    def __init__(self, kube_client, kind: str, inner):
+        self.kube_client = kube_client
+        self.kind = kind
+        self.inner = inner
+        self.name = f"{kind.lower()}.{type(inner).__name__}"
+
+    def reconcile_key(self, name: str, namespace: str = ""):
+        obj = self.kube_client.get(self.kind, namespace, name)
+        if obj is None:
+            return None
+        if obj.metadata.deletion_timestamp is not None and hasattr(self.inner, "finalize"):
+            return self.inner.finalize(obj)
+        return self.inner.reconcile(obj)
+
+
+class _DaemonPool:
+    """A worker pool of daemon threads: a reconcile stuck on a dead cloud
+    API leaks its worker but never holds up the process's exit (the
+    workers of a ThreadPoolExecutor are joined at exit)."""
+
+    def __init__(self, name: str, max_workers: int):
+        self._q: queue.Queue = queue.Queue()
+        self._threads = [threading.Thread(target=self._worker, daemon=True,
+                                          name=f"{name}-{i}") for i in range(max_workers)]
+        for t in self._threads:
+            t.start()
+
+    def _worker(self):
+        while True:
+            fn, args, box, done = self._q.get()
+            try:
+                box["result"] = fn(*args)
+            except BaseException as e:  # noqa: BLE001 — raised again by result()
+                box["error"] = e
+            finally:
+                done.set()
+
+    def submit(self, fn, *args):
+        box: dict = {}
+        done = threading.Event()
+        self._q.put((fn, args, box, done))
+
+        def result(timeout=None):
+            if not done.wait(timeout):
+                raise TimeoutError("reconcile still running")
+            if "error" in box:
+                raise box["error"]
+            return box.get("result")
+
+        return result
+
+
+# one pool per (controller, width) for the process's life: the
+# housekeeping loop runs every second
+_pools: dict = {}
+_pools_mu = threading.Lock()
+
+
+def _pool(name: str, max_workers: int) -> _DaemonPool:
+    with _pools_mu:
+        pool = _pools.get((name, max_workers))
+        if pool is None:
+            pool = _pools[(name, max_workers)] = _DaemonPool(name, max_workers)
+        return pool
+
+
+def reconcile_concurrently(name: str, items, reconcile_fn, max_workers: int = 10) -> int:
+    """Reconcile each item on at most `max_workers` threads (the
+    MaxConcurrentReconciles analog: 50 for machines, machine/controller.go:166,
+    10 for nodes); an error is counted and logged and never stops the
+    batch. Returns the number of errors."""
+    items = list(items)
+    if not items:
+        return 0
+
+    def one(obj):
+        with with_controller_name(name):
+            return reconcile_fn(obj)
+
+    errors = 0
+    results = [_pool(name, max_workers).submit(one, obj) for obj in items]
+    for result in results:
+        try:
+            result()
+        except Exception:
+            count_error(name)
+            LOG.exception("reconcile of %s failed", name)
+            errors += 1
+    return errors

@@ -159,7 +159,10 @@ class Requirement:
         if op in (OP_EXISTS, OP_DOES_NOT_EXIST):
             s = f"{self.key} {op}"
         else:
-            s = f"{self.key} {op} {sorted(self.values)}"
+            vals = self.values_list()
+            if len(vals) > 5:
+                vals = vals[:5] + [f"and {len(self.values) - 5} others"]
+            s = f"{self.key} {op} {vals}"
         if self.greater_than is not None:
             s += f" >{self.greater_than}"
         if self.less_than is not None:

@@ -2,6 +2,7 @@
 (pkg/scheduling/requirements.go:32-223)."""
 from __future__ import annotations
 
+import functools
 from typing import Dict, Iterable, List, Optional
 
 from karpenter_core_tpu_torch.scheduling.requirement import (
@@ -81,11 +82,25 @@ class Requirements(Dict[str, Requirement]):
             op = requirements.get_requirement(key).operator()
             if key in self or op in (OP_NOT_IN, OP_DOES_NOT_EXIST):
                 continue
-            errs.append(f'label "{key}" does not have known values')
+            errs.append(f'label "{key}" does not have known values' + self._label_hint(key))
         err = self.intersects(requirements)
         if err:
             errs.append(err)
         return "; ".join(errs) if errs else None
+
+    def _label_hint(self, key: str) -> str:
+        """A typo suggestion for an unknown label (requirements.go:172-186):
+        a well-known label, then one of these keys, that contains `key` or
+        lies within a fifth of its length in edit distance."""
+        from karpenter_core_tpu_torch.api.labels import WELL_KNOWN_LABELS
+
+        hint = _well_known_hint(key, tuple(sorted(WELL_KNOWN_LABELS)))
+        if hint:
+            return hint
+        for existing in sorted(self.keys()):
+            if key in existing or _edit_distance(key, existing) < len(existing) // 5:
+                return f' (typo of "{existing}"?)'
+        return ""
 
     def intersects(self, requirements: "Requirements") -> Optional[str]:
         """None if every shared key overlaps (requirements.go:189-206)."""
@@ -112,3 +127,32 @@ class Requirements(Dict[str, Requirement]):
                 if value:
                     out[key] = value
         return out
+
+    def __repr__(self) -> str:
+        from karpenter_core_tpu_torch.api.labels import RESTRICTED_LABELS
+
+        return ", ".join(repr(r) for k, r in sorted(self.items())
+                         if k not in RESTRICTED_LABELS)
+
+
+@functools.lru_cache(maxsize=4096)
+def _well_known_hint(key: str, known_sorted: tuple) -> str:
+    for known in known_sorted:
+        if key in known or _edit_distance(key, known) < len(known) // 5:
+            return f' (typo of "{known}"?)'
+    return ""
+
+
+def _edit_distance(s: str, t: str) -> int:
+    """Levenshtein distance (requirements.go:135-165)."""
+    if not s:
+        return len(t)
+    if not t:
+        return len(s)
+    prev = list(range(len(t) + 1))
+    for i, cs in enumerate(s, start=1):
+        cur = [i] + [0] * len(t)
+        for j, ct in enumerate(t, start=1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (0 if cs == ct else 1))
+        prev = cur
+    return prev[-1]

@@ -1,5 +1,6 @@
 """Object builders for tests and smoke runs (the analog of pkg/test), and
-a synchronous control loop over the lifecycle controllers."""
+a synchronous control loop over the lifecycle controllers. The suite
+environment with the Expect* helpers is testing/expectations.Env."""
 from __future__ import annotations
 
 import itertools
@@ -15,7 +16,9 @@ from karpenter_core_tpu_torch.controllers.deprovisioning.controller import (
 from karpenter_core_tpu_torch.controllers.machine.controller import MachineController
 from karpenter_core_tpu_torch.controllers.machine.terminator import EvictionQueue, Terminator
 from karpenter_core_tpu_torch.controllers.node.controller import NodeController
-from karpenter_core_tpu_torch.controllers.provisioning.provisioner import Provisioning
+from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (
+    ProvisioningController,
+)
 from karpenter_core_tpu_torch.controllers.termination.controller import TerminationController
 from karpenter_core_tpu_torch.state import informer
 from karpenter_core_tpu_torch.state.cluster import Cluster
@@ -90,6 +93,10 @@ class FakeClock:
         self._grace = grace
         self._cond = threading.Condition()
 
+    @property
+    def t(self) -> float:
+        return self._t
+
     def __call__(self) -> float:
         with self._cond:
             return self._t
@@ -118,6 +125,7 @@ def make_pod(
     name: Optional[str] = None,
     namespace: str = "default",
     labels: Optional[Dict[str, str]] = None,
+    annotations: Optional[Dict[str, str]] = None,
     requests: Optional[Dict[str, object]] = None,
     limits: Optional[Dict[str, object]] = None,
     node_selector: Optional[Dict[str, str]] = None,
@@ -135,6 +143,7 @@ def make_pod(
     phase: str = "Pending",
     unschedulable: bool = True,
     init_requests: Optional[Dict[str, object]] = None,
+    init_limits: Optional[Dict[str, object]] = None,
     uid: Optional[str] = None,
     creation_timestamp: Optional[float] = None,
 ) -> Pod:
@@ -159,11 +168,12 @@ def make_pod(
         )
     ]
     init_containers = []
-    if init_requests:
+    if init_requests or init_limits:
         init_containers = [
             Container(
                 resources=ResourceRequirements(
-                    requests=parse_resource_list(init_requests)
+                    requests=_requests(init_requests, init_limits),
+                    limits=parse_resource_list(init_limits or {}),
                 )
             )
         ]
@@ -195,6 +205,7 @@ def make_pod(
         name=name or unique_name("pod"),
         namespace=namespace,
         labels=dict(labels or {}),
+        annotations=dict(annotations or {}),
     )
     if uid is not None:
         meta.uid = uid
@@ -364,9 +375,17 @@ def make_pdb(name: str, match_labels: Dict[str, str], disruptions_allowed: int =
 
 def make_daemonset(name: Optional[str] = None, namespace: str = "default",
                    requests: Optional[Dict[str, object]] = None,
-                   tolerations: Optional[List[Toleration]] = None) -> DaemonSet:
-    """A DaemonSet whose pod template requests `requests`."""
-    template = make_pod(requests=requests, tolerations=tolerations,
+                   tolerations: Optional[List[Toleration]] = None,
+                   limits: Optional[Dict[str, object]] = None,
+                   node_selector: Optional[Dict[str, str]] = None,
+                   node_affinity_required: Optional[List[NodeSelectorTerm]] = None,
+                   init_requests: Optional[Dict[str, object]] = None,
+                   init_limits: Optional[Dict[str, object]] = None) -> DaemonSet:
+    """A DaemonSet whose pod template is make_pod's with these options."""
+    template = make_pod(requests=requests, limits=limits, node_selector=node_selector,
+                        tolerations=tolerations,
+                        node_affinity_required=node_affinity_required,
+                        init_requests=init_requests, init_limits=init_limits,
                         unschedulable=False).spec
     return DaemonSet(metadata=ObjectMeta(name=name or unique_name("ds"), namespace=namespace),
                      pod_template_spec=template)
@@ -392,14 +411,14 @@ def subset_planes(snap, K: int, seed: int = 0):
 
 
 class ControlLoop:
-    """A synchronous control loop over one kube client: the reduced
-    counterpart of the reference operator's sync_state and step
-    (operator/__init__.py:88-151). It wires an informer-fed Cluster (one
-    watch per kind: Node, Machine, Pod, Provisioner), Provisioning with
-    `solver`, the machine, node and termination controllers, the
-    Terminator with its EvictionQueue, and the DeprovisioningController.
-    step() runs them in the reference's order, without the provisioning
-    reconcile, the counters and the metrics controllers."""
+    """A synchronous control loop over one kube client, fed by watches where
+    the operator relists (operator.Operator is the port's entry point). It
+    wires an informer-fed Cluster (one watch per kind: Node, Machine, Pod,
+    Provisioner), a ProvisioningController with `solver`, the machine,
+    node and termination controllers, the Terminator with its
+    EvictionQueue, and the DeprovisioningController. step() runs them in
+    the order of the operator's step, without the provisioning reconcile
+    and the counter."""
 
     KINDS = ("Node", "Machine", "Pod", "Provisioner")
 
@@ -420,8 +439,8 @@ class ControlLoop:
         self.eviction_queue = EvictionQueue(kube_client)
         self.terminator = Terminator(kube_client, cloud_provider, self.eviction_queue,
                                      clock=clock)
-        self.provisioning = Provisioning(kube_client, cloud_provider, solver,
-                                         cluster=self.cluster)
+        self.provisioning = ProvisioningController(kube_client, cloud_provider,
+                                                   self.cluster, solver=solver, clock=clock)
         self.machine_controller = MachineController(kube_client, cloud_provider,
                                                     self.cluster, self.terminator,
                                                     clock=clock)

@@ -107,3 +107,10 @@ def requests_for_pods(*pods) -> ResourceList:
     merged = merge(*[ceiling_requests(p) for p in pods])
     merged["pods"] = float(len(pods))
     return merged
+
+
+def to_string(rl: ResourceList) -> str:
+    """`cpu=1, memory=1024` in key order; `{}` when empty."""
+    if not rl:
+        return "{}"
+    return ", ".join(f"{k}={rl[k]:g}" for k in sorted(rl))

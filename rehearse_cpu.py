@@ -31,6 +31,18 @@ Command, compute and execute times, steps and exact solves printed, and
 the shape of the first Expiration pass's simulate snapshot (the one whose
 planes chip_smoke holds the kernels to in phase 9).
 
+    python3 rehearse_cpu.py --operator 5000 100
+
+runs chip_smoke's phase 10 on the CPU with that many pending pods over
+that many nodes (the live cluster scaled alike, 30 bound pods a node):
+new_operator with a TorchSolver(device="cpu") from the solver factory, step
+1 (the backlog solved, launched and nominated), the kubelet pass and step
+2 (machines initialized, the counter), each step's wall and its parts
+(sync_state, the reconcile, the solve's last_phase_ms, the launch, the
+machine, node and termination controllers, the counter), and the shape of
+step 1's snapshot (the one whose planes chip_smoke holds the kernels to
+in phase 10).
+
     python3 rehearse_cpu.py --churn 3500 7000
 
 runs chip_smoke's phases 6b and 7 at those sizes on the CPU instead: the
@@ -158,8 +170,28 @@ def rehearse_lifecycle(n: int) -> dict:
                        for r in lc.passes]}
 
 
+def rehearse_operator(n: int, nodes: int) -> dict:
+    f = n / 50000
+    size = (n, 500, nodes, nodes, dict(n_ingress=int(1000 * f), replicas=int(100 * f)))
+    out = cs.phase_operator("rehearse operator", size, device="cpu", max_nodes=n // 5 + 1536)
+    snap = out["run"].solves[0]["snapshot"][0]
+    return {"nodes": nodes, "machines": out["passed"]["machines"],
+            "events": out["events"],
+            "snapshot": {"existing_rows": int(snap.exist_used.shape[0]),
+                         "items": len(snap.item_counts), "item_pad": int(snap.item_pad),
+                         "slots": int(snap.n_slots)},
+            "steps": [{"name": st["name"], "wall_s": st["wall_s"], "parts_s": st["parts_s"],
+                       "solves": [(len(sv["pods"]), round(sv["wall_s"], 3), sv["phases_ms"])
+                                  for sv in st["solves"]]} for st in out["steps"]]}
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
+    if "--operator" in args:
+        n, nodes = (int(a) for a in args[args.index("--operator") + 1:][:2])
+        print(json.dumps({"n": n, "device": "cpu", **rehearse_operator(n, nodes)}),
+              flush=True)
+        sys.exit(0)
     modes = {"--churn": rehearse_churn, "--replan": rehearse_replan,
              "--lifecycle": rehearse_lifecycle}
     fn = next((modes[a] for a in args if a in modes), rehearse)

@@ -3,8 +3,8 @@ on the CPU, on the geometries of tests/test_consolidation_parity.py.
 
 The reference side is a full operator (new_operator with a
 TPUSolver(backend="mxu")); the port side is the port's own kube client,
-a Cluster fed by the informers through watches, Provisioning with a
-TorchSolver(device="cpu"), the fake provider and the consolidation
+a Cluster fed by the informers through watches, a ProvisioningController
+with a TorchSolver(device="cpu"), the fake provider and the consolidation
 deprovisioners, all on one pinned FakeClock with validation_ttl = 0. Both
 must agree on the candidates and their order, every SubsetScreen of the
 multi-node ladder and of the single-node sweep (pods_per_slot included),
@@ -31,7 +31,9 @@ from karpenter_core_tpu_torch.api import settings as tsettings
 from karpenter_core_tpu_torch.cloudprovider import fake as tfake
 from karpenter_core_tpu_torch.controllers.deprovisioning import consolidation as tcons
 from karpenter_core_tpu_torch.controllers.deprovisioning import core as tcore
-from karpenter_core_tpu_torch.controllers.provisioning.provisioner import Provisioning
+from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (
+    ProvisioningController,
+)
 from karpenter_core_tpu_torch.kube import objects as tobj
 from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient
 from karpenter_core_tpu_torch.solver import replan as treplan
@@ -72,8 +74,8 @@ def _slots_and_screens(monkeypatch):
 
 
 class PortEnv:
-    """The port's side: client, informer-fed Cluster, Provisioning and the
-    consolidation deprovisioners on one clock."""
+    """The port's side: client, informer-fed Cluster, the provisioning
+    controller and the consolidation deprovisioners on one clock."""
 
     def __init__(self, max_nodes=64, types=10):
         self.clock = tt.FakeClock(T0)
@@ -85,8 +87,9 @@ class PortEnv:
             (self.client.watch("Provisioner"), informer.ProvisionerInformer(self.cluster)),
         ]
         self.cp = tfake.FakeCloudProvider(tfake.instance_types(types))
-        self.provisioning = Provisioning(self.client, self.cp,
-                                         TorchSolver(max_nodes=max_nodes, device="cpu"))
+        self.provisioning = ProvisioningController(
+            self.client, self.cp, self.cluster,
+            solver=TorchSolver(max_nodes=max_nodes, device="cpu"), clock=self.clock)
         args = (self.client, self.cluster, self.provisioning, self.cp, None)
         self.multi = tcons.MultiNodeConsolidation(*args, clock=self.clock, validation_ttl=0.0)
         self.single = tcons.SingleNodeConsolidation(*args, clock=self.clock,

@@ -856,3 +856,83 @@ def test_card_deprovisioning_sequence_matches_cpu():
     cpu = _deprovisioning_run("cpu")
     assert card == cpu
     assert card[0][0][:2] == ("expiration", "replace")
+
+
+def _operator_run(device):
+    """Two operator steps over a 6-node cluster and 40 pending pods (a
+    zonal spread cohort and plain pods) on `device`, the kubelet played
+    between them: the nodes, pods, launches' instance-type options, event
+    reasons, counters and the counter's resources, launched nodes named by
+    what they are."""
+    from karpenter_core_tpu_torch.api.labels import LABEL_NODE_INITIALIZED
+    from karpenter_core_tpu_torch.controllers.provisioning import provisioner
+    from karpenter_core_tpu_torch.kube.objects import LABEL_INSTANCE_TYPE_STABLE
+    from karpenter_core_tpu_torch.operator import new_operator
+
+    provisioner.reset_counts()
+    clock = tt.FakeClock()
+    cp = tfake.FakeCloudProvider(tfake.instance_types(10))
+    op = new_operator(cp, solver=tsolver.TorchSolver(max_nodes=64, device=device,
+                                                     incremental="off"), clock=clock)
+    client = op.kube_client
+    client.create(tt.make_provisioner(name="default"))
+    for e in range(6):
+        node = tt.make_node(name=f"node-{e}", labels={
+            PROV: "default", LABEL_NODE_INITIALIZED: "true",
+            LABEL_INSTANCE_TYPE_STABLE: "fake-it-3", CT: "on-demand",
+            ZONE: f"test-zone-{1 + e % 3}"},
+            capacity={"cpu": "4", "memory": "8Gi", "pods": "40"})
+        client.create(node)
+    spread = [tobj.TopologySpreadConstraint(
+        max_skew=1, topology_key=ZONE, when_unsatisfiable="DoNotSchedule",
+        label_selector=tobj.LabelSelector(match_labels={"app": "web"}))]
+    for i in range(40):
+        kw = dict(labels={"app": "web"}, topology_spread=spread) if i % 2 else {}
+        client.create(_pod(_mods("torch"), "op", i, requests={"cpu": "0.75"}, **kw))
+    nominated = {}
+    op.provisioning.bind_listeners.append(
+        lambda p, n: nominated.setdefault(p.metadata.name, n))
+    op.step()
+    for node in client.list("Node"):  # the kubelet
+        machine = client.get("Machine", "", node.name)
+        if machine is not None and not node.ready():
+            node.status.capacity = dict(machine.status.capacity)
+            node.status.allocatable = dict(machine.status.allocatable)
+            node.status.conditions = [tobj.Condition(type="Ready", status="True")]
+            client.update_status(node)
+    for pod in client.list("Pod"):
+        if pod.metadata.name in nominated:
+            pod.spec.node_name = nominated[pod.metadata.name]
+            client.update(pod)
+    op.step()
+
+    def named(n):
+        if not n.startswith("fake-machine-"):
+            return n
+        pods = sorted(k for k, v in nominated.items() if v == n)
+        node = client.get("Node", "", n)
+        return (node.metadata.labels.get(LABEL_INSTANCE_TYPE_STABLE), tuple(pods))
+
+    return (
+        sorted((str(named(n.name)), n.metadata.labels.get(LABEL_NODE_INITIALIZED))
+               for n in client.list("Node")),
+        sorted((p.metadata.name, str(named(p.spec.node_name))) for p in client.list("Pod")),
+        sorted(sorted(r.values) for c in cp.create_calls for r in c.spec.requirements
+               if r.key == "node.kubernetes.io/instance-type"),
+        sorted((e.involved_kind, e.reason) for e in op.recorder.events),
+        dict(provisioner.LAUNCH_FAILURES), dict(provisioner.NODES_CREATED),
+        sorted(client.get("Provisioner", "", "default").status.resources.items()),
+    )
+
+
+@pytest.mark.cuda
+def test_card_operator_step_matches_cpu():
+    """new_operator stepped with a TorchSolver on the card (its solve
+    launches the screen) leaves the cluster the CPU's solver leaves."""
+    _card()
+    screen.reset_launches()
+    card = _operator_run("cuda")
+    assert screen.FORM_LAUNCHES["block"] > 0 and screen.LAUNCHES["screen_prep"] > 0
+    cpu = _operator_run("cpu")
+    assert card == cpu
+    assert card[5]["provisioning"] > 0 and not any(card[4].values())
