@@ -131,10 +131,25 @@ Phases, each fatal on failure:
      the summed capacity of the provisioner's nodes; the inflight checks
      over every node find nothing. Each step's wall is printed with its
      parts (sync_state, the reconcile, the solve's last_phase_ms, the
-     launch, the machine, node and termination controllers, the counter);
+     launch, the machine, node and termination controllers, the counter)
+     and its gen-2 collections (count, seconds, and both by the part open
+     when each started);
      fatal without a screen_prep, block and row_n1 launch. Then
      screen_prep and every form held exactly against their plain versions
-     on step 1's snapshot and timed there (the kernels line's numbers);
+     on step 1's snapshot and timed there (the kernels line's numbers).
+     The phase runs instrumented, as a deployment runs: the tracer on, the
+     metrics controllers in step(), the provider decorated per controller,
+     the registry empty at the start. Fatal: a step-1 span tree other than
+     provisioner.reconcile -> solver.solve (context "provisioning") ->
+     solver.phase.* with provisioner.launch beside the solve, a phase span
+     more than 1 ms from last_phase_ms, karpenter_pending_pods other than
+     the backlog after step 1 and 0 after step 2, and, after step 2, an
+     exposition that does not parse line by line, karpenter_nodes_created
+     other than the machines launched, node metrics that miss a node, an
+     admission-to-bind count other than the pods step 1 decided. It prints
+     the tree, each step's parts (the metrics controllers one of them),
+     the exposition's bytes, samples and expose() time, and the size of
+     the tracer's Chrome trace (exported into the temporary directory);
   10b. phase 10's script at 3c's size on the card and on the CPU: equal
      placements, launched machines' instance-type options, (reason, kind)
      events, counter resources and counters; then, on the card, an ICE
@@ -146,7 +161,25 @@ Phases, each fatal on failure:
      the batcher, until the backlog is empty);
   10c. the background runtime: op.start() over phase 3c's settled cluster,
      a 500-pod batch, every pod nominated within 120 s, op.stop() joining
-     every thread, no reconcile error, no fallback, the screen launched.
+     every thread, no reconcile error, no fallback, the screen launched;
+  11. flight records (the reference's format, armed from phase 8 on)
+     replayed on the card: phase 8b's ladder record through
+     replay_consolidation (fatal when the chosen Command is not confirmed;
+     disagreeing subsets printed with the reason for their direction);
+     the record of 10b's step-1 solve, taken through FLIGHTREC.begin and
+     finish around the operator's solver, and phase 3's config-2 solve,
+     each through JSON and back, restored and solved on the card and on
+     the CPU (fatal when the two differ, and for config 2 when the card's
+     placements are not byte-identical to the live solve's; 10b's record
+     omits its 6,000 bound pods past the 4,096-pod cap, so its difference
+     from the live solve is printed, not fatal). Then a live operator
+     step() whose record keeps its bound pods: phase 10's script at 2,500
+     pods of the mix plus 1,000 ingress pods over 50 nodes (1,500 bound
+     pods, under the cap, the zone-3 guards' inverse anti-affinity among
+     them; no StatefulSet claims, which the record format cannot carry),
+     its step-1 solve recorded and replayed the same way: fatal when the
+     card's replay is not byte-identical to the live solve. Phase 8
+     prints the time to take its ladder record at full width.
 Phases 4-6 solve with incremental="off", so their warm solves run the full
 precompute as before. It prints one JSON line describing every kernel (the
 screen, screen_prep, and the screen's three forms with their launches over
@@ -162,11 +195,12 @@ costliest device operations and the host's operator count and time.
 import copy
 import gc
 import json
-import logging
 import os
+import re
 import resource
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -202,6 +236,8 @@ from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (  # n
     ProvisioningController,
 )
 from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient  # noqa: E402
+from karpenter_core_tpu_torch.metrics.registry import REGISTRY  # noqa: E402
+from karpenter_core_tpu_torch.obs import FLIGHTREC, TRACER, flightrec  # noqa: E402
 from karpenter_core_tpu_torch.kube.objects import (  # noqa: E402
     LABEL_HOSTNAME,
     Condition,
@@ -1292,7 +1328,7 @@ def phase_churn(pods, provs, its, client, cluster, max_nodes: int, zones, steps:
             + f"; placed {result.pod_count_new() + result.pod_count_existing()} (existing "
             f"{result.pod_count_existing()}, new {result.pod_count_new()} on "
             f"{len(result.new_machines)} machines); byte-identical; outcomes "
-            f"{json.dumps(incremental.OUTCOMES)}; launches: incremental solve "
+            f"{json.dumps(incremental.outcome_counts())}; launches: incremental solve "
             f"{json.dumps(counts['incremental'])} (its prescreen dispatch "
             f"{json.dumps(pre)}), full solve {json.dumps(counts['full'])} (its "
             f"prescreen dispatch {json.dumps(full.last_prescreen_launches)})")
@@ -1321,14 +1357,15 @@ def phase_churn(pods, provs, its, client, cluster, max_nodes: int, zones, steps:
     checked = check_topology(result, zones, client)
     say(f"[churn] {steps} steps, modes {modes}; the last step's checks "
         f"{time.perf_counter() - t0:.2f} s: topology {json.dumps(checked)}, cluster usage "
-        f"{json.dumps(usage)}; outcomes {json.dumps(incremental.OUTCOMES)}; summed over "
-        f"the phase's solves: {json.dumps(total)}")
+        f"{json.dumps(usage)}; outcomes {json.dumps(incremental.outcome_counts())}; summed "
+        f"over the phase's solves: {json.dumps(total)}")
     if modes[0] != "full":
         raise AssertionError(f"churn: the first step ran {modes[0]}, not the full precompute")
     if "refresh" not in modes[1:]:
         raise AssertionError(f"churn: no step refreshed the resident tensor: {modes}")
-    if incremental.OUTCOMES["full_deg"]:
-        raise AssertionError(f"churn: {incremental.OUTCOMES['full_deg']} refreshes failed; "
+    failed = incremental.outcome_counts()["full_deg"]
+    if failed:
+        raise AssertionError(f"churn: {failed} refreshes failed; "
                              f"the last: {inc.last_refresh_error}")
     return ({k: total.get(k, 0) for k in screen.LAUNCHES},
             {k: total.get(k, 0) for k in screen.FORM_LAUNCHES}, steps_out)
@@ -1348,16 +1385,47 @@ def settled_cluster(*args, **kw):
 
 
 class _GenTwo:
-    """Counts gen-2 collections, and those that start inside a solve."""
+    """Counts gen-2 collections, those that start inside a solve, and the
+    seconds they take, by the part of an operator step open when they
+    start (`parts` is the stack of open parts; "other" outside them)."""
 
     def __init__(self):
         self.total = self.in_solve = 0
         self.solving = False
+        self.seconds = 0.0
+        self.parts = []
+        self.by_part = {}
+        self._start = None
 
     def __call__(self, phase, info):
-        if phase == "start" and info["generation"] == 2:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
             self.total += 1
             self.in_solve += self.solving
+            self._start = (time.perf_counter(), self.parts[-1] if self.parts else "other")
+        elif self._start is not None:
+            t0, part = self._start
+            self._start = None
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            n, secs = self.by_part.get(part, (0, 0.0))
+            self.by_part[part] = (n + 1, secs + dt)
+
+    def since(self, mark: tuple) -> dict:
+        """The collections since `mark` (a `mark()`): their count, seconds
+        and (count, seconds) by part."""
+        total, seconds, by_part = mark
+        parts = {}
+        for part, (n, secs) in self.by_part.items():
+            n0, s0 = by_part.get(part, (0, 0.0))
+            if n > n0:
+                parts[part] = [n - n0, round(secs - s0, 3)]
+        return {"n": self.total - total, "s": round(self.seconds - seconds, 3),
+                "by_part": parts}
+
+    def mark(self) -> tuple:
+        return self.total, self.seconds, dict(self.by_part)
 
 
 def phase_consolidation(label, its, client, cluster, clock, device="cuda",
@@ -1372,7 +1440,9 @@ def phase_consolidation(label, its, client, cluster, clock, device="cuda",
     before it and read just after; each replan's phases, K, chunks,
     prescreen mode, own launches and device ms per scanned subset, every
     exact solve, and the gen-2 collections inside solves are recorded.
-    Returns the runs' candidates, screens, commands and records."""
+    Each pass's flight record goes to FLIGHTREC (when it is enabled), its
+    time taken. Returns the runs' candidates, screens, commands, records
+    and flight records."""
     solver = torch_solver.TorchSolver(max_nodes=1024, device=device)
     cp = fake.FakeCloudProvider(its["default"])
     provisioning = ProvisioningController(client, cp, cluster, solver=solver, clock=clock)
@@ -1421,8 +1491,18 @@ def phase_consolidation(label, its, client, cluster, clock, device="cuda",
     out = {"runs": {}}
     try:
         for kind, dep in deps.items():
-            captured = []
-            dep._record_pass = lambda c, s, cmd, scenario=None: captured.append(s)
+            captured, recorded = [], []
+
+            def record_pass(c, s, cmd, scenario=None, real=dep._record_pass,
+                            captured=captured, recorded=recorded):
+                captured.append(s)
+                n, t_rec = len(FLIGHTREC.consolidations()), time.perf_counter()
+                real(c, s, cmd, scenario=scenario)
+                if FLIGHTREC.enabled and len(FLIGHTREC.consolidations()) > n:
+                    recorded.append((FLIGHTREC.last_consolidation(),
+                                     time.perf_counter() - t_rec))
+
+            dep._record_pass = record_pass
             screen.reset_launches()
             consolidation.reset_fallbacks()
             n_replans, n_solves = len(replans), len(solves)
@@ -1445,6 +1525,7 @@ def phase_consolidation(label, its, client, cluster, clock, device="cuda",
                 "screens": screens, "feasible": len(feasible), "cmd": cmd,
                 "wall_s": wall, "scan_s": scan_s, "launches": counts,
                 "replans": replans[n_replans:], "solves": solves[n_solves:],
+                "records": recorded,
             }
             out["runs"][kind] = run
             repl = cmd.replacement_machines
@@ -1466,6 +1547,14 @@ def phase_consolidation(label, its, client, cluster, clock, device="cuda",
             for sv in run["solves"]:
                 say(f"[{label}] {kind} exact solve: {sv['pods']} pods, {sv['wall_s']:.3f} s, "
                     f"last_phase_ms {json.dumps(sv['phases_ms'])}")
+            for rec, rec_s in recorded:
+                inputs = rec.get("inputs", {})
+                say(f"[{label}] {kind} flight record: {len(rec['subsets'])} subsets, "
+                    f"{len(rec['candidates'])} candidates, "
+                    + (f"inputs of {len(inputs['stateNodes'])} state nodes and "
+                       f"{len(inputs['pods'])} pods, "
+                       if inputs else f"inputs omitted ({rec.get('inputsOmitted')} nodes), ")
+                    + f"{len(json.dumps(rec))} bytes, taken in {rec_s:.3f} s")
     finally:
         gc.callbacks.remove(gen2)
         replan.batched_subset_screen = real_batched
@@ -1712,8 +1801,8 @@ class Lifecycle:
         if {tuple(k): v for k, v in cluster.bindings.items()} != bindings:
             raise AssertionError(f"{self.label} {name}: the Cluster's bindings are not "
                                  f"the client's")
-        want = self.n0 + deprovisioning_ctrl.NODES["created"] - \
-            deprovisioning_ctrl.NODES["terminated"]
+        want = self.n0 + deprovisioning_ctrl.nodes_created() - \
+            deprovisioning_ctrl.nodes_terminated()
         if len(nodes) != want:
             raise AssertionError(f"{self.label} {name}: {len(nodes)} nodes, expected "
                                  f"{want} (launches minus deletions)")
@@ -1915,6 +2004,175 @@ def phase_lifecycle_pair(devices=("cuda", "cpu"), size=(4500, 400, 200, 100)) ->
                       for p in cpu.passes]}
 
 
+# -- observability (phases 10, 10b and 11) ------------------------------------------
+
+_SAMPLE = re.compile(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)')
+_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\\n]|\\[\\"n])*)"')
+_META = re.compile(r'# (HELP|TYPE) ([a-zA-Z_:][a-zA-Z0-9_:]*)( .*)?')
+
+
+def parse_exposition(text: str) -> dict:
+    """Prometheus text (format 0.0.4), line by line: every line a HELP or
+    TYPE comment or a sample `name{labels} value`, the labels consumed
+    whole, the value a float, a family's samples after its TYPE. Raises on
+    anything else. Returns {family: {"type": t, "samples": [(name, labels,
+    value)]}}."""
+    families, family = {}, None
+    for n, line in enumerate(text.split("\n"), 1):
+        meta = _META.fullmatch(line)
+        if meta:
+            kind, name, rest = meta.groups()
+            family = families.setdefault(name, {"type": None, "samples": []})
+            if kind == "TYPE":
+                if rest not in (" counter", " gauge", " histogram") or family["type"]:
+                    raise AssertionError(f"exposition line {n}: bad TYPE: {line!r}")
+                family["type"] = rest.strip()
+            continue
+        sample = _SAMPLE.fullmatch(line)
+        if not sample:
+            raise AssertionError(f"exposition line {n} does not parse: {line!r}")
+        name, raw, value = sample.groups()
+        labels, pos = {}, 0
+        while raw and pos < len(raw):
+            lab = _LABEL.match(raw, pos)
+            if not lab:
+                raise AssertionError(f"exposition line {n}: bad labels: {line!r}")
+            labels[lab.group(1)] = lab.group(2)
+            pos = lab.end()
+            if pos < len(raw):
+                if raw[pos] != ",":
+                    raise AssertionError(f"exposition line {n}: bad labels: {line!r}")
+                pos += 1
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        owner = families.get(name) or families.get(base)
+        if owner is None or owner["type"] is None or (
+                name != base and owner is not families.get(base)):
+            raise AssertionError(f"exposition line {n}: sample before its TYPE: {line!r}")
+        owner["samples"].append((name, labels, float(value)))
+    return families
+
+
+def reset_registry() -> None:
+    """Every series of the process registry dropped: a fresh exposition, as
+    after a restart, for one operator run."""
+    for metric in list(REGISTRY.metrics.values()):
+        metric.clear()
+
+
+def series_of(counter) -> dict:
+    """A counter's series as {"label=value,...": value}."""
+    return {",".join(f"{k}={v}" for k, v in sorted(labels.items())): value
+            for labels, value in counter.series()}
+
+
+def exposition_values(families: dict, mask=("node_name",)) -> list:
+    """Every counter and gauge sample of a parsed exposition, sorted, with
+    the `mask` labels blanked (launched nodes take `fake-machine-N` names in
+    thread order, each run from its own count)."""
+    out = []
+    for name, fam in families.items():
+        if fam["type"] in ("counter", "gauge"):
+            for sample, labels, value in fam["samples"]:
+                out.append((sample, tuple(sorted((k, "*" if k in mask else v)
+                                                 for k, v in labels.items())), value))
+    return sorted(out)
+
+
+def span_tree(spans) -> list:
+    """The spans as an indented name tree, siblings of one name folded
+    into one line with their count and summed ms."""
+    by_parent = {}
+    ids = {sp.span_id for sp in spans}
+    for sp in spans:
+        by_parent.setdefault(sp.parent_id if sp.parent_id in ids else None, []).append(sp)
+    lines = []
+
+    def walk(parent, depth):
+        groups = {}
+        for sp in by_parent.get(parent, ()):
+            groups.setdefault(sp.name, []).append(sp)
+        for name, group in groups.items():
+            ms = sum(sp.duration_ms for sp in group)
+            lines.append(f"{'  ' * depth}{name} x{len(group)} {ms:.3f} ms")
+            for sp in group:
+                walk(sp.span_id, depth + 1)
+
+    walk(None, 0)
+    return lines
+
+
+def check_spans(label: str, spans, solve: dict) -> dict:
+    """Step 1's spans: one provisioner.reconcile root holding one
+    solver.solve of context "provisioning" and a provisioner.launch; each
+    solver.phase.<name> span's last occurrence within 1 ms of the solve's
+    last_phase_ms[name] (they are read off the same timestamps). Prints the
+    tree."""
+    roots = [sp for sp in spans if sp.name == "provisioner.reconcile"]
+    solves = [sp for sp in spans if sp.name == "solver.solve"]
+    if len(roots) != 1 or len(solves) != 1 or solves[0].parent_id != roots[0].span_id:
+        raise AssertionError(f"{label}: {len(roots)} reconcile roots and {len(solves)} "
+                             "solves, or the solve not under the reconcile")
+    if solves[0].attrs.get("context") != "provisioning":
+        raise AssertionError(f"{label}: solver.solve context "
+                             f"{solves[0].attrs.get('context')!r}")
+    if not any(sp.name == "provisioner.launch" and sp.parent_id == roots[0].span_id
+               for sp in spans):
+        raise AssertionError(f"{label}: no provisioner.launch under the reconcile")
+    last = {}
+    for sp in spans:
+        if sp.name.startswith("solver.phase.") and sp.parent_id == solves[0].span_id:
+            last[sp.name[len("solver.phase."):]] = sp.duration_ms
+    want = solve["phases_raw"]
+    off = {k: round(abs(last.get(k, float("inf")) - v), 6) for k, v in want.items()}
+    if set(last) - set(want) - {"expand"} or any(d > 1.0 for d in off.values()):
+        raise AssertionError(f"{label}: phase spans {last} against last_phase_ms {want}")
+    tree = span_tree(spans)
+    say(f"[{label}] step 1 spans ({len(spans)}):\n" + "\n".join(tree))
+    return {"spans": len(spans), "phase_span_vs_last_phase_ms_max_ms": max(off.values())}
+
+
+def check_exposition(label: str, run: "OperatorRun", n_pending: int, machines: int,
+                     decided: int) -> dict:
+    """The exposition after step 2: it parses line by line;
+    karpenter_nodes_created{reason="provisioning"} equals the machines step
+    1 launched; the node metrics cover every node in the client;
+    karpenter_admission_to_bind_seconds counted the pods step 1 decided.
+    Returns its size, its series, one expose()'s time and the parsed
+    families."""
+    t0 = time.perf_counter()
+    text = REGISTRY.expose()
+    expose_s = time.perf_counter() - t0
+    families = parse_exposition(text)
+    samples = sum(len(f["samples"]) for f in families.values())
+
+    def value(name, **labels):
+        family = families.get(re.sub(r"_(bucket|sum|count)$", "", name)) or \
+            families.get(name, {"samples": []})
+        return sum(v for n, lab, v in family["samples"]
+                   if n == name and all(lab.get(k) == w for k, w in labels.items()))
+
+    created = value("karpenter_nodes_created", reason="provisioning")
+    if created != machines:
+        raise AssertionError(f"{label}: karpenter_nodes_created {created} for {machines} "
+                             "machines launched")
+    nodes = {n.metadata.name for n in run.client.list("Node", copy_objects=False)}
+    covered = {lab["node_name"] for n, lab, _v in
+               families.get("karpenter_nodes_allocatable", {"samples": []})["samples"]}
+    if covered != nodes:
+        raise AssertionError(f"{label}: node metrics cover {len(covered)} nodes of "
+                             f"{len(nodes)}")
+    counted = value("karpenter_admission_to_bind_seconds_count")
+    if counted != decided:
+        raise AssertionError(f"{label}: admission to bind counted {counted} of {decided}")
+    out = {"bytes": len(text), "families": len(families), "samples": samples,
+           "expose_s": round(expose_s, 4), "nodes_created": created,
+           "node_series_nodes": len(covered), "admission_to_bind": counted,
+           "pending_pods_step1": n_pending}
+    say(f"[{label}] exposition after step 2: {json.dumps(out)}")
+    out["families_parsed"] = families
+    return out
+
+
 # -- phase 10: the operator ----------------------------------------------------------
 
 OPERATOR_LIMITS = {"cpu": "100000000", "memory": "100000000Gi", "pods": "100000000"}
@@ -1937,35 +2195,48 @@ class OperatorRun:
     solver/factory.build_solver on `device`, on a FakeClock. It times each
     step's parts (sync_state, the provisioning reconcile, the solve and its
     last_phase_ms, the launch, the machine, node and termination
-    controllers, the counter), keeps each solve's result and first
-    snapshot, what the bind listener was told, and each pod's nomination
-    calls (before the recorder's dedupe and rate limit)."""
+    controllers, the counter, the metrics controllers), keeps each solve's
+    result and first snapshot, what the bind listener was told, and each
+    pod's nomination calls (before the recorder's dedupe and rate limit).
+    The process registry starts empty for each run. With `record`, each
+    solve is flight-recorded through FLIGHTREC.begin and finish around the
+    operator's solver, its snapshot and commit timed. Gen-2 collections
+    are counted and timed in each step, by the part open when each
+    starts (`gen2`)."""
 
     TIMED = (("sync_state", "op", "sync_state"),
              ("reconcile", "provisioning", "reconcile"),
              ("machine", "machine_controller", "reconcile"),
              ("node", "node_controller", "reconcile"),
              ("termination", "termination_controller", "reconcile"),
-             ("counter", "counter", "reconcile"))
+             ("counter", "counter", "reconcile"),
+             ("metrics", "node_metrics", "reconcile"),
+             ("metrics", "provisioner_metrics", "reconcile"),
+             ("metrics", "provisioner_metrics", "prune"))
 
     def __init__(self, label, its, client, clock, device="cuda", settings=None,
-                 max_nodes=50000 // 5 + 1536):
+                 max_nodes=50000 // 5 + 1536, record=False):
         self.label, self.client, self.clock = label, client, clock
         self.cp = fake.FakeCloudProvider(its["default"])
         self.solver = build_solver(max_nodes=max_nodes, device=device)
         self.sync_card = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        reset_registry()
         provisioner.reset_counts()
+        self.records = []
         self.op = new_operator(self.cp, kube_client=client,
                                settings=settings or api_settings.Settings(),
                                solver=self.solver, clock=clock)
         self.solves, self.bound, self.nominations, self.launched = [], {}, {}, []
         self.binds = 0
         self.secs = {}
+        self.gen2 = _GenTwo()
         op = self.op
         owners = {"op": op, "provisioning": op.provisioning,
                   "machine_controller": op.machine_controller,
                   "node_controller": op.node_controller,
-                  "termination_controller": op.termination_controller, "counter": op.counter}
+                  "termination_controller": op.termination_controller, "counter": op.counter,
+                  "node_metrics": op.node_metrics,
+                  "provisioner_metrics": op.provisioner_metrics}
         for key, owner, attr in self.TIMED:
             self._time(key, owners[owner], attr)
         real_launch = op.provisioning._launch_machines_with_errors
@@ -1980,7 +2251,14 @@ class OperatorRun:
         real_solve, real_encode = self.solver.solve, torch_solver.encode_snapshot
 
         def solve(*a, **kw):
-            snaps = []
+            snaps, live, rec_s = [], None, 0.0
+            if record:
+                t0 = time.perf_counter()
+                live = FLIGHTREC.begin(*a, daemonset_pods=kw.get("daemonset_pods"),
+                                       state_nodes=kw.get("state_nodes"),
+                                       kube_client=kw.get("kube_client"),
+                                       max_nodes=self.solver.max_nodes)
+                rec_s = time.perf_counter() - t0
             torch_solver.encode_snapshot = lambda *ea, **ekw: (
                 snaps.append(real_encode(*ea, **ekw)) or snaps[-1])
             t0 = time.perf_counter()
@@ -1989,10 +2267,18 @@ class OperatorRun:
                 self.sync_card()
             finally:
                 torch_solver.encode_snapshot = real_encode
-            self.solves.append({"wall_s": time.perf_counter() - t0, "pods": list(a[0]),
+            wall = time.perf_counter() - t0
+            if live is not None:
+                t1 = time.perf_counter()
+                live.finish("torch", res)
+                self.records.append({"record": FLIGHTREC.last(), "snapshot_s": rec_s,
+                                     "finish_s": time.perf_counter() - t1,
+                                     "placements": torch_solver.placements_json(res)})
+            self.solves.append({"wall_s": wall, "pods": list(a[0]),
                                 "result": res, "snapshot": (snaps[0], a[1]) if snaps else None,
                                 "phases_ms": {k: round(v, 3) for k, v in
-                                              self.solver.last_phase_ms.items()}})
+                                              self.solver.last_phase_ms.items()},
+                                "phases_raw": dict(self.solver.last_phase_ms)})
             return res
 
         self.solver.solve = solve
@@ -2010,11 +2296,13 @@ class OperatorRun:
         real = getattr(owner, attr)
 
         def timed(*a, **kw):
+            self.gen2.parts.append(key)
             t0 = time.perf_counter()
             try:
                 return real(*a, **kw)
             finally:
                 self.secs[key] = self.secs.get(key, 0.0) + time.perf_counter() - t0
+                self.gen2.parts.pop()
 
         setattr(owner, attr, timed)
 
@@ -2026,16 +2314,22 @@ class OperatorRun:
         """One op.step(); its wall and parts, seconds."""
         self.secs = {}
         n_solves = len(self.solves)
+        gen2 = self.gen2.mark()
+        gc.callbacks.append(self.gen2)
         t0 = time.perf_counter()
-        summary = self.op.step()
-        self.sync_card()
+        try:
+            summary = self.op.step()
+            self.sync_card()
+        finally:
+            gc.callbacks.remove(self.gen2)
         wall = time.perf_counter() - t0
         solves = self.solves[n_solves:]
         parts = {k: round(v, 3) for k, v in self.secs.items()}
+        gen2 = self.gen2.since(gen2)
         rec = {"name": name, "wall_s": round(wall, 3), "parts_s": parts, "summary": summary,
-               "solves": solves}
+               "solves": solves, "gen2": gen2}
         say(f"[{self.label}] {name}: {wall:.3f} s wall, launched {summary['launched']}; parts "
-            f"(s) {json.dumps(parts)}"
+            f"(s) {json.dumps(parts)}; gen-2 collections {json.dumps(gen2)}"
             + "".join(f"; solve of {len(sv['pods'])} pods {sv['wall_s']:.3f} s, "
                       f"last_phase_ms {json.dumps(sv['phases_ms'])}" for sv in solves))
         return rec
@@ -2058,11 +2352,12 @@ class OperatorRun:
         return {"ready": ready, "bound": len(self.bound), "s": time.perf_counter() - t0}
 
     def counters(self) -> dict:
-        return {"launch_failures": dict(provisioner.LAUNCH_FAILURES),
-                "retriggers": provisioner.LAUNCH_RESOLVE_RETRIGGERS["total"],
-                "nodes_created": provisioner.NODES_CREATED["provisioning"],
+        return {"launch_failures": {r: provisioner.LAUNCH_FAILURES.get({"reason": r})
+                                    for r in ("insufficient_capacity", "transient", "error")},
+                "retriggers": provisioner.LAUNCH_RESOLVE_RETRIGGERS.get(),
+                "nodes_created": provisioner.NODES_CREATED.get({"reason": "provisioning"}),
                 "fallbacks": provisioner.FALLBACKS["solver"],
-                "reconcile_errors": dict(operator_controller.RECONCILE_ERRORS)}
+                "reconcile_errors": series_of(operator_controller.RECONCILE_ERRORS)}
 
     def pending(self) -> list:
         return [p for p in self.client.list("Pod", copy_objects=False)
@@ -2138,28 +2433,51 @@ def check_operator_settled(run: "OperatorRun", rec: dict) -> dict:
             "resources": {k: want[k] for k in sorted(want)}}
 
 
-def phase_operator(label, size, device="cuda", max_nodes=50000 // 5 + 1536) -> dict:
-    """Phase 10: the operator over operator_cluster(*size) on `device`:
-    step 1 provisions the backlog (check_operator_pass), a kubelet pass,
-    step 2 settles (check_operator_settled). The screen's launch counts are
-    zeroed just before step 1 and read after step 2."""
+def phase_operator(label, size, device="cuda", max_nodes=50000 // 5 + 1536,
+                   record=False, trace_path=None) -> dict:
+    """Phase 10: the operator over operator_cluster(*size) on `device`,
+    instrumented as a deployment runs it (the tracer on, the metrics
+    controllers in step(), the provider decorated per controller): step 1
+    provisions the backlog (check_operator_pass, check_spans, the pending
+    pods gauge), a kubelet pass, step 2 settles (check_operator_settled,
+    check_exposition). The screen's launch counts are zeroed just before
+    step 1 and read after step 2. With `trace_path` the tracer's Chrome
+    trace is exported there."""
     n_pods, n_types, n_nodes, distinct, kw = size
     clock = testing.FakeClock()
     t0 = time.perf_counter()
     pods, its, client = operator_cluster(n_pods, n_types, n_nodes, distinct=distinct,
                                          clock=clock, **kw)
     build_s = time.perf_counter() - t0
-    run = OperatorRun(label, its, client, clock, device, max_nodes=max_nodes)
+    run = OperatorRun(label, its, client, clock, device, max_nodes=max_nodes, record=record)
     say(f"[{label}] {len(pods)} pending pods, {n_nodes} nodes, "
         f"{len(client.list('Pod', copy_objects=False)) - len(pods)} bound pods in the "
         f"client, built in {build_s:.2f} s")
+    TRACER.enable()
+    TRACER.clear()
     screen.reset_launches()
+    seq = TRACER.mark()
     first = run.step("step 1")
+    spans = check_spans(label, TRACER.spans_since(seq), first["solves"][0])
     passed = check_operator_pass(run, first, len(pods))
+    pending = REGISTRY.gauge("karpenter_pending_pods").get()
+    if pending != len(pods):
+        raise AssertionError(f"{label}: karpenter_pending_pods {pending} after step 1 for "
+                             f"{len(pods)} pending")
+    decided = run.binds
     kubelet = run.kubelet()
     second = run.step("step 2")
     settled = check_operator_settled(run, second)
+    if REGISTRY.gauge("karpenter_pending_pods").get() != 0:
+        raise AssertionError(f"{label}: karpenter_pending_pods not 0 after step 2")
     counts = screen.launch_counts()
+    expo = check_exposition(label, run, len(pods), passed["machines"], decided)
+    trace_bytes = None
+    if trace_path:
+        TRACER.export_chrome_trace(trace_path)
+        trace_bytes = os.path.getsize(trace_path)
+        say(f"[{label}] Chrome trace of the phase's {len(TRACER.spans())} spans: "
+            f"{trace_bytes} bytes at {trace_path}")
     run.op.recorder.flush(timeout=60.0)
     events = len(client.list("Event", copy_objects=False))
     say(f"[{label}] step 1 checked {json.dumps(passed)}; kubelet {kubelet['ready']} nodes "
@@ -2167,7 +2485,8 @@ def phase_operator(label, size, device="cuda", max_nodes=50000 // 5 + 1536) -> d
         f"{json.dumps(settled)}; events posted {events}; counters "
         f"{json.dumps(run.counters())}; launches {json.dumps(counts)}")
     return {"run": run, "steps": [first, second], "launches": counts, "events": events,
-            "passed": passed, "settled": settled}
+            "passed": passed, "settled": settled, "spans": spans, "exposition": expo,
+            "trace_bytes": trace_bytes}
 
 
 def operator_outcome(run: "OperatorRun") -> dict:
@@ -2183,17 +2502,30 @@ def operator_outcome(run: "OperatorRun") -> dict:
             "counters": run.counters()}
 
 
+def operator_exposition(out: dict) -> list:
+    """What 10b compares of a run's exposition after step 2: every counter
+    and gauge sample (durations excluded: they are histograms)."""
+    return exposition_values(out["exposition"]["families_parsed"])
+
+
 PAIR_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=2))
+# phase 11's operator record: 1,500 bound pods (under the recorder's
+# 4,096-pod cap, so the record keeps them) and no pending claim pods (the
+# record carries no PersistentVolumeClaim, StorageClass or CSINode)
+RECORD_SIZE = (2500, 100, 50, 50, dict(n_sets=0))
 
 
 def phase_operator_pair(devices=("cuda", "cpu"), size=PAIR_SIZE) -> dict:
     """Phase 10b: phase 10's script at 3c's size on the card and on the CPU
     (equal placements, launched machines' options, (reason, kind) events,
-    counter resources and counters); then on the card an ICE leg and a
-    batch-cap leg."""
-    runs = {dev: phase_operator(f"operator 10b {dev}", size, dev, max_nodes=1512)
+    counter resources, counters and every counter and gauge of the
+    exposition); then on the card an ICE leg and a batch-cap leg. The
+    card's step-1 solve is flight-recorded (phase 11 replays it)."""
+    runs = {dev: phase_operator(f"operator 10b {dev}", size, dev, max_nodes=1512,
+                                record=dev == devices[0])
             for dev in devices}
-    outcome = {dev: operator_outcome(r["run"]) for dev, r in runs.items()}
+    outcome = {dev: dict(operator_outcome(r["run"]), exposition=operator_exposition(r))
+               for dev, r in runs.items()}
     if outcome[devices[0]] != outcome[devices[1]]:
         diff = [k for k in outcome[devices[0]]
                 if outcome[devices[0]][k] != outcome[devices[1]][k]]
@@ -2205,9 +2537,11 @@ def phase_operator_pair(devices=("cuda", "cpu"), size=PAIR_SIZE) -> dict:
         types[it] = types.get(it, 0) + 1
     pool = max(sorted(types), key=types.get)
     out = {"machines": len(card.launched[0][1]), "ice": phase_ice(pool, size, devices[0]),
-           "cap": phase_cap(size, devices[0])}
+           "cap": phase_cap(size, devices[0]), "record": card.records[0],
+           "exposition_samples": len(outcome[devices[0]]["exposition"])}
     say(f"[operator 10b] card and CPU agree: {len(outcome[devices[0]]['placements'])} bytes "
-        f"of placements, {len(outcome[devices[0]]['options'])} launches; ICE leg "
+        f"of placements, {len(outcome[devices[0]]['options'])} launches, "
+        f"{out['exposition_samples']} counter and gauge samples; ICE leg "
         f"{json.dumps(out['ice'])}; cap leg {json.dumps(out['cap'])}")
     return out
 
@@ -2226,12 +2560,7 @@ def phase_ice(pool: str, size, device) -> dict:
     run = OperatorRun("operator 10b ice", its, client, clock, device, settings=settings,
                       max_nodes=1512)
     run.cp.insufficient_capacity = {(pool, "", "")}
-    quiet = logging.getLogger("karpenter.provisioning")
-    level, quiet.level = quiet.level, logging.ERROR  # a warning per failed launch
-    try:
-        first = run.step("ice step")
-    finally:
-        quiet.setLevel(level)
+    first = run.step("ice step")
     failed = run.counters()["launch_failures"]["insufficient_capacity"]
     keys = run.op.provisioning.ice_cache.keys()
     if not failed or keys != [(pool, "", "")]:
@@ -2309,6 +2638,7 @@ def phase_background(device="cuda", n_new: int = 500, bound_s: float = 120.0,
                             creation_timestamp=2000.0) for i in range(n_new)]
     keys = {(p.metadata.namespace, p.metadata.name) for p in new}
     screen.reset_launches()
+    TRACER.clear()
     t0 = time.perf_counter()
     run.op.start()
     alive = None
@@ -2334,9 +2664,113 @@ def phase_background(device="cuda", n_new: int = 500, bound_s: float = 120.0,
     out = {"nominated_s": round(nominated_s, 3), "solves": [len(s["pods"]) for s in run.solves],
            "solve_s": [round(s["wall_s"], 3) for s in run.solves],
            "window": run.op.provisioning.batcher.last_window, "launches": counts,
-           "durations": {k: [v[0], round(v[1], 3)] for k, v in
-                         operator_controller.RECONCILE_DURATION.items()}}
+           "durations": {labels["controller"]: [h["count"], round(h["sum"], 3)]
+                         for labels, h in operator_controller.RECONCILE_DURATION.series()},
+           "reconcile_spans": {}}
+    for sp in TRACER.spans():
+        if sp.name == "controller.reconcile":
+            name = sp.attrs["controller"]
+            out["reconcile_spans"][name] = out["reconcile_spans"].get(name, 0) + 1
     say(f"[operator 10c] {json.dumps(out)}")
+    return out
+
+
+# -- phase 11: flight records replayed on the card ------------------------------
+
+# why a recorded subset's screen verdict and its exact re-solve may differ
+# (flightrec.replay_consolidation): the screen is the round-0 kernel while
+# the exact solve relaxes, so the solve may accept a subset the screen
+# refused, which is expected; the other way the screen passed a subset the
+# exact solve refuses, which the exact confirmation catches before any
+# Command executes
+DISAGREE_REASON = {
+    True: "exact solve more permissive: the screen is the round-0 kernel and the "
+          "solve relaxes (expected)",
+    False: "screen more permissive than the exact solve (the exact confirmation "
+           "catches it before a Command executes)",
+}
+
+
+def replay_consolidation_record(label: str, record: dict) -> dict:
+    """A consolidation record, through JSON and back, replayed subset by
+    subset through the exact solve on the card; fatal when the chosen
+    Command is not confirmed. Prints the subsets whose verdicts disagree,
+    with the reason for their direction."""
+    record = json.loads(json.dumps(record))
+    if "inputs" not in record:
+        raise AssertionError(f"{label}: the record carries no inputs "
+                             f"(inputsOmitted={record.get('inputsOmitted')})")
+    screen.reset_launches()
+    t0 = time.perf_counter()
+    out = flightrec.replay_consolidation(record, "torch")
+    wall = time.perf_counter() - t0
+    counts = screen.launch_counts()
+    if not out["chosen_feasible_seq"]:
+        raise AssertionError(f"{label}: the chosen Command {out['chosen']} is not confirmed "
+                             "by the exact re-solve")
+    if counts["screen_prep"] < 1:
+        raise AssertionError(f"{label}: the replay launched no screen on the card")
+    disagree = [s for s in out["subsets"] if not s["agrees"]]
+    say(f"[replay] {label}: {len(out['subsets'])} subsets re-solved on the card in "
+        f"{wall:.3f} s, chosen {json.dumps(out['chosen'])} confirmed; sequential pick "
+        f"{out['seq_pick']}; {len(disagree)} subsets disagree; launches {json.dumps(counts)}")
+    for sub in disagree:
+        say(f"[replay] {label}: subset {sub['members']}: screen all-scheduled "
+            f"{sub['allScheduled']} with {sub['nNewMachines']} new, exact "
+            f"{sub['seqAllScheduled']} with {sub['seqNewMachines']} new: "
+            + DISAGREE_REASON[bool(sub["seqAllScheduled"] and sub["seqNewMachines"] <= 1)])
+    return {"subsets": len(out["subsets"]), "disagree": len(disagree), "wall_s": wall,
+            "launches": counts}
+
+
+def replay_solve_record(label: str, taken: dict, must_match_live: bool) -> dict:
+    """A solve record (taken around a live solve: its record, the snapshot
+    and commit times, the live placements), through JSON and back,
+    restored and solved on the card and on the CPU. Fatal: card and CPU
+    placements that differ, and, when `must_match_live`, card placements
+    not byte-identical to the live solve's."""
+    record = taken["record"]
+    t0 = time.perf_counter()
+    blob = json.dumps(record)
+    record = json.loads(blob)
+    codec_s = time.perf_counter() - t0
+    inputs = record["inputs"]
+    screen.reset_launches()
+    t0 = time.perf_counter()
+    card, result = flightrec.replay(record)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = screen.launch_counts()
+    t0 = time.perf_counter()
+    cpu, _ = flightrec.replay(record, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    a, b = flightrec.placements_json(card), flightrec.placements_json(cpu)
+    if a != b:
+        raise AssertionError(f"{label}: card and CPU replays differ: "
+                             f"{flightrec.diff_placements(card, cpu)[:4]}")
+    if counts["screen_prep"] < 1:
+        raise AssertionError(f"{label}: the replay launched no screen on the card")
+    live = a == taken["placements"]
+    omitted = inputs.get("clusterOmitted")
+    out = {"bytes": len(blob), "pods": len(inputs["pods"]),
+           "state_nodes": len(inputs["stateNodes"]),
+           "cluster_pods": len(inputs.get("clusterPods", ())), "cluster_omitted": omitted,
+           "snapshot_s": round(taken["snapshot_s"], 3), "finish_s": round(taken["finish_s"], 3),
+           "json_round_trip_s": round(codec_s, 3), "replay_card_s": round(card_s, 3),
+           "replay_cpu_s": round(cpu_s, 3), "digest": record["digest"],
+           "identical_to_live": live, "launches": counts}
+    say(f"[replay] {label}: {json.dumps(out)}")
+    if not live:
+        diff = flightrec.diff_placements(json.loads(taken["placements"]), card)
+        why = (f"the record omits the cluster context ({omitted} bound pods past the "
+               f"reference's cap of {flightrec.MAX_CLUSTER_SNAPSHOT_PODS}), so the replay "
+               "counts no bound pod in topology and has no Cluster" if omitted
+               else "the record carries no PersistentVolumeClaim, StorageClass or "
+               "CSINode")
+        say(f"[replay] {label}: the replay differs from the live solve ({why}): {diff[:4]}")
+        if must_match_live or not omitted:
+            raise AssertionError(f"{label}: the card's replay is not byte-identical to "
+                                 "the live solve")
     return out
 
 
@@ -2400,13 +2834,22 @@ def main() -> int:
     kstats = phase_kernels(snap, int_rate, busy_cycles)
     mark("phase 2")
 
-    # phase 3: card and CPU place config 2 identically
+    # phase 3: card and CPU place config 2 identically; the card's solve is
+    # flight-recorded (phase 11 replays the record)
     pods, provs, its, nodes = config2()
+    recorder = flightrec.FlightRecorder().enable()
+    t0 = time.perf_counter()
+    live = recorder.begin(pods, provs, its, state_nodes=nodes, max_nodes=2048)
+    config2_record = {"snapshot_s": time.perf_counter() - t0}
     screen.reset_launches()
     t0 = time.perf_counter()
     on_card = torch_solver.TorchSolver(max_nodes=2048, device="cuda").solve(
         pods, provs, its, state_nodes=nodes)
     t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    live.finish("torch", on_card)
+    config2_record.update(record=recorder.last(), finish_s=time.perf_counter() - t0,
+                          placements=torch_solver.placements_json(on_card))
     say(f"[parity] config 2 on the card: {launches_line()}")
     t0 = time.perf_counter()
     on_cpu = torch_solver.TorchSolver(max_nodes=2048, device="cpu").solve(
@@ -2578,13 +3021,24 @@ def main() -> int:
     del pods, provs, its, client, cluster, live_solver, live_result, live_snap
     gc.collect()
 
-    # phase 8: consolidation over a settled live cluster at full width
+    # phase 8: consolidation over a settled live cluster at full width; from
+    # here on the flight recorder is armed, as the operator runs it, and
+    # records each consolidation pass
+    FLIGHTREC.enable()
     t0 = time.perf_counter()
     c_its, c_client, c_cluster, c_clock = settled_cluster()
     say(f"[consolidation] built {len(c_cluster.nodes_by_provider_id)} nodes, "
         f"{len(c_cluster.bindings)} bound pods in {time.perf_counter() - t0:.2f} s")
     cons = phase_consolidation("consolidation", c_its, c_client, c_cluster, c_clock)
     check_consolidation(cons)
+    ladder_records = cons["runs"]["multi"]["records"]
+    if not ladder_records or "inputs" not in ladder_records[-1][0]:
+        raise AssertionError("consolidation: the ladder pass left no flight record with "
+                             "inputs")
+    say(f"[consolidation] the ladder's flight record at full width: "
+        f"{len(ladder_records[-1][0]['inputs']['stateNodes'])} state nodes, taken in "
+        f"{ladder_records[-1][1]:.3f} s; no cluster context (record_consolidation "
+        f"snapshots without a kube client, as the reference's does)")
     # the kernels at this path's own shapes: each deprovisioner's union
     # snapshot, held exactly against the plain versions and timed
     union = {}
@@ -2629,7 +3083,7 @@ def main() -> int:
     say(f"[lifecycle] passes {[(r['name'], r['key'][1], len(r['key'][2])) for r in lc.passes]}"
         f", ladder {json.dumps({k: ladder[k] for k in ('nodes', 'pods')})}, launches "
         f"{json.dumps(life_launches)} by form {json.dumps(life_forms)}, deprovisioning "
-        f"{json.dumps(deprovisioning_ctrl.ACTIONS)}")
+        f"{json.dumps(series_of(deprovisioning_ctrl.ACTIONS))}")
     del c_its, c_client, c_cluster, cons, lc
     gc.collect()
     mark("phase 9")
@@ -2643,6 +3097,8 @@ def main() -> int:
                                  s_clock, device="cpu", want_slots=True)
     say(f"[consolidation 8b] card and CPU agree: "
         f"{json.dumps(compare_consolidation(on_card, on_cpu))}")
+    ladder_8b = on_card["runs"]["multi"]["records"][-1][0]
+    del on_card, on_cpu
     mark("phase 8b")
 
     # phase 9b: the card and the CPU execute alike at phase 8b's size
@@ -2651,28 +3107,47 @@ def main() -> int:
 
     # phase 10: the operator at full width, phase 6's live cluster through
     # new_operator and two steps
-    op10 = phase_operator("operator", (50000, 500, 1000, 1000, {}))
+    trace_path = os.path.join(tempfile.gettempdir(),
+                              f"karpenter-operator-trace-{os.getpid()}.json")
+    op10 = phase_operator("operator", (50000, 500, 1000, 1000, {}), trace_path=trace_path)
     op_counts = op10["launches"]
     for k in ("screen_prep", "block", "row_n1"):
         if not op_counts.get(k):
             raise AssertionError(f"operator: phase 10's steps launched no {k}")
     op_snap = op10["run"].solves[0]["snapshot"]
     operator_shapes = snapshot_shapes("operator (step 1)", *op_snap, int_rate, busy_cycles)
-    step_walls = [(st["name"], st["wall_s"], st["parts_s"]) for st in op10["steps"]]
+    step_walls = [(st["name"], st["wall_s"], st["parts_s"], st["gen2"])
+                  for st in op10["steps"]]
     say(f"[operator] steps {json.dumps(step_walls)}; machines launched "
-        f"{op10['passed']['machines']}, events posted {op10['events']}")
+        f"{op10['passed']['machines']}, events posted {op10['events']}; spans "
+        f"{json.dumps(op10['spans'])}")
     del op10, op_snap
     gc.collect()
     mark("phase 10")
 
     # phase 10b: card against CPU at 3c's size, with the ICE and cap legs
-    phase_operator_pair()
+    pair = phase_operator_pair()
     gc.collect()
     mark("phase 10b")
 
     # phase 10c: the background runtime on the card
     background = phase_background()
     mark("phase 10c")
+
+    # phase 11: the flight records replayed on the card: 8b's ladder
+    # decision, 10b's step-1 solve (its cluster context past the cap),
+    # phase 3's config-2 solve (a whole record) and an operator step's
+    # solve whose record keeps its bound pods
+    replay_consolidation_record("8b ladder record", ladder_8b)
+    replay_solve_record("10b step-1 record", pair["record"], must_match_live=False)
+    replay_solve_record("config 2 record", config2_record, must_match_live=True)
+    under = phase_operator("operator 11", RECORD_SIZE, max_nodes=1512, record=True)
+    replay_solve_record("operator step-1 record (bound pods under the cap)",
+                        under["run"].records[0], must_match_live=True)
+    del under
+    TRACER.disable()
+    FLIGHTREC.disable()
+    mark("phase 11")
 
     op_launches = {k: op_counts.get(k, 0) + background["launches"].get(k, 0)
                    for k in screen.LAUNCHES}

@@ -18,6 +18,9 @@ CAPACITY_TYPE_SPOT = "spot"
 CAPACITY_TYPE_ON_DEMAND = "on-demand"
 
 PROVISIONER_NAME_LABEL_KEY = f"{GROUP}/provisioner-name"
+# the pod label naming the tenant a workload bills to: the provisioner
+# labels admission-to-bind latency with it; not a scheduling constraint
+TENANT_LABEL_KEY = f"{GROUP}/tenant"
 MACHINE_NAME_LABEL_KEY = f"{GROUP}/machine-name"
 LABEL_NODE_INITIALIZED = f"{GROUP}/initialized"
 LABEL_CAPACITY_TYPE = f"{GROUP}/capacity-type"

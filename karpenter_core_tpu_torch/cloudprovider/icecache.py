@@ -8,7 +8,8 @@ key (instance type, zone, capacity type); the next solve sees those
 offerings unavailable, so the pods that were to go there are placed
 elsewhere. Entries expire after a TTL on the injected clock, because zonal
 exhaustion passes. An empty key component matches any value; an error
-with no key at all masks nothing.
+with no key at all masks nothing. ICE_CACHE_ENTRIES, ICE_CACHE_RECORDED_TOTAL
+and ICE_CACHE_MASKED_TOTAL are the reference's series of the cache.
 """
 from __future__ import annotations
 
@@ -22,6 +23,20 @@ from karpenter_core_tpu_torch.cloudprovider.types import (
     Offering,
     Offerings,
     offering_pool_matches,
+)
+from karpenter_core_tpu_torch.metrics.registry import NAMESPACE, REGISTRY
+
+ICE_CACHE_ENTRIES = REGISTRY.gauge(
+    f"{NAMESPACE}_ice_cache_entries",
+    "Offerings currently masked by the insufficient-capacity cache",
+)
+ICE_CACHE_RECORDED_TOTAL = REGISTRY.counter(
+    f"{NAMESPACE}_ice_cache_recorded_total",
+    "InsufficientCapacityErrors recorded into the ICE cache",
+)
+ICE_CACHE_MASKED_TOTAL = REGISTRY.counter(
+    f"{NAMESPACE}_ice_cache_masked_offerings_total",
+    "Offerings masked out of a Solve's instance-type universe by the ICE cache",
 )
 
 Key = Tuple[str, str, str]  # (instance_type, zone, capacity_type)
@@ -46,11 +61,16 @@ class ICECache:
             return False
         with self._mu:
             self._entries[key] = self.clock() + self.ttl
+            ICE_CACHE_ENTRIES.set(float(len(self._entries)))
+        ICE_CACHE_RECORDED_TOTAL.inc()
         return True
 
     def _expire_locked(self, now: float) -> None:
-        for k in [k for k, exp in self._entries.items() if exp <= now]:
+        dead = [k for k, exp in self._entries.items() if exp <= now]
+        for k in dead:
             del self._entries[k]
+        if dead:
+            ICE_CACHE_ENTRIES.set(float(len(self._entries)))
 
     def next_expiry_in(self) -> Optional[float]:
         """Seconds until the earliest entry expires; None when empty."""
@@ -79,6 +99,7 @@ class ICECache:
         if not entries:
             return instance_types
         out: List[InstanceType] = []
+        masked = 0
         for it in instance_types:
             hit = [o for o in it.offerings
                    if o.available and any(offering_pool_matches(key, it.name, o.zone,
@@ -87,10 +108,13 @@ class ICECache:
             if not hit:
                 out.append(it)
                 continue
+            masked += len(hit)
             offerings = Offerings(
                 Offering(o.capacity_type, o.zone, o.price, available=False) if o in hit else o
                 for o in it.offerings)
             out.append(InstanceType(name=it.name, requirements=it.requirements,
                                     offerings=offerings, capacity=it.capacity,
                                     overhead=it.overhead))
+        if masked:
+            ICE_CACHE_MASKED_TOTAL.inc(value=float(masked))
         return out

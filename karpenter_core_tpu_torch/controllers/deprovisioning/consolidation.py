@@ -14,7 +14,6 @@ the reference; FALLBACKS counts those degradations (reset_fallbacks()).
 """
 from __future__ import annotations
 
-import logging
 import math
 import time
 from typing import List
@@ -36,9 +35,11 @@ from karpenter_core_tpu_torch.controllers.deprovisioning.core import (
     node_prices,
     simulate_scheduling,
 )
+from karpenter_core_tpu_torch.obs import flightrec
+from karpenter_core_tpu_torch.obs.log import get_logger
 from karpenter_core_tpu_torch.scheduling.requirement import OP_IN, Requirement
 
-LOG = logging.getLogger("karpenter.deprovisioning.consolidation")
+LOG = get_logger("karpenter.deprovisioning.consolidation")
 
 CONSOLIDATION_TTL = 15.0  # consolidation.go:66
 
@@ -115,9 +116,16 @@ class Consolidation:
 
     def _record_pass(self, candidates, screens, cmd: Command,
                      scenario=None) -> None:
-        """The flight record of a consolidation decision (candidates, every
-        screened subset, the chosen Command): not in the port yet, a
-        no-op."""
+        """Flight-record this consolidation decision (the candidate set,
+        every screened subset's verdict and objective, the chosen Command,
+        and the union scenario's inputs under the recorder's caps), so
+        that flightrec.replay_consolidation can re-run each subset through
+        the exact solve offline. Recording never breaks the pass."""
+        try:
+            flightrec.FLIGHTREC.record_consolidation(
+                type(self).__name__, candidates, screens, cmd, scenario=scenario)
+        except Exception:  # noqa: BLE001 — recording never breaks the pass
+            pass
 
     def compute_consolidation(self, candidates: List[CandidateNode]) -> Command:
         """consolidation.go:180-264: delete if 0 replacements; replace if
@@ -413,8 +421,8 @@ class MultiNodeConsolidation(Consolidation):
             # device error) must degrade to the sequential simulate path —
             # the parity oracle kept for exactly this — never crash the
             # deprovisioning reconcile loop
-            LOG.warning("batched consolidation screen failed; sequential fallback: "
-                        "%s: %s", type(exc).__name__, str(exc)[:200])
+            LOG.warning("batched consolidation screen failed; sequential fallback",
+                        error=type(exc).__name__, error_detail=str(exc)[:200])
             FALLBACKS["multi"] += 1
             return self._ladder_sequential(candidates, sizes)
         self._confirm_deletes_once = False
@@ -556,8 +564,8 @@ class SingleNodeConsolidation(Consolidation):
             # candidate per-simulation (compute_consolidation catches it)
             return candidates, None, None
         except Exception as exc:  # noqa: BLE001 — screen is an optimization
-            LOG.warning("batched consolidation screen failed; sequential sweep: "
-                        "%s: %s", type(exc).__name__, str(exc)[:200])
+            LOG.warning("batched consolidation screen failed; sequential sweep",
+                        error=type(exc).__name__, error_detail=str(exc)[:200])
             FALLBACKS["single"] += 1
             return candidates, None, None
         feasible = [

@@ -14,7 +14,6 @@ return at once: the caller steps the lifecycle controllers.
 """
 from __future__ import annotations
 
-import logging
 import time
 from typing import List
 
@@ -37,22 +36,41 @@ from karpenter_core_tpu_torch.controllers.deprovisioning.deprovisioners import (
     Expiration,
 )
 from karpenter_core_tpu_torch.kube.client import NotFoundError
+from karpenter_core_tpu_torch.metrics.registry import (
+    NAMESPACE,
+    NODES_CREATED,
+    NODES_TERMINATED,
+    REGISTRY,
+)
+from karpenter_core_tpu_torch.obs.log import get_logger
 
-LOG = logging.getLogger("karpenter.deprovisioning")
+LOG = get_logger("karpenter.deprovisioning")
 
 MAX_READINESS_WAIT = 9.5 * 60.0  # controller.go:62-70
 
-# commands executed by deprovisioner and action, replacement nodes
-# launched and nodes deleted (the reference's deprovisioning_actions_
-# performed, nodes_created and nodes_terminated metrics)
-ACTIONS = {}
-NODES = {"created": 0, "terminated": 0}
+# commands executed, by "<deprovisioner>/<action>"; the replacements it
+# launches count in karpenter_nodes_created{reason="deprovisioning"} and
+# the nodes it deletes in karpenter_nodes_terminated{reason=<deprovisioner>}
+ACTIONS = REGISTRY.counter(f"{NAMESPACE}_deprovisioning_actions_performed")
+# the reasons the chain's deprovisioners terminate under (their names)
+DEPROVISIONER_REASONS = ("expiration", "drift", "emptiness", "consolidation")
+
+
+def nodes_created() -> int:
+    """Replacement nodes the deprovisioning controller launched."""
+    return int(NODES_CREATED.get({"reason": "deprovisioning"}))
+
+
+def nodes_terminated() -> int:
+    """Nodes the deprovisioning controller deleted."""
+    return int(sum(NODES_TERMINATED.get({"reason": r}) for r in DEPROVISIONER_REASONS))
 
 
 def reset_counts() -> None:
     ACTIONS.clear()
-    for k in NODES:
-        NODES[k] = 0
+    NODES_CREATED.clear({"reason": "deprovisioning"})
+    for reason in DEPROVISIONER_REASONS:
+        NODES_TERMINATED.clear({"reason": reason})
 
 
 class DeprovisioningController:
@@ -102,9 +120,10 @@ class DeprovisioningController:
     def execute_command(self, deprovisioner, cmd: Command) -> None:
         """controller.go:143-194: launch any replacements first, then
         delete the nodes and wait for their deletion."""
-        key = f"{deprovisioner}/{cmd.action}"
-        ACTIONS[key] = ACTIONS.get(key, 0) + 1
-        LOG.info("deprovisioning command %s: %s", deprovisioner, cmd)
+        ACTIONS.inc({"action": f"{deprovisioner}/{cmd.action}"})
+        LOG.info("deprovisioning command", deprovisioner=str(deprovisioner),
+                 action=cmd.action, nodes=[n.metadata.name for n in cmd.nodes_to_remove],
+                 replacements=len(cmd.replacement_machines or ()))
         if cmd.action == ACTION_REPLACE:
             if not self._launch_replacements(cmd):
                 return
@@ -113,7 +132,7 @@ class DeprovisioningController:
                 self.recorder.deprovisioning_terminating(node.metadata.name, str(cmd))
             try:
                 self.kube_client.delete("Node", "", node.metadata.name)
-                NODES["terminated"] += 1
+                NODES_TERMINATED.inc({"reason": str(deprovisioner)})
             except NotFoundError:
                 pass  # already gone
         self._wait_for_deletion(cmd.nodes_to_remove)
@@ -127,7 +146,7 @@ class DeprovisioningController:
         if any(not n for n in launched):
             self._set_unschedulable(names, False)
             return False
-        NODES["created"] += len(launched)
+        NODES_CREATED.inc({"reason": "deprovisioning"}, len(launched))
         self.cluster.mark_for_deletion(*names)
         deadline = self.clock() + self.readiness_wait
         while True:

@@ -22,6 +22,8 @@ from karpenter_core_tpu_torch.kube.objects import (
     Node,
     Pod,
 )
+from karpenter_core_tpu_torch.obs import TRACER
+from karpenter_core_tpu_torch.obs.flightrec import suppress_recording
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
 from karpenter_core_tpu_torch.solver.torch_solver import SolvedMachine, SolveResult
 from karpenter_core_tpu_torch.utils import podutils
@@ -345,8 +347,12 @@ def simulate_scheduling(
 ) -> Tuple[List[SolvedMachine], bool]:
     """Re-enter the solver in simulation mode over (pending + evicted) pods
     with the candidates removed from the snapshot. Returns (new machines,
-    all_pods_scheduled)."""
-    return _simulate_scheduling_traced(kube_client, cluster, provisioning, candidates)
+    all_pods_scheduled). The solve runs under a `deprovisioning.simulate`
+    span, which marks it a simulation in the solve metrics, and records no
+    flight record."""
+    with TRACER.span("deprovisioning.simulate", candidates=len(candidates)), \
+            suppress_recording():
+        return _simulate_scheduling_traced(kube_client, cluster, provisioning, candidates)
 
 
 def _simulate_scheduling_traced(

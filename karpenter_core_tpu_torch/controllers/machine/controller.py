@@ -28,6 +28,7 @@ from karpenter_core_tpu_torch.api.settings import current as current_settings
 from karpenter_core_tpu_torch.cloudprovider.types import MachineNotFoundError
 from karpenter_core_tpu_torch.controllers.machine.terminator import NodeDrainError, Terminator
 from karpenter_core_tpu_torch.kube.client import NotFoundError
+from karpenter_core_tpu_torch.metrics.registry import MACHINES_CREATED, MACHINES_TERMINATED
 from karpenter_core_tpu_torch.scheduling import taints as taints_mod
 
 class MachineController:
@@ -78,6 +79,7 @@ class MachineController:
         except MachineNotFoundError:
             try:
                 created = self.cloud_provider.create(machine)
+                MACHINES_CREATED.inc()
             except Exception as e:  # noqa: BLE001 — recorded on the condition
                 machine.set_condition(CONDITION_MACHINE_LAUNCHED, "False", "LaunchFailed",
                                       str(e))
@@ -169,6 +171,7 @@ class MachineController:
                 return 1.0
         try:
             self.cloud_provider.delete(machine)
+            MACHINES_TERMINATED.inc()
         except MachineNotFoundError:
             pass
         if node is not None and api_labels.TERMINATION_FINALIZER in node.metadata.finalizers:

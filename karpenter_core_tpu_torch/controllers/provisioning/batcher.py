@@ -1,12 +1,15 @@
 """The provisioning batch window (batcher.go:40-74): wait for the first
 trigger, then extend the window while triggers keep arriving within the
-idle duration, up to the max duration."""
+idle duration, up to the max duration. A closed window is recorded as a
+`batcher.window` span from its first trigger to its close: the batching
+latency a pod pays before its solve starts."""
 from __future__ import annotations
 
 import threading
 import time
 
 from karpenter_core_tpu_torch.api.settings import Settings, current
+from karpenter_core_tpu_torch.obs import TRACER
 
 
 class Batcher:
@@ -30,6 +33,7 @@ class Batcher:
         settings = self.settings or current()
         if not self._trigger.wait(timeout=timeout):
             return False
+        start_ns = time.perf_counter_ns()
         start = last = self.clock()
         self._trigger.clear()
         while True:
@@ -43,6 +47,8 @@ class Batcher:
                     self._consumed = self._triggers
                 self.last_window = {"closed_by": closed, "triggers": folded,
                                     "s": now - start}
+                TRACER.add_span("batcher.window", start_ns, time.perf_counter_ns(),
+                                closed_by=closed, triggers=folded)
                 return True
             # each wait is capped at the time left to the nearer bound, so
             # that a stream of triggers never carries the window past the

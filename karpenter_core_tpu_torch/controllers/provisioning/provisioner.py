@@ -17,17 +17,21 @@ The solver is the one the caller gives (the operator builds a TorchSolver
 through solver/factory.py). A solver exception propagates unless the
 caller gave a fallback solver, whose every use counts in FALLBACKS.
 
-Counters stand for the reference's metrics until the metrics slice, under
-their names: LAUNCH_FAILURES (karpenter_launch_failures_total, by reason),
+A reconcile is a `provisioner.reconcile` span, with the solve's spans and
+a `provisioner.launch` span beneath it. The reference's series count it:
+LAUNCH_FAILURES (karpenter_launch_failures_total, by reason),
 LAUNCH_RESOLVE_RETRIGGERS (karpenter_launch_resolve_retriggers_total),
-NODES_CREATED (karpenter_nodes_created, reason provisioning), PENDING_PODS
-(the karpenter_pending_pods gauge); reset_counts() zeroes them.
+metrics.registry.NODES_CREATED (karpenter_nodes_created, reason
+provisioning), PENDING_PODS (the karpenter_pending_pods gauge) and
+ADMISSION_TO_BIND (karpenter_admission_to_bind_seconds: pod creation to its
+capacity decision, observed once per pod, labeled with the pod's tenant);
+reset_counts() zeroes them.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
-import logging
 import threading
 import time
 from collections import OrderedDict
@@ -47,20 +51,38 @@ from karpenter_core_tpu_torch.controllers.provisioning.batcher import Batcher
 from karpenter_core_tpu_torch.controllers.provisioning.volumetopology import VolumeTopology
 from karpenter_core_tpu_torch.kube.client import AlreadyExistsError
 from karpenter_core_tpu_torch.kube.objects import NodeStatus, Pod
+from karpenter_core_tpu_torch.metrics.registry import NAMESPACE, NODES_CREATED, REGISTRY
+from karpenter_core_tpu_torch.obs import TRACER, reqctx
+from karpenter_core_tpu_torch.obs.log import get_logger
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
 from karpenter_core_tpu_torch.utils import podutils
 from karpenter_core_tpu_torch.utils.backoff import full_jitter
 
-LOG = logging.getLogger("karpenter.provisioning")
+LOG = get_logger("karpenter.provisioning")
 
-LAUNCH_FAILURES = {"insufficient_capacity": 0, "transient": 0, "error": 0}
-LAUNCH_RESOLVE_RETRIGGERS = {"total": 0}
-NODES_CREATED = {"provisioning": 0}
-PENDING_PODS = {"value": 0}
-# solves that the fallback solver served after the solver raised
+LAUNCH_FAILURES = REGISTRY.counter(
+    f"{NAMESPACE}_launch_failures_total",
+    "Machine launches that failed, by failure class (insufficient_capacity /"
+    " transient / error)",
+)
+LAUNCH_RESOLVE_RETRIGGERS = REGISTRY.counter(
+    f"{NAMESPACE}_launch_resolve_retriggers_total",
+    "Batcher re-triggers after retryable launch failures: the residual pods"
+    " re-solve against an ICE-masked universe instead of spinning on the"
+    " offering the cloud just rejected",
+)
+ADMISSION_TO_BIND = REGISTRY.histogram(
+    f"{NAMESPACE}_admission_to_bind_seconds",
+    "Pod admission (creationTimestamp) to bind decision (machine launched /"
+    " existing node nominated) latency, observed by the provisioning loop",
+)
+PENDING_PODS = REGISTRY.gauge(
+    f"{NAMESPACE}_pending_pods",
+    "Provisionable pending pods the last provisioning pass batched",
+)
+# solves that the fallback solver served after the solver raised (the
+# port's own count: the reference falls back to its host solver silently)
 FALLBACKS = {"solver": 0}
-_COUNTS = (LAUNCH_FAILURES, LAUNCH_RESOLVE_RETRIGGERS, NODES_CREATED, PENDING_PODS,
-           FALLBACKS)
 
 # launches run on at most this many threads: the reference opens one per
 # machine (provisioner.go:130-148), and at a full-width backlog's 6,515
@@ -71,9 +93,12 @@ LAUNCH_WORKERS = 256
 
 
 def reset_counts() -> None:
-    for counts in _COUNTS:
-        for k in counts:
-            counts[k] = 0
+    LAUNCH_FAILURES.clear()
+    LAUNCH_RESOLVE_RETRIGGERS.clear()
+    ADMISSION_TO_BIND.clear()
+    PENDING_PODS.set(0.0)  # a gauge: what the last pass saw
+    NODES_CREATED.clear({"reason": "provisioning"})
+    FALLBACKS["solver"] = 0
 
 
 @dataclass
@@ -131,31 +156,44 @@ class ProvisioningController:
             self._maybe_fire_launch_retry()
             if not self.batcher.wait(timeout=wait_timeout):
                 return 0
+        # the reconcile's root span: the solve's spans and the launch land
+        # in one trace
+        with TRACER.span("provisioner.reconcile") as sp:
+            return self._reconcile_traced(sp)
+
+    def _reconcile_traced(self, sp) -> int:
         result = self.schedule()
         if result is None:
             return 0
-        names, errors = self._launch_machines_with_errors(
-            result.new_machines, LaunchOptions(record_pod_nomination=True))
+        sp.set(machines=len(result.new_machines),
+               existing=len(result.existing_assignments),
+               failed=len(result.failed_pods))
+        with TRACER.span("provisioner.launch", machines=len(result.new_machines)):
+            names, errors = self._launch_machines_with_errors(
+                result.new_machines, LaunchOptions(record_pod_nomination=True))
         created = sum(1 for n in names if n)
+        # a pod is decided when its machine launched or an existing node
+        # was nominated for it: the admission-to-bind decision time
+        now = self.clock()
         for machine, name in zip(result.new_machines, names):
             if name:
                 for pod in machine.pods:
-                    self._observe_bind(pod)
+                    self._observe_bind(pod, now)
                     self._notify_bind(pod, name)
         for state_node, pods in result.existing_assignments:
             for pod in pods:
-                self._observe_bind(pod)
+                self._observe_bind(pod, now)
                 self._notify_bind(pod, state_node.name())
         if created or errors or result.failed_pods:
-            LOG.info("provisioning pass: %d machines, %d launched, %d launch errors, "
-                     "%d existing, %d failed pods, %d rounds", len(result.new_machines),
-                     created, len(errors), len(result.existing_assignments),
-                     len(result.failed_pods), result.rounds)
+            LOG.info("provisioning pass", machines=len(result.new_machines),
+                     launched=created, launch_errors=len(errors),
+                     existing=len(result.existing_assignments),
+                     failed_pods=len(result.failed_pods), rounds=result.rounds)
         if any(self._launch_retryable(e) for e in errors):
             # the failed machines' pods are still pending and their
             # offerings now masked: re-solve them soon, on a jittered
             # exponential delay while launches keep failing
-            LAUNCH_RESOLVE_RETRIGGERS["total"] += 1
+            LAUNCH_RESOLVE_RETRIGGERS.inc()
             with self._mu:
                 self._launch_retry_failures += 1
                 failures = self._launch_retry_failures
@@ -169,7 +207,8 @@ class ProvisioningController:
                 wait = self.ice_cache.next_expiry_in()
                 if wait is not None:
                     self._schedule_launch_retry_in(wait + 0.05)
-        NODES_CREATED["provisioning"] += created
+        if created:
+            NODES_CREATED.inc({"reason": "provisioning"}, created)
         for state_node, pods in result.existing_assignments:
             self.cluster.nominate_node_for_pod(state_node.name())
             if self.recorder:
@@ -235,22 +274,36 @@ class ProvisioningController:
                 reasons[pod.metadata.uid] = err_msg
         return reasons
 
-    def _observe_bind(self, pod: Pod) -> None:
-        """Remember the pod as decided, once."""
+    @staticmethod
+    def _pod_tenant(pod: Pod) -> Optional[str]:
+        """The tenant a pod bills to (its karpenter.sh/tenant label)."""
+        return (pod.metadata.labels or {}).get(api_labels.TENANT_LABEL_KEY)
+
+    def _observe_bind(self, pod: Pod, now: float) -> None:
+        """Remember the pod as decided, once, and observe its admission to
+        bind latency then (a nominated pod re-enters every window until it
+        binds, and must not be observed again)."""
         uid = pod.metadata.uid or (pod.metadata.namespace, pod.metadata.name)
         if uid in self._admission_observed:
             return
         self._admission_observed[uid] = True
         while len(self._admission_observed) > self.MAX_ADMISSION_OBSERVED:
             self._admission_observed.popitem(last=False)
+        ts = pod.metadata.creation_timestamp
+        if ts:
+            tenant = self._pod_tenant(pod)
+            if tenant is not None:
+                ADMISSION_TO_BIND.observe(max(now - ts, 0.0),
+                                          {"tenant": reqctx.TENANTS.admit(tenant)})
+            else:
+                ADMISSION_TO_BIND.observe(max(now - ts, 0.0))
 
     def _notify_bind(self, pod: Pod, node_name: str) -> None:
         for listener in self.bind_listeners:
             try:
                 listener(pod, node_name)
             except Exception:  # noqa: BLE001 — listeners are best-effort
-                LOG.warning("bind listener failed: pod %s, node %s", pod.metadata.name,
-                            node_name)
+                LOG.warning("bind listener failed", pod=pod.metadata.name, node=node_name)
 
     def trigger(self) -> None:
         self.batcher.trigger()
@@ -309,7 +362,7 @@ class ProvisioningController:
                     if not podutils.is_terminal(pod) and not podutils.is_owned_by_daemonset(pod):
                         pod.spec.node_name = ""
                         pending.append(pod)
-        PENDING_PODS["value"] = len(pending)
+        PENDING_PODS.set(float(len(pending)))
         if not pending:
             return None
         settings = self.batcher.settings or current_settings()
@@ -321,7 +374,7 @@ class ProvisioningController:
             pending.sort(key=lambda p: p.metadata.creation_timestamp or 0.0)
             deferred = pending[batch_cap:]
             pending = pending[:batch_cap]
-            LOG.info("batch capped: solving %d, deferred %d", len(pending), len(deferred))
+            LOG.info("batch capped", solving=len(pending), deferred=len(deferred))
             if any((p.metadata.uid or (p.metadata.namespace, p.metadata.name))
                    not in self._admission_observed for p in deferred):
                 self.batcher.trigger()
@@ -340,15 +393,22 @@ class ProvisioningController:
         args = (pending, provisioners, instance_types)
         kwargs = dict(daemonset_pods=daemonset_pods, state_nodes=state_nodes,
                       kube_client=self.kube_client, cluster=self.cluster)
-        if self.fallback_solver is None or self.fallback_solver is self.solver:
-            return self.solver.solve(*args, **kwargs)
-        try:
-            return self.solver.solve(*args, **kwargs)
-        except Exception as e:  # noqa: BLE001 — the caller chose a fallback
-            FALLBACKS["solver"] += 1
-            LOG.error("solver raised %s: %s; solving %d pods on the fallback solver",
-                      type(e).__name__, e, len(pending))
-            return self.fallback_solver.solve(*args, **kwargs)
+        # the solve is billed to the batch's most frequent tenant (pod
+        # labels); admission to bind stays per pod in _observe_bind
+        tenants = [t for t in (self._pod_tenant(p) for p in pending) if t]
+        batch_tenant = max(set(tenants), key=tenants.count) if tenants else None
+        bind_ctx = (reqctx.bind(reqctx.RequestContext(tenant=batch_tenant))
+                    if batch_tenant is not None else contextlib.nullcontext())
+        with bind_ctx:
+            if self.fallback_solver is None or self.fallback_solver is self.solver:
+                return self.solver.solve(*args, **kwargs)
+            try:
+                return self.solver.solve(*args, **kwargs)
+            except Exception as e:  # noqa: BLE001 — the caller chose a fallback
+                FALLBACKS["solver"] += 1
+                LOG.error("solver raised, using fallback solver", error=type(e).__name__,
+                          error_detail=str(e), pods=len(pending))
+                return self.fallback_solver.solve(*args, **kwargs)
 
     # -- launching --------------------------------------------------------------
 
@@ -411,9 +471,9 @@ class ProvisioningController:
                         reason = "transient"
                     else:
                         reason = "error"
-                    LAUNCH_FAILURES[reason] += 1
-                    LOG.warning("machine launch failed (%s): %s: %s", reason,
-                                type(e).__name__, e)
+                    LAUNCH_FAILURES.inc({"reason": reason})
+                    LOG.warning("machine launch failed", reason=reason,
+                                error=type(e).__name__, error_detail=str(e))
         return names, errors
 
     def _launch_one(self, machine, opts: LaunchOptions) -> str:

@@ -9,6 +9,7 @@ from typing import Optional
 
 from karpenter_core_tpu_torch.api import labels as api_labels
 from karpenter_core_tpu_torch.controllers.machine.terminator import NodeDrainError, Terminator
+from karpenter_core_tpu_torch.metrics.registry import NODES_TERMINATED
 
 class TerminationController:
     def __init__(self, kube_client, terminator: Terminator, cluster=None, recorder=None):
@@ -34,6 +35,7 @@ class TerminationController:
                 self.recorder.node_failed_to_drain(node, str(e))
             return 1.0  # requeue while the node drains
         self.terminator.terminate_node(node)
+        NODES_TERMINATED.inc({"reason": "terminated"})
         if self.cluster is not None:
             self.cluster.delete_node(node.metadata.name)
         return None

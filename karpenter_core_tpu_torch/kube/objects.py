@@ -106,11 +106,22 @@ class PreferredSchedulingTerm:
     preference: NodeSelectorTerm
 
 
+# the k8s wire names of the affinity term lists (kube/serialization.py);
+# NodeAffinity's required list also wraps in a NodeSelector on the wire
+_AFFINITY_WIRE = {
+    "required": "requiredDuringSchedulingIgnoredDuringExecution",
+    "preferred": "preferredDuringSchedulingIgnoredDuringExecution",
+}
+
+
 @dataclass
 class NodeAffinity:
     # required terms are ORed; expressions within a term are ANDed
     required: List[NodeSelectorTerm] = field(default_factory=list)
     preferred: List[PreferredSchedulingTerm] = field(default_factory=list)
+
+    _WIRE_OVERRIDES = _AFFINITY_WIRE
+    _WIRE_WRAP = {"required": "nodeSelectorTerms"}
 
 
 @dataclass
@@ -168,11 +179,15 @@ class PodAffinity:
     required: List[PodAffinityTerm] = field(default_factory=list)
     preferred: List[WeightedPodAffinityTerm] = field(default_factory=list)
 
+    _WIRE_OVERRIDES = _AFFINITY_WIRE
+
 
 @dataclass
 class PodAntiAffinity:
     required: List[PodAffinityTerm] = field(default_factory=list)
     preferred: List[WeightedPodAffinityTerm] = field(default_factory=list)
+
+    _WIRE_OVERRIDES = _AFFINITY_WIRE
 
 
 @dataclass
@@ -247,6 +262,7 @@ class ResourceRequirements:
 @dataclass
 class Container:
     name: str = "container"
+    image: str = ""
     resources: ResourceRequirements = field(default_factory=ResourceRequirements)
     ports: List[ContainerPort] = field(default_factory=list)
 
@@ -285,6 +301,10 @@ class PodSpec:
     priority: Optional[int] = None
     # system-cluster-critical and system-node-critical pods drain last
     priority_class_name: str = ""
+    # carried for the wire format (kube/serialization.py): a flight record
+    # holds them as the reference package writes them
+    scheduler_name: str = "default-scheduler"
+    termination_grace_period_seconds: Optional[int] = None
 
 
 @dataclass
@@ -300,6 +320,7 @@ class Condition:
 class PodStatus:
     phase: str = "Pending"
     conditions: List[Condition] = field(default_factory=list)
+    start_time: Optional[float] = None
 
 
 @dataclass

@@ -9,28 +9,31 @@ port's normal entry point (pkg/operator, controllers.go:46-73).
 step() relists the client into the Cluster (sync_state), runs the machine,
 node and termination controllers, one provisioning reconcile (batch, solve
 on the card, launch, nominate), the machine controller again, the counter
-and, when asked, one deprovisioning reconcile, then drains the eviction
-queue. start() runs a watch pump per kind (Node, Pod, Machine,
-Provisioner) into the informers, a pod event triggering the batcher, each
-pump relisting after a failed delivery or a silent stream; and three
-singleton loops: provisioning (paced by the batcher), deprovisioning and
-housekeeping (the machine, node and termination controllers on worker
-pools, and the counter). The inflight checks are wired but neither loop
-runs them, as in the reference; their caller does.
+and the provisioner metrics, when asked one deprovisioning reconcile, then
+the node metrics, and drains the eviction queue. start() runs a watch pump
+per kind (Node, Pod, Machine, Provisioner) into the informers, a pod event
+triggering the batcher and the pod metrics, a provisioner event the
+provisioner metrics, each pump relisting after a failed delivery or a
+silent stream; and three singleton loops: provisioning (paced by the
+batcher), deprovisioning and housekeeping (the machine, node and
+termination controllers on worker pools, the counter and the node
+metrics). The inflight checks are wired but neither loop runs
+them, as in the reference; their caller does. Each controller reaches the
+cloud provider through its own metrics decorator
+(cloudprovider/metrics.py), which times every call by controller.
 
-The reference's metrics controllers, its cloud-provider metric wrappers
-and its webhooks are not part of the port yet (ROADMAP Queue A).
+The reference's webhooks are not part of the port yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
-import logging
 import queue as queue_mod
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 from karpenter_core_tpu_torch.api.settings import Settings, set_current
+from karpenter_core_tpu_torch.cloudprovider.metrics import decorate
 from karpenter_core_tpu_torch.controllers.counter.controller import CounterController
 from karpenter_core_tpu_torch.controllers.deprovisioning.controller import (
     DeprovisioningController,
@@ -40,6 +43,11 @@ from karpenter_core_tpu_torch.controllers.inflightchecks.controller import (
 )
 from karpenter_core_tpu_torch.controllers.machine.controller import MachineController
 from karpenter_core_tpu_torch.controllers.machine.terminator import EvictionQueue, Terminator
+from karpenter_core_tpu_torch.controllers.metrics.controllers import (
+    NodeMetricsController,
+    PodMetricsController,
+    ProvisionerMetricsController,
+)
 from karpenter_core_tpu_torch.controllers.node.controller import NodeController
 from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (
     PodController,
@@ -49,6 +57,8 @@ from karpenter_core_tpu_torch.controllers.termination.controller import Terminat
 from karpenter_core_tpu_torch.events import Recorder
 from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient
 from karpenter_core_tpu_torch.kube.objects import object_key
+from karpenter_core_tpu_torch.metrics.registry import NAMESPACE, REGISTRY
+from karpenter_core_tpu_torch.obs.log import get_logger
 from karpenter_core_tpu_torch.operator.controller import (
     Singleton,
     Typed,
@@ -63,11 +73,13 @@ from karpenter_core_tpu_torch.state.informer import (
     ProvisionerInformer,
 )
 
-LOG = logging.getLogger("karpenter.operator")
+LOG = get_logger("karpenter.operator")
 
-# watch relists after a failed delivery or a silent stream, by kind (the
-# reference's karpenter_watch_relists_total)
-WATCH_RELISTS: Dict[str, int] = {}
+WATCH_RELISTS = REGISTRY.counter(
+    f"{NAMESPACE}_watch_relists_total",
+    "Watch relists after a dropped/stale stream or failed event "
+    "delivery, by kind (the informer list-then-watch recovery)",
+)
 
 
 @dataclass
@@ -86,6 +98,9 @@ class Operator:
     inflight_checks: InflightChecksController
     counter: CounterController
     deprovisioning: object
+    node_metrics: NodeMetricsController
+    pod_metrics: PodMetricsController
+    provisioner_metrics: ProvisionerMetricsController
     eviction_queue: EvictionQueue
     terminator: Terminator
     clock: object = time.time
@@ -147,10 +162,14 @@ class Operator:
             self.sync_state()
         for machine in self.kube_client.list("Machine"):
             self.machine_controller.reconcile(machine)
-        for provisioner in self.kube_client.list("Provisioner"):
+        provisioners = self.kube_client.list("Provisioner")
+        for provisioner in provisioners:
             self.counter.reconcile(provisioner)
+            self.provisioner_metrics.reconcile(provisioner)
+        self.provisioner_metrics.prune({p.name for p in provisioners})
         if deprovision and self.deprovisioning is not None:
             summary["deprovisioned"] = self.deprovisioning.reconcile()
+        self.node_metrics.reconcile()
         self.eviction_queue.drain()
         return summary
 
@@ -199,6 +218,7 @@ class Operator:
                                    max_workers=10)
             for provisioner in self.kube_client.list("Provisioner"):
                 self.counter.reconcile(provisioner)
+            self.node_metrics.reconcile()
 
         self.singletons = [
             Singleton("provisioning", provision_once, interval=0.0),
@@ -209,17 +229,22 @@ class Operator:
             self._threads.append(singleton.start(self._stop))
 
     def _deliver(self, kind: str, handler, event: str, obj) -> None:
-        """One event through the informer, and a pod's to the pod
-        controller: shared by the stream and the relist replay."""
+        """One event through the informer, a pod's to the pod controller
+        and the pod metrics, a provisioner's to the provisioner metrics:
+        shared by the stream and the relist replay."""
         handler(event, obj)
-        if kind == "Pod" and event != "DELETED":
-            self.pod_controller.reconcile(obj)
+        if kind == "Pod":
+            if event != "DELETED":
+                self.pod_controller.reconcile(obj)
+            self.pod_metrics.reconcile(obj, deleted=event == "DELETED")
+        elif kind == "Provisioner":
+            self.provisioner_metrics.reconcile(obj, deleted=event == "DELETED")
 
     def _relist(self, kind: str, handler, known: dict) -> None:
         """Replay the client's objects of `kind` as MODIFIED, and a DELETED
         for each known key gone meanwhile; the watch queue is kept (the
         in-memory client's cannot break), and a replay may repeat events."""
-        WATCH_RELISTS[kind] = WATCH_RELISTS.get(kind, 0) + 1
+        WATCH_RELISTS.inc({"kind": kind})
         current = {}
         for obj in self.kube_client.list(kind):
             key = (obj.metadata.namespace, obj.metadata.name)
@@ -259,14 +284,14 @@ class Operator:
                     known[key] = True
             except Exception:
                 count_error(f"watch-{kind}")
-                LOG.exception("watch pump for %s failed; relisting", kind)
+                LOG.exception("watch pump failed", kind=kind)
                 while not self._stop.is_set():
                     try:
                         self._relist(kind, handler, known)
                         last_event = time.monotonic()
                         break
                     except Exception:
-                        LOG.exception("relist of %s failed", kind)
+                        LOG.exception("watch relist failed", kind=kind)
                         self._stop.wait(0.2)
 
     def stop(self) -> List[threading.Thread]:
@@ -299,15 +324,21 @@ def new_operator(cloud_provider, kube_client: Optional[InMemoryKubeClient] = Non
         from karpenter_core_tpu_torch.solver.factory import build_solver
 
         solver = build_solver()
+    # each controller times its calls into the provider under its own name
+    cp_provisioning = decorate(cloud_provider, "provisioning")
+    cp_machine = decorate(cloud_provider, "machine")
+    cp_node = decorate(cloud_provider, "node")
+    cp_deprovisioning = decorate(cloud_provider, "deprovisioning")
+    cp_inflight = decorate(cloud_provider, "inflightchecks")
     kube_client = kube_client if kube_client is not None else InMemoryKubeClient()
     recorder = Recorder(clock=clock, kube_client=kube_client)
-    cluster = Cluster(kube_client, cloud_provider, clock=clock)
+    cluster = Cluster(kube_client, cp_node, clock=clock)
     eviction_queue = EvictionQueue(kube_client, recorder)
-    terminator = Terminator(kube_client, cloud_provider, eviction_queue, clock=clock)
-    provisioning = ProvisioningController(kube_client, cloud_provider, cluster,
+    terminator = Terminator(kube_client, cp_machine, eviction_queue, clock=clock)
+    provisioning = ProvisioningController(kube_client, cp_provisioning, cluster,
                                           recorder=recorder, solver=solver, clock=clock)
     deprovisioning = DeprovisioningController(kube_client, cluster, provisioning,
-                                              cloud_provider, recorder, clock=clock)
+                                              cp_deprovisioning, recorder, clock=clock)
     return Operator(
         kube_client=kube_client,
         cloud_provider=cloud_provider,
@@ -315,15 +346,18 @@ def new_operator(cloud_provider, kube_client: Optional[InMemoryKubeClient] = Non
         recorder=recorder,
         provisioning=provisioning,
         pod_controller=PodController(provisioning),
-        machine_controller=MachineController(kube_client, cloud_provider, cluster,
+        machine_controller=MachineController(kube_client, cp_machine, cluster,
                                              terminator, recorder, clock=clock),
-        node_controller=NodeController(kube_client, cloud_provider, cluster, clock=clock),
+        node_controller=NodeController(kube_client, cp_node, cluster, clock=clock),
         termination_controller=TerminationController(kube_client, terminator, cluster,
                                                      recorder),
-        inflight_checks=InflightChecksController(kube_client, cloud_provider, cluster,
+        inflight_checks=InflightChecksController(kube_client, cp_inflight, cluster,
                                                  recorder, clock=clock),
         counter=CounterController(kube_client, cluster),
         deprovisioning=deprovisioning,
+        node_metrics=NodeMetricsController(cluster),
+        pod_metrics=PodMetricsController(kube_client, clock=clock),
+        provisioner_metrics=ProvisionerMetricsController(kube_client),
         eviction_queue=eviction_queue,
         terminator=terminator,
         clock=clock,

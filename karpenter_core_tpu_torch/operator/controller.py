@@ -3,43 +3,56 @@ reconciles and bounded parallel reconciles (operator/controller:
 singleton.go:58-129, typed.go:50-81).
 
 A Singleton reconcile may return its requeue interval; an exception is
-logged, counted in RECONCILE_ERRORS (the reference's
-karpenter_controller_reconcile_errors_total, by controller) and backed off
-with decorrelated jitter, never swallowed. RECONCILE_DURATION keeps each
-controller's reconcile count and summed seconds.
+logged, counted in RECONCILE_ERRORS (karpenter_controller_reconcile_errors_
+total, by controller) and backed off with decorrelated jitter, never
+swallowed. Every Singleton reconcile runs inside a `controller.reconcile`
+span and a log scope carrying its controller and reconcile id, and its
+duration lands in RECONCILE_DURATION (karpenter_controller_reconcile_
+duration_seconds, by controller).
 """
 from __future__ import annotations
 
-import logging
+import itertools
 import queue
 import random
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Optional
 
+from karpenter_core_tpu_torch.metrics.registry import REGISTRY
+from karpenter_core_tpu_torch.obs import TRACER
+from karpenter_core_tpu_torch.obs.log import bound as log_bound, get_logger
 from karpenter_core_tpu_torch.operator.injection import with_controller_name
 from karpenter_core_tpu_torch.utils.backoff import decorrelated_jitter
 
-LOG = logging.getLogger("karpenter.controller")
+LOG = get_logger("karpenter.controller")
 
-RECONCILE_ERRORS: Dict[str, int] = {}
-RECONCILE_DURATION: Dict[str, List[float]] = {}  # name -> [count, seconds]
-_counts_mu = threading.Lock()
+# process-wide reconcile ids: every log line inside one reconcile carries
+# the same reconcile=rNNN field, so a failing pass greps as a unit
+_reconcile_ids = itertools.count(1)
+
+RECONCILE_DURATION = REGISTRY.histogram(
+    "karpenter_controller_reconcile_duration_seconds",
+    "Duration of controller reconcile loops (singleton.go:66-78)",
+)
+RECONCILE_ERRORS = REGISTRY.counter(
+    "karpenter_controller_reconcile_errors_total",
+    "Reconcile invocations that raised (singleton.go:84-90)",
+)
+
+
+def count_error(name: str) -> None:
+    RECONCILE_ERRORS.inc(labels={"controller": name})
+
+
+def reset_counts() -> None:
+    RECONCILE_ERRORS.clear()
+    RECONCILE_DURATION.clear()
+
 
 # workqueue.DefaultItemBasedRateLimiter's shape: 5 ms base, 10 s cap
 ERROR_BACKOFF_BASE = 0.005
 ERROR_BACKOFF_MAX = 10.0
-
-
-def count_error(name: str) -> None:
-    with _counts_mu:
-        RECONCILE_ERRORS[name] = RECONCILE_ERRORS.get(name, 0) + 1
-
-
-def reset_counts() -> None:
-    with _counts_mu:
-        RECONCILE_ERRORS.clear()
-        RECONCILE_DURATION.clear()
 
 
 class Singleton:
@@ -59,8 +72,16 @@ class Singleton:
     def reconcile_once(self) -> Optional[float]:
         """One reconcile; the wait before the next."""
         start = time.perf_counter()
+        # allocated outside the bound scope, so that the failure line below
+        # carries the same reconcile id as the pass's own lines
+        reconcile_id = f"r{next(_reconcile_ids)}"
         try:
-            with with_controller_name(self.name):
+            # a provisioning reconcile's solve phases nest under this span;
+            # RECONCILE_DURATION is observed below, so the tracer's metrics
+            # bridge skips controller.reconcile spans
+            with with_controller_name(self.name), log_bound(
+                controller=self.name, reconcile=reconcile_id
+            ), TRACER.span("controller.reconcile", controller=self.name):
                 requeue_after = self.reconcile()
         except Exception:
             count_error(self.name)
@@ -68,14 +89,13 @@ class Singleton:
             backoff = decorrelated_jitter(self._last_backoff, ERROR_BACKOFF_BASE,
                                           ERROR_BACKOFF_MAX, self._rng)
             self._last_backoff = max(backoff, ERROR_BACKOFF_BASE)
-            LOG.exception("reconcile of %s failed (%d in a row), backing off %.3f s",
-                          self.name, self._failures, backoff)
+            LOG.exception("reconcile failed", controller=self.name,
+                          reconcile=reconcile_id, failures=self._failures,
+                          backoff_s=round(backoff, 3))
             return backoff
         finally:
-            with _counts_mu:
-                d = RECONCILE_DURATION.setdefault(self.name, [0, 0.0])
-                d[0] += 1
-                d[1] += time.perf_counter() - start
+            RECONCILE_DURATION.observe(time.perf_counter() - start,
+                                       labels={"controller": self.name})
         self._failures = 0
         self._last_backoff = ERROR_BACKOFF_BASE
         return self.interval if requeue_after is None else requeue_after
@@ -184,6 +204,6 @@ def reconcile_concurrently(name: str, items, reconcile_fn, max_workers: int = 10
             result()
         except Exception:
             count_error(name)
-            LOG.exception("reconcile of %s failed", name)
+            LOG.exception("reconcile failed", controller=name)
             errors += 1
     return errors

@@ -22,7 +22,8 @@ Two layers guard correctness:
     precompute, so the refreshed tensor, and every placement decoded
     from it, equals the full path's.
 
-`OUTCOMES` counts the dispatch decisions by outcome: `refresh` (a delta
+`OUTCOMES` (karpenter_incremental_screen_total, by outcome, the
+reference's series) counts the dispatch decisions: `refresh` (a delta
 replayed), `full_miss` (nothing resident), `full_shape` (the planes'
 shapes drifted), `full_wide` (a delta past its budget), `full_gated` (the
 feed gate dropped live residency) and `full_deg` (a refresh that failed
@@ -35,13 +36,17 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from karpenter_core_tpu_torch.metrics.registry import NAMESPACE, REGISTRY
 from karpenter_core_tpu_torch.solver.encode import bucket_pow2
 
 # dispatch decisions by outcome, counted where the reference counts them
-OUTCOMES: Dict[str, int] = {
-    "refresh": 0, "full_miss": 0, "full_shape": 0, "full_wide": 0,
-    "full_gated": 0, "full_deg": 0,
-}
+OUTCOMES = REGISTRY.counter(
+    f"{NAMESPACE}_incremental_screen_total",
+    "Prescreen dispatch decisions on the incremental solve path, by outcome"
+    " (refresh = delta replay, full_* = full precompute with the reason)",
+)
+OUTCOME_NAMES = ("refresh", "full_miss", "full_shape", "full_wide", "full_gated",
+                 "full_deg")
 
 # delta budgets: past these many changed rows or columns the full
 # precompute is dispatched instead
@@ -52,8 +57,12 @@ _COL_KEYS = ("allow", "out", "defined", "escape", "custom_deny")
 
 
 def reset_outcomes() -> None:
-    for k in OUTCOMES:
-        OUTCOMES[k] = 0
+    OUTCOMES.clear()
+
+
+def outcome_counts() -> Dict[str, int]:
+    """Every outcome's count, zeros included."""
+    return {k: int(OUTCOMES.get({"outcome": k})) for k in OUTCOME_NAMES}
 
 
 def _pack_rows(arr: np.ndarray) -> np.ndarray:
@@ -149,17 +158,17 @@ class IncrementalScreen:
         if outcome != "refresh":
             # a planned refresh is counted when its dispatch succeeds
             # (count_refresh) or fails (count_degraded)
-            OUTCOMES[outcome] += 1
+            OUTCOMES.inc({"outcome": outcome})
         self._pending = (key, new_exist_fp, new_col_fp)
         return delta
 
     @staticmethod
     def count_refresh() -> None:
-        OUTCOMES["refresh"] += 1
+        OUTCOMES.inc({"outcome": "refresh"})
 
     @staticmethod
     def count_degraded() -> None:
-        OUTCOMES["full_deg"] += 1
+        OUTCOMES.inc({"outcome": "full_deg"})
 
     def adopt(self, key, screen) -> None:
         """Make this solve's tensor (full or refreshed) the resident one,

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from karpenter_core_tpu_torch.obs import TRACER
 from karpenter_core_tpu_torch.utils import podutils
 
 
@@ -286,15 +287,17 @@ def batched_subset_screen(
     dispatches in the same pass).
 
     Raises CandidateNodeDeletingError like simulate_scheduling."""
-    if scenario is None:
-        scenario = build_union_scenario(
-            kube_client, cluster, provisioning, candidates,
-            max_nodes=max_nodes,
+    with TRACER.span("deprovisioning.subset_screen", candidates=len(candidates),
+                     subsets=len(subsets)):
+        if scenario is None:
+            scenario = build_union_scenario(
+                kube_client, cluster, provisioning, candidates,
+                max_nodes=max_nodes,
+            )
+        return (
+            _screen_subsets(provisioning, scenario, subsets, want_slots, cluster),
+            scenario,
         )
-    return (
-        _screen_subsets(provisioning, scenario, subsets, want_slots, cluster),
-        scenario,
-    )
 
 
 def _screen_subsets(provisioning, scenario: UnionScenario,

@@ -12,7 +12,12 @@ Pipeline per solve (the reference's TPUSolver, tpu_solver.py):
 
 `last_phase_ms` holds the wall-clock milliseconds of each phase of the last
 device solve; on the card every phase ends with a device synchronize, so
-the phases partition the solve.
+the phases partition the solve. A solve is a `solver.solve` span (context
+"simulation" under a deprovisioning span, else "provisioning") and each
+phase a `solver.phase.<name>` span recorded from the same timestamps as
+`last_phase_ms`, after the same synchronize: the tracer adds no device
+call of its own. The device run goes through obs.device_profiler, a
+torch.profiler capture when KARPENTER_TPU_PROFILE names a directory.
 
 A solver that solves batch after batch over one cluster (incremental="on",
 the default under screen_mode="prescreen") keeps the prescreen tensor of
@@ -26,7 +31,8 @@ change feed gates the residency. `last_prescreen_mode` ("full" or
 `replan_screen` screens K consolidation candidate subsets of one union
 snapshot (solver/replan.py) through the same prescreen dispatch and
 residency, then one rung-mode scan per subset; `last_replan_phase_ms`
-holds its phases (args, upload, prescreen, device, fetch).
+holds its phases (args, upload, prescreen, device, fetch), each also a
+`solver.phase.replan.<name>` span.
 """
 from __future__ import annotations
 
@@ -41,6 +47,11 @@ import numpy as np
 import torch
 
 from karpenter_core_tpu_torch.api.labels import PROVISIONER_NAME_LABEL_KEY
+from karpenter_core_tpu_torch.obs import TRACER, device_profiler, profile_dir
+from karpenter_core_tpu_torch.obs.flightrec import (  # noqa: F401 — re-exported
+    canonical_placements,
+    placements_json,
+)
 from karpenter_core_tpu_torch.ops import pack as pack_ops
 from karpenter_core_tpu_torch.ops import screen as screen_ops
 from karpenter_core_tpu_torch.ops.feasibility import feasibility_static, openable_mask
@@ -130,46 +141,6 @@ class SolveResult:
         return sum(len(p) for _, p in self.existing_assignments)
 
 
-def canonical_placements(result) -> dict:
-    """SolveResult -> an order-independent dict: machines sorted by
-    (provisioner, first instance type, pod set), pods by namespace/name.
-    Two solves that place every pod alike serialize byte-identically."""
-
-    def pod_key(p) -> str:
-        return f"{p.metadata.namespace}/{p.metadata.name}"
-
-    machines = []
-    for m in result.new_machines:
-        options = list(m.instance_type_options)
-        machines.append({
-            "provisioner": m.provisioner_name,
-            "instanceType": options[0].name if options else "",
-            "options": len(options),
-            "requests": {k: v for k, v in sorted(m.requests.items())},
-            "pods": sorted(pod_key(p) for p in m.pods),
-        })
-    machines.sort(key=lambda d: (d["provisioner"], d["instanceType"], tuple(d["pods"])))
-    existing = sorted(
-        ({"node": node.name(), "pods": sorted(pod_key(p) for p in pods)}
-         for node, pods in result.existing_assignments),
-        key=lambda d: d["node"],
-    )
-    return {
-        "machines": machines,
-        "existing": existing,
-        "failed": sorted(pod_key(p) for p in result.failed_pods),
-    }
-
-
-def placements_json(result) -> str:
-    """Canonical JSON of canonical_placements(result): the byte-identical
-    comparison unit."""
-    import json
-
-    return json.dumps(canonical_placements(result), sort_keys=True,
-                      separators=(",", ":"))
-
-
 def _reqset_to_dict(rs: ReqSetArrays) -> Dict[str, np.ndarray]:
     return {"allow": rs.allow, "out": rs.out, "defined": rs.defined, "escape": rs.escape}
 
@@ -184,6 +155,17 @@ def solve_with_relaxation(solve_once, pods, provisioners, instance_types,
         return SolveResult()
     if not provisioners or not any(instance_types.values()):
         return SolveResult(failed_pods=list(pods))
+    # the solve's root span; a solve entered under a deprovisioning span is
+    # a simulation, kept out of the provisioning latency series
+    parent = TRACER.current_span_name() or ""
+    context = "simulation" if parent.startswith("deprovisioning.") else "provisioning"
+    with TRACER.span("solver.solve", pods=len(pods), context=context) as sp:
+        result = _relax_rounds(solve_once, pods, provisioners, max_relax_rounds)
+        sp.set(rounds=result.rounds, failed=len(result.failed_pods))
+        return result
+
+
+def _relax_rounds(solve_once, pods, provisioners, max_relax_rounds: int) -> SolveResult:
     pods = list(pods)
     indices_of: Dict[int, List[int]] = {}
     for i, p in enumerate(pods):
@@ -561,7 +543,8 @@ def slot_requirements(snap: EncodedSnapshot, state, slot) -> Requirements:
 def decode_solve(snap: EncodedSnapshot, placements, state) -> SolveResult:
     """(commit log, ptr) + final slot state (host numpy) -> SolveResult."""
     log, ptr = placements
-    assigned = expand_log(snap, log, ptr)
+    with TRACER.span("solver.phase.expand", entries=int(ptr)):
+        assigned = expand_log(snap, log, ptr)
     E = len(snap.state_nodes)
     all_pods = snap.pods
     ok_idx = np.nonzero(assigned >= 0)[0]
@@ -798,13 +781,16 @@ class TorchSolver:
     def _solve_once(self, pods, provisioners, instance_types, daemonset_pods,
                     state_nodes, kube_client, cluster, ctx) -> SolveResult:
         phases = self.last_phase_ms = {}
-        t = time.perf_counter()
+        t = time.perf_counter_ns()
 
         def mark(name):
+            # after the phase's synchronize, so that the span, like the
+            # phase, covers the phase's device work
             nonlocal t
             self._sync()
-            now = time.perf_counter()
-            phases[name] = (now - t) * 1e3
+            now = time.perf_counter_ns()
+            phases[name] = (now - t) / 1e6
+            TRACER.add_span(f"solver.phase.{name}", t, now)
             t = now
 
         snap = ctx.pop("encoded", None)
@@ -846,7 +832,10 @@ class TorchSolver:
             mark("prescreen")
         run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
                               screen_v=screen_v, screen_mode=self.screen_mode)
-        log, ptr, state = run(screen0, *targs, items_pl=items_pl)
+        with device_profiler():
+            log, ptr, state = run(screen0, *targs, items_pl=items_pl)
+            if profile_dir():
+                self._sync()  # keep the device work inside the capture
         mark("device")
         nopen = int(state.nopen)
         log = dict(log)
@@ -880,13 +869,14 @@ class TorchSolver:
         inconclusive per subset; pods_per_slot [K, N] int32 when
         want_slots, else None). Only the verdicts are fetched otherwise."""
         phases = self.last_replan_phase_ms = {}
-        t = time.perf_counter()
+        t = time.perf_counter_ns()
 
         def mark(name):
             nonlocal t
             self._sync()
-            now = time.perf_counter()
-            phases[name] = (now - t) * 1e3
+            now = time.perf_counter_ns()
+            phases[name] = (now - t) / 1e6
+            TRACER.add_span(f"solver.phase.replan.{name}", t, now)
             t = now
 
         before = screen_ops.launch_counts()
@@ -920,8 +910,11 @@ class TorchSolver:
         verdict_parts, pods_parts, chunks = [], [], []
         scans = dict.fromkeys(pack_ops.LAST_REPLAN, 0)
         for k, kp, sub_counts, sub_open in replan_chunks(count_rows, exist_open):
-            pods_dev, verd_dev = replan(sub_counts, sub_open, uninit_t, screen0, *targs,
-                                        items_pl=items_pl)
+            with device_profiler():
+                pods_dev, verd_dev = replan(sub_counts, sub_open, uninit_t, screen0, *targs,
+                                            items_pl=items_pl)
+                if profile_dir():
+                    self._sync()
             verdict_parts.append(verd_dev[:k])
             if want_slots:
                 pods_parts.append(pods_dev[:k])

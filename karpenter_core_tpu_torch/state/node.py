@@ -9,7 +9,7 @@ annotations, taints, capacity and allocatable read through the Machine,
 the node's zero values backfilled from the machine's; a node without a
 Machine record that is not initialized yet backfills from the in-flight
 capacity of its instance type (node.go:137-221). The state node also
-keeps the requests of the pods bound to it, the host ports they hold, the
+keeps the requests and limits of the pods bound to it, the host ports they hold, the
 volumes they mount and the node's CSI attach limits, and the
 consolidation state: marked for deletion, and nominated for pods until a
 deadline on the node's clock.
@@ -47,7 +47,9 @@ class StateNode:
         self.inflight_capacity: ResourceList = {}
         self.startup_taints: List[Taint] = []
         self.pod_requests: Dict[NamespacedName, ResourceList] = {}
+        self.pod_limits: Dict[NamespacedName, ResourceList] = {}
         self.daemonset_requests: Dict[NamespacedName, ResourceList] = {}
+        self.daemonset_limits: Dict[NamespacedName, ResourceList] = {}
         self.hostport_usage = HostPortUsage()
         self.volume_usage = VolumeUsage()
         self.volume_limits = VolumeCount()
@@ -172,18 +174,28 @@ class StateNode:
     def total_pod_requests(self) -> ResourceList:
         return resources.merge(*self.pod_requests.values()) if self.pod_requests else {}
 
+    def total_pod_limits(self) -> ResourceList:
+        return resources.merge(*self.pod_limits.values()) if self.pod_limits else {}
+
     def total_daemonset_requests(self) -> ResourceList:
         if not self.daemonset_requests:
             return {}
         return resources.merge(*self.daemonset_requests.values())
 
+    def total_daemonset_limits(self) -> ResourceList:
+        if not self.daemonset_limits:
+            return {}
+        return resources.merge(*self.daemonset_limits.values())
+
     def update_for_pod(self, pod) -> None:
         """Account a pod bound to this node (node.go:293-307): its
-        requests, host ports and volumes."""
+        requests and limits, host ports and volumes."""
         key = object_key(pod)
         self.pod_requests[key] = resources.requests_for_pods(pod)
+        self.pod_limits[key] = resources.limits_for_pods(pod)
         if podutils.is_owned_by_daemonset(pod):
             self.daemonset_requests[key] = resources.requests_for_pods(pod)
+            self.daemonset_limits[key] = resources.limits_for_pods(pod)
         self.hostport_usage.add(pod)
         self.volume_usage.add(pod)
 
@@ -192,7 +204,9 @@ class StateNode:
         self.hostport_usage.delete_pod(key)
         self.volume_usage.delete_pod(key)
         self.pod_requests.pop(key, None)
+        self.pod_limits.pop(key, None)
         self.daemonset_requests.pop(key, None)
+        self.daemonset_limits.pop(key, None)
 
     def deep_copy(self) -> "StateNode":
         out = StateNode(copy.deepcopy(self.node), copy.deepcopy(self.machine),
@@ -204,6 +218,8 @@ class StateNode:
         out.startup_taints = list(self.startup_taints)
         out.pod_requests = {k: dict(v) for k, v in self.pod_requests.items()}
         out.daemonset_requests = {k: dict(v) for k, v in self.daemonset_requests.items()}
+        out.pod_limits = {k: dict(v) for k, v in self.pod_limits.items()}
+        out.daemonset_limits = {k: dict(v) for k, v in self.daemonset_limits.items()}
         out.hostport_usage = self.hostport_usage.deep_copy()
         out.volume_usage = self.volume_usage.deep_copy()
         out.volume_limits = VolumeCount(self.volume_limits)

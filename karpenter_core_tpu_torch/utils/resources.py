@@ -102,9 +102,26 @@ def ceiling_requests(pod) -> ResourceList:
     return total
 
 
+def ceiling_limits(pod) -> ResourceList:
+    """The limits counterpart of ceiling_requests (no request merge)."""
+    total: ResourceList = {}
+    for c in pod.spec.containers:
+        total = merge(total, dict(c.resources.limits))
+    for c in pod.spec.init_containers:
+        total = max_resources(total, dict(c.resources.limits))
+    return total
+
+
 def requests_for_pods(*pods) -> ResourceList:
     """Total requests plus a "pods" count entry (resources.go RequestsForPods)."""
     merged = merge(*[ceiling_requests(p) for p in pods])
+    merged["pods"] = float(len(pods))
+    return merged
+
+
+def limits_for_pods(*pods) -> ResourceList:
+    """Total limits plus a "pods" count entry (resources.go LimitsForPods)."""
+    merged = merge(*[ceiling_limits(p) for p in pods])
     merged["pods"] = float(len(pods))
     return merged
 

@@ -748,7 +748,7 @@ def test_card_incremental_resolve_matches_cpu_full():
         assert a == b, step
     assert inc.last_prescreen_mode == "refresh"
     assert inc.last_prescreen_delta["rows"] == 1
-    assert incremental.OUTCOMES["full_deg"] == 0
+    assert incremental.outcome_counts()["full_deg"] == 0
 
 
 @pytest.mark.cuda
@@ -920,7 +920,8 @@ def _operator_run(device):
         sorted(sorted(r.values) for c in cp.create_calls for r in c.spec.requirements
                if r.key == "node.kubernetes.io/instance-type"),
         sorted((e.involved_kind, e.reason) for e in op.recorder.events),
-        dict(provisioner.LAUNCH_FAILURES), dict(provisioner.NODES_CREATED),
+        sorted((tuple(sorted(k.items())), v) for k, v in provisioner.LAUNCH_FAILURES.series()),
+        provisioner.NODES_CREATED.get({"reason": "provisioning"}),
         sorted(client.get("Provisioner", "", "default").status.resources.items()),
     )
 
@@ -935,4 +936,32 @@ def test_card_operator_step_matches_cpu():
     assert screen.FORM_LAUNCHES["block"] > 0 and screen.LAUNCHES["screen_prep"] > 0
     cpu = _operator_run("cpu")
     assert card == cpu
-    assert card[5]["provisioning"] > 0 and not any(card[4].values())
+    assert card[5] > 0 and not any(v for _labels, v in card[4])
+
+
+@pytest.mark.cuda
+def test_card_replays_a_cpu_flight_record():
+    """A flight record of the cluster family taken on the CPU (begin, the
+    solve, finish, JSON and back) replays on the card to the placements
+    its replay on the CPU gives, byte for byte; the replay solver runs on
+    the card by default."""
+    import json
+
+    from karpenter_core_tpu_torch.obs import flightrec
+
+    _card()
+    pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload("cluster", "torch")
+    recorder = flightrec.FlightRecorder().enable()
+    live = recorder.begin(pods, provs, its, daemons, nodes, kube_client=client,
+                          max_nodes=max_nodes)
+    live.finish("torch", tsolver.TorchSolver(max_nodes=max_nodes, device="cpu").solve(
+        pods, provs, its, daemonset_pods=daemons, state_nodes=nodes, kube_client=client,
+        cluster=cluster))
+    record = json.loads(json.dumps(recorder.last()))
+    assert record["inputs"]["clusterPods"]
+    screen.reset_launches()
+    card, result = flightrec.replay(record)
+    assert screen.LAUNCHES["screen_prep"] > 0
+    cpu, _ = flightrec.replay(record, device="cpu")
+    assert flightrec.placements_json(card) == flightrec.placements_json(cpu)
+    assert not result.failed_pods

@@ -153,17 +153,17 @@ def test_refreshed_tensor_equals_full_prescreen_of_new_planes():
 
 
 def _outcomes_of_reference():
-    return {k: jinc.INCREMENTAL_SCREEN_TOTAL.get({"outcome": k}) for k in tinc.OUTCOMES}
+    return {k: jinc.INCREMENTAL_SCREEN_TOTAL.get({"outcome": k}) for k in tinc.OUTCOME_NAMES}
 
 
 def _outcome_counts(run):
     """run()'s result and the dispatch outcomes it counted in each
-    package: the port's OUTCOMES and the reference's counter."""
+    package: the port's OUTCOMES series and the reference's counter."""
     tinc.reset_outcomes()
     before = _outcomes_of_reference()
     got = run()
     after = _outcomes_of_reference()
-    return got, dict(tinc.OUTCOMES), {k: int(after[k] - before[k]) for k in after}
+    return got, tinc.outcome_counts(), {k: int(after[k] - before[k]) for k in after}
 
 
 def test_plan_matches_reference(monkeypatch):
@@ -178,12 +178,13 @@ def test_plan_matches_reference(monkeypatch):
     key = ("geom", "prescreen")
 
     def step(p, e, **kw):
-        before_j, before_t = _outcomes_of_reference(), dict(tinc.OUTCOMES)
+        before_j, before_t = _outcomes_of_reference(), tinc.outcome_counts()
         dj = carriers["jax"].plan(key, p, e, **kw)
         dt = carriers["torch"].plan(key, p, e, **kw)
         after_j = _outcomes_of_reference()
+        after_t = tinc.outcome_counts()
         assert {k: after_j[k] - before_j[k] for k in after_j} == {
-            k: tinc.OUTCOMES[k] - before_t[k] for k in tinc.OUTCOMES}
+            k: after_t[k] - before_t[k] for k in after_t}
         assert (dj is None) == (dt is None)
         if dj is not None:
             assert (list(dj.rows), list(dj.cols), dj.rb, dj.cb) == (
@@ -744,5 +745,6 @@ def test_failed_refresh_degrades_to_full_and_is_counted(monkeypatch):
         assert a == b
         modes.append(inc.last_prescreen_mode)
     assert modes == ["full", "full", "refresh", "refresh"]
-    assert tinc.OUTCOMES["full_deg"] == 1 and tinc.OUTCOMES["refresh"] == 2
+    outcomes = tinc.outcome_counts()
+    assert outcomes["full_deg"] == 1 and outcomes["refresh"] == 2
     assert "refresh failed" in inc.last_refresh_error

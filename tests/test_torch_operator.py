@@ -279,10 +279,10 @@ def test_singleton_interval_requeue_backoff_and_reset():
         s = m.controller.Singleton(name, boom, interval=1.0, rng=random.Random(seed))
         return [s.reconcile_once() for _ in range(6)]
 
-    before = tctrl.RECONCILE_ERRORS.get("t-err", 0)
+    before = tctrl.RECONCILE_ERRORS.get({"controller": "t-err"})
     ref, port = waits(_mods("jax"), "t-err", 7), waits(_mods("torch"), "t-err", 7)
     assert port == ref  # the same decorrelated-jitter ladder
-    assert tctrl.RECONCILE_ERRORS["t-err"] == before + 6
+    assert tctrl.RECONCILE_ERRORS.get({"controller": "t-err"}) == before + 6
     prev = tctrl.ERROR_BACKOFF_BASE
     for w in port:
         assert tctrl.ERROR_BACKOFF_BASE <= w <= min(max(prev * 3, tctrl.ERROR_BACKOFF_BASE),
@@ -300,7 +300,7 @@ def test_singleton_interval_requeue_backoff_and_reset():
     s.reconcile_once()
     state["fail"] = False
     assert s.reconcile_once() == 1.0 and s._failures == 0
-    assert tctrl.RECONCILE_DURATION["t-flaky"][0] == 2
+    assert tctrl.RECONCILE_DURATION.count_since(labels={"controller": "t-flaky"}) == 2
 
 
 def test_singleton_loop_survives_errors_and_stops():
@@ -525,11 +525,11 @@ def test_reconcile_concurrently_counts_errors_and_completes():
         time.sleep(0.01)
         done.append((i, threading.current_thread().name))
 
-    before = tctrl.RECONCILE_ERRORS.get("partest", 0)
+    before = tctrl.RECONCILE_ERRORS.get({"controller": "partest"})
     assert tctrl.reconcile_concurrently("partest", range(10), rec, max_workers=4) == 4
     assert sorted(i for i, _ in done) == [1, 2, 4, 5, 7, 8]
     assert all(name.startswith("partest-") for _, name in done)
-    assert tctrl.RECONCILE_ERRORS["partest"] == before + 4
+    assert tctrl.RECONCILE_ERRORS.get({"controller": "partest"}) == before + 4
     assert tctrl.reconcile_concurrently("partest", [], rec) == 0
 
 
@@ -587,13 +587,14 @@ class _Side:
         return out
 
     def _port_counters(self, raw=False):
-        out = {f"launch_failures/{r}": float(v) for r, v in tprov.LAUNCH_FAILURES.items()}
-        out["retriggers"] = float(tprov.LAUNCH_RESOLVE_RETRIGGERS["total"])
-        out["nodes_created"] = float(tprov.NODES_CREATED["provisioning"])
+        out = {f"launch_failures/{r}": tprov.LAUNCH_FAILURES.get({"reason": r})
+               for r in ("insufficient_capacity", "transient", "error")}
+        out["retriggers"] = tprov.LAUNCH_RESOLVE_RETRIGGERS.get()
+        out["nodes_created"] = tprov.NODES_CREATED.get({"reason": "provisioning"})
         if raw:
             return out
         out = {k: v - self._base[k] for k, v in out.items()}
-        out["pending_pods"] = float(tprov.PENDING_PODS["value"])
+        out["pending_pods"] = tprov.PENDING_PODS.get()
         assert tprov.FALLBACKS["solver"] == 0
         return out
 
@@ -962,7 +963,10 @@ def test_start_provisions_a_pending_pod_and_stop_joins_every_thread():
     from karpenter_core_tpu_torch.operator import new_operator
     from karpenter_core_tpu_torch.testing import make_pod, make_provisioner
 
-    before = dict(tctrl.RECONCILE_ERRORS)
+    def errors():
+        return {tuple(sorted(k.items())): v for k, v in tctrl.RECONCILE_ERRORS.series()}
+
+    before = errors()
     op = new_operator(fake.FakeCloudProvider(fake.instance_types(5)),
                       settings=tsettings.Settings(batch_idle_duration=0.05,
                                                   batch_max_duration=0.1),
@@ -986,7 +990,7 @@ def test_start_provisions_a_pending_pod_and_stop_joins_every_thread():
         alive = op.stop()
     assert alive == []
     assert not op.eviction_queue._thread
-    assert {k: v for k, v in tctrl.RECONCILE_ERRORS.items() if before.get(k) != v} == {}
+    assert {k: v for k, v in errors().items() if before.get(k) != v} == {}
 
 
 # -- what hides no card: the solver factory and the fallback ---------------------
