@@ -57,12 +57,11 @@ Phases, each fatal on failure:
      exactly against screen_plain at several prefixes and timed beside its
      bound;
   6b. phase 6's workload solved with screen_mode="tiered" (the row_b1
-     form once per item) in turns with the prescreen (tiered, prescreen,
-     prescreen, tiered), each solve with the launch counts set to 0 just
-     before it and read just after: placements byte-identical to phase
+     form once per item), then with the prescreen, each solve with the
+     launch counts set to 0 just before it and read just after: placements byte-identical to phase
      6's; a tiered solve must launch row_b1 and no block or row_n1;
   7. steady churn at full width: from phase 6's live cluster, fed through
-     the kube client's watches and the informers, four consecutive solves
+     the kube client's watches and the informers, three consecutive solves
      by an incremental TorchSolver and one with incremental="off"; between
      them the last placements materialise (pods bind on 20 existing nodes,
      5 of the launched machines join as nodes with their pods), bound pods
@@ -86,9 +85,10 @@ Phases, each fatal on failure:
      sequential path, no block-form launch, a ladder winner not confirmed
      by an exact solve on the card, a second replan of the unchanged
      cluster that ran the full precompute;
-  8b. phase 3c's cluster without its backlog: the ladder and every
-     singleton screened on the card and on the CPU must give equal
-     verdicts, equal per-slot counts and the same Commands.
+  8b. phase 3c's cluster at half its pods and nodes (2,250 and 100),
+     without its backlog: the ladder and every singleton screened on the
+     card and on the CPU must give equal verdicts, equal per-slot counts
+     and the same Commands.
   9. the deprovisioning chain executed at full width, on phase 8's
      cluster and FakeClock through testing.ControlLoop (its own Cluster fed
      by watches, the machine, node and termination controllers, the
@@ -157,7 +157,7 @@ Phases, each fatal on failure:
      launches fail and the ICE cache masks it; once the placed pods bind,
      reconcile(wait_timeout=...) fires the re-trigger and re-solves
      exactly the pods left, every one placed, none on the masked type) and
-     a cap leg (batch_max_pods=1000: passes of 1,000, each re-triggering
+     a cap leg (batch_max_pods=2500: passes of 2,500, each re-triggering
      the batcher, until the backlog is empty);
   10c. the background runtime: op.start() over phase 3c's settled cluster,
      a 500-pod batch, every pod nominated within 120 s, op.stop() joining
@@ -180,11 +180,35 @@ Phases, each fatal on failure:
      its step-1 solve recorded and replayed the same way: fatal when the
      card's replay is not byte-identical to the live solve. Phase 8
      prints the time to take its ladder record at full width.
-Phases 4-6 solve with incremental="off", so their warm solves run the full
-precompute as before. It prints one JSON line describing every kernel (the
-screen, screen_prep, and the screen's three forms with their launches over
-phases 4-10), then as its last line {"ok": true, "device": {...}}. Without a
-CUDA card it exits non-zero.
+  12. the fallback paths (phase_fallback), at phase 10b's pods and nodes
+     (18 pods bound a node, 3,978 under the recorder's cap, and no
+     StatefulSet claims, so the record holds the whole cluster context):
+     12a: solver/fallback.ResilientSolver(build_solver(), GreedySolver(),
+     solve_timeout=900, wedge_stale_after=600) with the real subprocess
+     card probe, the launch counts set to 0 just before its solve and read
+     just after: the card serves, placements byte-identical to an
+     unwrapped TorchSolver's, no fallback series moves, the live record is
+     "primary" with the "torch" replayer and replays on the card to its
+     placements; 12b: a primary that goes silent before it enters
+     TorchSolver (WedgeOnce), wedge_stale_after=3 s and a FakeClock for the
+     breaker: SolverWedgedError, the breaker open, GreedySolver serving
+     every pod, the series moved exactly as the reference's script moves
+     them, the "host.primary_error" record replayed through "greedy"
+     byte-identically, the abandoned thread reaped; the clock advanced, the
+     real probe re-admits the card, whose solve equals 12a's; 12c:
+     GreedySolver against the card to the equivalence bar (every
+     constraint holds, the card fails no more pods and opens at most one
+     machine more), both walls, and the fixed cost of 100 x 10, 100 x 40
+     and 200 x 100 batches through TorchSolver and GreedySolver against the
+     small-batch work product; 12d: native.NativeSolver(device="cuda") on
+     phase 4's topology-free share without its nodes against TorchSolver
+     to the same bar, both walls and the g++ build time.
+Phase 1 builds the native packer (g++, native/fast_pack.cpp) beside the
+CUDA kernels. Phases 4-6 solve with incremental="off", so their warm solves
+run the full precompute as before. It prints one JSON line describing
+every kernel (the screen, screen_prep, and the screen's three forms with
+their launches over phases 4-10 and 12a), then as its last line
+{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
 
@@ -201,6 +225,7 @@ import resource
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -209,7 +234,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from karpenter_core_tpu_torch import testing  # noqa: E402
+from karpenter_core_tpu_torch import native, testing  # noqa: E402
 from karpenter_core_tpu_torch.api import settings as api_settings  # noqa: E402
 from karpenter_core_tpu_torch.api.machine import CONDITION_MACHINE_INITIALIZED  # noqa: E402
 from karpenter_core_tpu_torch.api.labels import (  # noqa: E402
@@ -235,6 +260,7 @@ from karpenter_core_tpu_torch.controllers.provisioning import provisioner  # noq
 from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (  # noqa: E402
     ProvisioningController,
 )
+from karpenter_core_tpu_torch.events import Recorder  # noqa: E402
 from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient  # noqa: E402
 from karpenter_core_tpu_torch.metrics.registry import REGISTRY  # noqa: E402
 from karpenter_core_tpu_torch.obs import FLIGHTREC, TRACER, flightrec  # noqa: E402
@@ -257,7 +283,7 @@ from karpenter_core_tpu_torch.scheduling import taints as taints_mod  # noqa: E4
 from karpenter_core_tpu_torch.scheduling.requirement import Requirement  # noqa: E402
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements  # noqa: E402
 from karpenter_core_tpu_torch.solver import torch_solver  # noqa: E402
-from karpenter_core_tpu_torch.solver import incremental  # noqa: E402
+from karpenter_core_tpu_torch.solver import fallback, incremental  # noqa: E402
 from karpenter_core_tpu_torch.solver import replan  # noqa: E402
 from karpenter_core_tpu_torch.solver.encode import encode_snapshot  # noqa: E402
 from karpenter_core_tpu_torch.solver.factory import build_solver  # noqa: E402
@@ -2509,6 +2535,12 @@ def operator_exposition(out: dict) -> list:
 
 
 PAIR_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=2))
+# the smoke's clock: with phase 12 the whole script ran 855.5-1,228.7 s of
+# its 1,200 s limit on two cards, so phases 6b, 7, 8b, 9b and 10b's cap leg
+# run cut: two screen turns, three churn steps, half of 3c's pods and nodes
+# for 8b and 9b, two cap passes
+PAIR_HALF = (2250, 400, 100, 100)
+CHURN_STEPS = 3
 # phase 11's operator record: 1,500 bound pods (under the recorder's
 # 4,096-pod cap, so the record keeps them) and no pending claim pods (the
 # record carries no PersistentVolumeClaim, StorageClass or CSINode)
@@ -2537,7 +2569,7 @@ def phase_operator_pair(devices=("cuda", "cpu"), size=PAIR_SIZE) -> dict:
         types[it] = types.get(it, 0) + 1
     pool = max(sorted(types), key=types.get)
     out = {"machines": len(card.launched[0][1]), "ice": phase_ice(pool, size, devices[0]),
-           "cap": phase_cap(size, devices[0]), "record": card.records[0],
+           "cap": phase_cap(size, devices[0], cap=2500), "record": card.records[0],
            "exposition_samples": len(outcome[devices[0]]["exposition"])}
     say(f"[operator 10b] card and CPU agree: {len(outcome[devices[0]]['placements'])} bytes "
         f"of placements, {len(outcome[devices[0]]['options'])} launches, "
@@ -2774,6 +2806,321 @@ def replay_solve_record(label: str, taken: dict, must_match_live: bool) -> dict:
     return out
 
 
+# -- phase 12: the fallback paths on the card ---------------------------------
+
+# phase 10b's pods and nodes, with 18 pods bound a node (3,978 bound pods,
+# under the flight recorder's cap of 4,096) and no StatefulSet claims (a
+# record carries no PersistentVolumeClaim), so the live solve's record holds
+# its whole cluster context and can replay to its placements
+PHASE12_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=0, per_node=18))
+# ResilientSolver as the reference's process entry wraps its primary
+# (operator/__main__.py:636-668)
+RESILIENT_KW = dict(solve_timeout=900.0, wedge_stale_after=600.0)
+FALLBACK_SERIES = ("SOLVER_FALLBACK_TOTAL", "SOLVER_SMALL_BATCH_TOTAL", "SOLVER_WEDGED_TOTAL",
+                   "SOLVER_ABANDONED_TOTAL", "BREAKER_TRANSITIONS")
+
+
+def fallback_counts() -> dict:
+    """Every series of solver/fallback.py, by labels."""
+    return {(name, tuple(sorted(labels.items()))): v for name in FALLBACK_SERIES
+            for labels, v in getattr(fallback, name).series()}
+
+
+def counts_moved(before: dict) -> dict:
+    """The series that moved since `before`, by how much, as strings."""
+    after = fallback_counts()
+    return {f"{name}{dict(labels)}": v - before.get((name, labels), 0.0)
+            for (name, labels), v in after.items() if v != before.get((name, labels), 0.0)}
+
+
+class TimedSolver:
+    """A solver that keeps the wall time and the result of its last solve."""
+
+    def __init__(self, solver):
+        self.solver = solver
+        self.wall_s = None
+        self.result = None
+
+    def solve(self, *a, **k):
+        t0 = time.perf_counter()
+        self.result = self.solver.solve(*a, **k)
+        self.wall_s = time.perf_counter() - t0
+        return self.result
+
+
+class WedgeOnce:
+    """The card's solver behind a wedge: its first solve goes silent, not
+    touching the bound heartbeat, BEFORE it enters TorchSolver.solve, until
+    released; it then raises without entering it, so a thread the watchdog
+    abandons never touches the card. Later solves go straight through."""
+
+    def __init__(self, solver):
+        self.solver = solver
+        self.release = threading.Event()
+        self.armed = True
+
+    @property
+    def max_nodes(self):
+        return self.solver.max_nodes
+
+    def solve(self, *a, **k):
+        if self.armed:
+            self.armed = False
+            self.release.wait(120.0)
+            raise RuntimeError("the wedged dispatch was released")
+        return self.solver.solve(*a, **k)
+
+
+class TimedProbe:
+    """The real subprocess card probe (fallback.probe_backend), timed."""
+
+    def __init__(self):
+        self.seconds = []
+        self.reasons = []
+
+    def __call__(self):
+        t0 = time.perf_counter()
+        reason = fallback.probe_backend(60.0)
+        self.seconds.append(round(time.perf_counter() - t0, 3))
+        self.reasons.append(reason)
+        return reason
+
+
+def equivalence_bar(label, device, host, n_pods: int, kube_client=None, zones=None) -> dict:
+    """tests/test_differential_fuzz.py's bar between a device result and a
+    host one: every constraint holds in both (check_placements, and with
+    zones check_topology), the device fails no more pods than the host and
+    opens at most one machine more."""
+    for res in (device, host):
+        check_placements(res, n_pods, kube_client)
+        if zones:
+            check_topology(res, zones, kube_client)
+    out = {"device": [len(device.new_machines), len(device.failed_pods)],
+           "host": [len(host.new_machines), len(host.failed_pods)]}
+    if len(device.failed_pods) > len(host.failed_pods):
+        raise AssertionError(f"{label}: the device failed more pods than the host: {out}")
+    if len(device.new_machines) > len(host.new_machines) + 1:
+        raise AssertionError(f"{label}: the device opened more than one machine more than "
+                             f"the host: {out}")
+    return out
+
+
+def expect_moved(label, before: dict, want: dict) -> dict:
+    got = counts_moved(before)
+    if got != want:
+        raise AssertionError(f"{label}: the fallback series moved {got}, expected {want}")
+    return got
+
+
+def _fixed_cost(device, n_pods: int, n_types: int, reps: int = 5) -> dict:
+    """One small batch (n_pods generic pods over n_types instance types, one
+    provisioner) through TorchSolver and through GreedySolver: the median
+    of `reps` warm solves each (one solve before them warms up)."""
+    its = {"default": fake.instance_types(n_types)}
+    provs = [testing.make_provisioner(name="default")]
+    pods = [testing.make_pod(name=f"small-{i}", requests={"cpu": ["250m", "500m", "1"][i % 3],
+                                                           "memory": "512Mi"},
+                             uid=f"uid-small-{i:05d}", creation_timestamp=1000.0)
+            for i in range(n_pods)]
+    out = {"pods": n_pods, "types": n_types, "work": n_pods * n_types}
+    for name, solver in (("card", torch_solver.TorchSolver(max_nodes=1024, device=device)),
+                         ("greedy", torch_solver.GreedySolver())):
+        walls = []
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            res = solver.solve(pods, provs, its)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[f"{name}_ms"] = round(float(np.median(walls[1:])) * 1e3, 3)
+        out[f"{name}_failed"] = len(res.failed_pods)
+    return out
+
+
+def phase_fallback(device="cuda", size=PHASE12_SIZE, stale_s: float = 3.0,
+                   prober=None) -> dict:
+    """Phase 12: the fallback paths. `prober` replaces the real subprocess
+    card probe only to rehearse the phase on the CPU. The gen-2 collections
+    that start in each wrapped solve are counted (`gen2`)."""
+    prober = prober or TimedProbe()
+    gen2 = _GenTwo()
+    gc.callbacks.append(gen2)
+    # the earlier phases' long-lived objects stay out of this phase's
+    # collections: one gen-2 collection of the whole heap took 13.0 s inside
+    # a wrapped solve on one card's host
+    gc.freeze()
+    try:
+        return _phase_fallback(device, size, stale_s, prober, gen2)
+    finally:
+        gc.unfreeze()
+        gc.callbacks.remove(gen2)
+
+
+def _phase_fallback(device, size, stale_s, prober, gen2) -> dict:
+    n_pods, n_types, n_nodes, distinct, kw = size
+    pods, provs, its, client, cluster = live_cluster(n_pods, n_types, n_nodes,
+                                                     distinct=distinct, **kw)
+    zones = _zones(its)
+    n = len(pods)
+    solve_kw = dict(kube_client=client, cluster=cluster)
+    out = {"pods": n, "nodes": n_nodes, "bound": len(cluster.bindings)}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def build():
+        return build_solver(max_nodes=1512, device=device)
+
+    # 12a: the card's solver through the wrapper, against it unwrapped
+    t0 = time.perf_counter()
+    plain = build().solve(pods, provs, its, state_nodes=cluster.nodes(), **solve_kw)
+    sync()
+    out["plain_s"] = round(time.perf_counter() - t0, 3)
+    resilient = fallback.ResilientSolver(build(), torch_solver.GreedySolver(), prober=prober,
+                                         **RESILIENT_KW)
+    FLIGHTREC.enable()
+    FLIGHTREC.clear()
+    before = fallback_counts()
+    mark = gen2.mark()
+    screen.reset_launches()
+    t0 = time.perf_counter()
+    served = resilient.solve(pods, provs, its, state_nodes=cluster.nodes(), **solve_kw)
+    sync()
+    out["wrapped_s"] = round(time.perf_counter() - t0, 3)
+    out["wrapped_gen2"] = gen2.since(mark)
+    launches = screen.launch_counts()
+    out["launches"] = launches
+    out["moved_12a"] = expect_moved("12a", before, {})
+    if torch_solver.placements_json(served) != torch_solver.placements_json(plain):
+        raise AssertionError("12a: the wrapped solve differs from the unwrapped TorchSolver's")
+    if device == "cuda" and (launches["screen_prep"] < 1 or launches["block"] < 1):
+        raise AssertionError(f"12a: the wrapped solve launched {json.dumps(launches)}")
+    record = FLIGHTREC.last()
+    if record is None or (record["backend"], record["replayer"]) != ("primary", "torch"):
+        raise AssertionError(f"12a: the live record is {record and record['backend']}")
+    if record["inputs"].get("clusterOmitted"):
+        raise AssertionError("12a: the record omits its cluster context")
+    out["record_solve_ms"] = record["duration_ms"]
+    t0 = time.perf_counter()
+    replayed, _ = flightrec.replay(json.loads(json.dumps(record)), device=device)
+    sync()
+    out["replay_s"] = round(time.perf_counter() - t0, 3)
+    if flightrec.placements_json(replayed) != torch_solver.placements_json(served):
+        raise AssertionError(f"12a: the primary record's replay differs: "
+                             f"{flightrec.diff_placements(replayed, flightrec.canonical_placements(served))[:4]}")
+    out["probe_s_12a"] = list(getattr(prober, "seconds", []))
+    check_placements(served, n, client)
+    say(f"[fallback 12a] the card through ResilientSolver: {json.dumps(out)}")
+
+    # 12b: a wedge before TorchSolver is entered, the fallback, the record,
+    # and re-admission through the real probe on a fake clock
+    clock = testing.FakeClock()
+    events = Recorder(clock=clock)
+    wedge = WedgeOnce(build())
+    greedy = TimedSolver(torch_solver.GreedySolver())
+    resilient = fallback.ResilientSolver(wedge, greedy, recorder=events, clock=clock,
+                                         prober=prober, solve_timeout=900.0,
+                                         wedge_stale_after=stale_s, watchdog_poll=0.25)
+    probes_before = len(getattr(prober, "seconds", []))
+    before = fallback_counts()
+    FLIGHTREC.clear()
+    mark = gen2.mark()
+    t0 = time.perf_counter()
+    host = resilient.solve(pods, provs, its, state_nodes=cluster.nodes(), **solve_kw)
+    wedge_s = time.perf_counter() - t0
+    wedge_gen2 = gen2.since(mark)
+    wedge.release.set()
+    moved = expect_moved("12b wedge", before, {
+        "SOLVER_WEDGED_TOTAL{}": 1.0, "SOLVER_ABANDONED_TOTAL{'kind': 'wedged'}": 1.0,
+        "SOLVER_FALLBACK_TOTAL{'reason': 'wedged'}": 1.0,
+        "BREAKER_TRANSITIONS{'breaker': 'solver.device', 'to': 'open'}": 1.0})
+    if resilient.breaker.state != fallback.CircuitBreaker.OPEN:
+        raise AssertionError(f"12b: the breaker is {resilient.breaker.state} after the wedge")
+    if host is not greedy.result:
+        raise AssertionError("12b: the wedged solve was not served by GreedySolver")
+    check_placements(host, n, client)
+    record = FLIGHTREC.last()
+    if (record["backend"], record["replayer"]) != ("host.primary_error", "greedy") or (
+            "SolverWedgedError" not in record.get("primary_error", "")):
+        raise AssertionError(f"12b: the fallback record is {record['backend']}/"
+                             f"{record['replayer']}")
+    t0 = time.perf_counter()
+    replayed, _ = flightrec.replay(json.loads(json.dumps(record)))
+    greedy_replay_s = time.perf_counter() - t0
+    if flightrec.placements_json(replayed) != torch_solver.placements_json(host):
+        raise AssertionError("12b: the host.primary_error record's greedy replay differs")
+    deadline = time.monotonic() + 30.0
+    while resilient.health_report()["abandoned_live"] and time.monotonic() < deadline:
+        time.sleep(0.1)
+    report = resilient.health_report()
+    if (report["abandoned_total"], report["abandoned_live"]) != (1, 0):
+        raise AssertionError(f"12b: abandoned threads {report['abandoned_threads']}")
+    clock.advance(resilient.reprobe_interval)
+    before = fallback_counts()
+    mark = gen2.mark()
+    screen.reset_launches()
+    t0 = time.perf_counter()
+    back = resilient.solve(pods, provs, its, state_nodes=cluster.nodes(), **solve_kw)
+    sync()
+    back_s = time.perf_counter() - t0
+    back_gen2 = gen2.since(mark)
+    back_launches = screen.launch_counts()
+    expect_moved("12b re-admission", before, {
+        "BREAKER_TRANSITIONS{'breaker': 'solver.device', 'to': 'half_open'}": 1.0,
+        "BREAKER_TRANSITIONS{'breaker': 'solver.device', 'to': 'open'}": 1.0,
+        "BREAKER_TRANSITIONS{'breaker': 'solver.device', 'to': 'closed'}": 1.0})
+    if resilient.breaker.state != fallback.CircuitBreaker.CLOSED:
+        raise AssertionError(f"12b: the breaker is {resilient.breaker.state} after the probe")
+    if torch_solver.placements_json(back) != torch_solver.placements_json(plain):
+        raise AssertionError("12b: the re-admitted card's solve differs from 12a's")
+    if device == "cuda" and back_launches["screen_prep"] < 1:
+        raise AssertionError("12b: the re-admitted solve launched no screen")
+    reasons = [e.reason for e in events.for_object("Solver", "solver")]
+    if reasons != ["SolverWedged", "SolverRecovered"]:
+        raise AssertionError(f"12b: events {reasons}")
+    probes = list(getattr(prober, "seconds", []))[probes_before:]
+    b = {"wedged_solve_s": round(wedge_s, 3), "wedged_gen2": wedge_gen2,
+         "greedy_s": round(greedy.wall_s, 3), "greedy_replay_s": round(greedy_replay_s, 3),
+         "readmitted_solve_s": round(back_s, 3), "readmitted_gen2": back_gen2,
+         "probes_s": probes, "moved": moved, "events": reasons,
+         "wedge": report["wedge_history"][-1]}
+    out["12b"] = b
+    say(f"[fallback 12b] wedge, fallback and re-admission: {json.dumps(b)}")
+
+    # 12c: GreedySolver against the card on 12a's inputs, and the card's
+    # fixed cost against the small-batch work product
+    bar = equivalence_bar("12c", plain, host, n, client, zones)
+    c = {"bar": bar, "card_s": out["plain_s"], "greedy_s": round(greedy.wall_s, 3),
+         "fixed_cost": [_fixed_cost(device, n_p, n_t)
+                        for n_p, n_t in ((100, 10), (100, 40), (200, 100))],
+         "small_batch_work_max": resilient.small_batch_work_max}
+    out["12c"] = c
+    say(f"[fallback 12c] greedy against the card: {json.dumps(c)}")
+    del pods, provs, its, client, cluster, plain, served, host, back
+    FLIGHTREC.clear()
+    FLIGHTREC.disable()
+
+    # 12d: the native packer on phase 4's topology-free share, fresh (the
+    # packer refuses existing nodes)
+    g_pods, g_provs, g_its, _nodes = generic_mix()
+    max_nodes = 50000 // 5 + 1536
+    packer = native.NativeSolver(max_nodes=max_nodes, device=device)
+    t0 = time.perf_counter()
+    packed = packer.solve(g_pods, g_provs, g_its)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = torch_solver.TorchSolver(max_nodes=max_nodes, device=device,
+                                    incremental="off").solve(g_pods, g_provs, g_its)
+    sync()
+    card_s = time.perf_counter() - t0
+    d = {"pods": len(g_pods), "types": len(g_its["default"]),
+         "bar": equivalence_bar("12d", card, packed, len(g_pods)),
+         "native_s": round(native_s, 3), "native_phase_ms": {
+             k: round(v, 3) for k, v in packer.last_phase_ms.items()},
+         "card_s": round(card_s, 3), "gxx_build_s": native.BUILD_SECONDS}
+    out["12d"] = d
+    say(f"[fallback 12d] the native packer against the card: {json.dumps(d)}")
+    return out
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -2808,13 +3155,20 @@ def main() -> int:
         f"{sms} SMs, max SM clock {max_sm_mhz:.0f} MHz: 32-bit integer peak "
         f"{int_rate / 1e12:.2f} T ops/s")
 
-    # phase 1: build
+    # phase 1: build: every CUDA kernel (one nvcc per source) and the
+    # native packer (g++), all started together
     t0 = time.perf_counter()
+    gxx = threading.Thread(target=native.build, name="gxx-fast-pack")
+    gxx.start()
     cuda_build.build_all(KERNELS)
+    gxx.join()
     for name in KERNELS:
         cuda_build.load(name)
-    say(f"[build] {KERNELS} in {time.perf_counter() - t0:.2f} s "
-        f"(per kernel: {cuda_build.BUILD_SECONDS})")
+    native.fast_pack(np.zeros((1, 1), np.float32), np.ones((1, 1), np.uint8),
+                     np.ones((1, 1), np.float32), np.zeros(1, np.float32), 1)
+    say(f"[build] {KERNELS} and the native packer in {time.perf_counter() - t0:.2f} s "
+        f"(per kernel: {cuda_build.BUILD_SECONDS}; g++ fast_pack.cpp "
+        f"{native.BUILD_SECONDS:.2f} s)")
 
     # the main path's workload, encoded once here for phase 2's planes
     gen = generic_mix()
@@ -2977,12 +3331,11 @@ def main() -> int:
     tiered_shape = phase_tiered_shape(live_snap, provs, max_nodes, int_rate, busy_cycles)
     mark("phase 2 (the tiered shape)")
 
-    # phase 6b: the live cluster solved with the tiered screen, in turns
-    # with the prescreen (tiered, prescreen, prescreen, tiered) so the two
-    # compare within one call; each solve runs with the launch counts set
+    # phase 6b: the live cluster solved with the tiered screen, then with
+    # the prescreen, in one call; each solve runs with the launch counts set
     # to 0 just before it and read just after
     turns, tiered_total = [], {}
-    for mode in ("tiered", "prescreen", "prescreen", "tiered"):
+    for mode in ("tiered", "prescreen"):
         solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda",
                                           screen_mode=mode, incremental="off")
         screen.reset_launches()
@@ -3016,7 +3369,7 @@ def main() -> int:
 
     # phase 7: steady churn over the live cluster, incremental against full
     churn_launches, churn_forms, _steps = phase_churn(
-        pods, provs, its, client, cluster, max_nodes, _zones(its))
+        pods, provs, its, client, cluster, max_nodes, _zones(its), steps=CHURN_STEPS)
     mark("phase 7")
     del pods, provs, its, client, cluster, live_solver, live_result, live_snap
     gc.collect()
@@ -3089,8 +3442,9 @@ def main() -> int:
     mark("phase 9")
 
     # phase 8b: the card and the CPU decide alike at phase 3c's size
-    s_its, s_client, s_cluster, s_clock = settled_cluster(4500, 400, 200, distinct=100,
-                                                          n_ingress=300, n_sets=2)
+    s_its, s_client, s_cluster, s_clock = settled_cluster(*PAIR_HALF[:3],
+                                                          distinct=PAIR_HALF[3],
+                                                          n_ingress=150, n_sets=2)
     on_card = phase_consolidation("consolidation 8b card", s_its, s_client, s_cluster,
                                   s_clock, want_slots=True)
     on_cpu = phase_consolidation("consolidation 8b cpu", s_its, s_client, s_cluster,
@@ -3102,7 +3456,8 @@ def main() -> int:
     mark("phase 8b")
 
     # phase 9b: the card and the CPU execute alike at phase 8b's size
-    say(f"[lifecycle 9b] card and CPU agree: {json.dumps(phase_lifecycle_pair())}")
+    say(f"[lifecycle 9b] card and CPU agree: "
+        f"{json.dumps(phase_lifecycle_pair(size=PAIR_HALF))}")
     mark("phase 9b")
 
     # phase 10: the operator at full width, phase 6's live cluster through
@@ -3149,19 +3504,27 @@ def main() -> int:
     FLIGHTREC.disable()
     mark("phase 11")
 
+    # phase 12: the fallback paths: ResilientSolver around the card's
+    # solver (12a), a wedge and its recovery (12b), GreedySolver against
+    # the card and the card's fixed cost (12c), the native packer (12d)
+    fb = phase_fallback()
+    mark("phase 12")
+
     op_launches = {k: op_counts.get(k, 0) + background["launches"].get(k, 0)
                    for k in screen.LAUNCHES}
     op_forms = {k: op_counts.get(k, 0) + background["launches"].get(k, 0)
                 for k in screen.FORM_LAUNCHES}
+    fb_launches = {k: fb["launches"].get(k, 0) for k in screen.LAUNCHES}
+    fb_forms = {k: fb["launches"].get(k, 0) for k in screen.FORM_LAUNCHES}
     runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
-            cons_launches, life_launches, op_launches)
+            cons_launches, life_launches, op_launches, fb_launches)
     form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms,
-                 life_forms, op_forms)
+                 life_forms, op_forms, fb_forms)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
     say(f"[launches] phase 10 {json.dumps(op_counts)}, phase 10c "
-        f"{json.dumps(background['launches'])}; phases 4-10 summed {json.dumps(launches)} "
-        f"by form {json.dumps(forms)}")
+        f"{json.dumps(background['launches'])}, phase 12a {json.dumps(fb['launches'])}; "
+        f"phases 4-10 and 12a summed {json.dumps(launches)} by form {json.dumps(forms)}")
 
     # the line's numbers are those of this slice's main path, phase 10's
     # first operator step (the live cluster's backlog, solved through

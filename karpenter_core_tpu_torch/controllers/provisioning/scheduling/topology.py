@@ -1,22 +1,29 @@
 """Topology groups: spread, pod affinity and pod anti-affinity.
 
 The port of karpenter_core_tpu/controllers/provisioning/scheduling/
-topology.py (topology.go, topologygroup.go, topologynodefilter.go), as far
-as the device solver needs it: the groups a batch forms, hashed for sharing
-across pods, with their owners, selectors, node filters and registered
-domains, and their counts seeded from the cluster: scheduled pods listed
-through a kube client (countDomains, topology.go:231-276), the inverse
-anti-affinity of bound pods (topology.go:183-196) and namespace selectors
-resolved through the client (topology.go:327-347). Placement-time
-evaluation (the skew rule, affinity seeding, the anti-affinity zero-count
-rule, Record) runs on the device (ops/topology.py);
-ops/topology.encode_topology lowers these groups to its tensors.
+topology.py (topology.go, topologygroup.go, topologynodefilter.go): the
+groups a batch forms, hashed for sharing across pods, with their owners,
+selectors, node filters and registered domains, and their counts seeded
+from the cluster: scheduled pods listed through a kube client
+(countDomains, topology.go:231-276), the inverse anti-affinity of bound
+pods (topology.go:183-196) and namespace selectors resolved through the
+client (topology.go:327-347). ops/topology.encode_topology lowers these
+groups to the device solver's tensors, and the placement-time evaluation
+runs on the device there (ops/topology.py). The host scheduler
+(scheduler.py) evaluates the same rules here: the skew rule, affinity
+seeding and the anti-affinity zero-count rule (TopologyGroup.get),
+AddRequirements, Record and Register.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Set, Tuple
 
 from karpenter_core_tpu_torch.kube.objects import LABEL_HOSTNAME
+from karpenter_core_tpu_torch.scheduling.requirement import (
+    OP_DOES_NOT_EXIST,
+    OP_IN,
+    Requirement,
+)
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
 from karpenter_core_tpu_torch.utils import podutils
 
@@ -65,6 +72,29 @@ def _selector_matches(selector, labels: Dict[str, str]) -> bool:
     if selector is None:
         return False
     return selector.matches(labels)
+
+
+class TopologyError:
+    """An unsatisfiable topology constraint (topology.go:149-167), in the
+    reference's words. The message is built when it is read: the scheduler
+    reads it only for a new machine that refuses the pod, and formatting a
+    hostname group's counts costs far more than the check itself."""
+
+    __slots__ = ("type", "key", "counts", "pod_domains", "node_domains")
+
+    def __init__(self, tg: "TopologyGroup", pod_domains: Requirement,
+                 node_domains: Requirement):
+        self.type, self.key = tg.type, tg.key
+        self.counts = dict(tg.domains)
+        self.pod_domains, self.node_domains = repr(pod_domains), repr(node_domains)
+
+    def __str__(self) -> str:
+        return (f"unsatisfiable topology constraint for {self.type}, key={self.key} "
+                f"(counts = {self.counts}, podDomains = {self.pod_domains}, "
+                f"nodeDomains = {self.node_domains})")
+
+    def __format__(self, spec: str) -> str:
+        return format(str(self), spec)
 
 
 class TopologyNodeFilter:
@@ -129,9 +159,27 @@ class TopologyGroup:
         else:
             self.node_filter = TopologyNodeFilter.empty()
 
+    # -- next-domain selection (topologygroup.go:82-98,155-243) -----------
+
+    def get(self, pod, pod_domains: Requirement, node_domains: Requirement) -> Requirement:
+        if self.type == TOPOLOGY_TYPE_SPREAD:
+            return self._next_domain_spread(pod, pod_domains, node_domains)
+        if self.type == TOPOLOGY_TYPE_POD_AFFINITY:
+            return self._next_domain_affinity(pod, pod_domains, node_domains)
+        return self._next_domain_anti_affinity(pod_domains)
+
     def record(self, *domains: str) -> None:
         for domain in domains:
             self.domains[domain] = self.domains.get(domain, 0) + 1
+
+    def counts(self, pod, requirements: Requirements) -> bool:
+        """Whether the pod's placement under `requirements` counts for this
+        group (topologygroup.go:101-103)."""
+        return self._selects(pod) and self.node_filter.matches_requirements(requirements)
+
+    def register(self, *domains: str) -> None:
+        for domain in domains:
+            self.domains.setdefault(domain, 0)
 
     def add_owner(self, uid: str) -> None:
         self.owners.add(uid)
@@ -152,6 +200,60 @@ class TopologyGroup:
             self.max_skew,
             self.node_filter.canonical(),
         )
+
+    def _viable(self, domains: Requirement) -> List[str]:
+        """The group's domains that `domains` allows, in sorted order (the
+        order the reference's loops visit them). A finite requirement (a
+        node's one hostname) is walked over its own values, not over every
+        domain of the group."""
+        if not domains.complement:
+            return sorted(d for d in domains.values if d in self.domains and domains.has(d))
+        return [d for d in sorted(self.domains) if domains.has(d)]
+
+    def _next_domain_spread(self, pod, pod_domains: Requirement,
+                            node_domains: Requirement) -> Requirement:
+        """kube-scheduler skew rule: count + self - min <= maxSkew, the
+        min-count domain wins (topologygroup.go:155-182)."""
+        min_count = self._domain_min_count(pod_domains)
+        self_selecting = self._selects(pod)
+        best_domain = None
+        best_count = MAX_SKEW_UNBOUNDED
+        for domain in self._viable(node_domains):
+            count = self.domains[domain]
+            if self_selecting:
+                count += 1
+            if count - min_count <= self.max_skew and count < best_count:
+                best_domain = domain
+                best_count = count
+        if best_domain is None:
+            return Requirement(pod_domains.key, OP_DOES_NOT_EXIST)
+        return Requirement(pod_domains.key, OP_IN, [best_domain])
+
+    def _domain_min_count(self, domains: Requirement) -> int:
+        """The minimum over the domains the pod can select; the hostname
+        key's is always 0 (topologygroup.go:185-199)."""
+        if self.key == LABEL_HOSTNAME:
+            return 0
+        counts = [self.domains[d] for d in self._viable(domains)]
+        return min(counts) if counts else MAX_SKEW_UNBOUNDED
+
+    def _next_domain_affinity(self, pod, pod_domains: Requirement,
+                              node_domains: Requirement) -> Requirement:
+        """The domains holding matching pods; a self-selecting pod may seed
+        the first viable domain (topologygroup.go:202-233)."""
+        options = Requirement(pod_domains.key, OP_DOES_NOT_EXIST)
+        viable = self._viable(pod_domains)
+        options.insert(*(d for d in viable if self.domains[d] > 0))
+        if options.len() == 0 and self._selects(pod):
+            options.insert(*self._viable(pod_domains.intersection(node_domains))[:1])
+            options.insert(*viable[:1])
+        return options
+
+    def _next_domain_anti_affinity(self, domains: Requirement) -> Requirement:
+        """Only zero-count domains stay viable (topologygroup.go:235-243)."""
+        options = Requirement(domains.key, OP_DOES_NOT_EXIST)
+        options.insert(*(d for d in self._viable(domains) if self.domains[d] == 0))
+        return options
 
     def _selects(self, pod) -> bool:
         return pod.metadata.namespace in self.namespaces and _selector_matches(
@@ -197,6 +299,45 @@ class Topology:
             else:
                 tg = existing
             tg.add_owner(pod.metadata.uid)
+
+    def record(self, pod, requirements: Requirements) -> None:
+        """Commit a placement into the domain counts (topology.go:120-143)."""
+        for tg in self.topologies.values():
+            if tg.counts(pod, requirements):
+                domains = requirements.get_requirement(tg.key)
+                if tg.type == TOPOLOGY_TYPE_POD_ANTI_AFFINITY:
+                    tg.record(*domains.values_list())
+                elif domains.len() == 1:
+                    tg.record(domains.values_list()[0])
+        for tg in self.inverse_topologies.values():
+            if tg.is_owned_by(pod.metadata.uid):
+                tg.record(*requirements.get_requirement(tg.key).values_list())
+
+    def add_requirements(self, pod_requirements: Requirements,
+                         node_requirements: Requirements, pod
+                         ) -> Tuple[Optional[Requirements], Optional[TopologyError]]:
+        """Tighten the node's requirements to the viable domains
+        (topology.go:149-167). Returns (requirements, error); str(error) is
+        the reference's message."""
+        requirements = Requirements(node_requirements.values())
+        for tg in self._get_matching_topologies(pod, node_requirements):
+            pod_domains = pod_requirements.get_requirement(tg.key)
+            node_domains = node_requirements.get_requirement(tg.key)
+            domains = tg.get(pod, pod_domains, node_domains)
+            if domains.len() == 0:
+                return None, TopologyError(tg, pod_domains, node_domains)
+            requirements.add(domains)
+        return requirements, None
+
+    def register(self, topology_key: str, domain: str) -> None:
+        """Register a new domain, such as a machine's hostname
+        (topology.go:170-180)."""
+        for tg in self.topologies.values():
+            if tg.key == topology_key:
+                tg.register(domain)
+        for tg in self.inverse_topologies.values():
+            if tg.key == topology_key:
+                tg.register(domain)
 
     def _update_inverse_affinities(self) -> None:
         """Inverse anti-affinity of the pods bound in the cluster
@@ -316,3 +457,12 @@ class Topology:
             for ns in self.kube_client.list("Namespace", selector=selector):
                 selected.add(ns.metadata.name)
         return selected
+
+    def _get_matching_topologies(self, pod, requirements: Requirements) -> List[TopologyGroup]:
+        """The groups that control the pod's scheduling, and the inverse
+        groups the pod counts against (topology.go:351-364)."""
+        matching = [tg for tg in self.topologies.values()
+                    if tg.is_owned_by(pod.metadata.uid)]
+        matching += [tg for tg in self.inverse_topologies.values()
+                     if tg.counts(pod, requirements)]
+        return matching

@@ -846,26 +846,27 @@ REPLAY_KINDS = ("torch", "tpu", "greedy")
 
 def build_replay_solver(kind: str, max_nodes: Optional[int] = None,
                         device: str = "cuda"):
-    """The solver a replay runs on. "torch" is a TorchSolver on the card
-    (device="cuda", raising without one) unless the caller passes
-    device="cpu"; a record whose replayer is the reference's "tpu" replays
-    on the same TorchSolver. "greedy" raises until the host solver is
-    ported: a record asking for it gets no silent substitute."""
+    """The solver a replay runs on, by the record's replayer. "torch" is a
+    TorchSolver on the card (device="cuda", raising without one) unless the
+    caller passes device="cpu"; a reference record's "tpu" replays on the
+    same TorchSolver. "greedy" is the host GreedySolver (no device): the
+    replayer of every record a fallback solve wrote (solver/fallback.py)."""
     if kind in ("torch", "tpu"):
         from karpenter_core_tpu_torch.solver.torch_solver import TorchSolver
 
         return TorchSolver(max_nodes=max_nodes or 1024, device=device)
     if kind == "greedy":
-        raise NotImplementedError(
-            "replay on the greedy host solver: GreedySolver is not ported yet "
-            "(ROADMAP Queue A item 2); replay on \"torch\" instead")
+        from karpenter_core_tpu_torch.solver.torch_solver import GreedySolver
+
+        return GreedySolver()
     raise ValueError(f"unknown replay solver {kind!r}; one of {REPLAY_KINDS}")
 
 
 def replay(record: dict, solver_kind: Optional[str] = None,
            device: str = "cuda") -> Tuple[dict, object]:
     """Re-run a record's inputs through a solver (default: the recorded
-    replayer). Returns (canonical placements, SolveResult)."""
+    replayer, the solver that served the live solve). Returns (canonical
+    placements, SolveResult)."""
     inputs = restore_inputs(record["inputs"])
     kind = solver_kind or record.get("replayer", "greedy")
     solver = build_replay_solver(kind, inputs.max_nodes, device=device)

@@ -223,6 +223,17 @@ class Tracer:
         span.end_ns = end_ns
         self._record(span)
 
+    def instant(self, name: str, trace_id: Optional[str] = None,
+                **attrs) -> None:
+        """Record a zero-duration instant event (a breaker transition, a
+        wedge verdict), drawn as an instant ('i') marker in chrome_trace().
+        Disabled -> one flag check."""
+        if not self.enabled:
+            return
+        now = time.perf_counter_ns()
+        attrs["instant"] = True
+        self.add_span(name, now, now, trace_id=trace_id, **attrs)
+
     def _make(self, name, trace_id, attrs) -> Span:
         # a bound request context stamps its tenant onto every span (the
         # raw tenant, not the guarded label: span attrs are not metric
@@ -329,8 +340,9 @@ class Tracer:
 
     def chrome_trace(self) -> Dict[str, object]:
         """Chrome trace-event JSON (dict): complete ('X') events with
-        microsecond ts/dur, loadable in Perfetto and chrome://tracing, and
-        the process's name as a metadata event."""
+        microsecond ts/dur, loadable in Perfetto and chrome://tracing,
+        instant events as 'i' markers, and the process's name as a metadata
+        event."""
         events = []
         for span in self.spans():
             args = {"trace_id": span.trace_id, "span_id": span.span_id}
@@ -338,16 +350,21 @@ class Tracer:
                 args["parent_id"] = span.parent_id
             for k, v in span.attrs.items():
                 args[k] = v if isinstance(v, (int, float, bool)) else str(v)
-            events.append({
+            event = {
                 "name": span.name,
                 "cat": "karpenter",
                 "ph": "X",
                 "ts": (span.start_ns - self._t0_ns) / 1e3,
-                "dur": max(span.end_ns - span.start_ns, 0) / 1e3,
                 "pid": self._pid,
                 "tid": span.tid % 2**31,  # chrome wants a small int
                 "args": args,
-            })
+            }
+            if span.attrs.get("instant") and span.start_ns == span.end_ns:
+                event["ph"] = "i"
+                event["s"] = "p"  # process-scoped marker line
+            else:
+                event["dur"] = max(span.end_ns - span.start_ns, 0) / 1e3
+            events.append(event)
         events.append({"name": "process_name", "ph": "M", "pid": self._pid, "tid": 0,
                        "args": {"name": f"operator pid {self._pid}"}})
         return {

@@ -134,6 +134,9 @@ class Requirement:
             return OP_NOT_IN if self.values else OP_EXISTS
         return OP_IN if self.values else OP_DOES_NOT_EXIST
 
+    def __len__(self) -> int:
+        raise TypeError("use .len() — complement sets exceed Py __len__ range")
+
     def len(self) -> int:
         """Cardinality; complement sets count down from MAX_LEN."""
         if self.complement:

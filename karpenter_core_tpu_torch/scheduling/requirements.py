@@ -63,6 +63,15 @@ class Requirements(Dict[str, Requirement]):
                 requirement = requirement.intersection(existing)
             self[requirement.key] = requirement
 
+    def copy(self) -> "Requirements":
+        return Requirements(
+            Requirement._make(r.key, r.complement, r.values, r.greater_than, r.less_than)
+            for r in self.values()
+        )
+
+    def keys_set(self) -> frozenset:
+        return frozenset(self.keys())
+
     def get_requirement(self, key: str) -> Requirement:
         """Missing keys read as Exists (requirements.go:114-120)."""
         existing = super().get(key)

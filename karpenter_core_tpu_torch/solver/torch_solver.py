@@ -33,6 +33,12 @@ snapshot (solver/replan.py) through the same prescreen dispatch and
 residency, then one rung-mode scan per subset; `last_replan_phase_ms`
 holds its phases (args, upload, prescreen, device, fetch), each also a
 `solver.phase.replan.<name>` span.
+
+Each phase mark also touches the heartbeat the caller's thread has bound
+(utils/supervise, the dispatch watchdog of solver/fallback.ResilientSolver)
+under the span's name; with none bound a touch is one thread-local read.
+GreedySolver, beside TorchSolver as the reference keeps it beside
+TPUSolver, is the host fallback over the host scheduler.
 """
 from __future__ import annotations
 
@@ -77,6 +83,7 @@ from karpenter_core_tpu_torch.solver.encode import (
     replan_chunks,
 )
 from karpenter_core_tpu_torch.solver.incremental import DiffGate, IncrementalScreen
+from karpenter_core_tpu_torch.utils import supervise
 from karpenter_core_tpu_torch.utils.gctuning import gc_paused
 
 # run()'s positional argument order, as device_args() produces it
@@ -541,10 +548,15 @@ def slot_requirements(snap: EncodedSnapshot, state, slot) -> Requirements:
 
 
 def decode_solve(snap: EncodedSnapshot, placements, state) -> SolveResult:
-    """(commit log, ptr) + final slot state (host numpy) -> SolveResult."""
-    log, ptr = placements
-    with TRACER.span("solver.phase.expand", entries=int(ptr)):
-        assigned = expand_log(snap, log, ptr)
+    """Placements + final slot state (host numpy) -> SolveResult.
+    `placements` is a (commit log, ptr) pair from the scan, or a per-pod
+    slot array [P] (the native packer)."""
+    if isinstance(placements, tuple):
+        log, ptr = placements
+        with TRACER.span("solver.phase.expand", entries=int(ptr)):
+            assigned = expand_log(snap, log, ptr)
+    else:
+        assigned = np.asarray(placements)
     E = len(snap.state_nodes)
     all_pods = snap.pods
     ok_idx = np.nonzero(assigned >= 0)[0]
@@ -792,6 +804,10 @@ class TorchSolver:
             phases[name] = (now - t) / 1e6
             TRACER.add_span(f"solver.phase.{name}", t, now)
             t = now
+            # progress proof for the dispatch watchdog (ResilientSolver): a
+            # wedged dispatch stops marking; the label names the phase just
+            # finished
+            supervise.touch_heartbeat(f"solver.phase.{name}")
 
         snap = ctx.pop("encoded", None)
         if snap is None:
@@ -806,6 +822,9 @@ class TorchSolver:
         ctx["dictionary"] = snap.dictionary
         self._carry_dictionary = snap.dictionary
         mark("encode")
+        # dispatch-start heartbeat: staleness counts from the device
+        # pipeline's start, labelled as the device phase until a later mark
+        supervise.touch_heartbeat("solver.phase.device")
         geom = solve_geometry(snap, self.max_nodes)
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
             geom[7], geom[8], geom[9], geom[10], geom[12], geom[16]
@@ -832,6 +851,9 @@ class TorchSolver:
             mark("prescreen")
         run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
                               screen_v=screen_v, screen_mode=self.screen_mode)
+        # re-label for the long silent stretch ahead: a wedge inside the
+        # scan names the device phase, not the last host-side mark
+        supervise.touch_heartbeat("solver.phase.device")
         with device_profiler():
             log, ptr, state = run(screen0, *targs, items_pl=items_pl)
             if profile_dir():
@@ -878,7 +900,11 @@ class TorchSolver:
             phases[name] = (now - t) / 1e6
             TRACER.add_span(f"solver.phase.replan.{name}", t, now)
             t = now
+            supervise.touch_heartbeat(f"solver.phase.replan.{name}")
 
+        # dispatch-start heartbeat: staleness counts from the replan's
+        # dispatch, not from the last solve
+        supervise.touch_heartbeat("solver.phase.replan.device")
         before = screen_ops.launch_counts()
         geom = solve_geometry(snap, self.max_nodes)
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
@@ -935,3 +961,40 @@ class TorchSolver:
             "scans": scans,
         }
         return verdicts, pods
+
+
+class GreedySolver:
+    """The host fallback behind the same Solver interface: the host
+    scheduler (controllers/provisioning/scheduling/scheduler.py), the
+    reference semantics, run on the pods' deep copies in simulation mode.
+    The scheduler's per-pod causes (topology, host ports, limits) ride in
+    `errors`."""
+
+    def solve(self, pods, provisioners, instance_types, daemonset_pods=None,
+              state_nodes=None, kube_client=None, cluster=None) -> SolveResult:
+        from karpenter_core_tpu_torch.controllers.provisioning.scheduling.scheduler import (
+            SchedulerOptions,
+            build_scheduler,
+        )
+
+        pods = [copy.deepcopy(p) for p in pods]
+        scheduler = build_scheduler(
+            kube_client, cluster, provisioners, instance_types, pods,
+            state_nodes=state_nodes, daemonset_pods=daemonset_pods,
+            opts=SchedulerOptions(simulation_mode=True),
+        )
+        res = scheduler.solve(pods)
+        machines = [
+            SolvedMachine(
+                provisioner_name=m.provisioner_name,
+                template=m.template,
+                pods=m.pods,
+                requests=m.requests,
+                options_fn=lambda m=m: m.instance_type_options,
+                requirements_fn=lambda m=m: m.requirements,
+            )
+            for m in res.new_machines if m.pods
+        ]
+        existing = [(n.state_node, n.pods) for n in res.existing_nodes if n.pods]
+        return SolveResult(new_machines=machines, existing_assignments=existing,
+                           failed_pods=res.failed_pods, errors=dict(res.errors))

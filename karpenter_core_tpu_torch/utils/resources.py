@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Iterable, List
 
 ResourceList = Dict[str, float]
 
@@ -84,6 +84,10 @@ def fits(candidate: ResourceList, total: ResourceList) -> bool:
     return True
 
 
+def cmp(lhs: float, rhs: float) -> int:
+    return (lhs > rhs) - (lhs < rhs)
+
+
 def _container_requests(container) -> ResourceList:
     """Limits fill in missing requests (MergeResourceLimitsIntoRequests)."""
     requests = dict(container.resources.requests)
@@ -124,6 +128,17 @@ def limits_for_pods(*pods) -> ResourceList:
     merged = merge(*[ceiling_limits(p) for p in pods])
     merged["pods"] = float(len(pods))
     return merged
+
+
+def is_zero(rl: ResourceList) -> bool:
+    return all(v == 0 for v in rl.values())
+
+
+def resource_names(resource_lists: Iterable[ResourceList]) -> List[str]:
+    names = set()
+    for rl in resource_lists:
+        names.update(rl)
+    return sorted(names)
 
 
 def to_string(rl: ResourceList) -> str:

@@ -47,7 +47,7 @@ in phase 10).
 
 runs chip_smoke's phases 6b and 7 at those sizes on the CPU instead: the
 live cluster solved with screen_mode="tiered" beside the prescreen solve
-(wall and device times, items), then phase_churn's steady churn, four
+(wall and device times, items), then phase_churn's steady churn, three
 steps of bindings, joining machines, terminations and arrivals through
 an incremental and a full solver (each step's churn counts, prescreen
 mode, delta rows, columns and budgets, and prescreen times).
@@ -115,7 +115,8 @@ def rehearse_churn(n: int) -> dict:
         solve[mode] = {"wall_s": wall_s, "scan": dict(pack.LAST_SCAN),
                        "phases_ms": {k: round(v, 1) for k, v in solver.last_phase_ms.items()}}
     (_l, _f, steps), churn_s = _timed(lambda: cs.phase_churn(
-        pods, provs, its, client, cluster, max_nodes, cs._zones(its), device="cpu"))
+        pods, provs, its, client, cluster, max_nodes, cs._zones(its), steps=cs.CHURN_STEPS,
+        device="cpu"))
     return {"pending": len(pods), "nodes": nodes, "solve": solve, "churn_s": churn_s,
             "steps": [{"mode": st["mode"], "delta": st["delta"], "churn": st["churn"],
                        "refresh_ms": round(st["refresh_ms"], 2),

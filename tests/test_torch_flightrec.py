@@ -8,7 +8,7 @@ the same placements; the consolidation records of the same passes are
 equal on the geometries of tests/test_torch_consolidation.py. The rest
 holds the recorder itself: the ring and its caps, the dumps, the
 disabled path, suppression, the environment switch, replay on the card
-by default and no silent substitute for the greedy replayer."""
+by default and on the host GreedySolver for the greedy replayer."""
 import copy
 import json
 import os
@@ -147,8 +147,9 @@ def test_records_replay_across_packages(family):
 
 def test_build_replay_solver_hides_no_card():
     """"torch" (and a reference record's "tpu") is a TorchSolver on the
-    card unless the caller asks for the CPU; "greedy" raises, naming the
-    ROADMAP item that ports the host solver."""
+    card unless the caller asks for the CPU; "greedy" is the host
+    GreedySolver, the replayer a fallback record names, and a record
+    replays on it to the placements the port's GreedySolver gives."""
     import torch
 
     solver = trec.build_replay_solver("tpu", 64, device="cpu")
@@ -157,10 +158,11 @@ def test_build_replay_solver_hides_no_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trec.build_replay_solver("torch")
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        trec.build_replay_solver("greedy")
-    with pytest.raises(NotImplementedError):
-        trec.replay({"inputs": _snapshot("bulk", "torch"), "replayer": "greedy"})
+    assert isinstance(trec.build_replay_solver("greedy"), tsolver.GreedySolver)
+    pods, provs, its, daemons, nodes, _mn, _c, _cl = workload("bulk", "torch")
+    placements, _ = trec.replay({"inputs": _snapshot("bulk", "torch"), "replayer": "greedy"})
+    want = tsolver.GreedySolver().solve(pods, provs, its, daemons, nodes)
+    assert trec.placements_json(placements) == trec.placements_json(want)
     with pytest.raises(ValueError, match="unknown replay solver"):
         trec.build_replay_solver("mystery")
 

@@ -387,8 +387,22 @@ def _env_switch(m):
     return out
 
 
+def _instant(m):
+    """Instant events (a breaker transition, a wedge verdict): zero-length
+    spans drawn as 'i' markers, parented like any span; a disabled tracer
+    records nothing."""
+    t = _fresh(m)
+    with t.span("solver.solve"):
+        t.instant("solver.wedge", kind="wedged", phase="solver.phase.device")
+    t.instant("breaker.solver.device", to="open", from_state="closed", failures=3)
+    spans = [(s.name, s.start_ns == s.end_ns, s.attrs) for s in t.spans()]
+    off = m.tracer.Tracer(capacity=8)
+    off.instant("solver.wedge", kind="timeout")
+    return spans, off.spans(), _mask_trace(t.chrome_trace())
+
+
 TRACER_CASES = {f.__name__.strip("_"): f for f in (
-    _nesting, _retroactive, _errors, _ring, _export, _bridge, _env_switch)}
+    _nesting, _retroactive, _errors, _ring, _export, _bridge, _env_switch, _instant)}
 
 
 @pytest.mark.parametrize("case", sorted(TRACER_CASES))
