@@ -56,6 +56,7 @@ class Recorder:
         self._last_purge = 0.0
         self._posted = 0
         self._post_q = None
+        self._post_thread: Optional[threading.Thread] = None
         self._post_idle = threading.Event()
         self._post_idle.set()
         self.events: Deque[Event] = deque(maxlen=capacity)
@@ -118,9 +119,25 @@ class Recorder:
         with self._mu:
             if self._post_q is None:
                 self._post_q = q = queue.Queue(maxsize=1024)
-                threading.Thread(target=self._post_loop, args=(q,), daemon=True,
-                                 name="event-poster").start()
+                self._post_thread = threading.Thread(target=self._post_loop, args=(q,),
+                                                     daemon=True, name="event-poster")
+                self._post_thread.start()
             return self._post_q
+
+    def close(self, timeout: float = 5.0) -> bool:
+        """Write what is queued, then stop the poster thread and join it
+        (a later publish starts another); whether it ended in time."""
+        with self._mu:
+            q, thread = self._post_q, self._post_thread
+            self._post_q = self._post_thread = None
+        if q is None:
+            return True
+        try:
+            q.put(None, timeout=timeout)  # after everything queued before it
+        except queue.Full:
+            return False
+        thread.join(timeout)
+        return not thread.is_alive()
 
     def _post_loop(self, post_q: queue.Queue) -> None:
         posted = 0
@@ -130,6 +147,9 @@ class Recorder:
             except queue.Empty:
                 self._post_idle.set()
                 continue
+            if obj is None:  # close()
+                self._post_idle.set()
+                return
             try:
                 self.kube_client.create(obj)
             except Exception:  # noqa: BLE001 — the cluster's copy is best-effort

@@ -64,9 +64,11 @@ def _kind_of(obj) -> str:
 class InMemoryKubeClient:
     """Object store keyed (kind, namespace, name) with watch fan-out; kinds
     are class names ("Pod", "Node", "Machine", "PersistentVolumeClaim",
-    "CSINode", ...)."""
+    "CSINode", ...). `scheme` (api/scheme.default_scheme) maps kind names
+    to types: new_object() constructs through it, and strict=True refuses
+    to create an object of a kind it does not register."""
 
-    def __init__(self):
+    def __init__(self, scheme=None, strict: bool = False):
         self._mu = threading.RLock()
         self._objects: Dict[str, Dict[NamespacedName, object]] = {}
         self._watchers: Dict[str, List[queue.Queue]] = {}
@@ -76,18 +78,17 @@ class InMemoryKubeClient:
         self._pods_by_node: Dict[str, Dict[NamespacedName, int]] = {}
         self._pod_seq: Dict[NamespacedName, int] = {}
         self._seq = itertools.count()
+        if scheme is None:
+            from karpenter_core_tpu_torch.api.scheme import default_scheme
+
+            scheme = default_scheme()
+        self.scheme = scheme
+        self.strict = strict
 
     def new_object(self, kind: str):
-        """An empty object of `kind` (a watch's relist builds the DELETED
-        object of a vanished key from it)."""
-        from karpenter_core_tpu_torch.api import machine, provisioner
-        from karpenter_core_tpu_torch.kube import objects
-
-        for module in (objects, machine, provisioner):
-            cls = getattr(module, kind, None)
-            if isinstance(cls, type):
-                return cls()
-        raise KeyError(f"unknown kind {kind!r}")
+        """An empty object of a registered `kind` (a watch's relist builds
+        the DELETED object of a vanished key from it)."""
+        return self.scheme.new_object(kind)
 
     # -- the store and its pod index (under self._mu) ------------------------
 
@@ -125,6 +126,8 @@ class InMemoryKubeClient:
 
     def create(self, obj) -> object:
         kind = _kind_of(obj)
+        if self.strict and not self.scheme.recognizes(kind):
+            raise TypeError(f"kind {kind} is not registered in the scheme")
         with self._mu:
             key = NamespacedName(obj.metadata.namespace, obj.metadata.name)
             if key in self._objects.get(kind, {}):

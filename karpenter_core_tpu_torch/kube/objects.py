@@ -508,6 +508,43 @@ class Namespace:
         self.metadata.namespace = ""
 
 
+@dataclass
+class ConfigMap:
+    """core/v1 ConfigMap: the process entry reads its settings from the
+    karpenter-global-settings one."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class Secret:
+    """An opaque Secret (base64-encoded values in `data`): the admission
+    webhook's serving certificate."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)
+    type: str = "Opaque"
+
+
+@dataclass
+class LeaseSpec:
+    """coordination.k8s.io/v1 LeaseSpec: the leader-election record
+    (operator.go:108-110, the "leases" resource lock)."""
+
+    holder_identity: str = ""
+    lease_duration_seconds: int = 15
+    acquire_time: Optional[float] = None
+    renew_time: Optional[float] = None
+    lease_transitions: int = 0
+
+
+@dataclass
+class Lease:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: LeaseSpec = field(default_factory=LeaseSpec)
+
+
 # Well-known label constants (k8s.io/api/core/v1 well_known_labels.go)
 LABEL_HOSTNAME = "kubernetes.io/hostname"
 LABEL_TOPOLOGY_ZONE = "topology.kubernetes.io/zone"

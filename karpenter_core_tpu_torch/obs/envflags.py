@@ -1,9 +1,10 @@
 """The port's single funnel for environment configuration.
 
-Every environment read of the observability modules routes through these
-accessors. One funnel means the truthy/falsy grammar cannot drift between
-parsers, the knob surface is greppable in one place, and tests that
-monkeypatch os.environ keep working (reads stay live, nothing is cached).
+Every environment read of the observability modules and of the process
+entry routes through these accessors. One funnel means the truthy/falsy
+grammar cannot drift between parsers, the knob surface is greppable in one
+place, and tests that monkeypatch os.environ keep working (reads stay live,
+nothing is cached).
 
 The variables are the reference package's own (KARPENTER_TPU_TRACE,
 KARPENTER_TPU_LOG, KARPENTER_TPU_FLIGHTREC, KARPENTER_TPU_FLIGHTREC_DIR,
@@ -24,3 +25,18 @@ FALSY = ("0", "false", "off", "no")
 def raw(name: str, default: str = "") -> str:
     """os.environ.get with a string default, for callers that parse."""
     return os.environ.get(name, default)
+
+
+def require(name: str) -> str:
+    """A mandatory variable; KeyError naming it when unset."""
+    return os.environ[name]
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    """TRUTHY or FALSY spellings; unset or unrecognized gives `default`."""
+    value = os.environ.get(name, "").strip().lower()
+    if value in TRUTHY:
+        return True
+    if value in FALSY:
+        return False
+    return default

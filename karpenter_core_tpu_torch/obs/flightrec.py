@@ -690,6 +690,15 @@ class FlightRecorder:
         with self._mu:
             return self._cons_ring[-1] if self._cons_ring else None
 
+    def consolidations_json(self) -> str:
+        """The consolidation ring as the /debug/consolidations body."""
+        with self._mu:
+            body = {
+                "records": list(self._cons_ring),
+                "dropped": self._cons_recorded - len(self._cons_ring),
+            }
+        return json.dumps(body)
+
     def _commit(self, record: dict, dump: bool) -> None:
         with self._mu:
             self._ring.append(record)

@@ -373,6 +373,20 @@ class Tracer:
             "otherData": {"dropped_spans": self.dropped},
         }
 
+    def summary(self) -> str:
+        """A text table per span name: count, total, mean and max ms."""
+        agg: Dict[str, List[float]] = {}
+        for span in self.spans():
+            agg.setdefault(span.name, []).append(span.duration_ms)
+        lines = [f"{'span':<40} {'count':>6} {'total_ms':>10} {'mean_ms':>9} {'max_ms':>9}"]
+        for name in sorted(agg):
+            ds = agg[name]
+            lines.append(f"{name:<40} {len(ds):>6} {sum(ds):>10.1f} "
+                         f"{sum(ds) / len(ds):>9.1f} {max(ds):>9.1f}")
+        if self.dropped:
+            lines.append(f"(dropped {self.dropped} spans: ring buffer full)")
+        return "\n".join(lines)
+
     def export_chrome_trace(self, path: str) -> str:
         # write-temp + atomic rename: a Perfetto/chrome tab polling the
         # trace file mid-export must never load a JSON prefix

@@ -22,7 +22,10 @@ them, as in the reference; their caller does. Each controller reaches the
 cloud provider through its own metrics decorator
 (cloudprovider/metrics.py), which times every call by controller.
 
-The reference's webhooks are not part of the port yet (ROADMAP Queue A).
+new_operator(with_webhooks=True) installs the admission webhooks on the
+client (webhooks.install: every create and update defaulted, then
+validated). The process entry, `python -m karpenter_core_tpu_torch.operator`
+(operator/__main__.py), assembles all of this the way a deployment runs it.
 """
 from __future__ import annotations
 
@@ -311,11 +314,10 @@ def new_operator(cloud_provider, kube_client: Optional[InMemoryKubeClient] = Non
                  with_webhooks: bool = False) -> Operator:
     """Assemble the control plane (controllers.go:46-73). Without a
     solver one is built by solver/factory.build_solver: a TorchSolver on
-    the CUDA card, raising when there is none."""
-    if with_webhooks:
-        raise NotImplementedError(
-            "the admission webhooks are not ported yet (ROADMAP Queue A: the process "
-            "entry, options, leader election, the health server and the webhooks)")
+    the CUDA card, raising when there is none. with_webhooks installs
+    admission defaulting and validation on the client
+    (operator.WithWebhooks, operator.go:149-152); it is off by default
+    because test suites create deliberately partial objects."""
     if clock is None:
         clock = time.time
     if settings is not None:
@@ -331,6 +333,10 @@ def new_operator(cloud_provider, kube_client: Optional[InMemoryKubeClient] = Non
     cp_deprovisioning = decorate(cloud_provider, "deprovisioning")
     cp_inflight = decorate(cloud_provider, "inflightchecks")
     kube_client = kube_client if kube_client is not None else InMemoryKubeClient()
+    if with_webhooks:
+        from karpenter_core_tpu_torch.webhooks import install as install_webhooks
+
+        install_webhooks(kube_client)
     recorder = Recorder(clock=clock, kube_client=kube_client)
     cluster = Cluster(kube_client, cp_node, clock=clock)
     eviction_queue = EvictionQueue(kube_client, recorder)

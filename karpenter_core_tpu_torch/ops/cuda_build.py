@@ -15,7 +15,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict
+from typing import Dict, List
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -76,6 +76,12 @@ def build_all(names) -> Dict[str, str]:
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         return dict(zip(names, pool.map(build, names)))
+
+
+def loaded_names() -> List[str]:
+    """The kernels whose library this process has loaded."""
+    with _LOCK:
+        return sorted(_LIBS)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -29,7 +29,6 @@ import numpy as np
 
 from karpenter_core_tpu_torch.api import labels as api_labels
 from karpenter_core_tpu_torch.api.provisioner import order_by_weight
-from karpenter_core_tpu_torch.api.settings import DEFAULT_BUCKET_LADDER
 from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology import (
     Topology,
     build_domains,
@@ -72,9 +71,44 @@ def bucket_pow2(n: int, lo: int) -> int:
     return b
 
 
+# -- the geometry bucket ladder ----------------------------------------------
+# The solve-shaping batch axes (items, instance types, existing nodes) pad
+# to the values of the tier table (api/settings.py), so the geometries a
+# process can meet are known before the first pod arrives and the startup
+# prewarm (solver/prewarm.py) can warm each. Past the top rung an axis
+# continues power-of-two: a geometry no prewarm covered, counted by axis.
+
+BUCKET_OVERFLOW = None  # bound at the first overflow
+
+
+def _count_overflow(axis: str) -> None:
+    global BUCKET_OVERFLOW
+    if BUCKET_OVERFLOW is None:
+        from karpenter_core_tpu_torch.metrics.registry import NAMESPACE, REGISTRY
+
+        BUCKET_OVERFLOW = REGISTRY.counter(
+            f"{NAMESPACE}_bucket_overflow_total",
+            "Geometry axes padded past the configured bucket ladder's top "
+            "rung (power-of-two fallback: a compile the prewarm never "
+            "covered), by axis",
+        )
+    BUCKET_OVERFLOW.inc({"axis": axis})
+
+
+def resolve_ladder(ladder=None):
+    """The tier table in effect: an explicit one, else the process-wide
+    Settings'. Empty turns the snapping off (power-of-two padding)."""
+    if ladder is not None:
+        return tuple(ladder)
+    from karpenter_core_tpu_torch.api import settings as api_settings
+
+    return tuple(api_settings.current().bucket_ladder or ())
+
+
 def ladder_pad(n: int, ladder, axis: str, lo: int) -> int:
     """Round n up to the smallest tier value on `axis`; 0 stays 0. Past the
-    top rung, continue power-of-two from it. With no ladder, bucket_pow2."""
+    top rung, continue power-of-two from it, and count the overflow. With
+    no ladder, bucket_pow2."""
     if n <= 0:
         return 0
     values = sorted(getattr(t, axis) for t in ladder) if ladder else ()
@@ -83,6 +117,7 @@ def ladder_pad(n: int, ladder, axis: str, lo: int) -> int:
     for v in values:
         if n <= v:
             return v
+    _count_overflow(axis)
     b = values[-1]
     while b < n:
         b *= 2
@@ -505,7 +540,7 @@ def encode_snapshot(
     cluster=None,
     max_nodes: int = 1024,
     reuse_dictionary: Optional[LabelDictionary] = None,
-    ladder=DEFAULT_BUCKET_LADDER,
+    ladder=None,
     reuse: Optional[EncodeReuse] = None,
     carry_dictionary: Optional[LabelDictionary] = None,
 ) -> EncodedSnapshot:
@@ -528,7 +563,8 @@ def encode_snapshot(
     and the carrier replaces it only when it covers it
     (dictionary_covers) or covers it once new hostnames are rebound onto
     unused ones (dictionary_rebind_hostnames), so consecutive batches of a
-    churning cluster keep one geometry."""
+    churning cluster keep one geometry. `ladder` overrides the tier table
+    of the process-wide Settings (resolve_ladder)."""
     daemonset_pods = daemonset_pods or []
     # only nodes launched by us participate (scheduler.go:226-229)
     state_nodes = [n for n in (state_nodes or []) if n.owned()]
@@ -540,7 +576,7 @@ def encode_snapshot(
         if p.metadata.deletion_timestamp is None
     ]
     templates = [MachineTemplate(p) for p in provisioners]
-    ladder = tuple(ladder or ())
+    ladder = resolve_ladder(ladder)
 
     # global dedup of instance types by object identity
     all_types: List = []

@@ -28,6 +28,11 @@ and carries the instance-type planes (encode.EncodeReuse); the cluster's
 change feed gates the residency. `last_prescreen_mode` ("full" or
 "refresh") and `last_prescreen_delta` report the last dispatch.
 
+One lock serializes a solver's solves, replans and prewarms: the
+provisioning and deprovisioning loops share the operator's solver, and the
+startup prewarm (`prewarm_snapshot`, solver/prewarm.py) runs on a thread
+of its own while live solves arrive.
+
 `replan_screen` screens K consolidation candidate subsets of one union
 snapshot (solver/replan.py) through the same prescreen dispatch and
 residency, then one rung-mode scan per subset; `last_replan_phase_ms`
@@ -43,6 +48,7 @@ TPUSolver, is the host fallback over the host scheduler.
 from __future__ import annotations
 
 import copy
+import threading
 import time
 import traceback
 from collections import OrderedDict
@@ -693,6 +699,12 @@ class TorchSolver:
         self._inc_screens: "OrderedDict[tuple, IncrementalScreen]" = OrderedDict()
         self._diff_gate = DiffGate()
         self._gate_ok = True
+        # held by solve, replan_screen and prewarm_snapshot
+        self._lock = threading.RLock()
+        # the solve geometries (solve_geometry, screen mode) a solve or a
+        # prewarm has met, in order (the counterpart of the reference's
+        # compiled-program cache keys)
+        self._warm_keys: Dict[tuple, None] = {}
 
     def _inc_enabled(self) -> bool:
         """The delta re-solve applies only under prescreen: tiered keeps
@@ -720,6 +732,12 @@ class TorchSolver:
             or {id(p) for p in encoded.pods} != {id(p) for p in pods}
         ):
             raise ValueError("encoded snapshot was built from a different pod batch")
+        with self._lock:
+            return self._solve_locked(pods, provisioners, instance_types, daemonset_pods,
+                                      state_nodes, kube_client, cluster, encoded)
+
+    def _solve_locked(self, pods, provisioners, instance_types, daemonset_pods,
+                      state_nodes, kube_client, cluster, encoded) -> SolveResult:
         # the change feed is read once per solve (relaxation rounds see no
         # churn): a fault or a gap sends this solve's prescreen down the
         # full path and drops every resident tensor
@@ -826,6 +844,7 @@ class TorchSolver:
         # pipeline's start, labelled as the device phase until a later mark
         supervise.touch_heartbeat("solver.phase.device")
         geom = solve_geometry(snap, self.max_nodes)
+        self._warm_keys[(geom, self.screen_mode)] = None
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
             geom[7], geom[8], geom[9], geom[10], geom[12], geom[16]
         )
@@ -890,6 +909,12 @@ class TorchSolver:
         Returns (verdicts [K, 4] int32: scheduled, expected, n_new,
         inconclusive per subset; pods_per_slot [K, N] int32 when
         want_slots, else None). Only the verdicts are fetched otherwise."""
+        with self._lock:
+            return self._replan_locked(snap, provisioners, count_rows, exist_open,
+                                       uninitialized, cluster, want_slots)
+
+    def _replan_locked(self, snap, provisioners, count_rows, exist_open, uninitialized,
+                       cluster, want_slots):
         phases = self.last_replan_phase_ms = {}
         t = time.perf_counter_ns()
 
@@ -961,6 +986,45 @@ class TorchSolver:
             "scans": scans,
         }
         return verdicts, pods
+
+    # -- the startup prewarm -------------------------------------------------
+
+    def prewarm_snapshot(self, snap: EncodedSnapshot, provisioners) -> str:
+        """Pay a geometry's cold costs without solving
+        (tpu_solver.py:1104-1191): on the card, load the screen library
+        (nvcc builds it when the source is newer than the built one);
+        then device_args and the upload of the snapshot, and the
+        prescreen at its geometry (screen_prep and the screen forms that
+        geometry takes), which also makes the caching allocator's first
+        allocations there. The scan does not run. Returns "compiled" when
+        this call loaded the library or first met the snapshot's solve
+        geometry, "cached" otherwise (a live solve or an earlier prewarm
+        got there first).
+
+        Under the solver's lock, so that a live solve never interleaves
+        with it; it neither reads nor adopts a resident prescreen tensor,
+        and leaves the per-solve state (`last_phase_ms`,
+        `last_prescreen_*`, ops/pack.LAST_SCAN) as the last solve left it."""
+        with self._lock:
+            fresh = False
+            if self.device.type == "cuda":
+                from karpenter_core_tpu_torch.ops import cuda_build
+
+                fresh = "screen" not in cuda_build.loaded_names()
+                cuda_build.load("screen")
+            geom = solve_geometry(snap, self.max_nodes)
+            key = (geom, self.screen_mode)
+            fresh = fresh or key not in self._warm_keys
+            self._warm_keys[key] = None
+            args = device_args(snap, provisioners)
+            targs = args_to_torch(args, self.device)
+            N, segments, screen_v = geom[7], geom[8], geom[16]
+            pod_arrays, exist = targs[0], targs[9]
+            ops = ScreenOps(segments, pod_arrays["allow"].shape[1], screen_v)
+            ops.initial_screen(class_planes(pod_arrays, ops), exist["allow"], exist["out"],
+                               exist["defined"], N)
+            self._sync()
+        return "compiled" if fresh else "cached"
 
 
 class GreedySolver:

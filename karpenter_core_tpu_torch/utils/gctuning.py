@@ -15,6 +15,12 @@ them as abandoned (a solve thread that died inside its window would
 otherwise leave collection off for good): it restores collection, runs a
 collection, and starts a fresh span. The exit of an abandoned window
 changes nothing.
+
+`apply_server_gc_tuning()` is the long-lived server's posture, applied
+once by the process entry after its wiring: the warmed object graph is
+frozen out of the collector's scans and gen-2's threshold widened, so a
+collection no longer walks the whole cluster every few reconciles
+(operator.go:84-88 sets a soft memory limit for the same reason).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ _depth = 0
 _epoch = 0  # bumped when open windows are abandoned
 _reenable = False  # whether collection was on when the span began
 _since = 0.0  # when the current span began
+_applied = False  # apply_server_gc_tuning widened the threshold
 
 
 @contextlib.contextmanager
@@ -82,3 +89,18 @@ def depth() -> int:
     """The number of open windows (0 when collection is not deferred)."""
     with _lock:
         return _depth
+
+
+def apply_server_gc_tuning(gen2_threshold: int = 100) -> None:
+    """Collect, freeze what is left into the permanent generation, and set
+    gen-2's threshold to `gen2_threshold` (once). Call after the process
+    has warmed up, imports and wiring done, so that the frozen set is the
+    long-lived baseline. A second call collects and freezes again and
+    leaves the threshold as the first set it."""
+    global _applied
+    gc.collect()
+    gc.freeze()
+    if not _applied:
+        a0, a1, _ = gc.get_threshold()
+        gc.set_threshold(a0, a1, gen2_threshold)
+        _applied = True

@@ -965,3 +965,73 @@ def test_card_replays_a_cpu_flight_record():
     cpu, _ = flightrec.replay(record, device="cpu")
     assert flightrec.placements_json(card) == flightrec.placements_json(cpu)
     assert not result.failed_pods
+
+
+@pytest.mark.cuda
+def test_card_process_entry_serves_a_backlog():
+    """operator/__main__.run() on the card at a small size: the S and M
+    tiers prewarmed on the card (the screen launched), a 240-pod backlog
+    over 101 types (past the small-batch bound, so the card's solver
+    serves it) nominated through the ResilientSolver and the card probe,
+    the endpoints served, and a clean stop."""
+    import gc
+    import json
+    import os
+    import threading
+    import time
+    import urllib.request
+
+    from karpenter_core_tpu_torch.operator import __main__ as entry
+    from karpenter_core_tpu_torch.operator.options import parse_options
+    from karpenter_core_tpu_torch.solver import prewarm
+    from karpenter_core_tpu_torch.utils import gctuning
+
+    _card()
+    threshold = gc.get_threshold()
+    env = {k: os.environ.get(k) for k in ("KARPENTER_PREWARM", "KARPENTER_PREWARM_TIERS")}
+    os.environ.update(KARPENTER_PREWARM="1", KARPENTER_PREWARM_TIERS="S,M")
+    client = TClient()
+    client.create(tt.make_provisioner(name="default"))
+    stop, got = threading.Event(), {}
+    screen.reset_launches()
+    th = threading.Thread(target=lambda: got.update(op=entry.run(
+        tfake.FakeCloudProvider(tfake.instance_types(101)), kube_client=client,
+        stop_event=stop, options=parse_options(["--metrics-port", "0", "--enable-profiling",
+                                                "--disable-webhook"]),
+        on_start=lambda proc: got.update(proc=proc))))
+    th.start()
+    try:
+        deadline = time.monotonic() + 300
+        while prewarm.PREWARM_READY.get() != 1.0 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert prewarm.PREWARM_READY.get() == 1.0
+        assert screen.LAUNCHES["screen_prep"] > 0
+        proc = got["proc"]
+        bound = {}
+        proc.operator.provisioning.bind_listeners.append(
+            lambda pod, node: bound.__setitem__(pod.metadata.name, node))
+        names = [f"bl-{i}" for i in range(240)]
+        for i, name in enumerate(names):
+            client.create(tt.make_pod(name=name, requests={"cpu": ["250m", "1"][i % 2]},
+                                      uid=f"uid-bl-{i}"))
+        while not set(names) <= set(bound) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert set(names) <= set(bound)
+        port = proc.health_port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/health") as r:
+            assert json.loads(r.read())["solver"]["healthy"] is True
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/backend") as r:
+            backend = json.loads(r.read())
+        assert backend["loaded"] == ["screen"] and backend["compute_capability"] == "9.0"
+    finally:
+        stop.set()
+        th.join(timeout=120)
+        gc.unfreeze()
+        gc.set_threshold(*threshold)
+        gctuning._applied = False
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert not th.is_alive() and got["proc"].alive == []

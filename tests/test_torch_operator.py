@@ -1023,8 +1023,14 @@ def test_a_solver_exception_propagates_unless_a_fallback_is_given():
         def solve(self, *a, **kw):
             raise RuntimeError("the card is gone")
 
-    with pytest.raises(NotImplementedError, match="webhooks"):
-        new_operator(fake.FakeCloudProvider(), solver=Broken(), with_webhooks=True)
+    from karpenter_core_tpu_torch.api.validation import ValidationError
+
+    # with_webhooks installs admission on the client: an invalid write fails
+    admitted = new_operator(fake.FakeCloudProvider(), solver=Broken(), with_webhooks=True)
+    bad = make_provisioner(name="bad")
+    bad.spec.ttl_seconds_until_expired = -1
+    with pytest.raises(ValidationError, match="ttlSecondsUntilExpired"):
+        admitted.kube_client.create(bad)
     op = new_operator(fake.FakeCloudProvider(fake.instance_types(4)), solver=Broken(),
                       clock=FakeClock())
     op.kube_client.create(make_provisioner(name="default"))
