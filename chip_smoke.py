@@ -71,8 +71,20 @@ Phases, each fatal on failure:
      the first step must run the full precompute, a later one must refresh
      the resident tensor, each prescreen dispatch must launch exactly what
      its delta needs, and no refresh may fail.
+  14a, 14c. the solver boundary, right after phase 6 on its cluster: 14a
+     phase 6's backlog through a HostSolver (solver/host.py) whose
+     supervised child process solves on the card, placements
+     byte-identical to phase 6's in-process solve, the child's launches
+     (zeroed just before) with screen_prep and the block form among them;
+     its spawn, probe, wall, phases here and in the child, and the frames'
+     bytes printed. 14c, where grpc and protobuf import (else one line says
+     so): serve() on localhost in this process on the card, RemoteSolver
+     solving the same backlog (byte-identical) and a three-subset Replan
+     of phase 6's snapshot (equal to the in-process replan), the request
+     and response bytes printed;
   8. consolidation at full width: phase 6's live cluster built afresh
-     without its backlog (1,000 nodes, 30,000 bound pods) and a
+     without its backlog, at 600 of its 1,000 nodes (18,000 bound pods;
+     the depth cut that pays for phase 14), and a
      provisioner with consolidation enabled; through the port's
      deprovisioning modules (candidate_nodes, the ProvisioningController, the
      consolidation deprovisioners, solver/replan.py) on a FakeClock with
@@ -200,6 +212,17 @@ Phases, each fatal on failure:
      small-batch work product; 12d: native.NativeSolver(device="cuda") on
      phase 4's topology-free share without its nodes against TorchSolver
      to the same bar, both walls and the g++ build time.
+  14b. the wedge drill at phase 12's size: ResilientSolver around a
+     HostSolver (stale_after 3 s, wedge_stale_after=None: the host
+     watches) solves once in the child on the card; the child is stopped
+     (SIGSTOP) once the next solve's request frame is written; fatal
+     unless the watchdog kills its process group, greedy serves every pod,
+     no abandoned thread lives, the killed pid is gone (and gone from
+     nvidia-smi's compute processes), health() finds the respawned child,
+     and the re-admitted solve is byte-identical to an in-process
+     TorchSolver's and to the child's first. Prints the kill's delay after
+     the SIGSTOP, the respawn's and the recovery's seconds, the card
+     memory freed and nvidia-smi's compute processes before and after;
   13. the process entry, last (its collector tuning is process-wide):
      operator/__main__.run() on a thread, on the card, over phase 12's
      cluster (its nodes and bound pods in the kube client, the provisioner
@@ -207,13 +230,20 @@ Phases, each fatal on failure:
      metrics port ephemeral, the webhook on where `cryptography` imports
      (else disable_webhook, printed), every tier of the default ladder (S,
      M, L, XL) prewarmed; once the prewarm is ready the 4,800-pod backlog
-     is created in the client. Fatal: a tier not "compiled" or "cached",
+     is created in the client. The entry's default primary is the solver
+     host: the prewarm and the live solves run in its child on the card,
+     whose launches are counted (fatal without screen_prep and the block
+     form in the live solve), whose boot and health are printed, and whose
+     process group must be gone after the stop. Fatal: a primary other
+     than the HostSolver, a tier not "compiled" or "cached",
      karpenter_prewarm_ready not 1, the Lease not the elector's, a backlog
      pod not nominated within 180 s, the first live solve's placements
      failing check_placements (the bound pods counted), /healthz, /readyz, /metrics (with the
      karpenter_prewarm_*, karpenter_slo_* and karpenter_solver_* families),
-     /debug/health (healthy), /debug/config (the injected options and
-     settings) or another endpoint not 200, a fallback, a reconcile error
+     /debug/health (healthy, the host alive), /debug/config (the injected
+     options and settings) or another endpoint (/debug/tenants,
+     /debug/timeline and /debug/programs among them) not 200, a fallback,
+     a reconcile error
      or a launch failure, and after the stop a thread still alive (the
      reconcile pools' idle workers live for the process) or the lease still
      held. It prints each tier's seconds with the build's apart, the card
@@ -227,7 +257,8 @@ Phase 1 builds the native packer (g++, native/fast_pack.cpp) beside the
 CUDA kernels. Phases 4-6 solve with incremental="off", so their warm solves
 run the full precompute as before. It prints one JSON line describing
 every kernel (the screen, screen_prep, and the screen's three forms with
-their launches over phases 4-10, 12a and 13), then as its last line
+their launches over phases 4-10, 12a, 13 and 14, the solver host's
+children's and the gRPC service's summed in), then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
@@ -242,6 +273,7 @@ import json
 import os
 import re
 import resource
+import signal
 import subprocess
 import sys
 import tempfile
@@ -283,7 +315,13 @@ from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (  # n
 from karpenter_core_tpu_torch.events import Recorder  # noqa: E402
 from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient  # noqa: E402
 from karpenter_core_tpu_torch.metrics.registry import REGISTRY  # noqa: E402
-from karpenter_core_tpu_torch.obs import FLIGHTREC, LOG_SINK, TRACER, flightrec  # noqa: E402
+from karpenter_core_tpu_torch.obs import (  # noqa: E402
+    FLIGHTREC,
+    LOG_SINK,
+    TRACER,
+    flightrec,
+    proghealth,
+)
 from karpenter_core_tpu_torch.kube.objects import (  # noqa: E402
     LABEL_HOSTNAME,
     Condition,
@@ -309,7 +347,9 @@ from karpenter_core_tpu_torch.solver import fallback, incremental  # noqa: E402
 from karpenter_core_tpu_torch.solver import prewarm as prewarm_mod  # noqa: E402
 from karpenter_core_tpu_torch.solver import replan  # noqa: E402
 from karpenter_core_tpu_torch.solver.encode import encode_snapshot  # noqa: E402
-from karpenter_core_tpu_torch.solver.factory import build_solver  # noqa: E402
+from karpenter_core_tpu_torch.solver import host as host_mod  # noqa: E402
+from karpenter_core_tpu_torch.solver.factory import build_solver, describe  # noqa: E402
+from karpenter_core_tpu_torch.solver.host import HostSolver  # noqa: E402
 from karpenter_core_tpu_torch.state import informer  # noqa: E402
 from karpenter_core_tpu_torch.state.cluster import Cluster  # noqa: E402
 from karpenter_core_tpu_torch.state.node import StateNode  # noqa: E402
@@ -1423,6 +1463,11 @@ def phase_churn(pods, provs, its, client, cluster, max_nodes: int, zones, steps:
 
 # -- phase 8: consolidation over a live cluster --------------------------------
 
+# phase 8's settled cluster: phase 6's at 600 of its 1,000 nodes (18,000
+# bound pods), the depth cut that pays for phase 14
+PHASE8_NODES = 600
+
+
 def settled_cluster(*args, **kw):
     """live_cluster(*args, **kw) without its pending backlog: the settled
     cluster consolidation runs on, on a FakeClock, with the provisioner
@@ -2093,20 +2138,26 @@ def parse_exposition(text: str) -> dict:
                 if raw[pos] != ",":
                     raise AssertionError(f"exposition line {n}: bad labels: {line!r}")
                 pos += 1
-        base = re.sub(r"_(bucket|sum|count)$", "", name)
-        owner = families.get(name) or families.get(base)
-        if owner is None or owner["type"] is None or (
-                name != base and owner is not families.get(base)):
+        # a sample of a declared family (a gauge may end in _count:
+        # karpenter_program_count), else a histogram's _bucket, _sum or
+        # _count sample of its base family
+        owner = families.get(name)
+        if owner is None or owner["type"] is None:
+            base = re.sub(r"_(bucket|sum|count)$", "", name)
+            owner = families.get(base) if base != name else None
+        if owner is None or owner["type"] is None:
             raise AssertionError(f"exposition line {n}: sample before its TYPE: {line!r}")
         owner["samples"].append((name, labels, float(value)))
     return families
 
 
 def reset_registry() -> None:
-    """Every series of the process registry dropped: a fresh exposition, as
-    after a restart, for one operator run."""
+    """Every series of the process registry dropped, and the program
+    ledger emptied: a fresh exposition, as after a restart, for one
+    operator run."""
     for metric in list(REGISTRY.metrics.values()):
         metric.clear()
+    proghealth.reset()
 
 
 def series_of(counter) -> dict:
@@ -2552,10 +2603,18 @@ def operator_outcome(run: "OperatorRun") -> dict:
             "counters": run.counters()}
 
 
+# the counters and gauges whose values are seconds (the program ledger's
+# first-dispatch seconds): 10b compares neither, as it compares no duration
+TIMED_FAMILIES = ("karpenter_program_compile_seconds_total",)
+
+
 def operator_exposition(out: dict) -> list:
     """What 10b compares of a run's exposition after step 2: every counter
-    and gauge sample (durations excluded: they are histograms)."""
-    return exposition_values(out["exposition"]["families_parsed"])
+    and gauge sample (durations excluded: they are histograms, or counters
+    of seconds, TIMED_FAMILIES)."""
+    families = {k: v for k, v in out["exposition"]["families_parsed"].items()
+                if k not in TIMED_FAMILIES}
+    return exposition_values(families)
 
 
 PAIR_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=2))
@@ -3124,16 +3183,21 @@ class EntryProbe:
     """Wraps the wired solvers once run() hands over its Process: the
     ResilientSolver's prober (seconds, and the thread that paid each
     probe), its solve (wall, probe included), and the primary's solve
-    (wall, last_phase_ms, and its first encode_snapshot, as OperatorRun
-    keeps them)."""
+    (wall, last_phase_ms, the solver host child's phases, and its first
+    encoded snapshot, as OperatorRun keeps them)."""
 
     def __init__(self, proc):
         self.proc = proc
         self.probes, self.wrapped, self.solves, self.bound = [], [], [], {}
         solver, primary = proc.solver, proc.primary
         real_prober, real_wrapped, real_solve = solver.prober, solver.solve, primary.solve
-        real_encode = torch_solver.encode_snapshot
-        sync = torch.cuda.synchronize if primary.device.type == "cuda" else (lambda: None)
+        # the solver host encodes through its own encode(), in this process;
+        # the in-process solver through torch_solver's encode_snapshot
+        host = isinstance(primary, HostSolver)
+        encoder = primary if host else torch_solver
+        real_encode = getattr(encoder, "encode" if host else "encode_snapshot")
+        on_card = torch.device(primary.device).type == "cuda" and not host
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
 
         def prober():
             t0 = time.perf_counter()
@@ -3151,17 +3215,23 @@ class EntryProbe:
 
         def solve(*a, **kw):
             snaps = []
-            torch_solver.encode_snapshot = lambda *ea, **ekw: (
-                snaps.append(real_encode(*ea, **ekw)) or snaps[-1])
+            name = "encode" if host else "encode_snapshot"
+            setattr(encoder, name, lambda *ea, **ekw: (
+                snaps.append(real_encode(*ea, **ekw)) or snaps[-1]))
             t0 = time.perf_counter()
             try:
                 res = real_solve(*a, **kw)
                 sync()
             finally:
-                torch_solver.encode_snapshot = real_encode
+                if host:
+                    del primary.encode
+                else:
+                    torch_solver.encode_snapshot = real_encode
             self.solves.append({"pods": len(a[0]), "wall_s": round(time.perf_counter() - t0, 3),
                                 "phases_ms": {k: round(v, 3)
                                               for k, v in primary.last_phase_ms.items()},
+                                "child_phases_ms": dict(getattr(primary,
+                                                                "last_child_phase_ms", {})),
                                 "snapshot": (snaps[0], a[1]) if snaps else None,
                                 "result": res, "failed": len(res.failed_pods)})
             return res
@@ -3255,10 +3325,19 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
     gctuning.apply_server_gc_tuning = tuning
     screen.reset_launches()
     TRACER.clear()
+
+    def launch_counts():
+        # the solver host's child launches the kernels in host mode
+        primary = got["probe"].proc.primary if "probe" in got else None
+        if isinstance(primary, HostSolver):
+            return _host_launches(primary)
+        return screen.launch_counts()
+
     t_run = time.perf_counter()
     thread = threading.Thread(target=main, name="entry-main")
     thread.start()
     out = {"pods": len(pods), "nodes": n_nodes, "webhook": HAVE_CRYPTOGRAPHY}
+    host = None
     try:
         out["start_s"] = round(_wait_for(lambda: "probe" in got or "error" in got, 300,
                                          "the entry's start"), 3)
@@ -3279,7 +3358,17 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
         if sorted(outcomes) != sorted(tiers) or any(
                 o not in ("compiled", "cached") for o in outcomes.values()) or ready != 1.0:
             raise AssertionError(f"entry: prewarm {json.dumps(out['prewarm'])}")
-        out["launches_prewarm"] = screen.launch_counts()
+        out["launches_prewarm"] = launch_counts()
+        host = proc.primary if isinstance(proc.primary, HostSolver) else None
+        out["primary"] = describe(proc.primary)
+        if device == "cuda" and host is None:
+            raise AssertionError("entry: the default primary is not the solver host")
+        if host is not None:
+            report = host.host_report()
+            out["child"] = {"pid": report["pid"], "generation": report["generation"],
+                            "spawn_s": report["last_boot_s"],
+                            "startup_s": host.host.last_startup_s,
+                            "health": host.health(timeout=120.0)}
         lease = client.get("Lease", leaderelection.LEASE_NAMESPACE, leaderelection.LEASE_NAME)
         if lease is None or lease.spec.holder_identity != proc.elector.identity:
             raise AssertionError(f"entry: the lease is {lease and lease.spec.holder_identity}, "
@@ -3296,7 +3385,8 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
         port = proc.health_port
         served = {}
         for path in ("/healthz", "/readyz", "/metrics", "/debug/health", "/debug/config",
-                     "/debug/", "/debug/backend", "/debug/slo", "/debug/trace/summary"):
+                     "/debug/", "/debug/backend", "/debug/slo", "/debug/trace/summary",
+                     "/debug/tenants", "/debug/timeline", "/debug/programs"):
             status, body = _http_get(port, path)
             served[path] = [status, len(body)]
             if status != 200:
@@ -3310,6 +3400,12 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
                 health = json.loads(body)
                 if health["status"] != "ok" or health["solver"]["healthy"] is not True:
                     raise AssertionError(f"entry: /debug/health {health}")
+                if host is not None and not (health["solver"]["host"] or {}).get("alive"):
+                    raise AssertionError(f"entry: /debug/health has no live host {health}")
+            elif path == "/debug/programs":
+                programs = json.loads(body)
+                out["programs"] = sorted({(r["process"], r["family"])
+                                          for r in programs["programs"]})
             elif path == "/debug/config":
                 config = json.loads(body)
                 if (config["options"]["enable_profiling"] is not True
@@ -3329,7 +3425,13 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
     if "error" in got:
         raise got["error"]
     out["run_s"] = round(time.perf_counter() - t_run, 3)
-    out["launches"] = screen.launch_counts()
+    out["launches"] = launch_counts()
+    if host is not None:
+        # run()'s stop closed the primary: its child's process group is gone
+        time.sleep(0.2)
+        if not _pid_gone(out["child"]["pid"]) or host.host.alive():
+            raise AssertionError(f"entry: the solver host's child {out['child']['pid']} "
+                                 "outlived the stop")
     out["launches_live"] = {k: out["launches"][k] - out["launches_prewarm"][k]
                             for k in out["launches"]}
     if proc.alive:
@@ -3354,8 +3456,8 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
         raise AssertionError("entry: the backlog reached no card solve")
     if device == "cuda" and (out["launches_live"]["screen_prep"] < 1
                              or out["launches_live"]["block"] < 1):
-        raise AssertionError(f"entry: the backlog was not screened on the card: "
-                             f"{out['launches_live']}")
+        raise AssertionError(f"entry: the backlog was not screened on the card (in the "
+                             f"solver host's child): {out['launches_live']}")
     first = probe.solves[0]
     # the first decision's placements, against the bound pods in the client
     out["placements"] = check_placements(first["result"], first["pods"], client)
@@ -3366,6 +3468,240 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
                counters=counters, gen2_without=gen2_without)
     say(f"[entry] {json.dumps(out)}")
     return {"out": out, "snapshot": first["snapshot"], "launches": out["launches"]}
+
+
+# -- phase 14: the solver boundary ----------------------------------------------
+
+# the wedge drill's heartbeat staleness threshold (12b's)
+WEDGE_STALE_S = 3.0
+
+
+def _host_launches(host) -> dict:
+    """A HostSolver child's launches since its last reset_launches(), by
+    kernel and by form."""
+    counts = host.launch_counts()
+    return {k: int(counts.get(k, 0)) for k in (*screen.LAUNCHES, *screen.FORM_LAUNCHES)}
+
+
+def _pid_gone(pid) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+def compute_apps() -> dict:
+    """pid -> used memory (MiB) of the card's compute processes, as
+    nvidia-smi lists them."""
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    out = {}
+    for line in lines:
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            out[int(parts[0])] = parts[1]
+    return out
+
+
+def phase_boundary_full(pods, provs, its, client, cluster, max_nodes, want, device="cuda"):
+    """14a: phase 6's full-width live-cluster backlog through a HostSolver
+    whose child solves on `device`: placements byte-identical to phase 6's
+    in-process solve (`want`), the child's launches (zeroed just before the
+    solve) with screen_prep and the block form among them. Prints the
+    child's spawn and probe seconds, the solve's wall and its parts in
+    this process and in the child, the frames' bytes."""
+    hs = HostSolver(max_nodes=max_nodes, device=device, spawn_timeout=300.0,
+                    solve_timeout=900.0)
+    try:
+        t0 = time.perf_counter()
+        health = hs.health(timeout=300.0)
+        probe_s = time.perf_counter() - t0
+        hs.reset_launches()
+        t0 = time.perf_counter()
+        res = hs.solve(pods, provs, its, state_nodes=cluster.nodes(), kube_client=client,
+                       cluster=cluster)
+        wall = time.perf_counter() - t0
+        launches = _host_launches(hs)
+        a, b = torch_solver.placements_json(res), torch_solver.placements_json(want)
+        if a != b:
+            raise AssertionError("14a: the solver host's placements differ from phase 6's "
+                                 "in-process ones")
+        if device == "cuda" and (launches["screen_prep"] < 1 or launches["block"] < 1):
+            raise AssertionError(f"14a: the child launched {launches}")
+        out = {"pods": len(pods), "device": health["device"],
+               "spawn_s": round(hs.host.last_boot_s, 3),
+               "child_startup_s": hs.host.last_startup_s, "probe_s": round(probe_s, 3),
+               "wall_s": round(wall, 3), "phases_ms": hs.last_phase_ms,
+               "child_phases_ms": hs.last_child_phase_ms,
+               "request_bytes": hs.last_bytes[0], "response_bytes": hs.last_bytes[1],
+               "placement_bytes": len(a), "launches": launches}
+    finally:
+        hs.close()
+    say(f"[boundary 14a] phase 6's backlog through the solver host: {json.dumps(out)}; "
+        "placements byte-identical to phase 6's")
+    return out
+
+
+def phase_wedge_drill(device="cuda", size=PHASE12_SIZE, stale_s: float = WEDGE_STALE_S):
+    """14b: at phase 12's size, a ResilientSolver around a HostSolver
+    (wedge_stale_after=None: the host watches) solves once on the child;
+    the child is stopped (SIGSTOP) once the next solve's request is
+    written, the watchdog must kill its process group at `stale_s`, and
+    GreedySolver serves that solve. The killed pid must be gone from
+    nvidia-smi's compute processes; health() respawns and probes the
+    child, and the next solve, through the breaker's re-admission, is
+    byte-identical to an in-process TorchSolver's. Prints the respawn and
+    recovery seconds and the card's free memory around the kill."""
+    n_pods, n_types, n_nodes, distinct, kw = size
+    pods, provs, its, client, cluster = live_cluster(n_pods, n_types, n_nodes,
+                                                     distinct=distinct, **kw)
+    hs = HostSolver(device=device, stale_after=stale_s, spawn_timeout=300.0,
+                    solve_timeout=900.0)
+    resilient = fallback.ResilientSolver(hs, torch_solver.GreedySolver(), solve_timeout=900.0,
+                                         wedge_stale_after=None, reprobe_interval=1.0,
+                                         probe_timeout=300.0, small_batch_work_max=0)
+
+    def solve(solver):
+        return solver.solve(pods, provs, its, state_nodes=cluster.nodes(), kube_client=client,
+                            cluster=cluster)
+
+    out = {"pods": len(pods), "nodes": n_nodes, "stale_after_s": stale_s}
+    real_write = host_mod._write_frame
+    stop = {"armed": False, "at": None}
+
+    def write(stream, header, body=b""):
+        real_write(stream, header, body)
+        if header.get("op") == "solve" and stop["armed"]:
+            stop["armed"] = False
+            stop["at"] = time.monotonic()
+            os.kill(hs.host.pid, signal.SIGSTOP)
+
+    hs.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        first = solve(resilient)
+        out["first_s"] = round(time.perf_counter() - t0, 3)
+        out["spawn_s"] = round(hs.host.last_boot_s, 3)
+        wedged = hs.host.pid
+        on_card = device == "cuda"
+        apps = compute_apps() if on_card else {}
+        out["pid_listed_before"] = wedged in apps
+        out["compute_apps_before"] = apps
+        free_before = torch.cuda.mem_get_info()[0] if device == "cuda" else 0
+        host_mod._write_frame = write
+        stop["armed"] = True
+        t0 = time.perf_counter()
+        try:
+            served = solve(resilient)
+        finally:
+            host_mod._write_frame = real_write
+        out["wedged_solve_s"] = round(time.perf_counter() - t0, 3)
+        kill = hs.host.last_kill or {}
+        report = resilient.health_report()
+        if kill.get("kind") != "wedged" or kill.get("pid") != wedged or stop["at"] is None:
+            raise AssertionError(f"14b: the wedge was not killed: {kill}")
+        # the watchdog's kill, in seconds after the SIGSTOP
+        out["killed_after_s"] = round(kill["at"] - stop["at"], 3)
+        out["kill_note"] = kill["note"]
+        if report["wedge_history"][-1]["kind"] != "wedged" or report["abandoned_live"]:
+            raise AssertionError(f"14b: {report}")
+        if served.pod_count_new() + served.pod_count_existing() < len(pods) // 2:
+            raise AssertionError("14b: greedy did not serve the wedged solve")
+        out["greedy_placed"] = served.pod_count_new() + served.pod_count_existing()
+        if not _pid_gone(wedged):
+            raise AssertionError(f"14b: the wedged child {wedged} is still alive")
+        deadline = time.perf_counter() + 20.0
+        while on_card:
+            apps = compute_apps()
+            if wedged not in apps or time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+        out["compute_apps_after"] = apps
+        if wedged in apps:
+            raise AssertionError(f"14b: nvidia-smi still lists the killed pid {wedged}: {apps}")
+        if device == "cuda":
+            out["free_mib_gained"] = round((torch.cuda.mem_get_info()[0] - free_before)
+                                           / 2 ** 20, 1)
+        # the watchdog respawned the child at the kill, while greedy served:
+        # its boot (spawn to ready frame) is the respawn, and the recovery
+        # runs from the kill to the ready frame
+        t0 = time.perf_counter()
+        hs.health(timeout=300.0)
+        out["health_s"] = round(time.perf_counter() - t0, 3)
+        out["respawn_s"] = round(hs.host.last_boot_s, 3)
+        out["recovery_s"] = round(hs.host._spawned_at + hs.host.last_boot_s - kill["at"], 3)
+        out["generation"] = hs.host.generation
+        time.sleep(1.1)  # the breaker's reset timeout (reprobe_interval)
+        t0 = time.perf_counter()
+        again = solve(resilient)
+        out["readmitted_s"] = round(time.perf_counter() - t0, 3)
+        if resilient.breaker.state != "closed" or resilient.health_report()["healthy"] is not True:
+            raise AssertionError(f"14b: not re-admitted: {resilient.health_report()}")
+        local = solve(torch_solver.TorchSolver(device=device))
+        if torch_solver.placements_json(again) != torch_solver.placements_json(local):
+            raise AssertionError("14b: the re-admitted host's solve differs from the "
+                                 "in-process one")
+        if torch_solver.placements_json(again) != torch_solver.placements_json(first):
+            raise AssertionError("14b: the re-admitted host's solve differs from its first")
+        out["launches"] = _host_launches(hs)
+    finally:
+        host_mod._write_frame = real_write
+        hs.close()
+    say(f"[boundary 14b] the wedge drill: {json.dumps(out)}")
+    return out
+
+
+def phase_grpc(pods, provs, its, client, cluster, max_nodes, want, snap, device="cuda"):
+    """14c, where `grpc` imports: serve() on localhost in this process on
+    `device`, then RemoteSolver solves phase 6's backlog (placements
+    byte-identical to phase 6's) and screens three subsets of its snapshot
+    (verdicts and per-slot counts equal to the in-process replan). Prints
+    the request and response bytes. Returns None, printing why, where
+    `grpc` does not import."""
+    try:
+        import grpc  # noqa: F401
+        from karpenter_core_tpu_torch.solver import service_pb2  # noqa: F401
+    except ImportError as exc:
+        say(f"[boundary 14c] skipped: the gRPC path needs grpc and protobuf, which do not "
+            f"import here ({exc}); the CPU tests hold it (tests/test_torch_service.py)")
+        return None
+    from karpenter_core_tpu_torch.solver import service
+
+    server, port, svc = service.serve(device=device)
+    client_ = service.RemoteSolver(f"127.0.0.1:{port}", max_nodes=max_nodes, timeout=900.0)
+    screen_before = screen.launch_counts()
+    try:
+        t0 = time.perf_counter()
+        res = client_.solve(pods, provs, its, state_nodes=cluster.nodes(), kube_client=client,
+                            cluster=cluster)
+        wall = time.perf_counter() - t0
+        if torch_solver.placements_json(res) != torch_solver.placements_json(want):
+            raise AssertionError("14c: the gRPC solve's placements differ from phase 6's")
+        out = {"wall_s": round(wall, 3), "request_bytes": client_.last_request_bytes,
+               "response_bytes": client_.last_response_bytes,
+               "service_phases_ms": {k: round(v, 3) for k, v in svc.last_phase_ms.items()}}
+        E = snap.exist_used.shape[0]
+        count_rows = np.zeros((3, snap.item_pad), np.int32)
+        count_rows[:, 0] = (1, 2, 3)
+        exist_open = np.ones((3, E), bool)
+        exist_open[1, 0] = False
+        got = client_.replan_screen(snap, provs, count_rows, exist_open, want_slots=True)
+        out["replan_request_bytes"] = client_.last_request_bytes
+        out["replan_response_bytes"] = client_.last_response_bytes
+        local = torch_solver.TorchSolver(max_nodes=max_nodes, device=device).replan_screen(
+            snap, provs, count_rows, exist_open, want_slots=True)
+        if not (np.array_equal(got[0], local[0]) and np.array_equal(got[1], local[1])):
+            raise AssertionError("14c: the Replan RPC differs from the in-process replan")
+        after = screen.launch_counts()
+        out["launches"] = {k: after[k] - screen_before[k] for k in after}
+    finally:
+        client_.close()
+        server.stop(0)
+    say(f"[boundary 14c] phase 6's backlog and a replan over gRPC: {json.dumps(out)}; "
+        "placements and replan byte-identical")
+    return out
 
 
 def launches_line() -> str:
@@ -3574,6 +3910,13 @@ def main() -> int:
                       (pods, provs, its), cluster, label="profile tiered")
         mark("the profiled solves")
 
+    # phase 14a and 14c (the solver boundary) on phase 6's cluster before
+    # phase 7 changes it: its backlog through the solver host's child, then
+    # over gRPC, each byte-identical to phase 6's in-process solve
+    b14a = phase_boundary_full(pods, provs, its, client, cluster, max_nodes, live_result)
+    b14c = phase_grpc(pods, provs, its, client, cluster, max_nodes, live_result, live_snap)
+    mark("phase 14a and 14c")
+
     # phase 2's tiered shape: row_b1 on the main path's slot planes
     tiered_shape = phase_tiered_shape(live_snap, provs, max_nodes, int_rate, busy_cycles)
     mark("phase 2 (the tiered shape)")
@@ -3618,6 +3961,7 @@ def main() -> int:
     churn_launches, churn_forms, _steps = phase_churn(
         pods, provs, its, client, cluster, max_nodes, _zones(its), steps=CHURN_STEPS)
     mark("phase 7")
+
     del pods, provs, its, client, cluster, live_solver, live_result, live_snap
     gc.collect()
 
@@ -3626,7 +3970,7 @@ def main() -> int:
     # records each consolidation pass
     FLIGHTREC.enable()
     t0 = time.perf_counter()
-    c_its, c_client, c_cluster, c_clock = settled_cluster()
+    c_its, c_client, c_cluster, c_clock = settled_cluster(n_nodes=PHASE8_NODES)
     say(f"[consolidation] built {len(c_cluster.nodes_by_provider_id)} nodes, "
         f"{len(c_cluster.bindings)} bound pods in {time.perf_counter() - t0:.2f} s")
     cons = phase_consolidation("consolidation", c_its, c_client, c_cluster, c_clock)
@@ -3756,6 +4100,10 @@ def main() -> int:
     fb = phase_fallback()
     mark("phase 12")
 
+    # phase 14b: the wedge drill through the solver host at phase 12's size
+    b14b = phase_wedge_drill()
+    mark("phase 14b")
+
     # phase 13: the process entry, run() on a thread over phase 12's cluster
     # (it runs last: the collector tuning and the signal handlers are
     # process-wide; it restores the collector when it ends)
@@ -3770,15 +4118,22 @@ def main() -> int:
     fb_forms = {k: fb["launches"].get(k, 0) for k in screen.FORM_LAUNCHES}
     ent_launches = {k: ent["launches"].get(k, 0) for k in screen.LAUNCHES}
     ent_forms = {k: ent["launches"].get(k, 0) for k in screen.FORM_LAUNCHES}
+    # phase 14's: the solver host's children (14a, 14b) and the gRPC
+    # service in this process (14c)
+    b14 = {k: b14a["launches"][k] + b14b["launches"][k]
+           + (b14c["launches"].get(k, 0) if b14c else 0) for k in b14a["launches"]}
     runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
-            cons_launches, life_launches, op_launches, fb_launches, ent_launches)
+            cons_launches, life_launches, op_launches, fb_launches, ent_launches, b14)
     form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms,
-                 life_forms, op_forms, fb_forms, ent_forms)
+                 life_forms, op_forms, fb_forms, ent_forms, b14)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
     say(f"[launches] phase 10 {json.dumps(op_counts)}, phase 12a {json.dumps(fb['launches'])}"
-        f", phase 13 {json.dumps(ent['launches'])}; phases 4-10, 12a and 13 summed "
-        f"{json.dumps(launches)} by form {json.dumps(forms)}")
+        f", phase 13 (the solver host's child) {json.dumps(ent['launches'])}, phase 14 "
+        f"{json.dumps(b14)} (14a {json.dumps(b14a['launches'])}, 14b "
+        f"{json.dumps(b14b['launches'])}, 14c "
+        f"{json.dumps(b14c['launches']) if b14c else 'not run'}); phases 4-10, 12a, 13 and 14 "
+        f"summed {json.dumps(launches)} by form {json.dumps(forms)}")
 
     # the line's numbers are those of this slice's main path, phase 10's
     # first operator step (the live cluster's backlog, solved through

@@ -17,6 +17,7 @@ default; the log parser treats it as off).
 from __future__ import annotations
 
 import os
+from typing import Mapping
 
 TRUTHY = ("1", "true", "on", "yes")
 FALSY = ("0", "false", "off", "no")
@@ -25,6 +26,13 @@ FALSY = ("0", "false", "off", "no")
 def raw(name: str, default: str = "") -> str:
     """os.environ.get with a string default, for callers that parse."""
     return os.environ.get(name, default)
+
+
+def environ() -> Mapping[str, str]:
+    """The live process environment, for callers that take a mapping (a
+    child process's environment, the redaction of its output): handed
+    out, never copied, so monkeypatched entries are visible."""
+    return os.environ
 
 
 def require(name: str) -> str:

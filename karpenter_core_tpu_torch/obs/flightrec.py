@@ -726,6 +726,38 @@ class FlightRecorder:
         with self._mu:
             return list(self._ring)
 
+    def record_for_trace(self, trace_id: str) -> Optional[dict]:
+        """The newest record carrying `trace_id`: the end of a histogram
+        exemplar's metric -> trace -> flight-record chain (an exemplar on a
+        bad p99 bucket names the trace, /debug/trace shows it, and this is
+        the replayable input). None when the trace left no record or it
+        aged out."""
+        if not trace_id:
+            return None
+        with self._mu:
+            for record in reversed(self._ring):
+                if record.get("trace_id") == trace_id:
+                    return record
+        return None
+
+    def tenant_index(self) -> Dict[str, List[dict]]:
+        """Per-tenant index of the ring's records for /debug/tenants:
+        tenant -> [{ts, digest, backend, trace_id?, duration_ms}, ...],
+        newest last; records without a tenant index under ""."""
+        index: Dict[str, List[dict]] = {}
+        with self._mu:
+            for record in self._ring:
+                entry = {
+                    "ts": record.get("ts"),
+                    "digest": record.get("digest"),
+                    "backend": record.get("backend"),
+                    "duration_ms": record.get("duration_ms"),
+                }
+                if "trace_id" in record:
+                    entry["trace_id"] = record["trace_id"]
+                index.setdefault(str(record.get("tenant", "")), []).append(entry)
+        return index
+
     def last(self) -> Optional[dict]:
         with self._mu:
             return self._ring[-1] if self._ring else None

@@ -1,8 +1,9 @@
 """Bounded request/tenant attribution context.
 
-Every entry point into the solver plane (an operator reconcile, and later
-the solver service's metadata) binds a :class:`RequestContext` for the
-duration of the request. Downstream instrumentation (tracer, flight
+Every entry point into the solver plane (an operator reconcile, the solver
+service's gRPC metadata, the solver host's frame header) binds a
+:class:`RequestContext` for the duration of the request. Downstream
+instrumentation (the admission gate, the fallback ladder, tracer, flight
 recorder, the provisioning loop's admission-to-bind histogram) reads the
 context through :func:`current_tenant` / :func:`tenant_labels` and attaches
 a ``tenant`` label to the series it already emits.
@@ -10,8 +11,9 @@ a ``tenant`` label to the series it already emits.
 Two hard contracts, both held by ``tests/test_torch_obs.py``:
 
 * **Zero cost when unset.** With no context bound, :func:`current_tenant` is
-  a thread-local list check, and :func:`tenant_labels` allocates nothing
-  beyond the label dict the call site already paid for.
+  a thread-local list check, :func:`tenant_labels` allocates nothing
+  beyond the label dict the call site already paid for, and the solver
+  host's frame header gains no key.
 * **Bounded cardinality.** Tenant label *values* route through the module
   :data:`TENANTS` guard: a fixed slot table (:data:`DEFAULT_TENANT_CAP`)
   after which every new tenant collapses into the :data:`OVERFLOW_TENANT`
@@ -37,6 +39,7 @@ __all__ = [
     "TenantGuard",
     "bind",
     "current",
+    "current_deadline",
     "current_tenant",
     "tenant_labels",
 ]
@@ -174,3 +177,12 @@ def tenant_labels(**base: str) -> Optional[Dict[str, str]]:
         return base or None
     base["tenant"] = TENANTS.admit(tenant)
     return base
+
+
+def current_deadline() -> Optional[float]:
+    """``deadline_s`` (the remaining budget) of the innermost bound
+    context, or None. O(1), no allocation. The admission gate reads it to
+    tighten a request's queue budget and to order it within its tenant's
+    earliest-deadline-first sub-queue."""
+    items = _STACK.items
+    return items[-1].deadline_s if items else None

@@ -32,7 +32,7 @@ import threading
 import time
 from collections import deque
 from contextlib import nullcontext
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from karpenter_core_tpu_torch.metrics.registry import NAMESPACE, REGISTRY
 from karpenter_core_tpu_torch.obs import reqctx
@@ -168,10 +168,16 @@ class Tracer:
 
     Spans nest via a thread-local stack: a span opened while another is
     live on the same thread becomes its child and inherits its trace id.
-    Roots mint a fresh trace id unless one is passed explicitly. Finished
-    spans land in a deque(maxlen=capacity); `dropped` counts ring-buffer
-    evictions so truncation is always visible in exports.
+    Roots mint a fresh trace id unless one is passed explicitly (the gRPC
+    service passes the client's, the solver host's child the parent's).
+    Finished spans land in a deque(maxlen=capacity); `dropped` counts
+    ring-buffer evictions so truncation is always visible in exports.
     """
+
+    # per-graft span budget: a chatty child can never push more than this
+    # many spans into the parent's ring per exchange (the frame side caps
+    # the export alike: MAX_EXPORT_SPANS/BYTES)
+    MAX_GRAFT_SPANS = 256
 
     def __init__(self, capacity: int = 65536):
         self.enabled = False
@@ -184,6 +190,18 @@ class Tracer:
         self._tls = threading.local()
         self._t0_ns = time.perf_counter_ns()
         self._pid = os.getpid()
+        # graft accounting: spans a child exported that this tracer refused
+        # (the per-graft cap) plus those the child dropped at export
+        self._graft_dropped = 0
+        self._grafted = 0
+        # the span spill of a solver host's child: finished spans with a
+        # spilled prefix are mirrored into a small ring, rewritten to
+        # `spill_path` per span, so the parent can salvage the last phases
+        # of a child it killed. None (the default) costs one attribute read
+        # per recorded span.
+        self._spill_path: Optional[str] = None
+        self._spill_prefix: Tuple[str, ...] = ()
+        self._spill_ring: deque = deque(maxlen=64)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -295,6 +313,49 @@ class Tracer:
             _bridge(span)
         except Exception:  # noqa: BLE001 — metrics must never break a solve
             pass
+        if self._spill_path is not None and span.name.startswith(self._spill_prefix):
+            self._spill(span)
+
+    # -- the killed child's span spill ---------------------------------------
+
+    def set_spill(self, path: Optional[str],
+                  prefixes: Tuple[str, ...] = ("solver.",)) -> None:
+        """Arm (path) or disarm (None) the span spill: finished spans whose
+        name starts with one of `prefixes` are mirrored to `path` as an
+        export payload, rewritten atomically per span. The solver host's
+        child arms it beside its heartbeat file, so the parent can graft
+        the last phases of a dispatch that never answered (the child was
+        killed mid-solve)."""
+        with self._mu:
+            self._spill_ring.clear()
+            self._spill_prefix = tuple(prefixes)
+            self._spill_path = path
+
+    def reset_spill(self) -> None:
+        """Clear the spill ring and file: the child calls it when a
+        dispatch starts and once its answer is sent, so a later kill never
+        salvages spans an earlier response already delivered."""
+        with self._mu:
+            self._spill_ring.clear()
+            path = self._spill_path
+        if path is not None:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+
+    def _spill(self, span: Span) -> None:
+        try:
+            from karpenter_core_tpu_torch.utils import supervise
+
+            with self._mu:
+                self._spill_ring.append(span)
+                payload = export_spans(list(self._spill_ring))
+                path = self._spill_path
+            if path is not None:
+                supervise.atomic_write_json(path, payload)
+        except Exception:  # noqa: BLE001 — salvage is best-effort by design
+            pass
 
     # -- reading -----------------------------------------------------------
 
@@ -303,6 +364,101 @@ class Tracer:
         """Spans evicted from the ring buffer (truncation accounting)."""
         with self._mu:
             return self._finished - len(self._spans)
+
+    @property
+    def graft_dropped(self) -> int:
+        """Spans a child exported that were not grafted: the per-graft cap
+        here plus the export cap on the child's side."""
+        with self._mu:
+            return self._graft_dropped
+
+    @property
+    def grafted(self) -> int:
+        with self._mu:
+            return self._grafted
+
+    # -- the cross-process graft ----------------------------------------------
+
+    def graft(self, payload: Optional[Dict[str, object]], *,
+              pid: Optional[int] = None, generation: Optional[int] = None,
+              trace_id: Optional[str] = None, **extra_attrs) -> int:
+        """Fold a child process's exported span delta (an `export_spans`
+        payload, off a solver host response or stats frame or a salvaged
+        spill file) into this tracer's ring, under the calling thread's
+        current span (`solver.host.request` on the dispatch path).
+
+          * timestamps move onto this process's perf_counter clock through
+            the payload's `now_ns` anchor (the skew is one pipe hop: fine
+            for a timeline, never used for arithmetic);
+          * the child's span and parent ids are remapped to fresh ids with
+            its own nesting kept; a span whose parent is not in the payload
+            goes under the current span;
+          * every grafted span is tagged {pid, generation} (+extra_attrs)
+            and joins the graft's trace id, so /debug/trace and the phase
+            breakdowns see the child's solver.phase.* spans as part of the
+            one solve;
+          * at most MAX_GRAFT_SPANS per call land in the ring (itself
+            bounded); refused and child-dropped spans count in
+            `graft_dropped`;
+          * grafted spans never reach the metrics bridge: the child
+            observed its own instruments, which arrive through the metrics
+            merge instead.
+
+        Returns the number of spans grafted."""
+        if not self.enabled or not payload:
+            return 0
+        entries = list(payload.get("spans") or ())
+        child_dropped = int(payload.get("dropped", 0) or 0)
+        refused = max(0, len(entries) - self.MAX_GRAFT_SPANS)
+        if refused:
+            # keep the newest spans: the tail names the phase closest to
+            # the outcome (or the kill)
+            entries = entries[-self.MAX_GRAFT_SPANS:]
+        parent = self._current()
+        if trace_id is None:
+            trace_id = (parent.trace_id if parent is not None
+                        else f"t{next(self._trace_ids):08x}")
+        now_ns = payload.get("now_ns")
+        offset = (time.perf_counter_ns() - int(now_ns)
+                  if isinstance(now_ns, (int, float)) and now_ns else 0)
+        if pid is None:
+            p = payload.get("pid")
+            pid = int(p) if isinstance(p, (int, float)) else None
+        id_map: Dict[int, int] = {}
+        for entry in entries:
+            old = entry.get("i")
+            if isinstance(old, int):
+                id_map[old] = next(self._ids)
+        grafted: List[Span] = []
+        for entry in entries:
+            try:
+                attrs = dict(entry.get("a") or {})
+                if pid is not None:
+                    attrs["pid"] = pid
+                if generation is not None:
+                    attrs["generation"] = generation
+                attrs.update(extra_attrs)
+                old_parent = entry.get("p")
+                span = Span(
+                    self, str(entry["n"]), trace_id,
+                    id_map.get(entry.get("i"), next(self._ids)),
+                    id_map.get(old_parent) if old_parent in id_map
+                    else (parent.span_id if parent is not None else None),
+                    attrs,
+                )
+                span.tid = int(entry.get("d", 0) or 0)
+                span.start_ns = int(entry["s"]) + offset
+                span.end_ns = int(entry["e"]) + offset
+                grafted.append(span)
+            except (KeyError, TypeError, ValueError):
+                refused += 1
+        with self._mu:
+            for span in grafted:
+                self._spans.append(span)
+                self._finished += 1
+            self._grafted += len(grafted)
+            self._graft_dropped += refused + child_dropped
+        return len(grafted)
 
     def mark(self) -> int:
         """Sequence checkpoint; pass to spans_since()/phase_ms_since()."""
@@ -340,22 +496,31 @@ class Tracer:
 
     def chrome_trace(self) -> Dict[str, object]:
         """Chrome trace-event JSON (dict): complete ('X') events with
-        microsecond ts/dur, loadable in Perfetto and chrome://tracing,
-        instant events as 'i' markers, and the process's name as a metadata
-        event."""
+        microsecond ts/dur, loadable in Perfetto and chrome://tracing.
+        Grafted child-process spans render under their own pid (a process
+        track of its own, named by a metadata event), instant events (a
+        kill, a respawn, a breaker transition) as 'i' markers: the solve's
+        timeline across processes."""
         events = []
+        proc_names: Dict[int, str] = {self._pid: f"operator pid {self._pid}"}
         for span in self.spans():
             args = {"trace_id": span.trace_id, "span_id": span.span_id}
             if span.parent_id is not None:
                 args["parent_id"] = span.parent_id
             for k, v in span.attrs.items():
                 args[k] = v if isinstance(v, (int, float, bool)) else str(v)
+            pid = span.attrs.get("pid")
+            pid = pid if isinstance(pid, int) else self._pid
+            if pid not in proc_names:
+                gen = span.attrs.get("generation")
+                proc_names[pid] = (f"solver-host gen {gen} pid {pid}"
+                                   if isinstance(gen, int) else f"pid {pid}")
             event = {
                 "name": span.name,
                 "cat": "karpenter",
                 "ph": "X",
                 "ts": (span.start_ns - self._t0_ns) / 1e3,
-                "pid": self._pid,
+                "pid": pid,
                 "tid": span.tid % 2**31,  # chrome wants a small int
                 "args": args,
             }
@@ -365,12 +530,14 @@ class Tracer:
             else:
                 event["dur"] = max(span.end_ns - span.start_ns, 0) / 1e3
             events.append(event)
-        events.append({"name": "process_name", "ph": "M", "pid": self._pid, "tid": 0,
-                       "args": {"name": f"operator pid {self._pid}"}})
+        for pid, label in sorted(proc_names.items()):
+            events.append({"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+                           "args": {"name": label}})
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
-            "otherData": {"dropped_spans": self.dropped},
+            "otherData": {"dropped_spans": self.dropped, "grafted_spans": self.grafted,
+                          "graft_dropped": self.graft_dropped},
         }
 
     def summary(self) -> str:
@@ -416,7 +583,8 @@ def export_spans(spans: List[Span], max_spans: int = MAX_EXPORT_SPANS,
          "dropped": count NOT exported (count/byte cap overflow)}
 
     Newest spans win under the caps — the tail names the phases closest
-    to the outcome. The payload is pure JSON."""
+    to the outcome. The payload is pure JSON (it rides the solver host's
+    frame header and the salvage spill file)."""
     window = spans[-max_spans:] if max_spans else []
     kept_rev: List[Dict[str, object]] = []
     size = 0

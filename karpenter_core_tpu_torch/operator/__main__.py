@@ -18,23 +18,28 @@ fallback (flags > environment > defaults), and these variables:
   KARPENTER_PREWARM              the startup prewarm (default on)
   KARPENTER_PREWARM_TIERS        the ladder's tiers to prewarm (S,M,...)
   KARPENTER_TPU_TRACE, KARPENTER_TPU_FLIGHTREC   on by default here
-  KARPENTER_SOLVER_HOST, KARPENTER_SOLVER_ENDPOINT, KARPENTER_CHAOS
-                                 refused: see below
+  KARPENTER_SOLVER_ENDPOINT      a solver service's address (as
+                                 --solver-endpoint): the primary is a
+                                 RemoteSolver
+  KARPENTER_SOLVER_HOST          the solver host (default on here; off
+                                 solves in this process)
+  KARPENTER_SLO_BROWNOUT         arms the admission gate's SLO loop
+  KARPENTER_SOLVER_MODE, KARPENTER_CHAOS   refused: see below
 
 The karpenter-global-settings ConfigMap, when the client holds one,
 overrides the flags' settings (settings.go:53-68).
 
-The solver solves on the CUDA card: run() raises when there is none, and
-only a caller that passes device="cpu" (the tests) solves on the CPU, the
-port's counterpart of the reference's JAX_PLATFORMS. It differs from the
-reference's entry where a module is not ported yet, and raises rather
-than run without it:
-- the primary is the in-process TorchSolver: KARPENTER_SOLVER_HOST on and
-  a solver endpoint (KARPENTER_SOLVER_ENDPOINT, --solver-endpoint) wait
-  for the solver service and host (ROADMAP Queue A item 7);
-- KARPENTER_CHAOS waits for the fault injection of chaos/ (item 10);
-- /debug/tenants, /debug/timeline and /debug/programs wait for the
-  port-side bench and the solver host (items 3 and 7) and answer 404.
+The primary is the reference entry's: a RemoteSolver for a solver
+endpoint, else the solver host (solver/host.py), whose supervised child
+process solves on the CUDA card, a wedge killing and respawning it;
+KARPENTER_SOLVER_HOST=off restores the in-process TorchSolver. Either way
+ResilientSolver wraps it with the greedy fallback. The card is required
+(run() raises without one) unless the caller passes device="cpu" (the
+tests), the port's counterpart of the reference's JAX_PLATFORMS. It
+raises rather than run without a module that is not ported yet:
+- KARPENTER_SOLVER_MODE=sharded waits for the multi-GPU mesh (ROADMAP
+  Queue A item 9);
+- KARPENTER_CHAOS waits for the fault injection of chaos/ (item 10).
 """
 from __future__ import annotations
 
@@ -50,28 +55,22 @@ from karpenter_core_tpu_torch.metrics.registry import REGISTRY
 from karpenter_core_tpu_torch.obs import envflags
 from karpenter_core_tpu_torch.obs.log import get_logger
 from karpenter_core_tpu_torch.operator import new_operator
-from karpenter_core_tpu_torch.solver.factory import SOLVER_HOST_ITEM
 from karpenter_core_tpu_torch.webhooks import SETTINGS_CONFIG_MAP_NAME
 
 LOG = get_logger("karpenter.operator")
 
 CHAOS_ITEM = "ROADMAP Queue A item 10: chaos/, the fault injection"
+MESH_ITEM = "ROADMAP Queue A item 9: the multi-GPU mesh"
 
 
 def solver_from_env():
-    """None, the in-process solver. KARPENTER_SOLVER_ENDPOINT names the
-    reference's remote solver, which is not ported: raises
-    NotImplementedError."""
+    """KARPENTER_SOLVER_ENDPOINT -> a RemoteSolver, else None."""
     endpoint = envflags.raw("KARPENTER_SOLVER_ENDPOINT")
-    if endpoint:
-        _refuse_remote(endpoint)
-    return None
+    if not endpoint:
+        return None
+    from karpenter_core_tpu_torch.solver.service import RemoteSolver
 
-
-def _refuse_remote(endpoint: str) -> None:
-    raise NotImplementedError(
-        f"solver endpoint {endpoint!r}: the remote solver is not ported yet "
-        f"({SOLVER_HOST_ITEM}); leave it unset to solve in-process")
+    return RemoteSolver(endpoint)
 
 
 def settings_from_env() -> Settings:
@@ -142,9 +141,11 @@ def configure_logging() -> None:
 def build_slo_engine(admission=None):
     """The operator's SLOs (obs/slo): admission-to-bind and solve-duration
     objectives, as multi-window burn rates per tenant, exposed on every
-    scrape as karpenter_slo_error_budget_remaining{slo[,tenant]}. With an
-    admission gate (the solver host's, not ported) a third objective reads
-    the gate's own accounting."""
+    scrape as karpenter_slo_error_budget_remaining{slo[,tenant]}. With the
+    solver host's admission gate, a third ratio objective reads the gate's
+    own dispatched and shed accounting (AdmissionGate.admission_totals):
+    the burn the brownout ladder acts on, so a tenant flooding the gate
+    burns its budget even when its requests never reach a histogram."""
     from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (
         ADMISSION_TO_BIND,
     )
@@ -166,7 +167,10 @@ def build_slo_engine(admission=None):
         objectives.append(Objective(
             name="gate-admission", histogram=None, threshold_s=0.0, target=0.95,
             collect=admission.admission_totals,
-            description="95% of admission-gate entries dispatch"))
+            description="95% of admission-gate entries dispatch (capacity sheds and "
+                        "in-queue deadline expiries burn; ladder brownout sheds are "
+                        "excluded so a demoted tenant can drain its burn and "
+                        "re-promote)"))
     return SloEngine(objectives)
 
 
@@ -178,8 +182,10 @@ DEBUG_ENDPOINTS = (
     ("/readyz", False, "readiness probe"),
     ("/debug/health", False, "solver health: breaker, wedges, abandoned threads"),
     ("/debug/slo", True, "SLO burn rates + error budgets, per tenant"),
+    ("/debug/tenants", True, "per-tenant latency/shed/device/program digest"),
     ("/debug/trace", True, "Chrome trace-event JSON of the solve-path ring"),
     ("/debug/trace/summary", True, "human span summary"),
+    ("/debug/timeline", True, "cross-process solve timeline + flight-record index"),
     ("/debug/logs", True, "structured-log ring (logfmt)"),
     ("/debug/logs.json", True, "structured-log ring (JSON)"),
     ("/debug/solves", True, "solve flight-record ring (replayable)"),
@@ -187,21 +193,14 @@ DEBUG_ENDPOINTS = (
     ("/debug/events", True, "events recorder ring"),
     ("/debug/threads", True, "all thread stacks (goroutine-dump analog)"),
     ("/debug/backend", True, "torch, the card and the built CUDA kernels"),
+    ("/debug/programs", True, "device-path program inventory, all processes"),
     ("/debug/config", True, "context-injected options + settings"),
-)
-# the reference's endpoints the port does not serve yet (they answer 404),
-# with the ROADMAP Queue A item that brings each
-WAITING_ENDPOINTS = (
-    ("/debug/tenants", "item 7: the solver host's admission gate and its per-tenant series"),
-    ("/debug/timeline", "item 7: the tracer's cross-process graft"),
-    ("/debug/programs", "item 3: the ledger of the kernels' builds and launches"),
 )
 
 
 def _debug_index(profiling: bool) -> dict:
     """The /debug/ page: every endpoint served, whether it is live in this
-    process (a gated one answers 404 without profiling), what it serves;
-    and the reference's endpoints that wait."""
+    process (a gated one answers 404 without profiling), what it serves."""
     return {
         "profiling_enabled": profiling,
         "endpoints": [
@@ -209,8 +208,83 @@ def _debug_index(profiling: bool) -> dict:
              "description": desc}
             for path, gated, desc in DEBUG_ENDPOINTS
         ],
-        "not_ported": [{"path": path, "roadmap": item} for path, item in WAITING_ENDPOINTS],
     }
+
+
+def _tenants_digest(slo=None) -> dict:
+    """The /debug/tenants payload: who burned the budget. Per tenant: the
+    latency percentiles, the shed and fallback breakdowns, the device
+    time, the admission gate's depth and deadline expiries, the ladder's
+    demotions and the flight-record index, read off the live series the
+    tenant labels mark (this process's; the solver host's child series
+    arrive merged in /metrics). The reference's compile-cache columns
+    (compile_misses, compile_seconds) stay 0: the XLA compile cache is not
+    ported (ROADMAP Queue A item 3)."""
+    from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (
+        ADMISSION_TO_BIND,
+    )
+    from karpenter_core_tpu_torch.obs.flightrec import FLIGHTREC
+    from karpenter_core_tpu_torch.obs.reqctx import TENANTS
+    from karpenter_core_tpu_torch.obs.tracer import SOLVER_PHASE_DURATION, SOLVER_SOLVE_DURATION
+    from karpenter_core_tpu_torch.solver.fallback import SOLVER_FALLBACK_TOTAL
+    from karpenter_core_tpu_torch.solver.host import (
+        DEADLINE_VIOLATIONS_TOTAL,
+        GATE_DEMOTIONS_TOTAL,
+        SOLVER_QUEUE_DEPTH,
+        SOLVER_QUEUE_WAIT,
+        SOLVER_SHED_TOTAL,
+    )
+
+    tenants: dict = {}
+
+    def entry(tenant: str) -> dict:
+        return tenants.setdefault(tenant, {
+            "admission_to_bind_s": {}, "solve_duration_s": {}, "queue_wait_s": {},
+            "shed": {}, "fallback": {}, "device_ms": 0.0, "compile_misses": 0,
+            "compile_seconds": 0.0, "gate_depth": {}, "expired_in_queue": 0,
+            "demotions": {}, "flight_records": [],
+        })
+
+    def percentiles(hist, labels, data):
+        return {"count": int(data["count"]), "p50": hist.percentile(0.50, labels),
+                "p99": hist.percentile(0.99, labels)}
+
+    for field, hist in (("admission_to_bind_s", ADMISSION_TO_BIND),
+                        ("solve_duration_s", SOLVER_SOLVE_DURATION),
+                        ("queue_wait_s", SOLVER_QUEUE_WAIT)):
+        for labels, data in hist.series():
+            t = labels.get("tenant")
+            if t is not None:
+                entry(t)[field] = percentiles(hist, labels, data)
+    for field, counter in (("shed", SOLVER_SHED_TOTAL), ("fallback", SOLVER_FALLBACK_TOTAL),
+                           ("demotions", GATE_DEMOTIONS_TOTAL)):
+        for labels, value in counter.series():
+            t = labels.get("tenant")
+            if t is not None:
+                by = entry(t)[field]
+                reason = labels.get("reason", "")
+                by[reason] = by.get(reason, 0) + int(value)
+    for labels, value in DEADLINE_VIOLATIONS_TOTAL.series():
+        t = labels.get("tenant")
+        # stage=queue: expired while waiting and shed, billed to the tenant
+        if t is not None and labels.get("stage") == "queue":
+            entry(t)["expired_in_queue"] += int(value)
+    for labels, data in SOLVER_PHASE_DURATION.series():
+        t = labels.get("tenant")
+        if t is not None and labels.get("phase") == "device":
+            entry(t)["device_ms"] += round(float(data["sum"]) * 1e3, 1)
+    for labels, value in list(SOLVER_QUEUE_DEPTH.values.items()):
+        d = dict(labels)
+        t = d.get("tenant")
+        if t is not None:
+            entry(t)["gate_depth"][d.get("gate", "")] = value
+    for tenant, records in FLIGHTREC.tenant_index().items():
+        if tenant:
+            entry(tenant)["flight_records"] = records
+    digest = {"guard": TENANTS.stats(), "tenants": tenants}
+    if slo is not None:
+        digest["budget_exhausted"] = sorted(t for t in tenants if slo.budget_exhausted(t))
+    return digest
 
 
 def _debug_threads() -> str:
@@ -286,6 +360,26 @@ class _HealthHandler(BaseHTTPRequestHandler):
             payload = self.slo.digest() if self.slo is not None else {
                 "error": "slo engine not wired"}
             return json.dumps(payload, sort_keys=True).encode() + b"\n", "application/json"
+        if path == "/debug/tenants":
+            return (json.dumps(_tenants_digest(self.slo), sort_keys=True).encode() + b"\n",
+                    "application/json")
+        if path == "/debug/timeline":
+            # the trace with the solver host's grafted spans on their own
+            # process track, and the trace id -> flight-record digest index
+            from karpenter_core_tpu_torch.obs import TRACER
+            from karpenter_core_tpu_torch.obs.flightrec import FLIGHTREC
+
+            timeline = TRACER.chrome_trace()
+            timeline["otherData"]["flight_records"] = {
+                r["trace_id"]: r.get("digest", "")
+                for r in FLIGHTREC.records() if r.get("trace_id")
+            }
+            return json.dumps(timeline).encode(), "application/json"
+        if path == "/debug/programs":
+            from karpenter_core_tpu_torch.obs import proghealth
+
+            return (json.dumps(proghealth.full_snapshot(), sort_keys=True).encode(),
+                    "application/json")
         if path == "/debug/trace":
             from karpenter_core_tpu_torch.obs import TRACER
 
@@ -371,7 +465,7 @@ class Process:
 
     operator: object
     solver: object  # the ResilientSolver the operator solves through
-    primary: object  # the TorchSolver inside it
+    primary: object  # inside it: the HostSolver, a RemoteSolver or a TorchSolver
     settings: Settings
     health: ThreadingHTTPServer
     elector: object = None
@@ -407,27 +501,26 @@ def run(cloud_provider, kube_client=None, stop_event=None, options=None,
     `device` is the solver's, the CUDA card by default (raises without
     one). `on_start`, when given, is called with the wired Process once the
     controllers run. On stop, the parts stop in the reverse order: the
-    controllers, the webhook server, the lease, the prewarm, the health
-    server."""
+    controllers, the webhook server, the lease, the prewarm, the primary
+    (the solver host's child is killed), the health server."""
     from karpenter_core_tpu_torch.operator.options import parse_options
     from karpenter_core_tpu_torch.solver.factory import (
         build_primary,
         describe,
-        refuse_host_mode,
+        host_mode_enabled,
     )
 
     if envflags.raw("KARPENTER_CHAOS"):
         raise NotImplementedError(
             f"KARPENTER_CHAOS is set, but fault injection is not ported yet ({CHAOS_ITEM}); "
             "unset it")
+    if envflags.raw("KARPENTER_SOLVER_MODE", "auto").lower() == "sharded":
+        raise NotImplementedError(
+            f"KARPENTER_SOLVER_MODE=sharded: the sharded solver is not ported yet "
+            f"({MESH_ITEM}); unset it or set it to single")
     # the embedded path resolves the environment through the same flags
     # (flags > environment > defaults)
     opts = options or parse_options([])
-    # what the port cannot run yet is refused before anything is wired
-    if opts.solver_endpoint:
-        _refuse_remote(opts.solver_endpoint)
-    solver_from_env()
-    refuse_host_mode(host_default=False)
     device = _check_device(device)
     configure_logging()
     opts.apply_memory_limit()
@@ -445,20 +538,36 @@ def run(cloud_provider, kube_client=None, stop_event=None, options=None,
         from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient
 
         kube_client = InMemoryKubeClient()
-    # the reference's entry defaults to its solver host; the port's stays
-    # in-process until the host is ported, and refuses host mode (above)
-    primary = build_primary(host_default=False, device=device)
-    LOG.info("in-process solver", solver=describe(primary))
-    # the card's failure defense: a subprocess probe, the host greedy path
-    # while the card is down or wedged, re-admission through the probe
-    # (solver/fallback.py); the phase marks feed the wedge watchdog
+    if opts.solver_endpoint:
+        from karpenter_core_tpu_torch.solver.service import RemoteSolver
+
+        primary = RemoteSolver(opts.solver_endpoint)
+    else:
+        primary = solver_from_env()
+    if primary is None:
+        # the solver host is the default: the device dispatch runs in a
+        # supervised child process a wedge gets killed in, so no hung
+        # dispatch keeps the card or a lock of this process;
+        # KARPENTER_SOLVER_HOST=off solves in this process
+        primary = build_primary(host_default=True, device=device)
+        LOG.info("solver host enabled" if host_mode_enabled(True) else "in-process solver",
+                 solver=describe(primary))
+    # the card's failure defense: the greedy path while the primary is down
+    # or wedged, re-admission through the probe (solver/fallback.py). An
+    # in-process primary's wedge is watched here (its phase marks feed the
+    # heartbeat) and its card probed in a subprocess; an out-of-process one
+    # (the host, a remote service) is asked health(), and its own watchdog
+    # watches its dispatch
     from karpenter_core_tpu_torch.solver.fallback import ResilientSolver
     from karpenter_core_tpu_torch.solver.torch_solver import GreedySolver
 
+    is_remote = callable(getattr(primary, "health", None))
     solver = ResilientSolver(primary, GreedySolver(), solve_timeout=900.0,
-                             wedge_stale_after=600.0,
-                             # a primary on the CPU has no card to probe
-                             prober=(lambda: None) if device == "cpu" else None)
+                             wedge_stale_after=None if is_remote else 600.0,
+                             # an in-process primary on the CPU has no card
+                             # to probe
+                             prober=(lambda: None) if device == "cpu" and not is_remote
+                             else None)
     settings = resolve_settings(kube_client, opts)
     from karpenter_core_tpu_torch.operator.injection import inject_defaults
 
@@ -474,8 +583,26 @@ def run(cloud_provider, kube_client=None, stop_event=None, options=None,
     from karpenter_core_tpu_torch.utils.gctuning import apply_server_gc_tuning
 
     apply_server_gc_tuning()
-    slo_engine = build_slo_engine(admission=None)
+    # the SLO plane, with a ratio objective over the admission gate of an
+    # out-of-process primary
+    gate = getattr(primary, "admission", None)
+    slo_engine = build_slo_engine(admission=gate)
     REGISTRY.add_external(slo_engine)
+    # the program inventory's families on every scrape (this process's
+    # ledger and the solver host's merged one)
+    from karpenter_core_tpu_torch.obs import proghealth
+
+    proghealth.ensure_exposition_registered()
+    # KARPENTER_SLO_BROWNOUT arms the closed SLO -> admission loop: in the
+    # brownout band the gate sheds only tenants whose error budget is
+    # spent, and the per-tenant ladder demotes a fast-burning tenant
+    # device -> greedy -> shed while every other keeps the device path
+    if envflags.get_bool("KARPENTER_SLO_BROWNOUT", False) and gate is not None:
+        from karpenter_core_tpu_torch.solver.host import BrownoutLadder
+
+        gate.brownout_prefer = slo_engine.budget_exhausted
+        gate.ladder = BrownoutLadder(burn=slo_engine.fast_burn)
+        LOG.info("slo brownout loop armed", gate=gate.name)
     health = serve_health(operator, opts.metrics_port, profiling=opts.enable_profiling,
                           solver=solver, slo=slo_engine)
     stop = stop_event or threading.Event()
@@ -544,6 +671,11 @@ def run(cloud_provider, kube_client=None, stop_event=None, options=None,
             proc.elector.release()
         if proc.prewarm is not None:
             proc.prewarm.join(timeout=600.0)
+        # the solver host's child (its process group killed) or the
+        # remote solver's channel
+        close = getattr(primary, "close", None)
+        if callable(close):
+            close()
         REGISTRY.remove_external(slo_engine)
         health.shutdown()
         health.server_close()

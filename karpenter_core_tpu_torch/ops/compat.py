@@ -14,6 +14,10 @@ The `_m` forms reduce every key segment at once with a [V, K] membership
 matrix; the sliced forms loop over the segments. Contractions of 0/1 masks
 run in float32 and test > 0.5: the counts are small integers, so the test
 is exact on every device.
+
+`resolve_screen_mode`, `resolve_incremental_mode` and `resolve_pack_scan`
+read the reference's environment flags for the device path's strategies
+(the solver service resolves its screen and residency through them).
 """
 from __future__ import annotations
 
@@ -23,6 +27,48 @@ import numpy as np
 import torch
 
 Segments = List[Tuple[int, int]]  # per key: (lo, hi) into the flat value axis
+
+
+def resolve_screen_mode() -> str:
+    """The pack scan's slot-screen strategy, from KCT_PACK_SCREEN (auto,
+    prescreen, tiered) as the reference reads it: "prescreen" (the
+    default) computes the [N, C] verdict tensor before the scan; "tiered"
+    screens the open slots per item inside it. The solver service keys
+    its entries on the resolved mode."""
+    from karpenter_core_tpu_torch.obs import envflags
+
+    mode = envflags.raw("KCT_PACK_SCREEN", "auto").strip().lower()
+    if mode in ("tiered", "prescreen"):
+        return mode
+    return "prescreen"
+
+
+def resolve_pack_scan() -> str:
+    """The pack scan's strategy, from KCT_PACK_SCAN (auto, sequential,
+    segmented). "auto" resolves to "sequential", as in the reference; the
+    segmented lanes are not ported (ROADMAP Queue A item 6), so asking for
+    them raises rather than run the sequential scan in their place."""
+    from karpenter_core_tpu_torch.obs import envflags
+
+    mode = envflags.raw("KCT_PACK_SCAN", "auto").strip().lower()
+    if mode == "segmented":
+        raise NotImplementedError(
+            "KCT_PACK_SCAN=segmented: the segmented scan is not ported yet "
+            "(ROADMAP Queue A item 6); unset it or set it to sequential")
+    return "sequential"
+
+
+def resolve_incremental_mode() -> str:
+    """The delta re-solve policy, from KCT_INCREMENTAL (auto, on, off):
+    "on" (the default) keeps a geometry's verdict tensor resident across
+    solves and refreshes only the changed rows and columns; "off" runs the
+    full precompute every solve. Both give bit-identical tensors."""
+    from karpenter_core_tpu_torch.obs import envflags
+
+    mode = envflags.raw("KCT_INCREMENTAL", "auto").strip().lower()
+    if mode in ("on", "off"):
+        return mode
+    return "on"
 
 
 def seg_matrix(segments: Segments, V: int) -> np.ndarray:

@@ -11,18 +11,18 @@ falls back to the CPU unless the caller passes device="cpu".
 
     build_primary(max_nodes=1024, host_default=False, device=None)
 
-is the process entry's primary: the in-process solver of build_solver.
-KARPENTER_SOLVER_HOST on (the reference entry's default, its supervised
-solver host) raises NotImplementedError until the solver host is ported
-(ROADMAP Queue A item 7), so the port's entry passes host_default=False.
+is the process entry's primary: with KARPENTER_SOLVER_HOST on (the
+entry passes host_default=True, so the host is its default) a HostSolver,
+whose supervised child process (solver/host.py) solves on `device`;
+otherwise build_solver's in-process TorchSolver. The out-of-process
+primaries (HostSolver, service.RemoteSolver) answer health(), the probe
+ResilientSolver's breaker re-admits them through.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from karpenter_core_tpu_torch.obs import envflags
-
-SOLVER_HOST_ITEM = "ROADMAP Queue A item 7: the solver service and host"
 
 MODES = ("auto", "single", "sharded")
 
@@ -63,17 +63,13 @@ def host_mode_enabled(default: bool = False) -> bool:
 
 
 def build_primary(max_nodes: int = 1024, host_default: bool = False,
-                  device: Optional[str] = None, **solver_kwargs):
-    """The process entry's primary solver: build_solver's in-process
-    TorchSolver; refuse_host_mode first."""
-    refuse_host_mode(host_default)
-    return build_solver(max_nodes=max_nodes, device=device, **solver_kwargs)
-
-
-def refuse_host_mode(host_default: bool = False) -> None:
-    """Raise NotImplementedError when host mode is on: the solver host is
-    not ported, and the entry never runs in-process in its place."""
+                  device: Optional[str] = None, **kwargs):
+    """The process entry's primary: the hard-killable HostSolver when
+    KARPENTER_SOLVER_HOST resolves on (a wedge kills and respawns its
+    child), build_solver's in-process TorchSolver otherwise. `kwargs` go
+    to the solver built."""
     if host_mode_enabled(host_default):
-        raise NotImplementedError(
-            f"KARPENTER_SOLVER_HOST is on, but the solver host is not ported yet "
-            f"({SOLVER_HOST_ITEM}); unset it or set it off to solve in-process")
+        from karpenter_core_tpu_torch.solver.host import HostSolver
+
+        return HostSolver(max_nodes=max_nodes, device=device or "cuda", **kwargs)
+    return build_solver(max_nodes=max_nodes, device=device, **kwargs)

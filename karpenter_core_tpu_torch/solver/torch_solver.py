@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from karpenter_core_tpu_torch.api.labels import PROVISIONER_NAME_LABEL_KEY
-from karpenter_core_tpu_torch.obs import TRACER, device_profiler, profile_dir
+from karpenter_core_tpu_torch.obs import TRACER, device_profiler, profile_dir, proghealth
 from karpenter_core_tpu_torch.obs.flightrec import (  # noqa: F401 — re-exported
     canonical_placements,
     placements_json,
@@ -363,14 +363,19 @@ def device_args(snap: EncodedSnapshot, provisioners=None):
 
 
 def args_to_torch(args, device) -> tuple:
-    """device_args() output (from either package: the layouts match) ->
-    the same tuple with every array a tensor on `device`, dtypes kept."""
+    """device_args() output (from either package: the layouts match, and
+    so do the solver service's wire tensors) -> the same tuple with every
+    array a tensor on `device`, dtypes kept. A read-only array (a wire
+    tensor's view of its message) is copied first."""
     device = torch.device(device)
 
     def conv(a):
         if isinstance(a, dict):
             return {k: conv(v) for k, v in a.items()}
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:
+            a = a.copy()
+        return torch.from_numpy(a).to(device)
 
     return tuple(conv(a) for a in args)
 
@@ -616,6 +621,136 @@ class _HostState:
             setattr(self, f, getattr(state, f)[:nopen].cpu().numpy())
 
 
+# -- the device path's dispatch, shared by TorchSolver and the solver
+# service (solver/service.py), so that a wire solve and an in-process solve
+# run the same code from device_args on
+
+
+def dispatch_prescreen(segments, screen_v, n_slots: int, host_args, targs, inc=None,
+                       key=None, gate_ok: bool = True):
+    """The [N, C] verdict tensor of a solve or replan (_dispatch_prescreen,
+    tpu_solver.py:1369-1458). With `inc` (an IncrementalScreen) the tensor
+    resident at `key` is refreshed in its changed rows and columns when
+    the delta is narrow; otherwise, and when planning or the refresh
+    fails, the full precompute runs. `host_args` are device_args' numpy
+    arrays (the fingerprints read them), `targs` their tensors.
+
+    Returns (tensor, "full" | "refresh", the delta or None, the class
+    planes the scan reuses, the traceback of a failed refresh or None)."""
+    pod_arrays, exist = targs[0], targs[9]
+    ops = ScreenOps(segments, pod_arrays["allow"].shape[1], screen_v)
+    items_pl = class_planes(pod_arrays, ops)
+    screen0, mode, delta, error = None, "full", None, None
+    if inc is not None:
+        try:
+            delta = inc.plan(key, host_args[0], host_args[9], gate_ok=gate_ok)
+        except Exception:
+            inc.invalidate()
+            delta = None
+        prev = inc.resident(key) if delta is not None else None
+        if prev is not None:
+            try:
+                screen0 = screen_refresh(prev, ops, items_pl, exist, delta.rows, delta.cols)
+                mode = "refresh"
+                inc.count_refresh()
+            except Exception:
+                # the resident tensor may be half written: drop it, keep
+                # the staged fingerprints for the full tensor; counted as
+                # full_deg, the traceback kept
+                error = traceback.format_exc()
+                inc.drop_resident()
+                inc.count_degraded()
+                screen0 = None
+    if screen0 is None:
+        screen0 = ops.initial_screen(items_pl, exist["allow"], exist["out"], exist["defined"],
+                                     n_slots)
+    if inc is not None:
+        inc.adopt(key, screen0)
+    return screen0, mode, delta, items_pl, error
+
+
+def dispatch_solve(run, screen0, targs, items_pl, sync=None):
+    """One solve program's run on its device (under obs.device_profiler):
+    (log, ptr, PackState), still on the device."""
+    with device_profiler():
+        log, ptr, state = run(screen0, *targs, items_pl=items_pl)
+        if profile_dir() and sync is not None:
+            sync()  # keep the device work inside the capture
+    return log, ptr, state
+
+
+def fetch_log(log, whole: bool = False) -> Dict[str, object]:
+    """The commit log on the host. The bulk take matrix is cut to its
+    bulk_n written rows, or kept whole (with bulk_n) as the solver
+    service's response carries it, as the reference's does."""
+    out = dict(log)
+    take = out["bulk_take"]
+    if whole:
+        out["bulk_take"] = take.cpu().numpy()
+        out["bulk_n"] = np.asarray(out["bulk_n"], dtype=np.int32)
+    else:
+        out["bulk_take"] = take[: out["bulk_n"]].cpu().numpy()
+    return out
+
+
+def fetch_state(state: PackState) -> Dict[str, np.ndarray]:
+    """Every field of the final slot state on the host, whole, in
+    PackState's order (the solver service's response)."""
+    return {name: value.cpu().numpy() for name, value in state._asdict().items()}
+
+
+def dispatch_replan(replan, count_rows, exist_open, uninit_t, screen0, targs, items_pl,
+                    want_slots: bool, on_chunk=None, sync=None):
+    """The K candidate subsets through the batched replan kernel in the
+    chunks of the K ladder (encode.replan_chunks). `on_chunk(k_pad, ms)`,
+    when given, gets each chunk's bucket and milliseconds (after `sync`).
+
+    Returns (the verdict parts, the pods-per-slot parts (empty unless
+    want_slots), the chunks' buckets, the scans' counts by branch), the
+    parts still on the device: fetch_replan gathers them."""
+    verdict_parts, pods_parts, chunks = [], [], []
+    scans = dict.fromkeys(pack_ops.LAST_REPLAN, 0)
+    for k, kp, sub_counts, sub_open in replan_chunks(count_rows, exist_open):
+        t0 = time.perf_counter()
+        with device_profiler():
+            pods_dev, verd_dev = replan(sub_counts, sub_open, uninit_t, screen0, *targs,
+                                        items_pl=items_pl)
+            if sync is not None and (profile_dir() or on_chunk is not None):
+                sync()
+        if on_chunk is not None:
+            on_chunk(kp, (time.perf_counter() - t0) * 1e3)
+        verdict_parts.append(verd_dev[:k])
+        if want_slots:
+            pods_parts.append(pods_dev[:k])
+        chunks.append(kp)
+        for name, v in pack_ops.LAST_REPLAN.items():
+            scans[name] += v
+    return verdict_parts, pods_parts, chunks, scans
+
+
+def fetch_replan(verdict_parts, pods_parts, want_slots: bool):
+    """(verdicts [K, 4] int32, pods per slot [K, N] int32 or None) on the
+    host."""
+    if verdict_parts:
+        verdicts = torch.cat(verdict_parts).cpu().numpy()
+    else:
+        verdicts = np.zeros((0, 4), np.int32)
+    pods = torch.cat(pods_parts).cpu().numpy() if want_slots and pods_parts else None
+    return verdicts, pods
+
+
+def load_screen_library(device) -> bool:
+    """On the card, load the screen library (nvcc builds it when the
+    source is newer than the built one); True when this call loaded it."""
+    if torch.device(device).type != "cuda":
+        return False
+    from karpenter_core_tpu_torch.ops import cuda_build
+
+    fresh = "screen" not in cuda_build.loaded_names()
+    cuda_build.load("screen")
+    return fresh
+
+
 INCREMENTAL_MODES = ("on", "off")
 
 
@@ -705,6 +840,13 @@ class TorchSolver:
         # prewarm has met, in order (the counterpart of the reference's
         # compiled-program cache keys)
         self._warm_keys: Dict[tuple, None] = {}
+        # the program ledger's view of them (obs/proghealth): the solve,
+        # refresh and replan entries, each first dispatch booked as its
+        # cold cost
+        self._programs = proghealth.ProgramBook("torch")
+
+    def _program_meta(self, geom) -> dict:
+        return {"tier": f"{geom[7]}slots", "mode": self.screen_mode}
 
     def _inc_enabled(self) -> bool:
         """The delta re-solve applies only under prescreen: tiered keeps
@@ -759,17 +901,11 @@ class TorchSolver:
             torch.cuda.synchronize(self.device)
 
     def _dispatch_prescreen(self, key, geom, host_args, targs):
-        """The [N, C] verdict tensor of this solve (_dispatch_prescreen,
-        tpu_solver.py:1369-1458): the resident tensor at this key with its
-        changed rows and columns refreshed when the delta is narrow, the
-        full precompute otherwise. A failed plan or refresh degrades to
-        the full precompute. Returns (tensor, "full" | "refresh", delta,
-        the class planes)."""
-        N, segments, screen_v = geom[7], geom[8], geom[16]
-        pod_arrays, exist = targs[0], targs[9]
-        ops = ScreenOps(segments, pod_arrays["allow"].shape[1], screen_v)
-        items_pl = class_planes(pod_arrays, ops)
-        screen0, mode, delta, inc = None, "full", None, None
+        """dispatch_prescreen at this solver's residency: the resident
+        tensor at `key` (an LRU of MAX_INC_SCREENS), the change feed's
+        verdict poisoning every key on a fault. Returns (tensor, "full" |
+        "refresh", delta, the class planes)."""
+        inc, gate_ok = None, True
         if self._inc_enabled():
             gate_ok, self._gate_ok = self._gate_ok, True
             if not gate_ok:
@@ -780,32 +916,12 @@ class TorchSolver:
             self._inc_screens.move_to_end(key)
             while len(self._inc_screens) > self.MAX_INC_SCREENS:
                 self._inc_screens.popitem(last=False)
-            try:
-                delta = inc.plan(key, host_args[0], host_args[9], gate_ok=gate_ok)
-            except Exception:
-                inc.invalidate()
-                delta = None
-            if delta is not None:
-                prev = inc.resident(key)
-                if prev is not None:
-                    try:
-                        screen0 = screen_refresh(prev, ops, items_pl, exist, delta.rows,
-                                                 delta.cols)
-                        mode = "refresh"
-                        inc.count_refresh()
-                    except Exception:
-                        # the resident tensor may be half written: drop it,
-                        # keep the staged fingerprints for the full tensor;
-                        # counted as full_deg, the traceback kept
-                        self.last_refresh_error = traceback.format_exc()
-                        inc.drop_resident()
-                        inc.count_degraded()
-                        screen0 = None
-        if screen0 is None:
-            screen0 = ops.initial_screen(items_pl, exist["allow"], exist["out"],
-                                         exist["defined"], N)
-        if inc is not None:
-            inc.adopt(key, screen0)
+        screen0, mode, delta, items_pl, error = dispatch_prescreen(
+            geom[8], geom[16], geom[7], host_args, targs, inc=inc, key=key, gate_ok=gate_ok)
+        if error is not None:
+            self.last_refresh_error = error
+        elif mode == "refresh":
+            self._programs.dispatch("refresh", (key, delta.rb, delta.cb))
         return screen0, mode, delta, items_pl
 
     def _solve_once(self, pods, provisioners, instance_types, daemonset_pods,
@@ -844,7 +960,9 @@ class TorchSolver:
         # pipeline's start, labelled as the device phase until a later mark
         supervise.touch_heartbeat("solver.phase.device")
         geom = solve_geometry(snap, self.max_nodes)
-        self._warm_keys[(geom, self.screen_mode)] = None
+        warm_key = (geom, self.screen_mode)
+        self._warm_keys[warm_key] = None
+        self._programs.mint("solve", warm_key, meta=self._program_meta(geom))
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
             geom[7], geom[8], geom[9], geom[10], geom[12], geom[16]
         )
@@ -873,14 +991,12 @@ class TorchSolver:
         # re-label for the long silent stretch ahead: a wedge inside the
         # scan names the device phase, not the last host-side mark
         supervise.touch_heartbeat("solver.phase.device")
-        with device_profiler():
-            log, ptr, state = run(screen0, *targs, items_pl=items_pl)
-            if profile_dir():
-                self._sync()  # keep the device work inside the capture
+        log, ptr, state = dispatch_solve(run, screen0, targs, items_pl, sync=self._sync)
         mark("device")
+        self._programs.dispatch("solve", warm_key,
+                                device_ms=phases.get("prescreen", 0.0) + phases["device"])
         nopen = int(state.nopen)
-        log = dict(log)
-        log["bulk_take"] = log["bulk_take"][: log["bulk_n"]].cpu().numpy()
+        log = fetch_log(log)
         host_state = _HostState(state, nopen)
         mark("fetch")
         result = decode_solve(snap, (log, ptr), host_state)
@@ -958,27 +1074,18 @@ class TorchSolver:
                                    screen_v=screen_v, screen_mode=self.screen_mode,
                                    rung_mode=True)
         replan = make_batched_replan_kernel(rung_run, E)
-        verdict_parts, pods_parts, chunks = [], [], []
-        scans = dict.fromkeys(pack_ops.LAST_REPLAN, 0)
-        for k, kp, sub_counts, sub_open in replan_chunks(count_rows, exist_open):
-            with device_profiler():
-                pods_dev, verd_dev = replan(sub_counts, sub_open, uninit_t, screen0, *targs,
-                                            items_pl=items_pl)
-                if profile_dir():
-                    self._sync()
-            verdict_parts.append(verd_dev[:k])
-            if want_slots:
-                pods_parts.append(pods_dev[:k])
-            chunks.append(kp)
-            for name, v in pack_ops.LAST_REPLAN.items():
-                scans[name] += v
+        warm_key = (geom, self.screen_mode)
+
+        def on_chunk(kp, ms):
+            self._programs.dispatch("replan", (warm_key, kp), device_ms=ms,
+                                    meta={"tier": f"K{kp}", "mode": self.screen_mode})
+
+        verdict_parts, pods_parts, chunks, scans = dispatch_replan(
+            replan, count_rows, exist_open, uninit_t, screen0, targs, items_pl, want_slots,
+            on_chunk=on_chunk, sync=self._sync)
         mark("device")
         K = int(count_rows.shape[0])
-        if verdict_parts:
-            verdicts = torch.cat(verdict_parts).cpu().numpy()
-        else:
-            verdicts = np.zeros((0, 4), np.int32)
-        pods = torch.cat(pods_parts).cpu().numpy() if want_slots and pods_parts else None
+        verdicts, pods = fetch_replan(verdict_parts, pods_parts, want_slots)
         mark("fetch")
         self.last_replan_stats = {
             "K": K, "chunks": chunks, "prescreen": self.last_prescreen_mode,
@@ -1006,24 +1113,19 @@ class TorchSolver:
         and leaves the per-solve state (`last_phase_ms`,
         `last_prescreen_*`, ops/pack.LAST_SCAN) as the last solve left it."""
         with self._lock:
-            fresh = False
-            if self.device.type == "cuda":
-                from karpenter_core_tpu_torch.ops import cuda_build
-
-                fresh = "screen" not in cuda_build.loaded_names()
-                cuda_build.load("screen")
+            t0 = time.perf_counter()
+            fresh = load_screen_library(self.device)
             geom = solve_geometry(snap, self.max_nodes)
             key = (geom, self.screen_mode)
             fresh = fresh or key not in self._warm_keys
             self._warm_keys[key] = None
             args = device_args(snap, provisioners)
-            targs = args_to_torch(args, self.device)
-            N, segments, screen_v = geom[7], geom[8], geom[16]
-            pod_arrays, exist = targs[0], targs[9]
-            ops = ScreenOps(segments, pod_arrays["allow"].shape[1], screen_v)
-            ops.initial_screen(class_planes(pod_arrays, ops), exist["allow"], exist["out"],
-                               exist["defined"], N)
+            # the prescreen at this geometry, with no resident tensor
+            dispatch_prescreen(geom[8], geom[16], geom[7], None,
+                               args_to_torch(args, self.device))
             self._sync()
+            self._programs.mint("solve", key, origin="prewarm", meta=self._program_meta(geom),
+                                seconds=time.perf_counter() - t0)
         return "compiled" if fresh else "cached"
 
 

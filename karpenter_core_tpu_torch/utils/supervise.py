@@ -15,16 +15,25 @@ whole budget; one that stopped touching it is wedged and is abandoned now
     spawns, and the solver's phase marks (TorchSolver) touch it without
     the object being passed through every signature. An unbound thread's
     touch is one thread-local read.
+  * ``set_process_heartbeat`` / ``process_heartbeat``: the process-wide
+    heartbeat of a supervised worker process (the solver host's child):
+    every ``touch_heartbeat`` from any thread also touches it, so the
+    parent's file watchdog sees the same phase marks.
+  * ``redact_env_text`` / ``tail_bytes_of`` / ``atomic_write_json``: a
+    worker's stderr tail with the secrets of the environment scrubbed, and
+    the all-or-nothing file write its span spill uses.
 
 Stdlib only: the supervisor must keep working when the device stack is
 wedged.
 """
 from __future__ import annotations
 
+import json
 import os
+import tempfile
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 
 class Heartbeat:
@@ -98,6 +107,21 @@ class ThreadHeartbeat:
 # thread, deep call sites touch it; unbound threads touch nothing
 _TLS = threading.local()
 
+# the process heartbeat of a supervised worker process (solver/host.py's
+# child), registered once at boot; None (the default) costs one global read
+_PROCESS_HB = None
+
+
+def set_process_heartbeat(hb) -> None:
+    """Register a process-wide heartbeat (anything with touch(label)) that
+    every touch_heartbeat() also touches; None unregisters."""
+    global _PROCESS_HB
+    _PROCESS_HB = hb
+
+
+def process_heartbeat():
+    return _PROCESS_HB
+
 
 def bind_heartbeat(hb: Optional[ThreadHeartbeat]) -> None:
     _TLS.heartbeat = hb
@@ -107,7 +131,63 @@ def touch_heartbeat(label: Optional[str] = None) -> None:
     hb = getattr(_TLS, "heartbeat", None)
     if hb is not None:
         hb.touch(label)
+    if _PROCESS_HB is not None:
+        _PROCESS_HB.touch(label)
 
 
 def bound_heartbeat() -> Optional[ThreadHeartbeat]:
     return getattr(_TLS, "heartbeat", None)
+
+
+# -- a worker's output: redaction, tails, atomic writes ---------------------
+
+_SENSITIVE_MARKERS = ("KEY", "TOKEN", "SECRET", "PASSWORD", "CREDENTIAL", "AUTH",
+                      "COOKIE")
+
+
+def redact_env_text(text: str, environ: Optional[Dict[str, str]] = None) -> str:
+    """Scrub environment values out of a worker's captured output: the
+    value of every variable whose name looks sensitive becomes
+    ``<redacted:NAME>``. Values under 6 characters are kept (too short to
+    be a secret, too likely to match ordinary text)."""
+    if environ is None:
+        from karpenter_core_tpu_torch.obs import envflags
+
+        environ = envflags.environ()
+    for name, value in environ.items():
+        if not value or len(value) < 6:
+            continue
+        if any(marker in name.upper() for marker in _SENSITIVE_MARKERS):
+            text = text.replace(value, f"<redacted:{name}>")
+    return text
+
+
+def tail_bytes_of(path: str, n: int = 8192) -> str:
+    """The last n bytes of a file, decoded leniently ('' when unreadable)."""
+    try:
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            if size > n:
+                f.seek(size - n)
+            return f.read(n).decode("utf-8", errors="replace")
+    except OSError:
+        return ""
+
+
+def atomic_write_json(path: str, payload: Dict[str, object]) -> None:
+    """Write-temp, fsync, rename in the destination's directory: a reader
+    never sees a partial file, and a crash leaves the previous one."""
+    directory = os.path.dirname(path) or "."
+    fd, tmp = tempfile.mkstemp(dir=directory, prefix=".tmp-", suffix=".json")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(payload, f, sort_keys=True)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise

@@ -5,8 +5,11 @@ wires, on the CPU.
   S and M tiers, leader election, a backlog provisioned through the
   ResilientSolver, every endpoint of the health server, the webhook
   server, and a clean stop (threads joined, the lease released);
-- what the entry refuses: no card, KARPENTER_SOLVER_HOST on, a solver
-  endpoint (flag or environment), KARPENTER_CHAOS;
+- what the entry refuses: no card, KARPENTER_SOLVER_MODE=sharded,
+  KARPENTER_CHAOS; the primary it wires: the solver host by default, a
+  RemoteSolver for a solver endpoint (flag or environment), the
+  in-process TorchSolver with KARPENTER_SOLVER_HOST=off, and the brownout
+  loop KARPENTER_SLO_BROWNOUT arms;
 - resolve_settings from the karpenter-global-settings ConfigMap against
   the reference's;
 - apply_server_gc_tuning, restored by its fixture;
@@ -184,10 +187,10 @@ def test_run_serves_a_backlog_end_to_end_on_the_cpu(monkeypatch, process_state):
         for ep in index["endpoints"]:
             if ep["path"] != "/metrics":
                 assert _get(port, ep["path"])[0] == 200, ep["path"]
-        for ep in index["not_ported"]:
-            with pytest.raises(urllib.error.HTTPError) as err:
-                _get(port, ep["path"])
-            assert err.value.code == 404
+        assert {"/debug/tenants", "/debug/timeline", "/debug/programs"} <= {
+            ep["path"] for ep in index["endpoints"]}
+        programs = json.loads(_get(port, "/debug/programs")[1])
+        assert any(r["family"] == "solve" for r in programs["programs"])
         spans = {sp.name for sp in TRACER.spans()}
         assert {"solver.prewarm", "solver.solve", "provisioner.reconcile"} <= spans
         if HAVE_CRYPTOGRAPHY:
@@ -227,11 +230,9 @@ def test_run_refuses_without_a_card(process_state):
 
 
 @pytest.mark.parametrize("env,argv,item", [
-    ({"KARPENTER_SOLVER_HOST": "on"}, [], "ROADMAP Queue A item 7"),
-    ({"KARPENTER_SOLVER_ENDPOINT": "localhost:50051"}, [], "ROADMAP Queue A item 7"),
-    ({}, ["--solver-endpoint", "localhost:50051"], "ROADMAP Queue A item 7"),
+    ({"KARPENTER_SOLVER_MODE": "sharded"}, [], "ROADMAP Queue A item 9"),
     ({"KARPENTER_CHAOS": "solver.dispatch=fail"}, [], "ROADMAP Queue A item 10"),
-], ids=["solver-host", "solver-endpoint-env", "solver-endpoint-flag", "chaos"])
+], ids=["sharded", "chaos"])
 def test_run_refuses_what_is_not_ported(monkeypatch, process_state, env, argv, item):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -243,16 +244,62 @@ def test_run_refuses_what_is_not_ported(monkeypatch, process_state, env, argv, i
     assert threading.active_count() == threads  # refused before anything started
 
 
+@pytest.mark.parametrize("env,argv,want", [
+    ({"KARPENTER_SOLVER_HOST": "on", "KARPENTER_SLO_BROWNOUT": "1"}, [], "HostSolver"),
+    ({"KARPENTER_SOLVER_ENDPOINT": "127.0.0.1:1"}, [], "RemoteSolver"),
+    ({}, ["--solver-endpoint", "127.0.0.1:1"], "RemoteSolver"),
+    ({"KARPENTER_SOLVER_HOST": "off"}, [], "TorchSolver"),
+], ids=["solver-host", "solver-endpoint-env", "solver-endpoint-flag", "in-process"])
+def test_run_wires_the_primary(monkeypatch, process_state, env, argv, want):
+    """The reference entry's wiring: the host (the default; the suite's
+    conftest turns it off), a RemoteSolver for an endpoint, the in-process
+    solver with the host off. An out-of-process primary is watched by its
+    own watchdog and probed through health(); the host's child is never
+    spawned here (no solve, no prewarm) and its close() leaves nothing."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    stop, got = threading.Event(), {}
+
+    def on_start(proc):
+        got["proc"] = proc
+        stop.set()
+
+    entry.run(fake.FakeCloudProvider(), stop_event=stop, device="cpu", on_start=on_start,
+              options=parse_options(argv + ["--metrics-port", "0", "--no-leader-elect",
+                                            "--disable-webhook"]))
+    proc = got["proc"]
+    assert type(proc.primary).__name__ == want
+    remote = want != "TorchSolver"
+    assert (proc.solver.wedge_stale_after is None) is remote
+    if want == "HostSolver":
+        assert proc.primary.device == "cpu" and proc.primary.host.pid is None
+        gate = proc.primary.admission
+        assert gate.ladder is not None and gate.brownout_prefer is not None
+        names = {o.name for o in entry.build_slo_engine(admission=gate).objectives}
+        assert "gate-admission" in names
+    if want == "RemoteSolver":
+        assert proc.primary.target == "127.0.0.1:1"
+    assert proc.alive == []
+
+
 def test_build_primary_refuses_host_mode_and_builds_in_process(monkeypatch):
+    """build_primary: KARPENTER_SOLVER_HOST on builds the HostSolver (its
+    child spawns at first use, on the device given), off the in-process
+    TorchSolver, whatever host_default says."""
     from karpenter_core_tpu_torch.solver import factory
+    from karpenter_core_tpu_torch.solver.host import HostSolver
 
     monkeypatch.setenv("KARPENTER_SOLVER_HOST", "on")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        factory.build_primary(device="cpu")
+    host = factory.build_primary(max_nodes=64, device="cpu")
+    assert isinstance(host, HostSolver) and host.max_nodes == 64
+    assert factory.describe(host) == "HostSolver(cpu)" and host.host.pid is None
+    host.close()
     monkeypatch.setenv("KARPENTER_SOLVER_HOST", "off")
     solver = factory.build_primary(max_nodes=64, host_default=True, device="cpu")
     assert isinstance(solver, TorchSolver) and solver.max_nodes == 64
     assert factory.describe(solver) == "TorchSolver(cpu)"
+    monkeypatch.delenv("KARPENTER_SOLVER_HOST")
+    assert isinstance(factory.build_primary(device="cpu", host_default=True), HostSolver)
 
 
 # -- settings, options, injection --------------------------------------------------

@@ -10,8 +10,8 @@ the validation suites every call of a validation function must return the
 same errors.
 
 The suites: tests/test_api_validation.py (27), tests/test_api_suite.py
-(65), tests/test_webhook_server.py (7), tests/test_debug_surface.py (5
-of 10), tests/test_operator_runtime.py's options (4), leader-election
+(65), tests/test_webhook_server.py (7), tests/test_debug_surface.py (10),
+tests/test_operator_runtime.py's options (4), leader-election
 (6), scheme (2), injection (1) and threaded-start (1) cases, and
 tests/test_bucket_ladder.py (12 of 13).
 
@@ -23,10 +23,8 @@ Where the port's counterpart has another name or needs the CPU:
 - `new_operator` without a solver gets `TorchSolver(device="cpu")`, since
   the port's default solver raises without a card.
 
-Left out, by case (LEFT_OUT): the debug cases of the solver host and of
-/debug/timeline and /debug/tenants, whose endpoints wait for ROADMAP Queue
-A items 3 and 7; and the one ladder case whose observable is an XLA
-compile-cache entry.
+Left out, by case (LEFT_OUT): the one ladder case whose observable is an
+XLA compile-cache entry (ROADMAP Queue A item 3).
 """
 import builtins
 import inspect
@@ -69,20 +67,6 @@ OPERATOR_RUNTIME = ("TestOptions::", "TestLeaderElection::", "TestThreadedStart:
                     "test_client_strict_scheme_rejects_unknown_kind",
                     "test_injection_context_values")
 LEFT_OUT = {
-    "debug_surface": {
-        "test_debug_health_surfaces_solver_host_state":
-            "the solver host's report (ROADMAP Queue A item 7)",
-        "test_debug_timeline_served_with_flight_record_index":
-            "/debug/timeline waits for the tracer's cross-process graft (item 7)",
-        "test_debug_timeline_gated_on_profiling":
-            "/debug/timeline waits for the tracer's cross-process graft (item 7)",
-        "test_debug_index_lists_every_endpoint_and_is_ungated":
-            "the index lists /debug/tenants and /debug/programs (items 3 and 7); the "
-            "port's index is held by test_torch_entry.py",
-        "test_debug_slo_and_tenants_served_and_gated":
-            "/debug/tenants waits for the admission gate's tenant series (item 7); "
-            "/debug/slo is held by test_torch_entry.py",
-    },
     "bucket_ladder": {
         "test_prewarm_then_live_solve_hits_cache":
             "reads the XLA compile cache (the AOT executable, karpenter_compile_cache_*): "
@@ -290,7 +274,7 @@ def test_case_outcome_matches_reference(suite, case, params):
 def test_cases_cover_the_suites():
     counts = {name: sum(1 for c in CASES if c[0] == name) for name in SUITES}
     assert counts == {"api_validation": 27, "api_suite": 65, "webhook_server": 7,
-                      "debug_surface": 5, "operator_runtime": 14, "bucket_ladder": 12}
+                      "debug_surface": 10, "operator_runtime": 14, "bucket_ladder": 12}
     for name, cases in LEFT_OUT.items():
         for case in cases:
             assert case in vars(SUITES[name]), (name, case)
