@@ -137,11 +137,13 @@ Phases, each fatal on failure:
      check_cluster_usage, every launch a Machine and a Node in the client,
      the bind listener and the nominations equal to the placed pods, the
      Nominated events kept as the recorder's token bucket allows, no
-     fallback and no launch failure; a kubelet pass (launched nodes Ready,
-     pods bound where the bind listener was told); step 2 solves nothing,
-     initializes every machine, and the counter's status.resources equals
-     the summed capacity of the provisioner's nodes; the inflight checks
-     over every node find nothing. Each step's wall is printed with its
+     fallback and no launch failure. Phase 10 stops there (the depth cut
+     that pays for phase 15); its script's second half runs in 10b and
+     11: a kubelet pass (launched nodes Ready, pods bound where the bind
+     listener was told); step 2 solves nothing, initializes every machine,
+     and the counter's status.resources equals the summed capacity of the
+     provisioner's nodes; the inflight checks over every node find
+     nothing. Each step's wall is printed with its
      parts (sync_state, the reconcile, the solve's last_phase_ms, the
      launch, the machine, node and termination controllers, the counter)
      and its gen-2 collections (count, seconds, and both by the part open
@@ -155,8 +157,8 @@ Phases, each fatal on failure:
      provisioner.reconcile -> solver.solve (context "provisioning") ->
      solver.phase.* with provisioner.launch beside the solve, a phase span
      more than 1 ms from last_phase_ms, karpenter_pending_pods other than
-     the backlog after step 1 and 0 after step 2, and, after step 2, an
-     exposition that does not parse line by line, karpenter_nodes_created
+     the backlog after step 1 and (10b, 11) 0 after step 2, and, after
+     step 2, an exposition that does not parse line by line, karpenter_nodes_created
      other than the machines launched, node metrics that miss a node, an
      admission-to-bind count other than the pods step 1 decided. It prints
      the tree, each step's parts (the metrics controllers one of them),
@@ -253,11 +255,34 @@ Phases, each fatal on failure:
      phase 10's (without the tuning). Then screen_prep and every form held
      exactly against their plain versions on the first live solve's
      snapshot and timed there.
+  15. the soak (run right after phase 2, while the heap is small): the
+     operator under seeded churn (loadgen.SoakDriver.run(), realtime,
+     op.start()'s watch pumps, batcher windows, solves, launches and the
+     driver's kubelet binds) with chaos armed. 15a, hack/soak.py --smoke
+     --host: seed 42, 12 s, 2.5 arrival events/s, 12 seed nodes, a
+     ResilientSolver around a HostSolver at the drill's admission scale
+     (its child on the card), a FakeClock warm-up through the same
+     primary, state.diff (p 0.05), cloudprovider.create (p 0.02) and one
+     solver.host.crash (after 8 consults), then the overload burst; fatal
+     unless the loops live, pods bind and none is left unbound, the crash
+     fired and the child respawned, the card is re-admitted with no live
+     zombie, a post-drill solve through the host is byte-identical to an
+     in-process TorchSolver's, and the burst shed with no error, no
+     deadline violation and a re-converged latency. 15b, steady churn at
+     a cluster's size: 1,000 seed nodes over 400 types, 40 arrival
+     events/s (~100 pods/s), 24 terminations and 3.2 resizes a second for
+     30 s, the default Settings() batch windows, the same two faults, the
+     entry's default primary (a HostSolver in the entry's ResilientSolver);
+     every SoakReport column, the card's solves, the fallbacks and small
+     batches, the chaos counts and the children's launches by form
+     printed; fatal: a dead loop, a pod unbound after a tail of up to 60
+     s, no solve served by the card, or a fallback (no armed fault reaches
+     the solver in host mode).
 Phase 1 builds the native packer (g++, native/fast_pack.cpp) beside the
 CUDA kernels. Phases 4-6 solve with incremental="off", so their warm solves
 run the full precompute as before. It prints one JSON line describing
 every kernel (the screen, screen_prep, and the screen's three forms with
-their launches over phases 4-10, 12a, 13 and 14, the solver host's
+their launches over phases 4-10, 12a, 13, 14 and 15, the solver host's
 children's and the gRPC service's summed in), then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
@@ -286,7 +311,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from karpenter_core_tpu_torch import native, testing  # noqa: E402
+from karpenter_core_tpu_torch import chaos, loadgen, native, testing  # noqa: E402
 from karpenter_core_tpu_torch.api import settings as api_settings  # noqa: E402
 from karpenter_core_tpu_torch.api.machine import CONDITION_MACHINE_INITIALIZED  # noqa: E402
 from karpenter_core_tpu_torch.api.labels import (  # noqa: E402
@@ -2535,15 +2560,15 @@ def check_operator_settled(run: "OperatorRun", rec: dict) -> dict:
 
 
 def phase_operator(label, size, device="cuda", max_nodes=50000 // 5 + 1536,
-                   record=False, trace_path=None) -> dict:
+                   record=False, trace_path=None, steps: int = 2) -> dict:
     """Phase 10: the operator over operator_cluster(*size) on `device`,
     instrumented as a deployment runs it (the tracer on, the metrics
     controllers in step(), the provider decorated per controller): step 1
     provisions the backlog (check_operator_pass, check_spans, the pending
-    pods gauge), a kubelet pass, step 2 settles (check_operator_settled,
-    check_exposition). The screen's launch counts are zeroed just before
-    step 1 and read after step 2. With `trace_path` the tracer's Chrome
-    trace is exported there."""
+    pods gauge), then, with steps=2, a kubelet pass and step 2 settles
+    (check_operator_settled, check_exposition). The screen's launch counts
+    are zeroed just before step 1 and read after the last step. With
+    `trace_path` the tracer's Chrome trace is exported there."""
     n_pods, n_types, n_nodes, distinct, kw = size
     clock = testing.FakeClock()
     t0 = time.perf_counter()
@@ -2566,13 +2591,18 @@ def phase_operator(label, size, device="cuda", max_nodes=50000 // 5 + 1536,
         raise AssertionError(f"{label}: karpenter_pending_pods {pending} after step 1 for "
                              f"{len(pods)} pending")
     decided = run.binds
-    kubelet = run.kubelet()
-    second = run.step("step 2")
-    settled = check_operator_settled(run, second)
-    if REGISTRY.gauge("karpenter_pending_pods").get() != 0:
-        raise AssertionError(f"{label}: karpenter_pending_pods not 0 after step 2")
+    done = [first]
+    kubelet = settled = expo = None
+    if steps == 2:
+        kubelet = run.kubelet()
+        second = run.step("step 2")
+        done.append(second)
+        settled = check_operator_settled(run, second)
+        if REGISTRY.gauge("karpenter_pending_pods").get() != 0:
+            raise AssertionError(f"{label}: karpenter_pending_pods not 0 after step 2")
     counts = screen.launch_counts()
-    expo = check_exposition(label, run, len(pods), passed["machines"], decided)
+    if steps == 2:
+        expo = check_exposition(label, run, len(pods), passed["machines"], decided)
     trace_bytes = None
     if trace_path:
         TRACER.export_chrome_trace(trace_path)
@@ -2581,11 +2611,12 @@ def phase_operator(label, size, device="cuda", max_nodes=50000 // 5 + 1536,
             f"{trace_bytes} bytes at {trace_path}")
     run.op.recorder.flush(timeout=60.0)
     events = len(client.list("Event", copy_objects=False))
-    say(f"[{label}] step 1 checked {json.dumps(passed)}; kubelet {kubelet['ready']} nodes "
-        f"Ready, {kubelet['bound']} pods bound in {kubelet['s']:.2f} s; step 2 checked "
-        f"{json.dumps(settled)}; events posted {events}; counters "
-        f"{json.dumps(run.counters())}; launches {json.dumps(counts)}")
-    return {"run": run, "steps": [first, second], "launches": counts, "events": events,
+    settle = (f"kubelet {kubelet['ready']} nodes Ready, {kubelet['bound']} pods bound in "
+              f"{kubelet['s']:.2f} s; step 2 checked {json.dumps(settled)}" if kubelet
+              else "no step 2")
+    say(f"[{label}] step 1 checked {json.dumps(passed)}; {settle}; events posted {events}; "
+        f"counters {json.dumps(run.counters())}; launches {json.dumps(counts)}")
+    return {"run": run, "steps": done, "launches": counts, "events": events,
             "passed": passed, "settled": settled, "spans": spans, "exposition": expo,
             "trace_bytes": trace_bytes}
 
@@ -3704,6 +3735,314 @@ def phase_grpc(pods, provs, its, client, cluster, max_nodes, want, snap, device=
     return out
 
 
+# -- phase 15: the soak, the operator under seeded churn on the card ----------------
+
+SOAK_MAX_NODES = 64
+# hack/soak.py --smoke --host: seed 42, 12 s, arrivals 2.5/s, terminations
+# and resizes at 0.6 and 0.08 of it, 12 seed nodes
+SOAK_DRILL = dict(seed=42, duration_s=12.0, arrival_rate=2.5, termination_rate=2.5 * 0.6,
+                  resize_rate=2.5 * 0.08, initial_nodes=12)
+# steady churn at a cluster's size: phase 6's 1,000 nodes over upstream's
+# largest grid of 400 types (scheduling_benchmark_test.go:56-76), 40
+# arrival events/s (~100 pods/s with the default mix at 2.4 pods an event,
+# upstream's floor, scheduling_benchmark_test.go:50), the soak's ratios for
+# terminations and resizes
+STEADY_CHURN = dict(seed=42, duration_s=30.0, arrival_rate=40.0, termination_rate=24.0,
+                    resize_rate=3.2, initial_nodes=1000)
+STEADY_TYPES = 400
+STEADY_TAIL_S = 60.0
+
+
+def arm_soak_faults(seed: int) -> None:
+    """hack/soak.py:446-449: the change feed's fault the incremental path
+    must degrade under, and transient cloud-provider create failures."""
+    chaos.arm(chaos.STATE_DIFF, error="conn", probability=0.05, seed=seed)
+    chaos.arm(chaos.CLOUDPROVIDER_CREATE, error="conn", probability=0.02, seed=seed + 1)
+
+
+def armed_counts() -> dict:
+    return {p: {"calls": f.calls, "injected": f.injected}
+            for p, f in sorted(chaos.armed_points().items())}
+
+
+def soak_columns(label: str, report) -> dict:
+    cols = report.as_columns()
+    say(f"[{label}] SoakReport {json.dumps(cols, sort_keys=True)}")
+    return cols
+
+
+def nomination_clock(driver) -> list:
+    """Each nominated pod's wait from its creation to its nomination, in
+    seconds on the wall clock, appended by a bind listener beside the
+    driver's own: the admission-to-bind histogram's buckets are too coarse
+    to tell 6 s from 9 s."""
+    waits = []
+    driver.op.provisioning.bind_listeners.append(
+        lambda pod, _node: waits.append(time.time() - pod.metadata.creation_timestamp))
+    return waits
+
+
+def percentiles(values) -> dict:
+    if not values:
+        return {"n": 0}
+    v = sorted(values)
+    return {"n": len(v), "p50_s": round(v[len(v) // 2], 3),
+            "p99_s": round(v[min(len(v) - 1, int(0.99 * len(v)))], 3), "max_s": round(v[-1], 3)}
+
+
+def overload_burst(resilient, host_solver, n_threads: int = 10) -> dict:
+    """hack/soak.py:114-160: a concurrent burst against the host's
+    drill-scale admission gate. The gate sheds (brownout first), every
+    shed request is served by greedy (never an error), no accepted request
+    dispatches past its deadline, and the sequential latency re-converges
+    once the burst drains."""
+    pods = [testing.make_pod(requests={"cpu": "1"}) for _ in range(12)]
+    provisioners = [testing.make_provisioner(name="burst")]
+    its = {"burst": fake.instance_types(8)}
+
+    def timed_solve():
+        t0 = time.monotonic()
+        resilient.solve(pods, provisioners, its)
+        return time.monotonic() - t0
+
+    timed_solve()  # this geometry's first dispatch, out of the measurement
+    pre = sorted(timed_solve() for _ in range(3))
+    gate = host_solver.admission
+    shed_before = sum(gate.stats()["shed"].values())
+    errors = []
+
+    def worker():
+        try:
+            resilient.solve(pods, provisioners, its)
+        except Exception as e:  # noqa: BLE001 — counted, gated to zero
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, daemon=True, name=f"burst-{i}")
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60.0)
+    stats = gate.stats()
+    post = sorted(timed_solve() for _ in range(3))
+    return {"shed": sum(stats["shed"].values()) - shed_before, "shed_reasons": stats["shed"],
+            "deadline_violations": stats["deadline_violations"], "errors": errors,
+            "pre_p50_s": round(pre[1], 3), "post_p99_s": round(post[-1], 3)}
+
+
+def phase_soak_drill(device="cuda", config=None, tail_s: float = 25.0) -> dict:
+    """15a: hack/soak.py --smoke --host on `device`. A ResilientSolver
+    around a HostSolver (the entry's default primary, whose child solves on
+    the card) at the drill's admission scale; a FakeClock warm-up of the
+    opening window through the same primary; then state.diff (p 0.05) and
+    cloudprovider.create (p 0.02) armed and one solver.host.crash (times 1,
+    after 8), and SoakDriver.run() in real time; then the overload burst.
+    Fatal (hack/soak.py:480-620): a dead reconcile loop, no bind, a pod
+    unbound at the end, an empty admission histogram, a crash that never
+    fired or did not respawn the child, the breaker not re-admitting the
+    card, a live zombie, a post-drill solve through the host that is not
+    byte-identical to an in-process TorchSolver's, a burst that did not
+    shed or re-converge, an accepted request past its deadline, an error
+    instead of greedy. The child's launches (zeroed just before the
+    warm-up, read after the drill) are returned."""
+    from dataclasses import replace
+
+    config = loadgen.ChurnConfig(**(config or SOAK_DRILL))
+    primary = HostSolver(max_nodes=SOAK_MAX_NODES, device=device, stale_after=600.0,
+                         solve_timeout=60.0, spawn_timeout=300.0, max_queue=4,
+                         brownout_at=4, queue_deadline_s=30.0)
+    resilient = fallback.ResilientSolver(primary, torch_solver.GreedySolver(),
+                                         small_batch_work_max=0, solve_timeout=120.0,
+                                         wedge_stale_after=None, reprobe_interval=3.0,
+                                         probe_timeout=300.0)
+    chaos.reset()
+    out = {}
+    primary.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        warm = loadgen.SoakDriver(replace(config, duration_s=min(config.duration_s, 12.0)),
+                                  clock=testing.FakeClock(), solver=primary,
+                                  max_nodes=SOAK_MAX_NODES).run_steps()
+        out["warmup_s"] = round(time.perf_counter() - t0, 3)
+        out["boot_s"] = round(primary.host.last_boot_s, 3)
+        say(f"[soak 15a] warm-up (virtual time, {warm.binds} binds) in {out['warmup_s']} s, "
+            f"the child's boot {out['boot_s']} s")
+        arm_soak_faults(config.seed)
+        chaos.arm(chaos.SOLVER_HOST_CRASH, error="runtime", times=1, after=8,
+                  seed=config.seed + 3)
+        driver = loadgen.SoakDriver(config, max_nodes=SOAK_MAX_NODES, solver=resilient,
+                                    tail_timeout_s=tail_s)
+        waits = nomination_clock(driver)
+        t0 = time.perf_counter()
+        report = driver.run()
+        out["run_s"] = round(time.perf_counter() - t0, 3)
+        out["columns"] = soak_columns("soak 15a", report)
+        out["nominated"] = percentiles(waits)
+        out["chaos"] = armed_counts()
+        crash = chaos.armed_points().get(chaos.SOLVER_HOST_CRASH)
+        crash_injected = crash.injected if crash else 0
+        chaos.reset()
+        launches = _host_launches(primary)
+        out["launches"] = launches
+        # the burst starts from a healthy primary: wait out the reprobe
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and not resilient.healthy():
+            time.sleep(0.5)
+        burst = out["burst"] = overload_burst(resilient, primary)
+        health = resilient.health_report()
+        pods = [testing.make_pod(name=f"drill-{i}", requests={"cpu": "1"},
+                                 uid=f"uid-drill-{i}", creation_timestamp=1000.0 + i)
+                for i in range(10)]
+        provs = [testing.make_provisioner(name="default")]
+        its = {"default": fake.instance_types(10)}
+        through_host = torch_solver.placements_json(resilient.solve(pods, provs, its))
+        local = torch_solver.placements_json(
+            torch_solver.TorchSolver(max_nodes=SOAK_MAX_NODES, device=device).solve(
+                pods, provs, its))
+        child_inc = primary.host.stats().get("incremental", {})
+        out["host"] = {"crash_injected": crash_injected,
+                       "generations": primary.host.generation,
+                       "respawns": primary.host.respawns,
+                       "live_zombies": health["abandoned_live"],
+                       "breaker": resilient.breaker.state,
+                       "parity_byte_identical": through_host == local,
+                       "child_incremental": child_inc}
+    finally:
+        chaos.reset()
+        primary.close()
+    say(f"[soak 15a] chaos {json.dumps(out['chaos'])}; host drill {json.dumps(out['host'])}; "
+        f"overload burst {json.dumps(burst)}; creation to nomination "
+        f"{json.dumps(out['nominated'])}; the children's launches "
+        f"{json.dumps(launches)}; warm-up and run {out['warmup_s']} + {out['run_s']} s")
+    cols, host = out["columns"], out["host"]
+    failures = []
+    if not cols["churn_loops_alive"]:
+        failures.append("a reconcile loop died")
+    if cols["churn_binds"] == 0:
+        failures.append("no pod was ever bound")
+    if cols["churn_admission_count"] == 0:
+        failures.append("the admission histogram recorded nothing")
+    if cols["churn_unbound_at_end"]:
+        failures.append(f"{cols['churn_unbound_at_end']} pods stranded unbound")
+    if host["crash_injected"] < 1:
+        failures.append("solver.host.crash never fired")
+    if host["generations"] < 2:
+        failures.append(f"host generation {host['generations']} < 2: no respawn")
+    if host["breaker"] != fallback.CircuitBreaker.CLOSED or not resilient._healthy:
+        failures.append(f"the card not re-admitted (breaker {host['breaker']})")
+    if host["live_zombies"]:
+        failures.append(f"{host['live_zombies']} live zombie(s)")
+    if not host["parity_byte_identical"]:
+        failures.append("the post-drill host solve is not byte-identical to in-process")
+    if burst["shed"] == 0:
+        failures.append("the overload burst never shed")
+    if burst["deadline_violations"]:
+        failures.append(f"{burst['deadline_violations']} accepted request(s) past their "
+                        "deadline")
+    if burst["errors"]:
+        failures.append(f"the burst raised instead of serving greedy: {burst['errors'][:3]}")
+    if burst["post_p99_s"] > max(4.0 * burst["pre_p50_s"], 3.0):
+        failures.append(f"post-burst p99 {burst['post_p99_s']} s never re-converged "
+                        f"(pre-burst p50 {burst['pre_p50_s']} s)")
+    if device == "cuda" and not launches.get("screen_prep"):
+        failures.append("the children launched no screen_prep")
+    if failures:
+        raise AssertionError("soak 15a: " + "; ".join(failures))
+    return out
+
+
+def phase_steady_churn(device="cuda", config=None, n_types: int = STEADY_TYPES,
+                       tail_s: float = STEADY_TAIL_S) -> dict:
+    """15b: SoakDriver.run() in real time at a cluster's size
+    (STEADY_CHURN: 1,000 seed nodes over 400 types, ~100 pods/s) with the
+    port's default Settings() batch windows (1 s idle, 10 s at most, no
+    batch cap), the soak's state.diff and cloudprovider.create faults
+    armed, and the entry's default primary: a HostSolver (max_nodes 1,024)
+    in the entry's ResilientSolver, its child on the card and booted
+    before the soak (as the entry's prewarm boots it). Prints every
+    SoakReport column, the fallbacks by reason, the small batches routed
+    to greedy, the solves the card served, the chaos counts and the
+    children's launches by form (zeroed just before, read after). Fatal: a
+    dead reconcile loop, a pod unbound after the tail (up to `tail_s`), no
+    solve served by the card, or any fallback: no armed fault reaches the
+    solver in host mode."""
+    config = loadgen.ChurnConfig(**(config or STEADY_CHURN))
+    primary = HostSolver(device=device, spawn_timeout=300.0)
+    resilient = fallback.ResilientSolver(primary, torch_solver.GreedySolver(),
+                                         solve_timeout=900.0, wedge_stale_after=None)
+    served = {"solves": 0, "pods": 0, "s": []}
+    inner = primary.solve
+
+    def counted(pods, *a, **kw):
+        t0 = time.perf_counter()
+        result = inner(pods, *a, **kw)
+        served["solves"] += 1
+        served["pods"] += len(pods)
+        served["s"].append(time.perf_counter() - t0)
+        return result
+
+    primary.solve = counted
+    chaos.reset()
+    before = fallback_counts()
+    out = {"nodes": config.initial_nodes, "types": n_types}
+    try:
+        # a running control plane meets churn with its child up (the
+        # entry's prewarm boots it at the start): the boot is paid here,
+        # before the soak, and printed apart
+        t0 = time.perf_counter()
+        primary.health(timeout=300.0)
+        out["boot_s"] = round(time.perf_counter() - t0, 3)
+        primary.reset_launches()
+        driver = loadgen.SoakDriver(config, instance_type_count=n_types, solver=resilient,
+                                    settings=api_settings.Settings(),
+                                    max_nodes=primary.max_nodes, tail_timeout_s=tail_s)
+        waits = nomination_clock(driver)
+        arm_soak_faults(config.seed)
+        t0 = time.perf_counter()
+        report = driver.run()
+        out["run_s"] = round(time.perf_counter() - t0, 3)
+        out["chaos"] = armed_counts()
+        chaos.reset()
+        out["columns"] = soak_columns("steady churn 15b", report)
+        out["nominated"] = percentiles(waits)
+        out["launches"] = _host_launches(primary)
+        out["moved"] = counts_moved(before)
+        out["child_incremental"] = primary.host.stats().get("incremental", {})
+    finally:
+        chaos.reset()
+        primary.close()
+    walls = sorted(served["s"])
+    out["card"] = {"solves": served["solves"], "pods": served["pods"],
+                   "wall_p50_s": round(walls[len(walls) // 2], 3) if walls else None,
+                   "wall_max_s": round(walls[-1], 3) if walls else None}
+    cols = out["columns"]
+    say(f"[steady churn 15b] {config.initial_nodes} nodes x {n_types} types, "
+        f"{config.arrival_rate} arrival events/s for {config.duration_s} s: run "
+        f"{out['run_s']} s (the tail included), {cols['churn_pods_created']} pods created, "
+        f"{cols['churn_binds']} bound, admission p50 {cols['churn_admission_p50_s']} s p99 "
+        f"{cols['churn_admission_p99_s']} s (histogram buckets), creation to nomination "
+        f"{json.dumps(out['nominated'])}; the card served {json.dumps(out['card'])}; "
+        f"fallback and small-batch series moved {json.dumps(out['moved'])}; chaos "
+        f"{json.dumps(out['chaos'])}; the child's boot {out['boot_s']} s, its incremental "
+        f"outcomes {json.dumps(out['child_incremental'])}; the children's launches "
+        f"{json.dumps(out['launches'])}")
+    failures = []
+    if not cols["churn_loops_alive"]:
+        failures.append("a reconcile loop died")
+    if cols["churn_unbound_at_end"]:
+        failures.append(f"{cols['churn_unbound_at_end']} pods unbound after a tail of up to "
+                        f"{tail_s:.0f} s")
+    if not served["solves"]:
+        failures.append("the card's solver served no solve")
+    fell_back = {k: v for k, v in out["moved"].items()
+                 if k.startswith("SOLVER_FALLBACK_TOTAL")}
+    if fell_back:
+        failures.append(f"fallbacks no armed fault caused: {fell_back}")
+    if failures:
+        raise AssertionError("steady churn 15b: " + "; ".join(failures))
+    return out
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -3770,6 +4109,18 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     kstats = phase_kernels(snap, int_rate, busy_cycles)
     mark("phase 2")
+
+    # phase 15: the soak, the operator under seeded churn with faults armed,
+    # early while this process's heap is small (a realtime loop pays for
+    # every gen-2 collection of what later phases leave): 15a the
+    # reference's host-mode drill, 15b steady churn at a cluster's size
+    tracing = TRACER.enabled
+    soak = phase_soak_drill()
+    mark("phase 15a")
+    steady = phase_steady_churn()
+    TRACER.enabled = tracing
+    gc.collect()
+    mark("phase 15b")
 
     # phase 3: card and CPU place config 2 identically; the card's solve is
     # flight-recorded (phase 11 replays the record)
@@ -4055,7 +4406,8 @@ def main() -> int:
     # new_operator and two steps
     trace_path = os.path.join(tempfile.gettempdir(),
                               f"karpenter-operator-trace-{os.getpid()}.json")
-    op10 = phase_operator("operator", (50000, 500, 1000, 1000, {}), trace_path=trace_path)
+    op10 = phase_operator("operator", (50000, 500, 1000, 1000, {}), trace_path=trace_path,
+                          steps=1)
     op_counts = op10["launches"]
     for k in ("screen_prep", "block", "row_n1"):
         if not op_counts.get(k):
@@ -4122,18 +4474,21 @@ def main() -> int:
     # service in this process (14c)
     b14 = {k: b14a["launches"][k] + b14b["launches"][k]
            + (b14c["launches"].get(k, 0) if b14c else 0) for k in b14a["launches"]}
+    # phase 15's: the solver host's children of 15a and 15b
+    b15 = {k: soak["launches"][k] + steady["launches"][k] for k in soak["launches"]}
     runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
-            cons_launches, life_launches, op_launches, fb_launches, ent_launches, b14)
+            cons_launches, life_launches, op_launches, fb_launches, ent_launches, b14, b15)
     form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms,
-                 life_forms, op_forms, fb_forms, ent_forms, b14)
+                 life_forms, op_forms, fb_forms, ent_forms, b14, b15)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
     say(f"[launches] phase 10 {json.dumps(op_counts)}, phase 12a {json.dumps(fb['launches'])}"
         f", phase 13 (the solver host's child) {json.dumps(ent['launches'])}, phase 14 "
         f"{json.dumps(b14)} (14a {json.dumps(b14a['launches'])}, 14b "
         f"{json.dumps(b14b['launches'])}, 14c "
-        f"{json.dumps(b14c['launches']) if b14c else 'not run'}); phases 4-10, 12a, 13 and 14 "
-        f"summed {json.dumps(launches)} by form {json.dumps(forms)}")
+        f"{json.dumps(b14c['launches']) if b14c else 'not run'}), phase 15 {json.dumps(b15)} "
+        f"(15a {json.dumps(soak['launches'])}, 15b {json.dumps(steady['launches'])}); phases "
+        f"4-10, 12a, 13, 14 and 15 summed {json.dumps(launches)} by form {json.dumps(forms)}")
 
     # the line's numbers are those of this slice's main path, phase 10's
     # first operator step (the live cluster's backlog, solved through

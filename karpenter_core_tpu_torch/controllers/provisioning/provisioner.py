@@ -38,6 +38,7 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from karpenter_core_tpu_torch import chaos
 from karpenter_core_tpu_torch.api import labels as api_labels
 from karpenter_core_tpu_torch.api.provisioner import order_by_weight
 from karpenter_core_tpu_torch.api.settings import current as current_settings
@@ -495,6 +496,8 @@ class ProvisioningController:
         template.requests = dict(machine.requests)
         machine_cr = template.to_machine()
         try:
+            # the cloud-provider edge every launch crosses
+            chaos.maybe_fail(chaos.CLOUDPROVIDER_CREATE)
             created = self.cloud_provider.create(machine_cr)
         except InsufficientCapacityError as e:
             self.ice_cache.record(e)

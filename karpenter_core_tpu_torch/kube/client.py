@@ -32,6 +32,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from karpenter_core_tpu_torch import chaos
 from karpenter_core_tpu_torch.kube.objects import LabelSelector, NamespacedName
 
 WatchEvent = Tuple[str, object]  # ("ADDED" | "MODIFIED" | "DELETED", object)
@@ -125,6 +126,7 @@ class InMemoryKubeClient:
     # -- writes ---------------------------------------------------------------
 
     def create(self, obj) -> object:
+        chaos.maybe_fail(chaos.KUBE_TRANSPORT)
         kind = _kind_of(obj)
         if self.strict and not self.scheme.recognizes(kind):
             raise TypeError(f"kind {kind} is not registered in the scheme")
@@ -139,6 +141,7 @@ class InMemoryKubeClient:
             return copy.deepcopy(stored)
 
     def get(self, kind: str, namespace: str, name: str) -> Optional[object]:
+        chaos.maybe_fail(chaos.KUBE_TRANSPORT)
         with self._mu:
             obj = self._objects.get(kind, {}).get(NamespacedName(namespace, name))
             return copy.deepcopy(obj) if obj is not None else None
@@ -146,6 +149,7 @@ class InMemoryKubeClient:
     def update(self, obj) -> object:
         """Replace a stored object; for the status-subresource kinds the
         stored status is kept."""
+        chaos.maybe_fail(chaos.KUBE_TRANSPORT)
         kind = _kind_of(obj)
         with self._mu:
             key = NamespacedName(obj.metadata.namespace, obj.metadata.name)
@@ -163,6 +167,7 @@ class InMemoryKubeClient:
     def update_status(self, obj) -> object:
         """The status subresource's PUT: only obj.status is written; the
         stored spec and metadata stay as they are."""
+        chaos.maybe_fail(chaos.KUBE_TRANSPORT)
         kind = _kind_of(obj)
         with self._mu:
             key = NamespacedName(obj.metadata.namespace, obj.metadata.name)
@@ -212,6 +217,7 @@ class InMemoryKubeClient:
         """delete(obj) or delete(kind, namespace, name). While the object
         has finalizers this only stamps its deletion time (wall clock) and
         emits MODIFIED; it is removed once finalize() clears them."""
+        chaos.maybe_fail(chaos.KUBE_TRANSPORT)
         if isinstance(obj_or_kind, str):
             kind = obj_or_kind
         else:
@@ -265,6 +271,7 @@ class InMemoryKubeClient:
         mutate what they list (an informer cache's read idiom): the
         consolidation search reads every bound pod of the cluster each
         pass."""
+        chaos.maybe_fail(chaos.KUBE_TRANSPORT)
         with self._mu:
             store = self._objects.get(kind, {})
             if node_name is not None:

@@ -35,6 +35,7 @@ import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+from karpenter_core_tpu_torch import chaos
 from karpenter_core_tpu_torch.api.settings import Settings, set_current
 from karpenter_core_tpu_torch.cloudprovider.metrics import decorate
 from karpenter_core_tpu_torch.controllers.counter.controller import CounterController
@@ -234,7 +235,10 @@ class Operator:
     def _deliver(self, kind: str, handler, event: str, obj) -> None:
         """One event through the informer, a pod's to the pod controller
         and the pod metrics, a provisioner's to the provisioner metrics:
-        shared by the stream and the relist replay."""
+        shared by the stream and the relist replay. The chaos point
+        `state.watch` fails a delivery, which the pump recovers from by a
+        relist."""
+        chaos.maybe_fail(chaos.STATE_WATCH)
         handler(event, obj)
         if kind == "Pod":
             if event != "DELETED":

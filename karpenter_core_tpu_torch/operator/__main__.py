@@ -24,7 +24,10 @@ fallback (flags > environment > defaults), and these variables:
   KARPENTER_SOLVER_HOST          the solver host (default on here; off
                                  solves in this process)
   KARPENTER_SLO_BROWNOUT         arms the admission gate's SLO loop
-  KARPENTER_SOLVER_MODE, KARPENTER_CHAOS   refused: see below
+  KARPENTER_CHAOS                a fault-injection spec (chaos/): armed at
+                                 import and by run(); unset in production
+  KARPENTER_CHAOS_SEED           the spec's default per-point seed
+  KARPENTER_SOLVER_MODE          sharded is refused: see below
 
 The karpenter-global-settings ConfigMap, when the client holds one,
 overrides the flags' settings (settings.go:53-68).
@@ -37,9 +40,8 @@ ResilientSolver wraps it with the greedy fallback. The card is required
 (run() raises without one) unless the caller passes device="cpu" (the
 tests), the port's counterpart of the reference's JAX_PLATFORMS. It
 raises rather than run without a module that is not ported yet:
-- KARPENTER_SOLVER_MODE=sharded waits for the multi-GPU mesh (ROADMAP
-  Queue A item 9);
-- KARPENTER_CHAOS waits for the fault injection of chaos/ (item 10).
+KARPENTER_SOLVER_MODE=sharded waits for the multi-GPU mesh (ROADMAP
+Queue A item 9).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional
 
+from karpenter_core_tpu_torch import chaos
 from karpenter_core_tpu_torch.api.settings import Settings
 from karpenter_core_tpu_torch.metrics.registry import REGISTRY
 from karpenter_core_tpu_torch.obs import envflags
@@ -59,7 +62,6 @@ from karpenter_core_tpu_torch.webhooks import SETTINGS_CONFIG_MAP_NAME
 
 LOG = get_logger("karpenter.operator")
 
-CHAOS_ITEM = "ROADMAP Queue A item 10: chaos/, the fault injection"
 MESH_ITEM = "ROADMAP Queue A item 9: the multi-GPU mesh"
 
 
@@ -510,14 +512,14 @@ def run(cloud_provider, kube_client=None, stop_event=None, options=None,
         host_mode_enabled,
     )
 
-    if envflags.raw("KARPENTER_CHAOS"):
-        raise NotImplementedError(
-            f"KARPENTER_CHAOS is set, but fault injection is not ported yet ({CHAOS_ITEM}); "
-            "unset it")
     if envflags.raw("KARPENTER_SOLVER_MODE", "auto").lower() == "sharded":
         raise NotImplementedError(
             f"KARPENTER_SOLVER_MODE=sharded: the sharded solver is not ported yet "
             f"({MESH_ITEM}); unset it or set it to single")
+    # KARPENTER_CHAOS, armed when chaos was imported; a spec set since (an
+    # embedding that sets it before run()) arms its points now, and a
+    # malformed spec fails the start
+    chaos.arm_from_env(keep_armed=True)
     # the embedded path resolves the environment through the same flags
     # (flags > environment > defaults)
     opts = options or parse_options([])

@@ -57,6 +57,7 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
+from karpenter_core_tpu_torch import chaos
 from karpenter_core_tpu_torch.metrics.registry import (
     NAMESPACE,
     REGISTRY,
@@ -138,6 +139,11 @@ HOST_RECOVERY_SECONDS = REGISTRY.gauge(
 
 # the sub-queue key of requests with no bound tenant: never a metric label
 _NO_TENANT = ""
+# the synthetic tenant the `solver.gate.flood` chaos point bills traffic
+# to: arming it turns a fraction of live requests into one flooding
+# tenant, so quota and brownout isolation can be drilled mid-churn without
+# touching the real tenants' accounting
+CHAOS_FLOOD_TENANT = "chaos-flood"
 # DRR weights are clamped into [1/16, 16]: the floor bounds the rotations
 # before some queue holds a full dispatch credit, the ceiling keeps one
 # tenant from taking every rotation
@@ -500,8 +506,29 @@ class AdmissionGate:
         tightens it). Yields the budget left at dispatch (never <= 0: an
         expired request raises instead). Raises RESOURCE_EXHAUSTED or
         DEADLINE_EXCEEDED on a shed; the dispatch runs outside the gate's
-        lock."""
+        lock. The chaos point `solver.gate.flood` re-attributes the
+        request to CHAOS_FLOOD_TENANT (it never errors it);
+        `solver.rpc.overload` sheds it as "injected", raising the injected
+        error."""
         tenant = reqctx.current_tenant()
+        try:
+            chaos.maybe_fail(chaos.SOLVER_GATE_FLOOD)
+        except Exception:  # noqa: BLE001 — any armed kind floods
+            tenant = CHAOS_FLOOD_TENANT
+        try:
+            chaos.maybe_fail(chaos.SOLVER_RPC_OVERLOAD)
+        except Exception:
+            with self._cond:
+                self._shed_counts["injected"] = self._shed_counts.get("injected", 0) + 1
+                key = reqctx.TENANTS.admit(tenant) if tenant is not None else _NO_TENANT
+                by = self._shed_by.setdefault(key, {})
+                by["injected"] = by.get("injected", 0) + 1
+            if tenant is not None:
+                SOLVER_SHED_TOTAL.inc({"gate": self.name, "reason": "injected",
+                                       "tenant": reqctx.TENANTS.admit(tenant)})
+            else:
+                SOLVER_SHED_TOTAL.inc({"gate": self.name, "reason": "injected"})
+            raise
         clock = self._clock
         entered = clock()
         ctx_deadline = reqctx.current_deadline()
@@ -1098,6 +1125,16 @@ class SolverHost:
             rc = proc.poll()
             self._kill_locked("crashed", f"write failed ({e}), rc={rc}")
             raise SolverUnavailableError(f"solver host crashed before dispatch (rc={rc})") from e
+        # the injected crash (chaos `solver.host.crash`): SIGKILL the
+        # child's group mid-dispatch, so that the real death path runs (EOF,
+        # respawn, the typed error)
+        try:
+            chaos.maybe_fail(chaos.SOLVER_HOST_CRASH)
+        except Exception:  # noqa: BLE001 — any armed kind crashes the child
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
         budget = timeout if timeout is not None else self.solve_timeout
         deadline = time.monotonic() + budget
         with self._meta_mu:

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from karpenter_core_tpu_torch import chaos
 from karpenter_core_tpu_torch.metrics.registry import NAMESPACE, REGISTRY
 from karpenter_core_tpu_torch.obs import TRACE_HEADER, TRACER, envflags, proghealth, reqctx
 from karpenter_core_tpu_torch.obs.log import get_logger
@@ -663,6 +664,12 @@ class SolverService:
         # dispatch-start heartbeat, labelled with the device phase: the
         # staleness window starts here
         supervise.touch_heartbeat("solver.phase.device")
+        # the device edge's chaos points, once per request, as the
+        # in-process TorchSolver consults them: an injected error routes to
+        # the caller's fallback; a hang (error:none and a latency past the
+        # watchdog) goes heartbeat-silent, which wedges a solver host's child
+        chaos.maybe_fail(chaos.SOLVER_DEVICE)
+        chaos.maybe_fail(chaos.SOLVER_DEVICE_HANG)
         t_phase = time.perf_counter_ns()
         phases = self.last_phase_ms = {}
 
@@ -691,7 +698,7 @@ class SolverService:
         cold_ms = 0.0
         if entry.screen_mode == "prescreen":
             screen0, items_pl = self._prescreen(key, entry, args, targs)
-            cold_ms = mark("prescreen")
+            cold_ms = mark("prescreen", mode=self.last_prescreen_mode)
         # re-label for the long silent stretch ahead
         supervise.touch_heartbeat("solver.phase.device")
         log, ptr, state = dispatch_solve(entry.run, screen0, targs, items_pl, sync=self._sync)
@@ -713,6 +720,8 @@ class SolverService:
         from karpenter_core_tpu_torch.ops.pack import make_batched_replan_kernel
 
         supervise.touch_heartbeat("solver.phase.replan.device")
+        chaos.maybe_fail(chaos.SOLVER_DEVICE)
+        chaos.maybe_fail(chaos.SOLVER_DEVICE_HANG)
         tensors = {t.name: tensor_from_pb(t) for t in request.tensors}
         count_rows = np.ascontiguousarray(tensors.pop("replan/count_rows"))
         exist_open = np.ascontiguousarray(tensors.pop("replan/exist_open").astype(bool))
@@ -1003,6 +1012,9 @@ class RemoteSolver:
                 raise SolverUnavailableError(
                     f"solver circuit breaker open (service at {self.target})")
             try:
+                # inside the try: an injected typed error takes the same
+                # classification as a wire error
+                chaos.maybe_fail(chaos.SOLVER_RPC)
                 response = stub(request, timeout=self.timeout, metadata=metadata)
             except grpc.RpcError as e:
                 err = self._map_rpc_error(e)

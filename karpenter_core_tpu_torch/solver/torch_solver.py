@@ -47,6 +47,7 @@ TPUSolver, is the host fallback over the host scheduler.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
 import time
@@ -58,6 +59,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from karpenter_core_tpu_torch import chaos
 from karpenter_core_tpu_torch.api.labels import PROVISIONER_NAME_LABEL_KEY
 from karpenter_core_tpu_torch.obs import TRACER, device_profiler, profile_dir, proghealth
 from karpenter_core_tpu_torch.obs.flightrec import (  # noqa: F401 — re-exported
@@ -774,6 +776,27 @@ def _residency_key(geom, args, screen_mode: str) -> tuple:
     return (N, segments, screen_v, shapes, screen_mode)
 
 
+class _Carried:
+    """What one solve carries to the next: the type planes of the encode
+    (EncodeReuse), the previous solve's label dictionary, the resident
+    prescreen tensors by residency key (an LRU), the change-feed gate, and
+    that gate's verdict for the solve under way. One holder at a time:
+    TorchSolver hands it out under its lock, and a solve or replan that
+    finds it held (by a dispatch a watchdog abandoned, or by another
+    thread) takes a fresh one, so no resident tensor is ever shared with a
+    dispatch that may still write it."""
+
+    __slots__ = ("encode_reuse", "dictionary", "inc_screens", "diff_gate", "gate_ok", "held")
+
+    def __init__(self):
+        self.encode_reuse = EncodeReuse()
+        self.dictionary = None
+        self.inc_screens: "OrderedDict[tuple, IncrementalScreen]" = OrderedDict()
+        self.diff_gate = DiffGate()
+        self.gate_ok = True
+        self.held = False
+
+
 class TorchSolver:
     """The solver on one device: `device="cuda"` (the default) runs on the
     card and raises when there is none; `device="cpu"` runs the same
@@ -784,7 +807,14 @@ class TorchSolver:
     item inside the scan. incremental: "on" (the default) keeps the
     prescreen tensor resident across solves and refreshes only what
     changed; "off" runs the full precompute every solve. It applies only
-    under "prescreen", as the reference resolves it."""
+    under "prescreen", as the reference resolves it.
+
+    Concurrent calls do not wait for each other: the state carried across
+    solves (_Carried) has one holder, and a call that finds it held runs
+    on a fresh one (a full precompute, counted as full_miss). So a solve
+    that ResilientSolver abandoned as wedged, and that runs on in its
+    thread, never holds up the next solve (nor does one in the reference's
+    TPUSolver, which locks only its program cache)."""
 
     # resident tensors kept, least recently used first out
     MAX_INC_SCREENS = 8
@@ -827,15 +857,10 @@ class TorchSolver:
         self.last_prescreen_launches: Optional[Dict[str, int]] = None
         # the traceback of the last refresh that failed (full_deg)
         self.last_refresh_error: Optional[str] = None
-        # the type planes carried across solves, the previous solve's
-        # dictionary, the resident tensors by key, the change-feed gate
-        self._encode_reuse = EncodeReuse()
-        self._carry_dictionary = None
-        self._inc_screens: "OrderedDict[tuple, IncrementalScreen]" = OrderedDict()
-        self._diff_gate = DiffGate()
-        self._gate_ok = True
-        # held by solve, replan_screen and prewarm_snapshot
-        self._lock = threading.RLock()
+        # the state carried across solves, and the lock of its hand-over
+        # (held only to take or return it, never across a dispatch)
+        self._carried = _Carried()
+        self._lock = threading.Lock()
         # the solve geometries (solve_geometry, screen mode) a solve or a
         # prewarm has met, in order (the counterpart of the reference's
         # compiled-program cache keys)
@@ -844,6 +869,27 @@ class TorchSolver:
         # refresh and replan entries, each first dispatch booked as its
         # cold cost
         self._programs = proghealth.ProgramBook("torch")
+
+    @property
+    def _inc_screens(self) -> "OrderedDict[tuple, IncrementalScreen]":
+        """The resident prescreen tensors of the carried state."""
+        return self._carried.inc_screens
+
+    @contextlib.contextmanager
+    def _take_carried(self):
+        """The carried state, held for one solve or replan; a fresh one
+        when another call holds it (the held one is orphaned: its holder's
+        late writes land there)."""
+        with self._lock:
+            carried = self._carried
+            if carried.held:
+                carried = self._carried = _Carried()
+            carried.held = True
+        try:
+            yield carried
+        finally:
+            with self._lock:
+                carried.held = False
 
     def _program_meta(self, geom) -> dict:
         return {"tier": f"{geom[7]}slots", "mode": self.screen_mode}
@@ -857,7 +903,7 @@ class TorchSolver:
                state_nodes=None, kube_client=None, cluster=None):
         return encode_snapshot(pods, provisioners, instance_types, daemonset_pods,
                                state_nodes, kube_client, cluster,
-                               max_nodes=self.max_nodes, reuse=self._encode_reuse)
+                               max_nodes=self.max_nodes, reuse=self._carried.encode_reuse)
 
     def solve(self, pods, provisioners, instance_types, daemonset_pods=None,
               state_nodes=None, kube_client=None, cluster=None,
@@ -874,18 +920,18 @@ class TorchSolver:
             or {id(p) for p in encoded.pods} != {id(p) for p in pods}
         ):
             raise ValueError("encoded snapshot was built from a different pod batch")
-        with self._lock:
-            return self._solve_locked(pods, provisioners, instance_types, daemonset_pods,
-                                      state_nodes, kube_client, cluster, encoded)
+        with self._take_carried() as carried:
+            return self._solve_carried(pods, provisioners, instance_types, daemonset_pods,
+                                       state_nodes, kube_client, cluster, encoded, carried)
 
-    def _solve_locked(self, pods, provisioners, instance_types, daemonset_pods,
-                      state_nodes, kube_client, cluster, encoded) -> SolveResult:
+    def _solve_carried(self, pods, provisioners, instance_types, daemonset_pods,
+                       state_nodes, kube_client, cluster, encoded, carried) -> SolveResult:
         # the change feed is read once per solve (relaxation rounds see no
         # churn): a fault or a gap sends this solve's prescreen down the
         # full path and drops every resident tensor
         if self._inc_enabled():
-            self._gate_ok = self._diff_gate.gate(cluster)
-        ctx = {"dictionary": None, "encoded": encoded}
+            carried.gate_ok = carried.diff_gate.gate(cluster)
+        ctx = {"dictionary": None, "encoded": encoded, "carried": carried}
         # cyclic GC waits for the window to close: a gen-2 collection over
         # the batch and the cluster would otherwise land inside the solve
         with gc_paused():
@@ -900,22 +946,23 @@ class TorchSolver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _dispatch_prescreen(self, key, geom, host_args, targs):
-        """dispatch_prescreen at this solver's residency: the resident
+    def _dispatch_prescreen(self, key, geom, host_args, targs, carried):
+        """dispatch_prescreen at the carried residency: the resident
         tensor at `key` (an LRU of MAX_INC_SCREENS), the change feed's
         verdict poisoning every key on a fault. Returns (tensor, "full" |
         "refresh", delta, the class planes)."""
         inc, gate_ok = None, True
         if self._inc_enabled():
-            gate_ok, self._gate_ok = self._gate_ok, True
+            gate_ok, carried.gate_ok = carried.gate_ok, True
+            screens = carried.inc_screens
             if not gate_ok:
                 # a feed fault poisons every key's residency
-                for other in self._inc_screens.values():
+                for other in screens.values():
                     other.invalidate()
-            inc = self._inc_screens.setdefault(key, IncrementalScreen())
-            self._inc_screens.move_to_end(key)
-            while len(self._inc_screens) > self.MAX_INC_SCREENS:
-                self._inc_screens.popitem(last=False)
+            inc = screens.setdefault(key, IncrementalScreen())
+            screens.move_to_end(key)
+            while len(screens) > self.MAX_INC_SCREENS:
+                screens.popitem(last=False)
         screen0, mode, delta, items_pl, error = dispatch_prescreen(
             geom[8], geom[16], geom[7], host_args, targs, inc=inc, key=key, gate_ok=gate_ok)
         if error is not None:
@@ -929,38 +976,45 @@ class TorchSolver:
         phases = self.last_phase_ms = {}
         t = time.perf_counter_ns()
 
-        def mark(name):
+        def mark(name, **attrs):
             # after the phase's synchronize, so that the span, like the
             # phase, covers the phase's device work
             nonlocal t
             self._sync()
             now = time.perf_counter_ns()
             phases[name] = (now - t) / 1e6
-            TRACER.add_span(f"solver.phase.{name}", t, now)
+            TRACER.add_span(f"solver.phase.{name}", t, now, **attrs)
             t = now
             # progress proof for the dispatch watchdog (ResilientSolver): a
             # wedged dispatch stops marking; the label names the phase just
             # finished
             supervise.touch_heartbeat(f"solver.phase.{name}")
 
+        carried = ctx["carried"]
         snap = ctx.pop("encoded", None)
         if snap is None:
             snap = encode_snapshot(
                 pods, provisioners, instance_types, daemonset_pods, state_nodes,
                 kube_client, cluster, max_nodes=self.max_nodes,
-                reuse_dictionary=ctx["dictionary"], reuse=self._encode_reuse,
+                reuse_dictionary=ctx["dictionary"], reuse=carried.encode_reuse,
                 # offered, not trusted: adopted only when it covers the batch
-                carry_dictionary=self._carry_dictionary if self._inc_enabled() else None,
+                carry_dictionary=carried.dictionary if self._inc_enabled() else None,
             )
         # relaxation rounds reuse round 1's dictionary (a superset)
         ctx["dictionary"] = snap.dictionary
-        self._carry_dictionary = snap.dictionary
+        carried.dictionary = snap.dictionary
         mark("encode")
         # dispatch-start heartbeat: staleness counts from the device
         # pipeline's start, labelled as the device phase until a later mark
         supervise.touch_heartbeat("solver.phase.device")
+        # the device edge: an injected error routes the solve to
+        # ResilientSolver's fallback; a hang (error:none and a latency past
+        # the watchdog) is the wedge the watchdog abandons
+        chaos.maybe_fail(chaos.SOLVER_DEVICE)
+        chaos.maybe_fail(chaos.SOLVER_DEVICE_HANG)
         geom = solve_geometry(snap, self.max_nodes)
         warm_key = (geom, self.screen_mode)
+        cold = warm_key not in self._warm_keys
         self._warm_keys[warm_key] = None
         self._programs.mint("solve", warm_key, meta=self._program_meta(geom))
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
@@ -976,7 +1030,8 @@ class TorchSolver:
         if self.screen_mode == "prescreen":
             key = _residency_key(geom, args, self.screen_mode)
             before = screen_ops.launch_counts()
-            screen0, mode, delta, items_pl = self._dispatch_prescreen(key, geom, args, targs)
+            screen0, mode, delta, items_pl = self._dispatch_prescreen(key, geom, args, targs,
+                                                                      carried)
             self.last_prescreen_mode = mode
             self.last_prescreen_launches = {
                 k: v - before[k] for k, v in screen_ops.launch_counts().items()}
@@ -985,7 +1040,7 @@ class TorchSolver:
                     "rows": len(delta.rows), "cols": len(delta.cols),
                     "rb": delta.rb, "cb": delta.cb,
                 }
-            mark("prescreen")
+            mark("prescreen", mode=mode, cold=cold)
         run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
                               screen_v=screen_v, screen_mode=self.screen_mode)
         # re-label for the long silent stretch ahead: a wedge inside the
@@ -1025,12 +1080,12 @@ class TorchSolver:
         Returns (verdicts [K, 4] int32: scheduled, expected, n_new,
         inconclusive per subset; pods_per_slot [K, N] int32 when
         want_slots, else None). Only the verdicts are fetched otherwise."""
-        with self._lock:
-            return self._replan_locked(snap, provisioners, count_rows, exist_open,
-                                       uninitialized, cluster, want_slots)
+        with self._take_carried() as carried:
+            return self._replan_carried(snap, provisioners, count_rows, exist_open,
+                                        uninitialized, cluster, want_slots, carried)
 
-    def _replan_locked(self, snap, provisioners, count_rows, exist_open, uninitialized,
-                       cluster, want_slots):
+    def _replan_carried(self, snap, provisioners, count_rows, exist_open, uninitialized,
+                        cluster, want_slots, carried):
         phases = self.last_replan_phase_ms = {}
         t = time.perf_counter_ns()
 
@@ -1046,6 +1101,8 @@ class TorchSolver:
         # dispatch-start heartbeat: staleness counts from the replan's
         # dispatch, not from the last solve
         supervise.touch_heartbeat("solver.phase.replan.device")
+        chaos.maybe_fail(chaos.SOLVER_DEVICE)
+        chaos.maybe_fail(chaos.SOLVER_DEVICE_HANG)
         before = screen_ops.launch_counts()
         geom = solve_geometry(snap, self.max_nodes)
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
@@ -1055,7 +1112,7 @@ class TorchSolver:
         args = device_args(snap, provisioners)
         mark("args")
         if self._inc_enabled():
-            self._gate_ok = self._diff_gate.gate(cluster)
+            carried.gate_ok = carried.diff_gate.gate(cluster)
         targs = args_to_torch(args, self.device)
         uninit = np.zeros(E, dtype=bool)
         if uninitialized is not None:
@@ -1067,7 +1124,8 @@ class TorchSolver:
         screen0 = items_pl = None
         if self.screen_mode == "prescreen":
             key = _residency_key(geom, args, self.screen_mode)
-            screen0, mode, _delta, items_pl = self._dispatch_prescreen(key, geom, args, targs)
+            screen0, mode, _delta, items_pl = self._dispatch_prescreen(key, geom, args, targs,
+                                                                       carried)
             self.last_prescreen_mode = mode
             mark("prescreen")
         rung_run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
@@ -1108,24 +1166,22 @@ class TorchSolver:
         geometry, "cached" otherwise (a live solve or an earlier prewarm
         got there first).
 
-        Under the solver's lock, so that a live solve never interleaves
-        with it; it neither reads nor adopts a resident prescreen tensor,
-        and leaves the per-solve state (`last_phase_ms`,
+        It takes no carried state: it neither reads nor adopts a resident
+        prescreen tensor, and leaves the per-solve state (`last_phase_ms`,
         `last_prescreen_*`, ops/pack.LAST_SCAN) as the last solve left it."""
-        with self._lock:
-            t0 = time.perf_counter()
-            fresh = load_screen_library(self.device)
-            geom = solve_geometry(snap, self.max_nodes)
-            key = (geom, self.screen_mode)
-            fresh = fresh or key not in self._warm_keys
-            self._warm_keys[key] = None
-            args = device_args(snap, provisioners)
-            # the prescreen at this geometry, with no resident tensor
-            dispatch_prescreen(geom[8], geom[16], geom[7], None,
-                               args_to_torch(args, self.device))
-            self._sync()
-            self._programs.mint("solve", key, origin="prewarm", meta=self._program_meta(geom),
-                                seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        fresh = load_screen_library(self.device)
+        geom = solve_geometry(snap, self.max_nodes)
+        key = (geom, self.screen_mode)
+        fresh = fresh or key not in self._warm_keys
+        self._warm_keys[key] = None
+        args = device_args(snap, provisioners)
+        # the prescreen at this geometry, with no resident tensor
+        dispatch_prescreen(geom[8], geom[16], geom[7], None,
+                           args_to_torch(args, self.device))
+        self._sync()
+        self._programs.mint("solve", key, origin="prewarm", meta=self._program_meta(geom),
+                            seconds=time.perf_counter() - t0)
         return "compiled" if fresh else "cached"
 
 

@@ -20,6 +20,7 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
+from karpenter_core_tpu_torch import chaos
 from karpenter_core_tpu_torch.kube.objects import (
     LABEL_INSTANCE_TYPE_STABLE,
     NamespacedName,
@@ -73,7 +74,10 @@ class Cluster:
         None) when the feed cannot prove it holds the whole history: a
         cursor that is None, from the future, or older than the ring
         remembers. Revisions are dense, so a gap is detected, never
-        skipped; repeated changes collapse into one token."""
+        skipped; repeated changes collapse into one token. The chaos
+        point `state.diff` models a feed that lies: the caller degrades to
+        a full re-encode."""
+        chaos.maybe_fail(chaos.STATE_DIFF)
         with self._mu:
             rev = self._revision
             if cursor is None or cursor > rev:

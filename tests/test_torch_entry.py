@@ -5,8 +5,10 @@ wires, on the CPU.
   S and M tiers, leader election, a backlog provisioned through the
   ResilientSolver, every endpoint of the health server, the webhook
   server, and a clean stop (threads joined, the lease released);
-- what the entry refuses: no card, KARPENTER_SOLVER_MODE=sharded,
-  KARPENTER_CHAOS; the primary it wires: the solver host by default, a
+- what the entry refuses: no card, KARPENTER_SOLVER_MODE=sharded; a run
+  with KARPENTER_CHAOS armed (two injected create failures, every pod
+  nominated) and a malformed spec refused; the primary it wires: the
+  solver host by default, a
   RemoteSolver for a solver endpoint (flag or environment), the
   in-process TorchSolver with KARPENTER_SOLVER_HOST=off, and the brownout
   loop KARPENTER_SLO_BROWNOUT arms;
@@ -16,7 +18,7 @@ wires, on the CPU.
 - karpenter_bucket_overflow_total against the reference's, axis by axis;
 - TorchSolver.prewarm_snapshot and solver/prewarm.py: outcomes, the
   metrics, a failing tier, and the per-solve state and residency a
-  prewarm must leave alone;
+  prewarm must leave alone, running beside live solves;
 - new_operator(with_webhooks=True), the leader elector's renew thread.
 """
 import contextlib
@@ -231,8 +233,7 @@ def test_run_refuses_without_a_card(process_state):
 
 @pytest.mark.parametrize("env,argv,item", [
     ({"KARPENTER_SOLVER_MODE": "sharded"}, [], "ROADMAP Queue A item 9"),
-    ({"KARPENTER_CHAOS": "solver.dispatch=fail"}, [], "ROADMAP Queue A item 10"),
-], ids=["sharded", "chaos"])
+], ids=["sharded"])
 def test_run_refuses_what_is_not_ported(monkeypatch, process_state, env, argv, item):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -242,6 +243,61 @@ def test_run_refuses_what_is_not_ported(monkeypatch, process_state, env, argv, i
                                                                           "0"]),
                   device="cpu")
     assert threading.active_count() == threads  # refused before anything started
+
+
+def test_run_arms_karpenter_chaos(monkeypatch, process_state):
+    """KARPENTER_CHAOS set before run(): its points are armed for the run
+    (the reference's entry arms the spec at import), so two cloud-provider
+    creates fail, the launch retries, and every pod is nominated; a
+    malformed spec fails the start."""
+    from karpenter_core_tpu_torch import chaos
+    from karpenter_core_tpu_torch.chaos import CHAOS_INJECTED_TOTAL
+
+    chaos.reset()
+    monkeypatch.setenv("KARPENTER_CHAOS", "cloudprovider.create=error:conn,times:2")
+    series = {"point": chaos.CLOUDPROVIDER_CREATE, "error": "conn"}
+    before = CHAOS_INJECTED_TOTAL.get(series)
+    cp = fake.FakeCloudProvider(fake.instance_types(8))
+    client = InMemoryKubeClient()
+    client.create(make_provisioner(name="default"))
+    client.create(ConfigMap(metadata=ObjectMeta(name="karpenter-global-settings",
+                                                namespace="karpenter"),
+                            data={"batchIdleDuration": "50ms", "batchMaxDuration": "500ms"}))
+    stop, got, bound = threading.Event(), {}, {}
+
+    def main():
+        try:
+            entry.run(cp, kube_client=client, stop_event=stop, device="cpu",
+                      on_start=lambda p: got.update(proc=p),
+                      options=parse_options(["--metrics-port", "0", "--no-leader-elect",
+                                             "--disable-webhook"]))
+        except BaseException as exc:  # noqa: BLE001 — reported by the test
+            got["error"] = exc
+
+    t = threading.Thread(target=main, name="entry-under-chaos")
+    t.start()
+    try:
+        _wait(lambda: "proc" in got or "error" in got, 120, "the entry to start")
+        assert "error" not in got, got.get("error")
+        fault = chaos.armed_points()[chaos.CLOUDPROVIDER_CREATE]
+        got["proc"].operator.provisioning.bind_listeners.append(
+            lambda pod, node: bound.__setitem__(pod.metadata.name, node))
+        names = [f"ch-{i}" for i in range(6)]
+        for i, name in enumerate(names):
+            client.create(make_pod(name=name, requests={"cpu": "1"}, uid=f"uid-ch-{i}"))
+        _wait(lambda: set(names) <= set(bound), 120, "every pod nominated")
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        chaos.reset()
+    assert not t.is_alive() and "error" not in got, got.get("error")
+    assert fault.injected == 2 and fault.calls > 2
+    assert CHAOS_INJECTED_TOTAL.get(series) == before + 2
+    assert client.list("Machine")
+    monkeypatch.setenv("KARPENTER_CHAOS", "cloudprovider.craete=error:conn")
+    with pytest.raises(ValueError, match="unknown chaos fault point"):
+        entry.run(cp, options=parse_options(["--metrics-port", "0"]), device="cpu")
+    assert chaos.armed_points() == {}
 
 
 @pytest.mark.parametrize("env,argv,want", [
@@ -507,41 +563,46 @@ def test_prewarm_leaves_the_live_solve_state_alone():
 
 
 def test_prewarm_and_live_solves_serialize_on_the_solver_lock(monkeypatch):
-    """A live solve never interleaves with a prewarm_snapshot: both hold
-    the solver's lock, so their device_args calls (each widened here by a
-    sleep) never overlap across the two threads."""
+    """A prewarm_snapshot never takes the state live solves carry: the
+    solver's lock guards only that state's hand-over, so prewarms on one
+    thread and live solves on another neither wait for each other nor
+    disturb the residency (one carried state throughout, every solve after
+    the first a refresh), and the solves equal a fresh solver's."""
     from karpenter_core_tpu_torch.solver import torch_solver
 
     provs = [make_provisioner(name="default")]
     its = {"default": fake.instance_types(5)}
     solver = TorchSolver(max_nodes=48, device="cpu")
-    inside, overlaps, calls = [], [], []
+    carried = solver._carried
+    calls = []
     real = torch_solver.device_args
 
     def tracked(*a, **kw):
-        me = threading.current_thread().name
-        if inside:
-            overlaps.append((me, list(inside)))
-        inside.append(me)
-        calls.append(me)
-        try:
-            time.sleep(0.02)
-            return real(*a, **kw)
-        finally:
-            inside.remove(me)
+        calls.append(threading.current_thread().name)
+        time.sleep(0.02)
+        return real(*a, **kw)
 
     monkeypatch.setattr(torch_solver, "device_args", tracked)
-    pods = [make_pod(requests={"cpu": "1"}) for _ in range(10)]
+    pods = [make_pod(name=f"lv-{i}", requests={"cpu": "1"}, uid=f"uid-lv-{i}",
+                     creation_timestamp=1000.0 + i) for i in range(10)]
     settings = tsettings.Settings(bucket_ladder=SMALL)
     th = threading.Thread(target=lambda: [tprewarm.prewarm(solver, provs, its,
                                                            settings=settings)
                                           for _ in range(3)], name="prewarm")
     th.start()
+    from karpenter_core_tpu_torch.solver.torch_solver import placements_json
+
+    placements, modes = [], []
     for _ in range(5):
-        solver.solve(pods, provs, its)
+        placements.append(placements_json(solver.solve(pods, provs, its)))
+        modes.append(solver.last_prescreen_mode)
     th.join(timeout=120)
+    assert not th.is_alive()
     assert {"prewarm", threading.current_thread().name} <= set(calls)
-    assert not overlaps
+    assert solver._carried is carried and not carried.held
+    assert modes[1:] == ["refresh"] * (len(modes) - 1), modes
+    fresh = placements_json(TorchSolver(max_nodes=48, device="cpu").solve(pods, provs, its))
+    assert placements == [fresh] * len(placements)
 
 
 # -- webhooks and leader election ----------------------------------------------------

@@ -8,6 +8,10 @@ there) and the two must agree on the registry series the script moves,
 the Solver events, the breaker's state and the abandoned-thread inventory.
 The reference's cases inject their hang through its chaos module; here
 the primary hangs on an event of the test's own, the same on both sides.
+`test_hang_drill_readmits_while_the_zombie_sleeps` hangs a real
+`TorchSolver(device="cpu")` primary through the port's own
+`solver.device.hang` point (the reference's `TPUSolver` through its own),
+in the in-process soak drill's shape.
 """
 import json
 import threading
@@ -678,3 +682,90 @@ def test_file_heartbeat_matches_reference(tmp_path):
         seen += [hb.read_label(), age is not None and 0.0 <= age < 60.0]
         out.append(seen)
     assert out[1] == out[0] == [None, "", "solver.phase.device", True]
+
+
+# -- the in-process wedge drill through the chaos hang point ------------------------
+
+
+def _hang_drill(pkg):
+    """hack/soak.py's in-process wedge drill on a real device solver: a
+    `solver.device.hang` of 6 s after two consults against a 2 s staleness
+    threshold. The hung solve is abandoned as wedged and greedy serves it;
+    the breaker's reset TTL passes on a fake clock, and the re-admitted
+    solve must run while the zombie still sleeps inside its dispatch."""
+    side = _side(pkg)
+    if pkg == "jax":
+        from karpenter_core_tpu import chaos
+        from karpenter_core_tpu.obs.flightrec import canonical_placements, placements_json
+        from karpenter_core_tpu.solver.tpu_solver import TPUSolver
+
+        primary = TPUSolver(max_nodes=64)
+    else:
+        from karpenter_core_tpu_torch import chaos
+        from karpenter_core_tpu_torch.obs.flightrec import canonical_placements, placements_json
+
+        primary = tsolver.TorchSolver(max_nodes=64, device="cpu")
+    t = side.t
+    pods = []
+    for i in range(8):
+        p = t.make_pod(name=f"drill-{i}", requests={"cpu": "1", "memory": "512Mi"})
+        p.metadata.uid, p.metadata.creation_timestamp = f"uid-drill-{i}", 1000.0 + i
+        pods.append(p)
+    inputs = (pods, [t.make_provisioner(name="default")],
+              {"default": side.fake.instance_types(10)})
+    clock = t.FakeClock()
+    recorder = side.Recorder(clock=clock)
+    resilient = side.fb.ResilientSolver(
+        primary, side.GreedySolver(), clock=clock, recorder=recorder, prober=lambda: None,
+        small_batch_work_max=0, solve_timeout=10.0, wedge_stale_after=2.0, watchdog_poll=0.2,
+        reprobe_interval=3.0)
+    primary.solve(*inputs)  # the geometry's cold costs, outside the drill
+    before = _series(side)
+    fault = chaos.arm(chaos.SOLVER_DEVICE_HANG, error=None, latency=6.0, times=1, after=2,
+                      seed=44)
+    try:
+        placements = [placements_json(canonical_placements(resilient.solve(*inputs)))
+                      for _ in range(2)]
+        hung_at = time.monotonic()
+        served = resilient.solve(*inputs)
+        wedged = (fault.injected, resilient.breaker.state, resilient._healthy)
+        clock.advance(3.5)
+        readmitted = resilient.solve(*inputs)
+        readmitted_after = time.monotonic() - hung_at
+        zombie_live = resilient.health_report()["abandoned_live"]
+    finally:
+        chaos.disarm(chaos.SOLVER_DEVICE_HANG)
+    deadline = time.monotonic() + 30.0
+    while resilient.health_report()["abandoned_live"] and time.monotonic() < deadline:
+        time.sleep(0.1)
+    after_zombie = resilient.solve(*inputs)
+    report = _report(resilient)
+    # the last phase label differs by the phases one solver marks and the
+    # other does not (_ONE_SIDED: the port's last is decode, the reference's
+    # fetch)
+    report.pop("heartbeat_phase")
+    return {
+        "placements": placements + [placements_json(canonical_placements(r))
+                                    for r in (served, readmitted, after_zombie)],
+        "wedged": wedged,
+        "readmitted": (resilient.breaker.state, resilient._healthy),
+        "zombie_live_at_readmission": zombie_live,
+        "readmitted_before_the_zombie_woke": readmitted_after < 6.0,
+        "series": _delta(before, _series(side)),
+        "events": _events(recorder),
+        "report": report,
+    }
+
+
+def test_hang_drill_readmits_while_the_zombie_sleeps():
+    """A dispatch abandoned inside the hang keeps running in its thread;
+    the re-admitted solve must not wait for it (the port's carried state
+    is handed over, not locked across the dispatch), as the reference's
+    does not. Events, breaker transitions, the abandoned inventory and
+    every solve's placements equal the reference's."""
+    want, got = _hang_drill("jax"), _hang_drill("torch")
+    assert got["wedged"][0] == 1 and got["wedged"][2] is False
+    assert got["zombie_live_at_readmission"] == 1
+    assert got["readmitted_before_the_zombie_woke"], got
+    assert got["readmitted"] == (tfallback.CircuitBreaker.CLOSED, True)
+    assert got == want

@@ -12,15 +12,19 @@ suite here too, and torn down when this file ends.
 
 Where the port's counterpart needs the CPU or has another name:
 - `TPUSolver(...)` is `TorchSolver(..., device="cpu")` (as in the entry
-  suites), `HostSolver(...)` and `serve(...)` get `device="cpu"`, and
-  `new_operator` without a solver gets `TorchSolver(device="cpu")`;
-- `karpenter_core_tpu.chaos` is a stand-in whose `reset()` does nothing:
-  fault injection is not ported (ROADMAP Queue A item 10), and every case
-  that arms a fault is left out.
+  suites), `HostSolver(...)` and `serve(...)` get `device="cpu"`,
+  `new_operator` without a solver gets `TorchSolver(device="cpu")`, and
+  `SoakDriver` without a solver gets `TorchSolver(max_nodes,
+  screen_mode="prescreen", device="cpu")`;
+- `karpenter_core_tpu.chaos` is the port's `chaos`: the cases that arm
+  faults (the host's crash, the wedge's hang, the gate's overload and
+  flood, the RPC's retry budget) arm the port's points.
 
-Left out, by case (LEFT_OUT): the cases that arm chaos (item 10), and the
-two timing-dependent cases ROADMAP Queue C names as the reference's own
-reds.
+Left out, by case (LEFT_OUT): the two timing-dependent cases ROADMAP
+Queue C names as the reference's own reds.
+
+tests/test_torch_chaos_suites.py runs the chaos and loadgen suites with
+this file's runner.
 """
 import builtins
 import functools
@@ -55,39 +59,14 @@ SUITES = {
     "admission_fairshare": admission_fairshare,
     "tenant_attribution": tenant_attribution,
 }
-CHAOS = "arms chaos (fault injection, ROADMAP Queue A item 10)"
 LEFT_OUT = {
     "solver_host": {
-        "test_crash_injection_kills_and_respawns": CHAOS,
-        "test_wedge_kills_host_for_real_and_respawn_is_byte_identical": CHAOS,
-        "test_resilient_cycle_over_host_no_live_zombies": CHAOS,
-        "test_overload_chaos_injection_sheds": CHAOS,
-        "test_wedge_salvages_child_spans_and_names_phase": CHAOS,
         "test_warm_respawn_fraction_of_cold_start":
             "timing-dependent: a reference red (ROADMAP Queue C)",
         "test_residency_rebuilt_after_respawn":
             "timing-dependent: a reference red (ROADMAP Queue C)",
     },
-    "admission_fairshare": {
-        "test_retry_budget_stops_retry_storm_per_tenant": CHAOS,
-        "test_chaos_flood_reattributes_to_synthetic_tenant": CHAOS,
-    },
 }
-
-
-class _ChaosStandIn(types.ModuleType):
-    """The suites' `chaos` for the cases that only reset it."""
-
-    SOLVER_HOST_CRASH = "solver.host.crash"
-    SOLVER_RPC_OVERLOAD = "solver.rpc.overload"
-    SOLVER_RPC = "solver.rpc"
-    SOLVER_GATE_FLOOD = "solver.gate.flood"
-
-    def reset(self):
-        pass
-
-
-CHAOS_STAND_IN = _ChaosStandIn("chaos")
 
 
 def _cpu_host_solver(*a, **kw):
@@ -95,12 +74,23 @@ def _cpu_host_solver(*a, **kw):
     return thost.HostSolver(*a, **kw)
 
 
+def _cpu_soak_driver(config, *a, **kw):
+    from karpenter_core_tpu_torch.loadgen.driver import SoakDriver
+    from karpenter_core_tpu_torch.solver.torch_solver import TorchSolver
+
+    if kw.get("solver") is None:
+        kw["solver"] = TorchSolver(max_nodes=kw.get("max_nodes", 256),
+                                   screen_mode="prescreen", device="cpu")
+    return SoakDriver(config, *a, **kw)
+
+
 SUBSTITUTES = {
     (f"{PORT}.operator", "new_operator"): _cpu_new_operator,
     (f"{PORT}.solver.torch_solver", "TPUSolver"): PortTPUSolver,
     (f"{PORT}.solver.host", "HostSolver"): _cpu_host_solver,
     (f"{PORT}.solver.service", "serve"): functools.partial(tservice.serve, device="cpu"),
-    (PORT, "chaos"): CHAOS_STAND_IN,
+    (f"{PORT}.loadgen", "SoakDriver"): _cpu_soak_driver,
+    (f"{PORT}.loadgen.driver", "SoakDriver"): _cpu_soak_driver,
 }
 
 
@@ -116,10 +106,6 @@ def _proxy(module, mapped):
 
 def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
     mapped = port_module_name(name) if level == 0 else None
-    if mapped == PORT and fromlist and "chaos" in fromlist:
-        fromlist = tuple(f for f in fromlist if f != "chaos")
-        module = builtins.__import__(mapped, globals, locals, fromlist or ("api",), level)
-        return _proxy(module, mapped)
     module = builtins.__import__(mapped or name, globals, locals, fromlist, level)
     if mapped and fromlist:
         return _proxy(module, mapped)
@@ -261,8 +247,8 @@ def test_case_passes_on_the_port(suite, case, params, tmp_path):
 
 def test_cases_cover_the_suites():
     counts = {name: sum(1 for c in CASES if c[0] == name) for name in SUITES}
-    assert counts == {"solver_service": 10, "solver_host": 12, "proghealth": 23,
-                      "admission_fairshare": 14, "tenant_attribution": 10}
+    assert counts == {"solver_service": 10, "solver_host": 17, "proghealth": 23,
+                      "admission_fairshare": 16, "tenant_attribution": 10}
     for name, cases in LEFT_OUT.items():
         for case in cases:
             assert case in vars(SUITES[name]), (name, case)

@@ -458,6 +458,30 @@ def test_feed_fault_forces_full_and_recovers():
     assert port == ref and port["full_miss"] == 4 and port["full_deg"] == 0
 
 
+def test_feed_fault_through_the_port_s_chaos_point():
+    """(f) through the port's own `state.diff` point: both packages' real
+    Clusters, each package's chaos armed with the same spec and seed
+    (after two consults, two faults). The port's solver takes the
+    reference's modes and counts, as with the FaultyCluster above."""
+    from karpenter_core_tpu import chaos as jchaos
+    from karpenter_core_tpu_torch import chaos as tchaos
+
+    t_cluster, j_cluster = TCluster(TClient()), JCluster(JClient())
+    faults = [c.arm(c.STATE_DIFF, error="conn", probability=1.0, after=2, times=2, seed=7)
+              for c in (tchaos, jchaos)]
+    try:
+        modes, port, ref = _outcome_counts(
+            lambda: _churn_run(11, steps=6, t_cluster=t_cluster, j_cluster=j_cluster))
+    finally:
+        tchaos.disarm(tchaos.STATE_DIFF)
+        jchaos.disarm(jchaos.STATE_DIFF)
+    assert [(f.calls, f.injected) for f in faults] == [(6, 2), (6, 2)]
+    assert modes["torch"] == modes["jax"]
+    assert modes["torch"][2:5] == ["full", "full", "full"], modes
+    assert "refresh" in modes["torch"][:2] and modes["torch"][-1] == "refresh"
+    assert port == ref and port["full_miss"] == 4 and port["full_deg"] == 0
+
+
 # -- watches and informers -----------------------------------------------------
 
 def _drive_through_client(m, client, pump):
