@@ -57,7 +57,8 @@ Phases, each fatal on failure:
      exactly against screen_plain at several prefixes and timed beside its
      bound;
   6b. phase 6's workload solved with screen_mode="tiered" (the row_b1
-     form once per item), then with the prescreen, each solve with the
+     form once per item; one turn, the prescreen's second solve cut to pay
+     for phase 16), the solve with the
      launch counts set to 0 just before it and read just after: placements byte-identical to phase
      6's; a tiered solve must launch row_b1 and no block or row_n1;
   7. steady churn at full width: from phase 6's live cluster, fed through
@@ -83,8 +84,8 @@ Phases, each fatal on failure:
      of phase 6's snapshot (equal to the in-process replan), the request
      and response bytes printed;
   8. consolidation at full width: phase 6's live cluster built afresh
-     without its backlog, at 600 of its 1,000 nodes (18,000 bound pods;
-     the depth cut that pays for phase 14), and a
+     without its backlog, at 400 of its 1,000 nodes (12,000 bound pods;
+     the depth cut that pays for phases 14 and 16), and a
      provisioner with consolidation enabled; through the port's
      deprovisioning modules (candidate_nodes, the ProvisioningController, the
      consolidation deprovisioners, solver/replan.py) on a FakeClock with
@@ -125,9 +126,10 @@ Phases, each fatal on failure:
      their plain versions on its planes, and its block, template and
      virgin-row shapes timed beside their bounds (the kernels line's
      numbers);
-  9b. at phase 8b's size, Expiration, Drift, Emptiness and a consolidation
-     pass executed on the card and on the CPU: the same Commands and the
-     same final cluster.
+  9b. at half of phase 8b's size (1,125 pods over 50 nodes, a depth cut
+     that pays for phase 16), Expiration, Drift, Emptiness and a
+     consolidation pass executed on the card and on the CPU: the same
+     Commands and the same final cluster.
   10. the operator, the port's entry point, at full width: phase 6's live
      cluster with its 51,500-pod backlog created in the kube client as
      pending pods and one provisioner whose limits no solve reaches,
@@ -278,12 +280,38 @@ Phases, each fatal on failure:
      printed; fatal: a dead loop, a pod unbound after a tail of up to 60
      s, no solve served by the card, or a fallback (no armed fault reaches
      the solver in host mode).
+  16. the operator over HTTP (right after phase 15), through the port's
+     kube/apiserver.py client to the test apiserver of
+     testing/apiserver.py (ApiStore: the port's in-memory store behind the
+     REST surface, ApiHTTPServer: it on
+     127.0.0.1 at an ephemeral port, one thread per connection, watches as
+     chunked newline-delimited events). 16a, the race gate on the card: a
+     fresh interpreter with the port's testing/lockwatch.py and
+     testing/racewatch.py armed before any lock of the port exists runs
+     three iterations of tests/test_deflake.py's harness (Operator.start(),
+     a random 0-3 ms before each pump delivery, a creator and a deleter
+     thread) over ApiServerKubeClient(UrllibTransport(...)) to an
+     apiserver served from this process, solving with a ResilientSolver
+     around TorchSolver(device="cuda"); fatal: a pod not provisioned, a
+     pump's error, a thread left, a fallback, no screen launch, a
+     lock-order cycle or an unsuppressed race; the tracked lock sites, the
+     instrumented classes and the leg's wall printed. 16b, phase 13 over
+     HTTP: phase 12's cluster loaded into an apiserver in a process of its
+     own (ApiServerProcess) with kube.transport armed there at p 0.005
+     (an injected fault answers 503), run() with its default primary over
+     ApiServerKubeClient, every tier prewarmed, the lease over HTTP, the
+     4,800-pod backlog created through the server; phase 13's gates, and
+     transport retries above zero, no apiserver error, every watch pump
+     gone once the client closes; printed: the creation to the last
+     nomination (against 48 s), the HTTP requests by verb, the bytes each
+     way, LIST pages, the watch connections and reconnects, the retries by
+     method and the list() seconds by calling thread and kind.
 Phase 1 builds the native packer (g++, native/fast_pack.cpp) beside the
 CUDA kernels. Phases 4-6 solve with incremental="off", so their warm solves
 run the full precompute as before. It prints one JSON line describing
 every kernel (the screen, screen_prep, and the screen's three forms with
-their launches over phases 4-10, 12a, 13, 14 and 15, the solver host's
-children's and the gRPC service's summed in), then as its last line
+their launches over phases 4-10, 12a and 13-16, the solver host's
+children's, the gRPC service's and 16a's child's summed in), then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
@@ -296,6 +324,7 @@ import copy
 import gc
 import json
 import os
+import pickle
 import re
 import resource
 import signal
@@ -338,6 +367,11 @@ from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (  # n
     ProvisioningController,
 )
 from karpenter_core_tpu_torch.events import Recorder  # noqa: E402
+from karpenter_core_tpu_torch.kube.apiserver import (  # noqa: E402
+    KUBE_TRANSPORT_RETRIES,
+    ApiServerKubeClient,
+    UrllibTransport,
+)
 from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient  # noqa: E402
 from karpenter_core_tpu_torch.metrics.registry import REGISTRY  # noqa: E402
 from karpenter_core_tpu_torch.obs import (  # noqa: E402
@@ -378,6 +412,16 @@ from karpenter_core_tpu_torch.solver.host import HostSolver  # noqa: E402
 from karpenter_core_tpu_torch.state import informer  # noqa: E402
 from karpenter_core_tpu_torch.state.cluster import Cluster  # noqa: E402
 from karpenter_core_tpu_torch.state.node import StateNode  # noqa: E402
+from karpenter_core_tpu_torch.testing.apiserver import (  # noqa: E402
+    ApiHTTPServer,
+    ApiServerProcess,
+    ApiStore,
+)
+from karpenter_core_tpu_torch.testing.racegate import (  # noqa: E402
+    RACE_ARM,
+    deflake_iteration,
+    race_report,
+)
 from karpenter_core_tpu_torch.utils import gctuning, resources  # noqa: E402
 from karpenter_core_tpu_torch.webhooks.server import HAVE_CRYPTOGRAPHY  # noqa: E402
 from karpenter_core_tpu_torch.utils.podutils import (  # noqa: E402
@@ -1490,7 +1534,7 @@ def phase_churn(pods, provs, its, client, cluster, max_nodes: int, zones, steps:
 
 # phase 8's settled cluster: phase 6's at 600 of its 1,000 nodes (18,000
 # bound pods), the depth cut that pays for phase 14
-PHASE8_NODES = 600
+PHASE8_NODES = 400
 
 
 def settled_cluster(*args, **kw):
@@ -2655,6 +2699,9 @@ PAIR_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=2))
 # cap passes; phase 13 (about 50 s) took phase 7 from three churn steps to
 # two (a full step, then a refresh: about 13 s a step)
 PAIR_HALF = (2250, 400, 100, 100)
+# phase 9b at a quarter of 3c's pods and nodes (half of 8b's): the depth
+# cut that, with phase 8 at 400 nodes and 6b's one turn, pays for phase 16
+PAIR_QUARTER = (1125, 400, 50, 50)
 CHURN_STEPS = 2
 # phase 11's operator record: 1,500 bound pods (under the recorder's
 # 4,096-pod cap, so the record keeps them) and no pending claim pods (the
@@ -3184,6 +3231,8 @@ ENTRY_TIERS = ("S", "M", "L", "XL")
 # every backlog pod nominated within this many seconds of its creation
 ENTRY_BOUND_S = 180.0
 ENTRY_FAMILIES = ("karpenter_prewarm_", "karpenter_slo_", "karpenter_solver_")
+# phase 16b: the share of the apiserver's store calls that answer 503
+HTTP_CHAOS_P = 0.005
 
 
 def _free_port() -> int:
@@ -3220,6 +3269,7 @@ class EntryProbe:
     def __init__(self, proc):
         self.proc = proc
         self.probes, self.wrapped, self.solves, self.bound = [], [], [], {}
+        self.bound_at = {}  # pod -> wall time of its first nomination
         solver, primary = proc.solver, proc.primary
         real_prober, real_wrapped, real_solve = solver.prober, solver.solve, primary.solve
         # the solver host encodes through its own encode(), in this process;
@@ -3249,7 +3299,7 @@ class EntryProbe:
             name = "encode" if host else "encode_snapshot"
             setattr(encoder, name, lambda *ea, **ekw: (
                 snaps.append(real_encode(*ea, **ekw)) or snaps[-1]))
-            t0 = time.perf_counter()
+            t0, at = time.perf_counter(), time.time()
             try:
                 res = real_solve(*a, **kw)
                 sync()
@@ -3258,7 +3308,8 @@ class EntryProbe:
                     del primary.encode
                 else:
                     torch_solver.encode_snapshot = real_encode
-            self.solves.append({"pods": len(a[0]), "wall_s": round(time.perf_counter() - t0, 3),
+            self.solves.append({"pods": len(a[0]), "at": at,
+                                "wall_s": round(time.perf_counter() - t0, 3),
                                 "phases_ms": {k: round(v, 3)
                                               for k, v in primary.last_phase_ms.items()},
                                 "child_phases_ms": dict(getattr(primary,
@@ -3268,13 +3319,16 @@ class EntryProbe:
             return res
 
         solver.prober, solver.solve, primary.solve = prober, wrapped, solve
-        proc.operator.provisioning.bind_listeners.append(
-            lambda pod, node: self.bound.__setitem__(
-                (pod.metadata.namespace, pod.metadata.name), node))
+        def bound(pod, node):
+            key = (pod.metadata.namespace, pod.metadata.name)
+            self.bound[key] = node
+            self.bound_at.setdefault(key, time.time())
+
+        proc.operator.provisioning.bind_listeners.append(bound)
 
 
 def phase_entry(device="cuda", size=PHASE12_SIZE, tiers=ENTRY_TIERS,
-                bound_s=ENTRY_BOUND_S, gen2_without=None) -> dict:
+                bound_s=ENTRY_BOUND_S, gen2_without=None, http=None) -> dict:
     """Phase 13: the process entry, run(cloud_provider, kube_client=...,
     stop_event=..., options=...) on a thread, on `device`, over phase 12's
     cluster (its nodes and bound pods in the kube client, the provisioner
@@ -3290,12 +3344,18 @@ def phase_entry(device="cuda", size=PHASE12_SIZE, tiers=ENTRY_TIERS,
     stop. The launch counts are zeroed before run() and read after its
     stop; gen-2 collections are counted while the backlog is served (with
     apply_server_gc_tuning applied by run()). Restores the collector's
-    state when it ends."""
+    state when it ends.
+
+    With `http` (phase 16b: an OverHTTP), the cluster is in an apiserver
+    in a process of its own, the backlog is created there over HTTP by the
+    BacklogCreator's process, and run() and every check go through
+    ApiServerKubeClient(UrllibTransport(...)); the client's watch pumps
+    must be gone once it is closed."""
     threshold = gc.get_threshold()
     gen2 = _GenTwo()
     gc.callbacks.append(gen2)
     try:
-        return _phase_entry(device, size, tiers, bound_s, gen2, gen2_without)
+        return _phase_entry(device, size, tiers, bound_s, gen2, gen2_without, http)
     finally:
         gc.callbacks.remove(gen2)
         # run() froze the heap, widened gen-2 and armed the tracer, the
@@ -3308,17 +3368,75 @@ def phase_entry(device="cuda", size=PHASE12_SIZE, tiers=ENTRY_TIERS,
         LOG_SINK.disable()
 
 
-def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
+def _entry_cluster(size, tag: str):
+    """Phase 12's cluster for the entry: the backlog, the types and the
+    in-memory client with the nodes, the bound pods and the provisioner."""
     n_pods, n_types, n_nodes, distinct, kw = size
     t0 = time.perf_counter()
     pods, provs, its, client, _cluster = live_cluster(n_pods, n_types, n_nodes,
                                                       distinct=distinct, **kw)
     del _cluster  # the operator builds its own from the client's watches
     client.create(provs[0])
-    keys = {(p.metadata.namespace, p.metadata.name) for p in pods}
-    say(f"[entry] {len(pods)} backlog pods, {n_nodes} nodes, "
+    say(f"[{tag}] {len(pods)} backlog pods, {n_nodes} nodes, "
         f"{len(client.list('Pod', copy_objects=False))} bound pods in the client, built in "
         f"{time.perf_counter() - t0:.2f} s")
+    return pods, its, client
+
+
+class OverHTTP:
+    """Phase 16b's set-up, made ahead: phase 12's cluster handed to an
+    ApiServerProcess with kube.transport armed there at `chaos_p`, which
+    loads it while 16a runs; start() waits for it to serve and starts the
+    backlog's BacklogCreator."""
+
+    def __init__(self, size=PHASE12_SIZE, chaos_p: float = 0.0):
+        self.size = size
+        self.pods, self.its, store = _entry_cluster(size, "entry 16b")
+        self.t0 = time.perf_counter()
+        self.server = ApiServerProcess(store, chaos_p=chaos_p)
+        self.creator = None
+
+    def start(self) -> None:
+        t0 = time.perf_counter()
+        url = self.server.url
+        say(f"[entry 16b] the cluster loaded into the apiserver process {self.server.pid} "
+            f"at {url}, {time.perf_counter() - self.t0:.2f} s after its start (waited "
+            f"{time.perf_counter() - t0:.2f} s for it here)")
+        self.creator = BacklogCreator(url, self.pods)
+
+    def close(self) -> None:
+        if self.creator is not None:
+            self.creator.close()
+        self.server.close()
+
+
+def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without, http=None) -> dict:
+    if http is None:
+        pods, its, client = _entry_cluster(size, "entry")
+        server = creator = None
+    else:
+        try:
+            http.start()
+        except BaseException:
+            http.close()
+            raise
+        pods, its, server, creator = http.pods, http.its, http.server, http.creator
+        client = server.client()
+    keys = {(p.metadata.namespace, p.metadata.name) for p in pods}
+    n_nodes = size[2]
+    try:
+        return _phase_entry_run(device, tiers, bound_s, gen2, gen2_without, pods, its,
+                                client, keys, n_nodes, server, creator,
+                                "entry" if http is None else "entry 16b")
+    finally:
+        if server is not None:
+            client.close()
+            http.close()
+
+
+def _phase_entry_run(device, tiers, bound_s, gen2, gen2_without, pods, its, client, keys,
+                     n_nodes, server, creator, tag) -> dict:
+    lists = ListClock(client) if server is not None else None
     argv = ["--metrics-port", "0", "--enable-profiling", "--leader-elect"]
     if HAVE_CRYPTOGRAPHY:
         argv += ["--webhook-port", str(_free_port())]
@@ -3404,14 +3522,40 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
         if lease is None or lease.spec.holder_identity != proc.elector.identity:
             raise AssertionError(f"entry: the lease is {lease and lease.spec.holder_identity}, "
                                  f"not the elector's {proc.elector.identity}")
-        # the backlog, created as a deployment's pods arrive
+        # the backlog, created as a deployment's pods arrive: over HTTP by
+        # the creator's process, as a workload controller's, while this
+        # process serves them
         mark = gen2.mark()
         t0 = time.perf_counter()
-        for p in pods:
-            client.create(p)
-        out["created_s"] = round(time.perf_counter() - t0, 3)
+        if server is None:
+            created_at = {}
+            for p in pods:
+                created_at[(p.metadata.namespace, p.metadata.name)] = time.time()
+                client.create(p)
+            out["created_s"] = round(time.perf_counter() - t0, 3)
+        else:
+            creator.go()
         out["nominated_s"] = round(_wait_for(lambda: keys <= set(probe.bound), bound_s,
                                              "every backlog pod nominated"), 3)
+        if server is not None:
+            made = creator.wait()
+            created_at = made["created_at"]
+            out["created_s"], out["creator"] = made["s"], made["retries"]
+            # where the wait went: the batch windows, the reconciles, the
+            # solves and the launches, in s from the first creation
+            out["timeline"] = [
+                (sp.name, round(sp.start_ns / 1e9 - t0, 3), round(sp.duration_ms / 1e3, 3))
+                for sp in TRACER.spans()
+                if sp.name in ("batcher.window", "provisioner.reconcile", "solver.solve",
+                               "provisioner.launch") and sp.start_ns / 1e9 >= t0 - 5.0][:24]
+            say(f"[{tag}] started in {out['start_s']} s, prewarmed in "
+                f"{out['prewarm_wait_s']} s; {len(pods)} pods created in {out['created_s']} s "
+                f"and nominated {out['nominated_s']} s after the first")
+        # the metric: the backlog's first creation to its last nomination
+        out["creation_to_last_nomination_s"] = round(
+            max(probe.bound_at[k] for k in keys) - min(created_at.values()), 3)
+        out["creation_to_nomination"] = percentiles(
+            [probe.bound_at[k] - created_at[k] for k in keys])
         out["gen2_serving"] = gen2.since(mark)
         port = proc.health_port
         served = {}
@@ -3447,6 +3591,8 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
                 out["backend"] = json.loads(body)
         out["served"] = served
     finally:
+        if server is not None:
+            say(f"[{tag}] stopping {round(time.perf_counter() - t_run, 3)} s after run()")
         stop.set()
         thread.join(timeout=300)
         gctuning.apply_server_gc_tuning = real_tuning
@@ -3466,7 +3612,12 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
     out["launches_live"] = {k: out["launches"][k] - out["launches_prewarm"][k]
                             for k in out["launches"]}
     if proc.alive:
-        raise AssertionError(f"entry: threads alive after the stop: {proc.alive}")
+        raise AssertionError(f"{tag}: threads alive after the stop: {proc.alive}")
+    if server is not None:
+        # the client's watch pumps end with it
+        client.close()
+        for th in client.watch_threads():
+            th.join(timeout=5.0)
     pooled = {th for pool in operator_controller._pools.values() for th in pool._threads}
     left = [th.name for th in threading.enumerate()
             if th.ident not in before and th.is_alive() and th not in pooled]
@@ -3493,11 +3644,22 @@ def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without) -> dict:
     # the first decision's placements, against the bound pods in the client
     out["placements"] = check_placements(first["result"], first["pods"], client)
     out.update(probes=probe.probes, wrapped=probe.wrapped[:3],
-               solves=[{k: v for k, v in sv.items() if k not in ("snapshot", "result")}
+               n_solves=len(probe.solves),
+               # each solve's start in s from the backlog's first creation
+               solves=[dict({k: v for k, v in sv.items()
+                             if k not in ("snapshot", "result", "at")},
+                            at_s=round(sv["at"] - min(created_at.values()), 3))
                        for sv in probe.solves[:3]],
                machines=len(client.list("Machine", copy_objects=False)),
                counters=counters, gen2_without=gen2_without)
-    say(f"[entry] {json.dumps(out)}")
+    if server is not None:
+        out["http"] = http_report(server, client, lists)
+        if out["http"]["server_errors"]:
+            raise AssertionError(f"entry over HTTP: the apiserver failed: {out['http']}")
+        if server.chaos_p and not sum(out["http"]["retries"].values()):
+            raise AssertionError("entry over HTTP: kube.transport was armed, and no request "
+                                 "was retried")
+    say(f"[{tag}] {json.dumps(out)}")
     return {"out": out, "snapshot": first["snapshot"], "launches": out["launches"]}
 
 
@@ -4043,6 +4205,212 @@ def phase_steady_churn(device="cuda", config=None, n_types: int = STEADY_TYPES,
     return out
 
 
+# -- phase 16: the operator over HTTP --------------------------------------------
+#
+# The apiserver it runs against (karpenter_core_tpu_torch/testing/apiserver.py)
+# is test scaffolding, not a part of the port.
+
+
+class BacklogCreator:
+    """A backlog's pods POSTed through the apiserver by a process of its
+    own (`python3 chip_smoke.py --create-backlog URL PICKLE`), as a
+    workload controller creates a deployment's pods, so that the
+    operator's process only serves them. It starts at once and imports
+    while the operator starts; go() sends it off, and wait() returns each
+    pod's wall time of creation, the seconds it took, and its client's
+    transport retries by method."""
+
+    def __init__(self, url: str, pods, start_timeout: float = 180.0):
+        fd, self._load = tempfile.mkstemp(prefix="karpenter-backlog-", suffix=".pkl")
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump(list(pods), f, protocol=pickle.HIGHEST_PROTOCOL)
+        self._err = tempfile.TemporaryFile()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--create-backlog", url,
+             self._load], stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._err,
+            cwd=ROOT)
+        self.start_timeout = start_timeout
+
+    def _line(self, timeout: float) -> str:
+        import select
+
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout)
+        return self.proc.stdout.readline().decode() if ready else ""
+
+    def go(self) -> None:
+        line = self._line(self.start_timeout)
+        if line.strip() != "ready":
+            raise AssertionError(f"the backlog's creator did not start: {line!r} "
+                                 f"{self.stderr_tail()}")
+        self.proc.stdin.write(b"go\n")
+        self.proc.stdin.flush()
+
+    def wait(self, timeout: float = 300.0) -> dict:
+        line = self._line(timeout)
+        if not line.startswith("{"):
+            raise AssertionError(f"the backlog's creator failed: {line!r} "
+                                 f"{self.stderr_tail()}")
+        self.proc.wait(timeout=30)
+        got = json.loads(line)
+        got["created_at"] = {tuple(k.split("/", 1)): t for k, t in got["created_at"].items()}
+        return got
+
+    def stderr_tail(self) -> str:
+        self._err.seek(0)
+        return self._err.read()[-3000:].decode(errors="replace")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if os.path.exists(self._load):
+            os.unlink(self._load)
+
+
+def create_backlog(argv) -> int:
+    """BacklogCreator's side: `--create-backlog URL PICKLE`. Prints `ready`
+    once loaded, waits for `go` on its stdin, POSTs every pod through
+    ApiServerKubeClient(UrllibTransport(URL)), one after another, and
+    prints one JSON line: each pod's wall time of creation, the seconds,
+    the retries."""
+    url, path = argv[argv.index("--create-backlog") + 1:][:2]
+    with open(path, "rb") as f:
+        pods = pickle.load(f)
+    kube = ApiServerKubeClient(UrllibTransport(url))
+    print("ready", flush=True)
+    if sys.stdin.readline().strip() != "go":
+        return 1
+    created_at = {}
+    t0 = time.perf_counter()
+    for p in pods:
+        created_at[f"{p.metadata.namespace}/{p.metadata.name}"] = time.time()
+        kube.create(p)
+    print(json.dumps({"created_at": created_at, "s": round(time.perf_counter() - t0, 3),
+                      "retries": series_of(KUBE_TRANSPORT_RETRIES)}), flush=True)
+    return 0
+
+
+class ListClock:
+    """Times a client's list() calls: calls and seconds by kind and by the
+    calling thread (its name without a trailing number: the singleton
+    loops, the watch pumps' relists, the reconcile pools)."""
+
+    def __init__(self, client):
+        self._mu = threading.Lock()
+        self.by = {}
+        real = client.list
+
+        def timed(kind, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(kind, *a, **kw)
+            finally:
+                who = re.sub(r"[-_]?\d+$", "", threading.current_thread().name)
+                with self._mu:
+                    row = self.by.setdefault(f"{who}/{kind}", [0, 0.0])
+                    row[0] += 1
+                    row[1] += time.perf_counter() - t0
+
+        client.list = timed
+
+    def report(self) -> dict:
+        with self._mu:
+            return {k: {"calls": n, "s": round(s, 3)} for k, (n, s) in sorted(self.by.items())}
+
+
+def http_report(server: ApiServerProcess, client, lists: ListClock) -> dict:
+    """What went over HTTP: requests by verb (LIST and WATCH apart from
+    GET), bytes each way, LIST pages, watch connections against the pumps
+    that made them, resumes, the non-2xx statuses (the injected 503s among
+    them), the client's retries by method, and its list() time."""
+    st = server.stats()
+    pumps = len(client.watch_threads())
+    watches = st["requests"].get("WATCH", 0)
+    return {"requests": st["requests"], "by_kind": st["by_kind"], "bytes_in": st["wire"]["in"],
+            "bytes_out": st["wire"]["out"], "pages": st["pages"], "watch_streams": pumps,
+            "watch_reconnects": watches - pumps, "resumed": st["resumed"],
+            "statuses": st["status"], "injected_503": st["status"].get("503", 0),
+            "chaos_p": server.chaos_p, "retries": series_of(KUBE_TRANSPORT_RETRIES),
+            "lists": lists.report(), "server_errors": st["n_errors"],
+            "errors": st["errors"]}
+
+
+def race_leg(url: str, device: str = "cuda", iterations: int = 3) -> None:
+    """Phase 16a's body, in an interpreter RACE_ARM armed: deflake
+    iterations over ApiServerKubeClient(UrllibTransport(url)), each on an
+    emptied store (POST /debug/reset), solving with ResilientSolver around
+    TorchSolver(device=`device`); prints one JSON line."""
+    import urllib.request
+
+    from karpenter_core_tpu_torch.solver.fallback import ResilientSolver
+
+    t0 = time.perf_counter()
+    solver = ResilientSolver(torch_solver.TorchSolver(max_nodes=256, device=device),
+                             torch_solver.GreedySolver(), prober=lambda: None,
+                             small_batch_work_max=0, solve_timeout=120.0)
+    runs = []
+    for seed in range(iterations):
+        req = urllib.request.Request(url + "/debug/reset", data=b"{}", method="POST")
+        urllib.request.urlopen(req, timeout=30).read()
+        kube = ApiServerKubeClient(UrllibTransport(url))
+        try:
+            runs.append(deflake_iteration(1600 + seed, kube_client=kube, solver=solver))
+        finally:
+            kube.close()
+        deadline = time.time() + 5.0
+        while any(th.is_alive() for th in kube.watch_threads()) and time.time() < deadline:
+            time.sleep(0.05)
+        if any(th.is_alive() for th in kube.watch_threads()):
+            raise AssertionError("race gate: a watch pump outlived the client's close")
+    print(json.dumps({"race_leg": race_report(), "iterations": runs,
+                      "launches": screen.launch_counts(), "fallback": fallback_counts(),
+                      "wall_s": round(time.perf_counter() - t0, 3)}), flush=True)
+
+
+def phase_race_gate(device: str = "cuda", iterations: int = 3, timeout_s: float = 300.0) -> dict:
+    """Phase 16a: the deflake scenario in a fresh interpreter with the
+    port's lockwatch and racewatch armed first, over HTTP to an apiserver
+    served from this process, on `device`. Fatal: the child failing (a pod
+    not provisioned, a pump crashed, a thread left), a lock-order cycle or
+    an unsuppressed race."""
+    srv = ApiHTTPServer(ApiStore())
+    t0 = time.perf_counter()
+    try:
+        code = RACE_ARM.format(root=ROOT) + (
+            "import chip_smoke\n"
+            f"chip_smoke.race_leg({srv.url!r}, device={device!r}, iterations={iterations})\n")
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=timeout_s, cwd=ROOT)
+        stats = srv.stats()
+    finally:
+        srv.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"race gate: the child exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    rep = got["race_leg"]
+    if rep["cycles"] or rep["races"]:
+        raise AssertionError(f"race gate: {rep['witnesses']}")
+    if not rep["tracked_sites"] or not rep["instrumented_classes"]:
+        raise AssertionError(f"race gate: nothing of the port was watched: {rep}")
+    if stats["n_errors"]:
+        raise AssertionError(f"race gate: the apiserver failed: {stats['errors']}")
+    if any(got["fallback"].values()):
+        raise AssertionError(f"race gate: the solves fell back: {got['fallback']}")
+    if device == "cuda" and (got["launches"]["screen_prep"] < 1 or got["launches"]["block"] < 1):
+        raise AssertionError(f"race gate: the card screened nothing: {got['launches']}")
+    out = {k: rep[k] for k in ("tracked_sites", "instrumented_classes", "accesses",
+                               "tracked_instances", "cycles", "races", "suppressed_hits")}
+    out.update(iterations=got["iterations"], launches=got["launches"],
+               fallback=got["fallback"],
+               child_wall_s=got["wall_s"], leg_s=round(time.perf_counter() - t0, 3),
+               http={k: stats[k] for k in ("requests", "wire", "pages", "watches", "resumed",
+                                           "status")},
+               classes=rep["classes"])
+    say(f"[race gate] {json.dumps(out)}")
+    return out
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -4121,6 +4489,20 @@ def main() -> int:
     TRACER.enabled = tracing
     gc.collect()
     mark("phase 15b")
+
+    # phase 16: the operator over HTTP: 16a the race gate on the card, 16b
+    # the process entry at phase 12's size over an apiserver of its own
+    prep16 = OverHTTP(chaos_p=HTTP_CHAOS_P)
+    try:
+        race = phase_race_gate()
+    except BaseException:
+        prep16.close()
+        raise
+    mark("phase 16a")
+    over_http = phase_entry(http=prep16)["out"]
+    TRACER.enabled = tracing
+    gc.collect()
+    mark("phase 16b")
 
     # phase 3: card and CPU place config 2 identically; the card's solve is
     # flight-recorded (phase 11 replays the record)
@@ -4272,40 +4654,31 @@ def main() -> int:
     tiered_shape = phase_tiered_shape(live_snap, provs, max_nodes, int_rate, busy_cycles)
     mark("phase 2 (the tiered shape)")
 
-    # phase 6b: the live cluster solved with the tiered screen, then with
-    # the prescreen, in one call; each solve runs with the launch counts set
-    # to 0 just before it and read just after
-    turns, tiered_total = [], {}
-    for mode in ("tiered", "prescreen"):
-        solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda",
-                                          screen_mode=mode, incremental="off")
-        screen.reset_launches()
-        t0 = time.perf_counter()
-        res = solver.solve(pods, provs, its, state_nodes=cluster.nodes(), kube_client=client,
-                           cluster=cluster)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = screen.launch_counts()
-        _add_counts(tiered_total, counts)
-        a = torch_solver.placements_json(res)
-        if a != torch_solver.placements_json(live_result):
-            raise AssertionError(f"{mode}: placements differ from the prescreen solve's "
-                                 "(phase 6)")
-        if mode == "tiered" and (counts["row_b1"] < 1 or counts["block"] or counts["row_n1"]):
-            raise AssertionError(f"tiered: the solve launched {json.dumps(counts)}; expected "
-                                 "row_b1 and no block or row_n1")
-        if mode == "prescreen" and (counts["block"] < 1 or counts["row_b1"]):
-            raise AssertionError(f"prescreen: the solve launched {json.dumps(counts)}")
-        turns.append((mode, wall, solver.last_phase_ms["device"]))
-        say(f"[tiered] live cluster, {mode}: {wall:.3f} s wall, last_phase_ms "
-            + json.dumps({k: round(v, 3) for k, v in solver.last_phase_ms.items()})
-            + f", scan {json.dumps(pack.LAST_SCAN)}, launches {json.dumps(counts)}; "
-            f"placements byte-identical to phase 6 ({len(a)} bytes)")
-    tiered_launches = {k: tiered_total.get(k, 0) for k in screen.LAUNCHES}
-    tiered_forms = {k: tiered_total.get(k, 0) for k in screen.FORM_LAUNCHES}
-    dev_ms = {m: [d for mode, _w, d in turns if mode == m] for m in ("tiered", "prescreen")}
-    say(f"[tiered] device ms in turns: tiered {dev_ms['tiered']}, prescreen "
-        f"{dev_ms['prescreen']}; summed over the phase's solves: {json.dumps(tiered_total)}")
+    # phase 6b: the live cluster solved with the tiered screen (one turn:
+    # the prescreen's turn, phase 6's solve again, is the depth cut that
+    # pays for phase 16), with the launch counts set to 0 just before the
+    # solve and read just after
+    solver = torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda",
+                                      screen_mode="tiered", incremental="off")
+    screen.reset_launches()
+    t0 = time.perf_counter()
+    res = solver.solve(pods, provs, its, state_nodes=cluster.nodes(), kube_client=client,
+                       cluster=cluster)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = screen.launch_counts()
+    a = torch_solver.placements_json(res)
+    if a != torch_solver.placements_json(live_result):
+        raise AssertionError("tiered: placements differ from the prescreen solve's (phase 6)")
+    if counts["row_b1"] < 1 or counts["block"] or counts["row_n1"]:
+        raise AssertionError(f"tiered: the solve launched {json.dumps(counts)}; expected "
+                             "row_b1 and no block or row_n1")
+    say(f"[tiered] live cluster, tiered: {wall:.3f} s wall, last_phase_ms "
+        + json.dumps({k: round(v, 3) for k, v in solver.last_phase_ms.items()})
+        + f", scan {json.dumps(pack.LAST_SCAN)}, launches {json.dumps(counts)}; "
+        f"placements byte-identical to phase 6 ({len(a)} bytes)")
+    tiered_launches = {k: counts.get(k, 0) for k in screen.LAUNCHES}
+    tiered_forms = {k: counts.get(k, 0) for k in screen.FORM_LAUNCHES}
     mark("phase 6b")
 
     # phase 7: steady churn over the live cluster, incremental against full
@@ -4397,9 +4770,9 @@ def main() -> int:
     del on_card, on_cpu
     mark("phase 8b")
 
-    # phase 9b: the card and the CPU execute alike at phase 8b's size
+    # phase 9b: the card and the CPU execute alike at half of phase 8b's size
     say(f"[lifecycle 9b] card and CPU agree: "
-        f"{json.dumps(phase_lifecycle_pair(size=PAIR_HALF))}")
+        f"{json.dumps(phase_lifecycle_pair(size=PAIR_QUARTER))}")
     mark("phase 9b")
 
     # phase 10: the operator at full width, phase 6's live cluster through
@@ -4476,10 +4849,14 @@ def main() -> int:
            + (b14c["launches"].get(k, 0) if b14c else 0) for k in b14a["launches"]}
     # phase 15's: the solver host's children of 15a and 15b
     b15 = {k: soak["launches"][k] + steady["launches"][k] for k in soak["launches"]}
+    # phase 16's: 16a's child (its in-process solver on the card) and 16b's
+    # solver host's child
+    b16 = {k: race["launches"][k] + over_http["launches"][k] for k in race["launches"]}
     runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
-            cons_launches, life_launches, op_launches, fb_launches, ent_launches, b14, b15)
+            cons_launches, life_launches, op_launches, fb_launches, ent_launches, b14, b15,
+            b16)
     form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms,
-                 life_forms, op_forms, fb_forms, ent_forms, b14, b15)
+                 life_forms, op_forms, fb_forms, ent_forms, b14, b15, b16)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
     say(f"[launches] phase 10 {json.dumps(op_counts)}, phase 12a {json.dumps(fb['launches'])}"
@@ -4487,8 +4864,10 @@ def main() -> int:
         f"{json.dumps(b14)} (14a {json.dumps(b14a['launches'])}, 14b "
         f"{json.dumps(b14b['launches'])}, 14c "
         f"{json.dumps(b14c['launches']) if b14c else 'not run'}), phase 15 {json.dumps(b15)} "
-        f"(15a {json.dumps(soak['launches'])}, 15b {json.dumps(steady['launches'])}); phases "
-        f"4-10, 12a, 13, 14 and 15 summed {json.dumps(launches)} by form {json.dumps(forms)}")
+        f"(15a {json.dumps(soak['launches'])}, 15b {json.dumps(steady['launches'])}), phase 16 "
+        f"{json.dumps(b16)} (16a {json.dumps(race['launches'])}, 16b "
+        f"{json.dumps(over_http['launches'])}); phases 4-10, 12a and 13-16 summed "
+        f"{json.dumps(launches)} by form {json.dumps(forms)}")
 
     # the line's numbers are those of this slice's main path, phase 10's
     # first operator step (the live cluster's backlog, solved through
@@ -4569,7 +4948,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    code = main()
+    argv = sys.argv[1:]
+    if "--create-backlog" in argv:
+        code = create_backlog(argv)
+    else:
+        code = main()
     sys.stdout.flush()
     sys.stderr.flush()
     # leave without the interpreter's teardown of the phases' heap (peak

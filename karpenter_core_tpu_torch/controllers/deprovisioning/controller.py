@@ -14,8 +14,9 @@ return at once: the caller steps the lifecycle controllers.
 """
 from __future__ import annotations
 
+import threading
 import time
-from typing import List
+from typing import List, Optional
 
 from karpenter_core_tpu_torch.api.labels import LABEL_NODE_INITIALIZED
 from karpenter_core_tpu_torch.controllers.deprovisioning.consolidation import (
@@ -99,10 +100,15 @@ class DeprovisioningController:
             SingleNodeConsolidation(*args, **kwargs),
         ]
 
-    def reconcile(self) -> bool:
+    def reconcile(self, stop: Optional[threading.Event] = None) -> bool:
         """One pass over the chain; True if a Command was executed
-        (controller.go:107-141)."""
+        (controller.go:107-141). Once `stop` (the operator's) is set the
+        pass ends before its next deprovisioner and before a command, as a
+        cancelled context ends upstream's: a process that is giving up its
+        lease must not act."""
         for deprovisioner in self.deprovisioners:
+            if stop is not None and stop.is_set():
+                return False
             candidates = candidate_nodes(self.cluster, self.kube_client, self.cloud_provider,
                                          deprovisioner.should_deprovision, self.clock)
             if not candidates:
@@ -110,7 +116,7 @@ class DeprovisioningController:
             cmd = deprovisioner.compute_command(candidates)
             if cmd.action == ACTION_DO_NOTHING:
                 continue
-            if cmd.action == ACTION_RETRY:
+            if cmd.action == ACTION_RETRY or (stop is not None and stop.is_set()):
                 return False
             self.execute_command(deprovisioner, cmd)
             return True

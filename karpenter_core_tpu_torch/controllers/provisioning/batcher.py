@@ -45,8 +45,8 @@ class Batcher:
                 with self._mu:
                     folded = self._triggers - self._consumed
                     self._consumed = self._triggers
-                self.last_window = {"closed_by": closed, "triggers": folded,
-                                    "s": now - start}
+                    self.last_window = {"closed_by": closed, "triggers": folded,
+                                        "s": now - start}
                 TRACER.add_span("batcher.window", start_ns, time.perf_counter_ns(),
                                 closed_by=closed, triggers=folded)
                 return True

@@ -148,11 +148,12 @@ class ProvisioningController:
 
     # -- reconcile --------------------------------------------------------------
 
-    def reconcile(self, wait_timeout: Optional[float] = 0.0) -> int:
+    def reconcile(self, wait_timeout: Optional[float] = 0.0, stop=None) -> int:
         """One pass; the number of machines launched (provisioner.go:105-126).
         With a wait_timeout it fires a due launch re-trigger and waits for
         the batch window, returning 0 if none closes; None solves at once
-        (the operator's step())."""
+        (the operator's step()). Once `stop` (the operator's) is set, a
+        pass launches nothing after its solve."""
         if wait_timeout is not None:
             self._maybe_fire_launch_retry()
             if not self.batcher.wait(timeout=wait_timeout):
@@ -160,11 +161,11 @@ class ProvisioningController:
         # the reconcile's root span: the solve's spans and the launch land
         # in one trace
         with TRACER.span("provisioner.reconcile") as sp:
-            return self._reconcile_traced(sp)
+            return self._reconcile_traced(sp, stop)
 
-    def _reconcile_traced(self, sp) -> int:
+    def _reconcile_traced(self, sp, stop=None) -> int:
         result = self.schedule()
-        if result is None:
+        if result is None or (stop is not None and stop.is_set()):
             return 0
         sp.set(machines=len(result.new_machines),
                existing=len(result.existing_assignments),

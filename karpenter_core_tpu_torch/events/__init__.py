@@ -57,6 +57,7 @@ class Recorder:
         self._posted = 0
         self._post_q = None
         self._post_thread: Optional[threading.Thread] = None
+        self._closed = False
         self._post_idle = threading.Event()
         self._post_idle.set()
         self.events: Deque[Event] = deque(maxlen=capacity)
@@ -109,14 +110,19 @@ class Recorder:
         obj.message = event.message
         obj.type = event.type
         obj.first_timestamp = obj.last_timestamp = now
+        poster = self._poster()
+        if poster is None:
+            return  # closed: the ring keeps the event
         try:
-            self._poster().put_nowait(obj)
+            poster.put_nowait(obj)
         except queue.Full:
             return
         self._post_idle.clear()
 
-    def _poster(self) -> queue.Queue:
+    def _poster(self) -> Optional[queue.Queue]:
         with self._mu:
+            if self._closed:
+                return None
             if self._post_q is None:
                 self._post_q = q = queue.Queue(maxsize=1024)
                 self._post_thread = threading.Thread(target=self._post_loop, args=(q,),
@@ -125,11 +131,13 @@ class Recorder:
             return self._post_q
 
     def close(self, timeout: float = 5.0) -> bool:
-        """Write what is queued, then stop the poster thread and join it
-        (a later publish starts another); whether it ended in time."""
+        """Write what is queued, then stop the poster thread and join it;
+        whether it ended in time. A later publish keeps its event in the
+        ring only: nothing is posted to the cluster after the close."""
         with self._mu:
             q, thread = self._post_q, self._post_thread
             self._post_q = self._post_thread = None
+            self._closed = True
         if q is None:
             return True
         try:

@@ -97,47 +97,71 @@ def _is_quantity_map(tp) -> bool:
     )
 
 
+# per type: how from_k8s_dict reads it and to_k8s_dict writes it (a
+# dataclass's type hints resolved once per type, not once per object)
+_PLANS: dict = {}
+
+
+def _plan(cls):
+    plan = _PLANS.get(cls)
+    if plan is not None:
+        return plan
+    tp = _strip_optional(cls)
+    origin = typing.get_origin(tp)
+    if origin is list:
+        plan = ("list", typing.get_args(tp)[0])
+    elif origin is dict:
+        val_tp = typing.get_args(tp)[1]
+        plan = ("quantities", None) if val_tp is float else ("dict", val_tp)
+    elif dataclasses.is_dataclass(tp):
+        hints = typing.get_type_hints(tp)
+        wrap = getattr(tp, "_WIRE_WRAP", None) or {}
+        plan = ("dataclass", tp, tuple(
+            (f.name, _wire_name(tp, f.name), hints[f.name], wrap.get(f.name),
+             _is_time_field(f.name))
+            for f in dataclasses.fields(tp)))
+    elif tp is float:
+        plan = ("float", None)
+    else:
+        plan = ("as_is", None)  # int, str, bool, Any, a plain dict
+    _PLANS[cls] = plan
+    return plan
+
+
 def from_k8s_dict(cls, data):
     """Build `cls` from a camelCase k8s JSON dict. Unknown keys are ignored
     (server-side pruning analog); missing keys take dataclass defaults."""
     if data is None:
         return None
-    tp = _strip_optional(cls)
-    origin = typing.get_origin(tp)
-    if origin is list:
-        (item_tp,) = typing.get_args(tp)
-        return [from_k8s_dict(item_tp, item) for item in data]
-    if origin is dict:
-        key_tp, val_tp = typing.get_args(tp)
-        if val_tp is float:
-            return {k: _to_float(v) for k, v in data.items()}
-        return {k: from_k8s_dict(val_tp, v) for k, v in data.items()}
-    if dataclasses.is_dataclass(tp):
-        hints = typing.get_type_hints(tp)
-        wrap = getattr(tp, "_WIRE_WRAP", None)
+    plan = _plan(cls)
+    how = plan[0]
+    if how == "dataclass":
         kwargs = {}
-        for f in dataclasses.fields(tp):
-            wire = _wire_name(tp, f.name)
+        for name, wire, hint, wrap_key, is_time in plan[2]:
             if wire in data:
                 raw = data[wire]
-            elif f.name in data:
-                raw = data[f.name]
+            elif name in data:
+                raw = data[name]
             else:
                 continue
-            if wrap and f.name in wrap and isinstance(raw, dict):
+            if wrap_key is not None and isinstance(raw, dict):
                 # wire wraps the list in an object (e.g. NodeAffinity's
                 # required is a NodeSelector{nodeSelectorTerms: [...]})
-                raw = raw.get(wrap[f.name], [])
-            if _is_time_field(f.name) and raw is not None:
-                kwargs[f.name] = _parse_time(raw)
+                raw = raw.get(wrap_key, [])
+            if is_time and raw is not None:
+                kwargs[name] = _parse_time(raw)
             else:
-                kwargs[f.name] = from_k8s_dict(hints[f.name], raw)
-        return tp(**kwargs)
-    if tp is float:
+                kwargs[name] = from_k8s_dict(hint, raw)
+        return plan[1](**kwargs)
+    if how == "list":
+        return [from_k8s_dict(plan[1], item) for item in data]
+    if how == "quantities":
+        return {k: _to_float(v) for k, v in data.items()}
+    if how == "dict":
+        return {k: from_k8s_dict(plan[1], v) for k, v in data.items()}
+    if how == "float":
         return _to_float(data)
-    if tp in (int, str, bool):
-        return data
-    return data  # Any / plain dict (e.g. provider config)
+    return data
 
 
 def _to_float(v) -> float:
@@ -153,10 +177,9 @@ def to_k8s_dict(obj):
         return None
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         out = {}
-        wrap = getattr(type(obj), "_WIRE_WRAP", None)
-        for f in dataclasses.fields(obj):
-            value = getattr(obj, f.name)
-            if _is_time_field(f.name) and isinstance(value, (int, float)):
+        for name, wire, _hint, wrap_key, is_time in _plan(type(obj))[2]:
+            value = getattr(obj, name)
+            if is_time and isinstance(value, (int, float)):
                 # zero means unset in the object model: OMIT it rather than
                 # emit a bare float a real apiserver would reject for a
                 # Time/MicroTime field
@@ -165,9 +188,9 @@ def to_k8s_dict(obj):
                 encoded = to_k8s_dict(value)
             if encoded in (None, [], {}, ""):
                 continue
-            if wrap and f.name in wrap:
-                encoded = {wrap[f.name]: encoded}
-            out[_wire_name(type(obj), f.name)] = encoded
+            if wrap_key is not None:
+                encoded = {wrap_key: encoded}
+            out[wire] = encoded
         return out
     if isinstance(obj, list):
         return [to_k8s_dict(v) for v in obj]

@@ -108,6 +108,10 @@ class Operator:
     eviction_queue: EvictionQueue
     terminator: Terminator
     clock: object = time.time
+    # a zero-argument callable each watch pump calls before it delivers an
+    # event: the deflake harness's randomized delays (upstream
+    # pkg/test/randomdelay.go:44-70); None outside tests
+    jitter: object = None
     # a pump that has seen no event for this many seconds relists (the
     # informer resync); 0 turns the periodic relist off
     watch_relist_interval: float = 600.0
@@ -196,13 +200,18 @@ class Operator:
             t.start()
             self._threads.append(t)
 
+        # each pass gives up at its next step once the operator stops, so
+        # that stop() finds every loop ended: a pass over a slow apiserver
+        # must not act after its process released the lease
+        stop = self._stop
+
         def provision_once():
-            self.provisioning.reconcile(wait_timeout=0.2)
+            self.provisioning.reconcile(wait_timeout=0.2, stop=stop)
             return 0.0  # the batcher paces the loop
 
         def deprovision_once():
             if self.deprovisioning is not None:
-                self.deprovisioning.reconcile()
+                self.deprovisioning.reconcile(stop=stop)
 
         typed_machine = Typed(self.kube_client, "Machine", self.machine_controller)
         typed_node = Typed(self.kube_client, "Node", self.node_controller)
@@ -217,9 +226,14 @@ class Operator:
             # node reconciles at a time (machine/controller.go:166)
             reconcile_concurrently(
                 "machine", self.kube_client.list("Machine"),
-                lambda m: typed_machine.reconcile_key(m.metadata.name), max_workers=50)
+                lambda m: typed_machine.reconcile_key(m.metadata.name), max_workers=50,
+                stop=stop)
+            if stop.is_set():
+                return
             reconcile_concurrently("node", self.kube_client.list("Node"), node_reconcile,
-                                   max_workers=10)
+                                   max_workers=10, stop=stop)
+            if stop.is_set():
+                return
             for provisioner in self.kube_client.list("Provisioner"):
                 self.counter.reconcile(provisioner)
             self.node_metrics.reconcile()
@@ -281,6 +295,9 @@ class Operator:
                         last_event = time.monotonic()
                     continue
                 last_event = time.monotonic()
+                jitter = self.jitter
+                if jitter is not None:
+                    jitter()
                 self._deliver(kind, handler, event, obj)
                 # a key counts as known only once delivered, so that a
                 # failed DELETED is still found by the recovery relist

@@ -666,17 +666,23 @@ def run(cloud_provider, kube_client=None, stop_event=None, options=None,
             proc.alive = [t.name for t in operator.stop()]
             if not operator.recorder.close():
                 proc.alive.append("event-poster")
+        if proc.alive:
+            # a loop still in its pass may yet write to the cluster or
+            # solve: the lease is left to lapse and the primary open
+            LOG.error("threads alive after the stop: the lease is not released",
+                      threads=proc.alive)
         if proc.webhook is not None:
             proc.webhook.stop()
         if proc.elector is not None:
             proc.elector.join()
-            proc.elector.release()
+            if not proc.alive:
+                proc.elector.release()
         if proc.prewarm is not None:
             proc.prewarm.join(timeout=600.0)
         # the solver host's child (its process group killed) or the
         # remote solver's channel
         close = getattr(primary, "close", None)
-        if callable(close):
+        if callable(close) and not proc.alive:
             close()
         REGISTRY.remove_external(slo_engine)
         health.shutdown()

@@ -184,16 +184,20 @@ def _pool(name: str, max_workers: int) -> _DaemonPool:
         return pool
 
 
-def reconcile_concurrently(name: str, items, reconcile_fn, max_workers: int = 10) -> int:
+def reconcile_concurrently(name: str, items, reconcile_fn, max_workers: int = 10,
+                           stop: Optional[threading.Event] = None) -> int:
     """Reconcile each item on at most `max_workers` threads (the
     MaxConcurrentReconciles analog: 50 for machines, machine/controller.go:166,
     10 for nodes); an error is counted and logged and never stops the
-    batch. Returns the number of errors."""
+    batch. Once `stop` is set, the items not yet started are skipped.
+    Returns the number of errors."""
     items = list(items)
     if not items:
         return 0
 
     def one(obj):
+        if stop is not None and stop.is_set():
+            return None
         with with_controller_name(name):
             return reconcile_fn(obj)
 

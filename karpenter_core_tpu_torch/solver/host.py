@@ -1588,7 +1588,7 @@ def host_main(argv=None) -> int:
                         rheader.update(ok=not bool(response.error), error=response.error or "")
                         if op == "solve":
                             rheader["phase_ms"] = {k: round(v, 3) for k, v in
-                                                   service.last_phase_ms.items()}
+                                                   service.phase_ms().items()}
                         response_body = response.SerializeToString()
                 if want_spans:
                     rheader["spans"] = export_spans(TRACER.spans_since(mark))

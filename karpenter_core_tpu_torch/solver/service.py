@@ -418,7 +418,8 @@ class SolverService:
         # the batched replan entries by (key, candidate-axis bucket)
         self._replan_compiled: "OrderedDict[tuple, object]" = OrderedDict()
         # the last dispatch's prescreen ("full" | "refresh" | None) and the
-        # last solve's phases (upload, prescreen, device, fetch), in ms
+        # last solve's phases (upload, prescreen, device, fetch), in ms;
+        # written under _mu, as concurrent RPCs each write them
         self.last_prescreen_mode: Optional[str] = None
         self.last_phase_ms: Dict[str, float] = {}
         # in-flight dispatch heartbeats: Health reads the stalest
@@ -430,6 +431,12 @@ class SolverService:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def phase_ms(self) -> Dict[str, float]:
+        """The last solve's phases, read under the lock they are written
+        under."""
+        with self._mu:
+            return dict(self.last_phase_ms)
 
     def device_name(self) -> str:
         if self.device.type == "cuda":
@@ -641,8 +648,9 @@ class SolverService:
         if ops_compat.resolve_incremental_mode() == "off":
             screen0, mode, _d, items_pl, _e = dispatch_prescreen(
                 entry.segments, entry.screen_v, entry.n_slots, host_args, targs)
-            self.last_prescreen_mode = mode
-            return screen0, items_pl
+            with self._mu:
+                self.last_prescreen_mode = mode
+            return screen0, items_pl, mode
         with self._inc_mu:
             lock, inc = self._inc_screens.setdefault(key, (threading.Lock(),
                                                            IncrementalScreen()))
@@ -650,17 +658,16 @@ class SolverService:
             screen0, mode, delta, items_pl, _error = dispatch_prescreen(
                 entry.segments, entry.screen_v, entry.n_slots, host_args, targs, inc=inc,
                 key=key)
-        self.last_prescreen_mode = mode
+        with self._mu:
+            self.last_prescreen_mode = mode
         if mode == "refresh":
             rkey = (key, delta.rb, delta.cb)
             self._bounded(self._refresh_compiled, self._inc_mu, rkey, None, "refresh")
             self._programs.dispatch("refresh", rkey,
                                     meta={"tier": f"rb{delta.rb}xcb{delta.cb}"})
-        return screen0, items_pl
+        return screen0, items_pl, mode
 
     def _solve_traced(self, request) -> pb.SolveResponse:
-        from karpenter_core_tpu_torch.ops import compat as ops_compat
-
         # dispatch-start heartbeat, labelled with the device phase: the
         # staleness window starts here
         supervise.touch_heartbeat("solver.phase.device")
@@ -670,8 +677,19 @@ class SolverService:
         # watchdog) goes heartbeat-silent, which wedges a solver host's child
         chaos.maybe_fail(chaos.SOLVER_DEVICE)
         chaos.maybe_fail(chaos.SOLVER_DEVICE_HANG)
+        phases: Dict[str, float] = {}
+        try:
+            return self._solve_phases(request, phases)
+        finally:
+            # published once filled: a reader on another thread sees the
+            # last solve's phases or this one's, never a dict being written
+            with self._mu:
+                self.last_phase_ms = phases
+
+    def _solve_phases(self, request, phases) -> pb.SolveResponse:
+        from karpenter_core_tpu_torch.ops import compat as ops_compat
+
         t_phase = time.perf_counter_ns()
-        phases = self.last_phase_ms = {}
 
         def mark(name, **attrs):
             # the same solver.phase.* spans the in-process TorchSolver
@@ -697,8 +715,8 @@ class SolverService:
         screen0 = items_pl = None
         cold_ms = 0.0
         if entry.screen_mode == "prescreen":
-            screen0, items_pl = self._prescreen(key, entry, args, targs)
-            cold_ms = mark("prescreen", mode=self.last_prescreen_mode)
+            screen0, items_pl, mode = self._prescreen(key, entry, args, targs)
+            cold_ms = mark("prescreen", mode=mode)
         # re-label for the long silent stretch ahead
         supervise.touch_heartbeat("solver.phase.device")
         log, ptr, state = dispatch_solve(entry.run, screen0, targs, items_pl, sync=self._sync)
@@ -739,7 +757,7 @@ class SolverService:
         uninit_t = torch.from_numpy(uninit).to(self.device)
         screen0 = items_pl = None
         if entry.screen_mode == "prescreen":
-            screen0, items_pl = self._prescreen(key, entry, args, targs)
+            screen0, items_pl, _mode = self._prescreen(key, entry, args, targs)
         with self._mu:
             replan = entry.replan
         if replan is None or replan.n_exist != E:

@@ -858,7 +858,9 @@ class TorchSolver:
         # the traceback of the last refresh that failed (full_deg)
         self.last_refresh_error: Optional[str] = None
         # the state carried across solves, and the lock of its hand-over
-        # (held only to take or return it, never across a dispatch)
+        # (held only to take or return it, never across a dispatch); the
+        # per-call results above and the warm keys below are written under
+        # it too, since calls on several threads may run at once
         self._carried = _Carried()
         self._lock = threading.Lock()
         # the solve geometries (solve_geometry, screen mode) a solve or a
@@ -890,6 +892,20 @@ class TorchSolver:
         finally:
             with self._lock:
                 carried.held = False
+
+    def _publish(self, **fields) -> None:
+        """Set per-call results under the lock: an abandoned dispatch and
+        the next solve may both be writing them."""
+        with self._lock:
+            for name, value in fields.items():
+                setattr(self, name, value)
+
+    def _warm(self, warm_key) -> bool:
+        """Note a geometry met; whether it was new."""
+        with self._lock:
+            cold = warm_key not in self._warm_keys
+            self._warm_keys[warm_key] = None
+        return cold
 
     def _program_meta(self, geom) -> dict:
         return {"tier": f"{geom[7]}slots", "mode": self.screen_mode}
@@ -966,14 +982,24 @@ class TorchSolver:
         screen0, mode, delta, items_pl, error = dispatch_prescreen(
             geom[8], geom[16], geom[7], host_args, targs, inc=inc, key=key, gate_ok=gate_ok)
         if error is not None:
-            self.last_refresh_error = error
+            self._publish(last_refresh_error=error)
         elif mode == "refresh":
             self._programs.dispatch("refresh", (key, delta.rb, delta.cb))
         return screen0, mode, delta, items_pl
 
     def _solve_once(self, pods, provisioners, instance_types, daemonset_pods,
                     state_nodes, kube_client, cluster, ctx) -> SolveResult:
-        phases = self.last_phase_ms = {}
+        phases: Dict[str, float] = {}
+        try:
+            return self._solve_phases(phases, pods, provisioners, instance_types,
+                                      daemonset_pods, state_nodes, kube_client, cluster, ctx)
+        finally:
+            # published once filled: a reader on another thread sees the
+            # last solve's phases or this one's, never a dict being written
+            self._publish(last_phase_ms=phases)
+
+    def _solve_phases(self, phases, pods, provisioners, instance_types, daemonset_pods,
+                      state_nodes, kube_client, cluster, ctx) -> SolveResult:
         t = time.perf_counter_ns()
 
         def mark(name, **attrs):
@@ -1014,8 +1040,7 @@ class TorchSolver:
         chaos.maybe_fail(chaos.SOLVER_DEVICE_HANG)
         geom = solve_geometry(snap, self.max_nodes)
         warm_key = (geom, self.screen_mode)
-        cold = warm_key not in self._warm_keys
-        self._warm_keys[warm_key] = None
+        cold = self._warm(warm_key)
         self._programs.mint("solve", warm_key, meta=self._program_meta(geom))
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
             geom[7], geom[8], geom[9], geom[10], geom[12], geom[16]
@@ -1024,22 +1049,22 @@ class TorchSolver:
         mark("args")
         targs = args_to_torch(args, self.device)
         mark("upload")
-        self.last_prescreen_mode = self.last_prescreen_delta = None
-        self.last_prescreen_launches = None
+        self._publish(last_prescreen_mode=None, last_prescreen_delta=None,
+                      last_prescreen_launches=None)
         screen0 = items_pl = None
         if self.screen_mode == "prescreen":
             key = _residency_key(geom, args, self.screen_mode)
             before = screen_ops.launch_counts()
             screen0, mode, delta, items_pl = self._dispatch_prescreen(key, geom, args, targs,
                                                                       carried)
-            self.last_prescreen_mode = mode
-            self.last_prescreen_launches = {
-                k: v - before[k] for k, v in screen_ops.launch_counts().items()}
-            if mode == "refresh":
-                self.last_prescreen_delta = {
+            self._publish(
+                last_prescreen_mode=mode,
+                last_prescreen_launches={
+                    k: v - before[k] for k, v in screen_ops.launch_counts().items()},
+                last_prescreen_delta={
                     "rows": len(delta.rows), "cols": len(delta.cols),
                     "rb": delta.rb, "cb": delta.cb,
-                }
+                } if mode == "refresh" else None)
             mark("prescreen", mode=mode, cold=cold)
         run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
                               screen_v=screen_v, screen_mode=self.screen_mode)
@@ -1081,12 +1106,16 @@ class TorchSolver:
         inconclusive per subset; pods_per_slot [K, N] int32 when
         want_slots, else None). Only the verdicts are fetched otherwise."""
         with self._take_carried() as carried:
-            return self._replan_carried(snap, provisioners, count_rows, exist_open,
-                                        uninitialized, cluster, want_slots, carried)
+            phases: Dict[str, float] = {}
+            try:
+                return self._replan_carried(snap, provisioners, count_rows, exist_open,
+                                            uninitialized, cluster, want_slots, carried,
+                                            phases)
+            finally:
+                self._publish(last_replan_phase_ms=phases)
 
     def _replan_carried(self, snap, provisioners, count_rows, exist_open, uninitialized,
-                        cluster, want_slots, carried):
-        phases = self.last_replan_phase_ms = {}
+                        cluster, want_slots, carried, phases):
         t = time.perf_counter_ns()
 
         def mark(name):
@@ -1120,13 +1149,13 @@ class TorchSolver:
             uninit[:m] = np.asarray(uninitialized, dtype=bool)[:m]
         uninit_t = torch.from_numpy(uninit).to(self.device)
         mark("upload")
-        self.last_prescreen_mode = self.last_prescreen_delta = None
-        screen0 = items_pl = None
+        self._publish(last_prescreen_mode=None, last_prescreen_delta=None)
+        screen0 = items_pl = mode = None
         if self.screen_mode == "prescreen":
             key = _residency_key(geom, args, self.screen_mode)
             screen0, mode, _delta, items_pl = self._dispatch_prescreen(key, geom, args, targs,
                                                                        carried)
-            self.last_prescreen_mode = mode
+            self._publish(last_prescreen_mode=mode)
             mark("prescreen")
         rung_run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
                                    screen_v=screen_v, screen_mode=self.screen_mode,
@@ -1145,11 +1174,11 @@ class TorchSolver:
         K = int(count_rows.shape[0])
         verdicts, pods = fetch_replan(verdict_parts, pods_parts, want_slots)
         mark("fetch")
-        self.last_replan_stats = {
-            "K": K, "chunks": chunks, "prescreen": self.last_prescreen_mode,
+        self._publish(last_replan_stats={
+            "K": K, "chunks": chunks, "prescreen": mode,
             "launches": {k: v - before[k] for k, v in screen_ops.launch_counts().items()},
             "scans": scans,
-        }
+        })
         return verdicts, pods
 
     # -- the startup prewarm -------------------------------------------------
@@ -1173,8 +1202,7 @@ class TorchSolver:
         fresh = load_screen_library(self.device)
         geom = solve_geometry(snap, self.max_nodes)
         key = (geom, self.screen_mode)
-        fresh = fresh or key not in self._warm_keys
-        self._warm_keys[key] = None
+        fresh = self._warm(key) or fresh
         args = device_args(snap, provisioners)
         # the prescreen at this geometry, with no resident tensor
         dispatch_prescreen(geom[8], geom[16], geom[7], None,

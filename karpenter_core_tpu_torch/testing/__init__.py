@@ -1,6 +1,11 @@
 """Object builders for tests and smoke runs (the analog of pkg/test), and
 a synchronous control loop over the lifecycle controllers. The suite
-environment with the Expect* helpers is testing/expectations.Env."""
+environment with the Expect* helpers is testing/expectations.Env.
+
+Importing the package loads no module that allocates a lock (the
+controllers load when a ControlLoop is made), so that the race watchers
+of testing/lockwatch.py and testing/racewatch.py can be armed before any
+lock of the port exists."""
 from __future__ import annotations
 
 import itertools
@@ -9,19 +14,6 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
-
-from karpenter_core_tpu_torch.controllers.deprovisioning.controller import (
-    DeprovisioningController,
-)
-from karpenter_core_tpu_torch.controllers.machine.controller import MachineController
-from karpenter_core_tpu_torch.controllers.machine.terminator import EvictionQueue, Terminator
-from karpenter_core_tpu_torch.controllers.node.controller import NodeController
-from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (
-    ProvisioningController,
-)
-from karpenter_core_tpu_torch.controllers.termination.controller import TerminationController
-from karpenter_core_tpu_torch.state import informer
-from karpenter_core_tpu_torch.state.cluster import Cluster
 
 from karpenter_core_tpu_torch.api.machine import (
     CONDITION_MACHINE_INITIALIZED,
@@ -424,7 +416,26 @@ class ControlLoop:
 
     def __init__(self, kube_client, cloud_provider, solver, clock=None,
                  validation_ttl: float = 15.0):
+        from karpenter_core_tpu_torch.controllers.deprovisioning.controller import (
+            DeprovisioningController,
+        )
+        from karpenter_core_tpu_torch.controllers.machine.controller import MachineController
+        from karpenter_core_tpu_torch.controllers.machine.terminator import (
+            EvictionQueue,
+            Terminator,
+        )
+        from karpenter_core_tpu_torch.controllers.node.controller import NodeController
+        from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (
+            ProvisioningController,
+        )
+        from karpenter_core_tpu_torch.controllers.termination.controller import (
+            TerminationController,
+        )
+        from karpenter_core_tpu_torch.state import informer
+        from karpenter_core_tpu_torch.state.cluster import Cluster
+
         clock = clock if clock is not None else time.time
+        self._drain = informer.drain
         self.kube_client = kube_client
         self.cloud_provider = cloud_provider
         self.clock = clock
@@ -455,7 +466,7 @@ class ControlLoop:
     def sync(self) -> int:
         """Hand every waiting watch event to its informer, kind by kind in
         KINDS order; returns how many there were."""
-        return sum(informer.drain(q, handler) for q, handler in self.watches)
+        return sum(self._drain(q, handler) for q, handler in self.watches)
 
     def step(self) -> None:
         """One pass over the controllers, in the order of the reference's
