@@ -84,8 +84,8 @@ Phases, each fatal on failure:
      of phase 6's snapshot (equal to the in-process replan), the request
      and response bytes printed;
   8. consolidation at full width: phase 6's live cluster built afresh
-     without its backlog, at 400 of its 1,000 nodes (12,000 bound pods;
-     the depth cut that pays for phases 14 and 16), and a
+     without its backlog, at 300 of its 1,000 nodes (9,000 bound pods;
+     the depth cut that pays for phases 14, 16 and 17), and a
      provisioner with consolidation enabled; through the port's
      deprovisioning modules (candidate_nodes, the ProvisioningController, the
      consolidation deprovisioners, solver/replan.py) on a FakeClock with
@@ -166,14 +166,17 @@ Phases, each fatal on failure:
      the tree, each step's parts (the metrics controllers one of them),
      the exposition's bytes, samples and expose() time, and the size of
      the tracer's Chrome trace (exported into the temporary directory);
-  10b. phase 10's script at 3c's size on the card and on the CPU: equal
+  10b. phase 10's script at half of 3c's size (2,250 pods of the mix, 150
+     ingress and 200 claim pods over 100 nodes with 42 pods bound on each;
+     the depth cut that, with phase 8 at 300 nodes and phases 12 and 14b
+     at half size, pays for phase 17) on the card and on the CPU: equal
      placements, launched machines' instance-type options, (reason, kind)
      events, counter resources and counters; then, on the card, an ICE
      leg (the type step 1 launched most exhausted in every pool: its
      launches fail and the ICE cache masks it; once the placed pods bind,
      reconcile(wait_timeout=...) fires the re-trigger and re-solves
      exactly the pods left, every one placed, none on the masked type) and
-     a cap leg (batch_max_pods=2500: passes of 2,500, each re-triggering
+     a cap leg (batch_max_pods=1300: passes of 1,300, each re-triggering
      the batcher, until the backlog is empty);
   11. flight records (the reference's format, armed from phase 8 on)
      replayed on the card: phase 8b's ladder record through
@@ -193,9 +196,11 @@ Phases, each fatal on failure:
      its step-1 solve recorded and replayed the same way: fatal when the
      card's replay is not byte-identical to the live solve. Phase 8
      prints the time to take its ladder record at full width.
-  12. the fallback paths (phase_fallback), at phase 10b's pods and nodes
-     (18 pods bound a node, 3,978 under the recorder's cap, and no
-     StatefulSet claims, so the record holds the whole cluster context):
+  12. the fallback paths (phase_fallback), at half of phase 3c's pods and
+     nodes (2,400 pods over 100 nodes, 18 pods bound a node, 1,800 under
+     the recorder's cap, and no StatefulSet claims, so the record holds
+     the whole cluster context; the depth cut that, with 10b and 14b,
+     pays for phase 17):
      12a: solver/fallback.ResilientSolver(build_solver(), GreedySolver(),
      solve_timeout=900, wedge_stale_after=600) with the real subprocess
      card probe, the launch counts set to 0 just before its solve and read
@@ -216,7 +221,7 @@ Phases, each fatal on failure:
      small-batch work product; 12d: native.NativeSolver(device="cuda") on
      phase 4's topology-free share without its nodes against TorchSolver
      to the same bar, both walls and the g++ build time.
-  14b. the wedge drill at phase 12's size: ResilientSolver around a
+  14b. the wedge drill at phase 12's size (DRILL_SIZE): ResilientSolver around a
      HostSolver (stale_after 3 s, wedge_stale_after=None: the host
      watches) solves once in the child on the card; the child is stopped
      (SIGSTOP) once the next solve's request frame is written; fatal
@@ -228,7 +233,7 @@ Phases, each fatal on failure:
      the SIGSTOP, the respawn's and the recovery's seconds, the card
      memory freed and nvidia-smi's compute processes before and after;
   13. the process entry, last (its collector tuning is process-wide):
-     operator/__main__.run() on a thread, on the card, over phase 12's
+     operator/__main__.run() on a thread, on the card, over PHASE12_SIZE's
      cluster (its nodes and bound pods in the kube client, the provisioner
      not consolidating), with leader election and profiling on, the
      metrics port ephemeral, the webhook on where `cryptography` imports
@@ -296,21 +301,50 @@ Phases, each fatal on failure:
      pump's error, a thread left, a fallback, no screen launch, a
      lock-order cycle or an unsuppressed race; the tracked lock sites, the
      instrumented classes and the leg's wall printed. 16b, phase 13 over
-     HTTP: phase 12's cluster loaded into an apiserver in a process of its
-     own (ApiServerProcess) with kube.transport armed there at p 0.005
-     (an injected fault answers 503), run() with its default primary over
+     HTTP: half of phase 13's cluster (HTTP_SIZE: 2,400 pods over 100
+     nodes) loaded into an apiserver in a process of its own
+     (ApiServerProcess) with kube.transport armed there at p 0.005 (an
+     injected fault answers 503), run() with its default primary over
      ApiServerKubeClient, every tier prewarmed, the lease over HTTP, the
-     4,800-pod backlog created through the server; phase 13's gates, and
+     backlog created through the server; phase 13's gates, and
      transport retries above zero, no apiserver error, every watch pump
      gone once the client closes; printed: the creation to the last
      nomination (against 48 s), the HTTP requests by verb, the bytes each
      way, LIST pages, the watch connections and reconnects, the retries by
      method and the list() seconds by calling thread and kind.
+  17. the segmented pack scan (right after phase 16), each solve with the
+     launch counts set to 0 just before it and read just after. 17a:
+     bench.py's partitionable mix at full width (50,000 pods of cpu 1 and
+     1Gi, 1,000 app labels, over 8 selector-scoped pools of
+     testing.make_pool_provisioners and the fake provider's 500 types)
+     solved cold then warm by TorchSolver(pack_scan="sequential") and by
+     TorchSolver(pack_scan="segmented"); fatal: a placement check failing,
+     placements that differ between the scans, a segmented solve with
+     other than 8 segments or fixup_fraction 0.0, or one that launched no
+     screen_prep, block or row_n1, or a screen call of the cold segmented
+     solve (the partition's template rows, the lanes' re-screens at C =
+     1,024; the first 32 of each form and every 16th after, up to 256) that
+     disagrees with its plain version on the same rows; the segments, the
+     largest lane, the segment and merge ms beside the sequential device
+     ms and the launches by form printed. 17b: tests/test_segmented.py's pool
+     partition with existing nodes at phase 3c's scale (5,000 pods over 4
+     pools, 100 types, 200 nodes labelled per pool): segmented on the card
+     and on the CPU and sequential on the card byte-identical, with equal
+     last_segment_stats. 17c, the degradation ladder on 17b's cluster:
+     solver.segment armed once gives reason error:<Type>, 400 bulk
+     replicas with hostname anti-affinity give "structure", each placed
+     as the sequential scan places it. 17d, hack/segment_smoke.py's gates
+     at the card's size: new_operator with TorchSolver(pack_scan=
+     "segmented") in process over 4,800 pods x 400 types in 8 pools; one
+     step nominates every pod through a segmented solve (more than one
+     segment, fixup 0.0) byte-identical to a sequential solve of the same
+     batch. Then screen_prep and every form held exactly against their
+     plain versions on 17b's snapshot and timed there.
 Phase 1 builds the native packer (g++, native/fast_pack.cpp) beside the
 CUDA kernels. Phases 4-6 solve with incremental="off", so their warm solves
 run the full precompute as before. It prints one JSON line describing
 every kernel (the screen, screen_prep, and the screen's three forms with
-their launches over phases 4-10, 12a and 13-16, the solver host's
+their launches over phases 4-10, 12a and 13-17, the solver host's
 children's, the gRPC service's and 16a's child's summed in), then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
@@ -320,6 +354,7 @@ adds a third main-path (phase 6) solve under torch.profiler, and one with
 screen_mode="tiered", and prints for each the device's busy share, its
 costliest device operations and the host's operator count and time.
 """
+import contextlib
 import copy
 import gc
 import json
@@ -1532,9 +1567,10 @@ def phase_churn(pods, provs, its, client, cluster, max_nodes: int, zones, steps:
 
 # -- phase 8: consolidation over a live cluster --------------------------------
 
-# phase 8's settled cluster: phase 6's at 600 of its 1,000 nodes (18,000
-# bound pods), the depth cut that pays for phase 14
-PHASE8_NODES = 400
+# phase 8's settled cluster: phase 6's at 300 of its 1,000 nodes (9,000
+# bound pods), the depth cut that, with 10b at half of 3c's size, pays for
+# phases 14, 16 and 17
+PHASE8_NODES = 300
 
 
 def settled_cluster(*args, **kw):
@@ -2692,7 +2728,11 @@ def operator_exposition(out: dict) -> list:
     return exposition_values(families)
 
 
-PAIR_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=2))
+# phase 10b at half of 3c's pods and nodes (2,600 pending, 3,000 bound,
+# under the flight recorder's cap, and two StatefulSets with claims); its
+# cap leg still two passes
+PAIR_SIZE = (2250, 400, 100, 100, dict(n_ingress=150, n_sets=2))
+PAIR_CAP = 1300
 # the smoke's clock: with phase 12 the whole script ran 855.5-1,228.7 s of
 # its 1,200 s limit on two cards, so phases 6b, 7, 8b, 9b and 10b's cap leg
 # run cut: two screen turns, half of 3c's pods and nodes for 8b and 9b, two
@@ -2710,7 +2750,7 @@ RECORD_SIZE = (2500, 100, 50, 50, dict(n_sets=0))
 
 
 def phase_operator_pair(devices=("cuda", "cpu"), size=PAIR_SIZE) -> dict:
-    """Phase 10b: phase 10's script at 3c's size on the card and on the CPU
+    """Phase 10b: phase 10's script at PAIR_SIZE on the card and on the CPU
     (equal placements, launched machines' options, (reason, kind) events,
     counter resources, counters and every counter and gauge of the
     exposition); then on the card an ICE leg and a batch-cap leg. The
@@ -2731,7 +2771,7 @@ def phase_operator_pair(devices=("cuda", "cpu"), size=PAIR_SIZE) -> dict:
         types[it] = types.get(it, 0) + 1
     pool = max(sorted(types), key=types.get)
     out = {"machines": len(card.launched[0][1]), "ice": phase_ice(pool, size, devices[0]),
-           "cap": phase_cap(size, devices[0], cap=2500), "record": card.records[0],
+           "cap": phase_cap(size, devices[0], cap=PAIR_CAP), "record": card.records[0],
            "exposition_samples": len(outcome[devices[0]]["exposition"])}
     say(f"[operator 10b] card and CPU agree: {len(outcome[devices[0]]['placements'])} bytes "
         f"of placements, {len(outcome[devices[0]]['options'])} launches, "
@@ -2862,8 +2902,11 @@ def replay_solve_record(label: str, taken: dict, must_match_live: bool) -> dict:
     """A solve record (taken around a live solve: its record, the snapshot
     and commit times, the live placements), through JSON and back,
     restored and solved on the card and on the CPU. Fatal: card and CPU
-    placements that differ, and, when `must_match_live`, card placements
-    not byte-identical to the live solve's."""
+    placements that differ, and card placements not byte-identical to the
+    live solve's unless the record lacks what that solve read (bound pods
+    past the recorder's cap, or claims: a record carries no
+    PersistentVolumeClaim, StorageClass or CSINode) and not
+    `must_match_live`."""
     record = taken["record"]
     t0 = time.perf_counter()
     blob = json.dumps(record)
@@ -2887,9 +2930,14 @@ def replay_solve_record(label: str, taken: dict, must_match_live: bool) -> dict:
         raise AssertionError(f"{label}: the replay launched no screen on the card")
     live = a == taken["placements"]
     omitted = inputs.get("clusterOmitted")
+    # pods, pending or bound, that mount a claim the record does not carry
+    claim_pods = sum(
+        any("persistentVolumeClaim" in v for v in d.get("spec", {}).get("volumes") or ())
+        for d in list(inputs["pods"]) + list(inputs.get("clusterPods", ())))
     out = {"bytes": len(blob), "pods": len(inputs["pods"]),
            "state_nodes": len(inputs["stateNodes"]),
            "cluster_pods": len(inputs.get("clusterPods", ())), "cluster_omitted": omitted,
+           "claim_pods": claim_pods,
            "snapshot_s": round(taken["snapshot_s"], 3), "finish_s": round(taken["finish_s"], 3),
            "json_round_trip_s": round(codec_s, 3), "replay_card_s": round(card_s, 3),
            "replay_cpu_s": round(cpu_s, 3), "digest": record["digest"],
@@ -2897,13 +2945,17 @@ def replay_solve_record(label: str, taken: dict, must_match_live: bool) -> dict:
     say(f"[replay] {label}: {json.dumps(out)}")
     if not live:
         diff = flightrec.diff_placements(json.loads(taken["placements"]), card)
-        why = (f"the record omits the cluster context ({omitted} bound pods past the "
-               f"reference's cap of {flightrec.MAX_CLUSTER_SNAPSHOT_PODS}), so the replay "
-               "counts no bound pod in topology and has no Cluster" if omitted
-               else "the record carries no PersistentVolumeClaim, StorageClass or "
-               "CSINode")
-        say(f"[replay] {label}: the replay differs from the live solve ({why}): {diff[:4]}")
-        if must_match_live or not omitted:
+        why = []
+        if omitted:
+            why.append(f"the record omits the cluster context ({omitted} bound pods past "
+                       f"the reference's cap of {flightrec.MAX_CLUSTER_SNAPSHOT_PODS}), so "
+                       "the replay counts no bound pod in topology and has no Cluster")
+        if claim_pods:
+            why.append(f"{claim_pods} of its pods mount claims, and the record carries no "
+                       "PersistentVolumeClaim, StorageClass or CSINode")
+        say(f"[replay] {label}: the replay differs from the live solve "
+            f"({'; '.join(why) or 'the record holds all the solve read'}): {diff[:4]}")
+        if must_match_live or not why:
             raise AssertionError(f"{label}: the card's replay is not byte-identical to "
                                  "the live solve")
     return out
@@ -2911,11 +2963,16 @@ def replay_solve_record(label: str, taken: dict, must_match_live: bool) -> dict:
 
 # -- phase 12: the fallback paths on the card ---------------------------------
 
-# phase 10b's pods and nodes, with 18 pods bound a node (3,978 bound pods,
+# phase 3c's pods and nodes, with 18 pods bound a node (3,978 bound pods,
 # under the flight recorder's cap of 4,096) and no StatefulSet claims (a
 # record carries no PersistentVolumeClaim), so the live solve's record holds
-# its whole cluster context and can replay to its placements
+# its whole cluster context and can replay to its placements: phase 13's
+# cluster, and phase 12's at half of it
 PHASE12_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=0, per_node=18))
+# phases 12 and 14b at half of it (2,400 pods over 100 nodes, 1,800 bound):
+# the depth cut that, with 10b at half of 3c's size and phase 8 at 300
+# nodes, pays for phase 17
+DRILL_SIZE = (2250, 400, 100, 100, dict(n_ingress=150, n_sets=0, per_node=18))
 # ResilientSolver as the reference's process entry wraps its primary
 # (operator/__main__.py:636-668)
 RESILIENT_KW = dict(solve_timeout=900.0, wedge_stale_after=600.0)
@@ -3040,7 +3097,7 @@ def _fixed_cost(device, n_pods: int, n_types: int, reps: int = 5) -> dict:
     return out
 
 
-def phase_fallback(device="cuda", size=PHASE12_SIZE, stale_s: float = 3.0,
+def phase_fallback(device="cuda", size=DRILL_SIZE, stale_s: float = 3.0,
                    prober=None) -> dict:
     """Phase 12: the fallback paths. `prober` replaces the real subprocess
     card probe only to rehearse the phase on the CPU. The gen-2 collections
@@ -3233,6 +3290,10 @@ ENTRY_BOUND_S = 180.0
 ENTRY_FAMILIES = ("karpenter_prewarm_", "karpenter_slo_", "karpenter_solver_")
 # phase 16b: the share of the apiserver's store calls that answer 503
 HTTP_CHAOS_P = 0.005
+# phase 16b's cluster: half of phase 13's (DRILL_SIZE: 2,400 pods over 100
+# nodes, 1,800 bound), the depth cut that gives the smoke its margin
+# under 1,000 s with phase 17
+HTTP_SIZE = DRILL_SIZE
 
 
 def _free_port() -> int:
@@ -3330,7 +3391,7 @@ class EntryProbe:
 def phase_entry(device="cuda", size=PHASE12_SIZE, tiers=ENTRY_TIERS,
                 bound_s=ENTRY_BOUND_S, gen2_without=None, http=None) -> dict:
     """Phase 13: the process entry, run(cloud_provider, kube_client=...,
-    stop_event=..., options=...) on a thread, on `device`, over phase 12's
+    stop_event=..., options=...) on a thread, on `device`, over PHASE12_SIZE's
     cluster (its nodes and bound pods in the kube client, the provisioner
     not consolidating), with leader election and profiling on, the metrics
     port ephemeral, the webhook on where `cryptography` imports, and every
@@ -3384,12 +3445,12 @@ def _entry_cluster(size, tag: str):
 
 
 class OverHTTP:
-    """Phase 16b's set-up, made ahead: phase 12's cluster handed to an
+    """Phase 16b's set-up, made ahead: HTTP_SIZE's cluster handed to an
     ApiServerProcess with kube.transport armed there at `chaos_p`, which
     loads it while 16a runs; start() waits for it to serve and starts the
     backlog's BacklogCreator."""
 
-    def __init__(self, size=PHASE12_SIZE, chaos_p: float = 0.0):
+    def __init__(self, size=HTTP_SIZE, chaos_p: float = 0.0):
         self.size = size
         self.pods, self.its, store = _entry_cluster(size, "entry 16b")
         self.t0 = time.perf_counter()
@@ -3737,8 +3798,8 @@ def phase_boundary_full(pods, provs, its, client, cluster, max_nodes, want, devi
     return out
 
 
-def phase_wedge_drill(device="cuda", size=PHASE12_SIZE, stale_s: float = WEDGE_STALE_S):
-    """14b: at phase 12's size, a ResilientSolver around a HostSolver
+def phase_wedge_drill(device="cuda", size=DRILL_SIZE, stale_s: float = WEDGE_STALE_S):
+    """14b: at phase 12's size (DRILL_SIZE), a ResilientSolver around a HostSolver
     (wedge_stale_after=None: the host watches) solves once on the child;
     the child is stopped (SIGSTOP) once the next solve's request is
     written, the watchdog must kill its process group at `stale_s`, and
@@ -4411,6 +4472,366 @@ def phase_race_gate(device: str = "cuda", iterations: int = 3, timeout_s: float 
     return out
 
 
+# -- phase 17: the segmented pack scan ------------------------------------------
+
+SEGMENT_FULL = dict(n_pods=50000, distinct=1000, pools=8, n_types=500)
+SEGMENT_EXIST = dict(n_pods=5000, pools=4, n_types=100, n_nodes=200)
+SEGMENT_OPERATOR = dict(n_pods=4800, pools=8, n_types=400)
+SEGMENT_ANTI_PODS = 400
+
+
+def segmented_mix(n_pods=50000, distinct=1000, pools=8, n_types=500, seed=0):
+    """bench.py's _segmented_probe_workload: the reference mix's generic
+    share (cpu 1, memory 1Gi, `distinct` app labels) split across `pools`
+    selector-scoped provisioners (testing.make_pool_provisioners) over the
+    fake provider's `n_types` types."""
+    provs, its = testing.make_pool_provisioners(pools, fake.instance_types(n_types))
+    pods = [testing.make_pod(name=f"seg-{seed}-{i}",
+                             labels={"app": f"seg-{seed}-{i % max(distinct, 1)}"},
+                             requests={"cpu": "1", "memory": "1Gi"},
+                             node_selector={"team": f"pool-{i % pools}"})
+            for i in range(n_pods)]
+    return pods, provs, its
+
+
+def segmented_cluster(n_pods=5000, pools=4, n_types=100, n_nodes=200, seed=3):
+    """tests/test_segmented.py's pool partition with existing nodes at phase
+    3c's scale: `pools` selector-scoped pools over `n_types` types, node e
+    of type e (mod the universe) labelled with pool e % pools, and pods of
+    0.25-0.75 cpu selecting a random pool (seeded)."""
+    rng = np.random.default_rng(seed)
+    universe = fake.instance_types(n_types)
+    provs, its = testing.make_pool_provisioners(pools, universe)
+    nodes = []
+    for e in range(n_nodes):
+        it = universe[e % len(universe)]
+        nodes.append(StateNode(node=testing.make_node(
+            name=f"seg-node-{e}",
+            labels={PROVISIONER_NAME_LABEL_KEY: f"pool-{e % pools}",
+                    LABEL_NODE_INITIALIZED: "true", LABEL_INSTANCE_TYPE_STABLE: it.name,
+                    LABEL_CAPACITY_TYPE: "on-demand", LABEL_TOPOLOGY_ZONE: "test-zone-1",
+                    "team": f"pool-{e % pools}"},
+            capacity={k: str(v) for k, v in it.capacity.items()})))
+    pods = []
+    for i in range(n_pods):
+        p = int(rng.integers(pools))
+        pods.append(testing.make_pod(
+            name=f"seg-pod-{i}", labels={"app": f"dep-{p}-{int(rng.integers(8))}"},
+            requests={"cpu": str(0.25 + 0.25 * int(rng.integers(3)))},
+            node_selector={"team": f"pool-{p}"}))
+    return pods, provs, its, nodes
+
+
+def segmented_solve(label, solver, pods, provs, its, nodes=None, sync=None) -> dict:
+    """One solve with the launch counts set to 0 just before it and read just
+    after: its result, wall, last_phase_ms, last_segment_stats and launches
+    by kernel and form."""
+    screen.reset_launches()
+    t0 = time.perf_counter()
+    res = solver.solve(pods, provs, its,
+                       state_nodes=[n.deep_copy() for n in nodes] if nodes else None)
+    if sync is not None:
+        sync()
+    wall = time.perf_counter() - t0
+    counts = screen.launch_counts()
+    out = {"result": res, "wall_s": wall, "phases": dict(solver.last_phase_ms),
+           "stats": dict(solver.last_segment_stats or {}), "launches": counts,
+           "placements": torch_solver.placements_json(res), "scan": dict(pack.LAST_SCAN)}
+    say(f"[{label}] {wall:.3f} s wall; last_phase_ms "
+        + json.dumps({k: round(v, 3) for k, v in out["phases"].items()})
+        + f"; stats {json.dumps(out['stats'])}; launches {json.dumps(counts)}")
+    return out
+
+
+def _sum_launches(runs) -> dict:
+    total = {}
+    for r in runs:
+        _add_counts(total, r["launches"])
+    return total
+
+
+class ScreenAudit:
+    """The screen calls one solve makes on the card, kept as it makes them:
+    ops/pack.py's ScreenOps reaches the kernels through pack.screen_block,
+    which this wraps while it is entered. Of each form it keeps the first
+    `head` calls that launch and every `every`-th after, up to `cap` (their
+    slot rows, item planes, layout and verdicts, copied); check() then
+    holds each kept verdict against screen_plain on the same rows, and both
+    sides' screen_prep against screen_prep_plain, and times the largest
+    block and the last row_n1 kept. The wrapper calls the real one once, so
+    the launch counts are those of the solve."""
+
+    def __init__(self, head=32, every=16, cap=256, device="cuda"):
+        self.head, self.every, self.cap, self.device = head, every, cap, device
+        self.seen, self.kept = {}, {}
+
+    def __enter__(self):
+        self.real = real = pack.screen_block
+
+        def screen_block(s_allow, s_out, s_defined, items, layout):
+            got = real(s_allow, s_out, s_defined, items, layout)
+            N = s_allow.shape[0]
+            if N and items.B and s_allow.device.type == self.device:
+                form = screen.form_of(N, items.B)
+                n = self.seen[form] = self.seen.get(form, 0) + 1
+                kept = self.kept.setdefault(form, [])
+                if len(kept) < self.cap and (n <= self.head or n % self.every == 0):
+                    rows = {"allow": s_allow.clone(), "out": s_out.clone(),
+                            "defined": s_defined.clone()}
+                    kept.append((rows, items, layout, got.clone()))
+            return got
+
+        pack.screen_block = screen_block
+        return self
+
+    def __exit__(self, *exc):
+        pack.screen_block = self.real
+        return False
+
+    def check(self, label, int_rate: float, busy_cycles: int) -> dict:
+        bad, prep_bad, shapes, items_done = 0, 0, {}, set()
+        for form, kept in self.kept.items():
+            for rows, items, layout, got in kept:
+                bad += int((got != _plain(rows, items.planes, layout)).sum())
+                for planes, extra in ((rows, {}), (items.planes, {
+                        k: items.planes[k] for k in ("escape", "custom_deny")})):
+                    if extra and (id(items), id(layout)) in items_done:
+                        continue
+                    items_done.add((id(items), id(layout)))
+                    args = (planes["allow"], planes["out"], planes["defined"], layout)
+                    g = screen.screen_prep(*args, **extra)
+                    w = screen.screen_prep_plain(*args, **extra)
+                    prep_bad += sum(int((g[k] != w[k]).sum()) for k in ("words", "bytes",
+                                                                        "flags"))
+                shapes.setdefault(form, set()).add((rows["allow"].shape[0], items.B))
+        torch.cuda.synchronize()
+        kept_n = {f: len(k) for f, k in self.kept.items()}
+        say(f"[screen] {label}: the solve's screen calls by form {json.dumps(self.seen)}, "
+            f"kept {json.dumps(kept_n)} at (N, B) "
+            f"{json.dumps({f: sorted(v) for f, v in shapes.items()})}: mismatches against "
+            f"the plain versions: screen {bad}, prep {prep_bad}")
+        if bad or prep_bad or not kept_n.get("block") or not kept_n.get("row_n1"):
+            raise AssertionError(f"{label}: the screen kernels disagree with their plain "
+                                 f"versions on the solve's own inputs, or a form was not kept")
+        timed = {}
+        for form, (rows, items, layout, _got) in (
+                ("block", max(self.kept["block"], key=lambda c: c[0]["allow"].shape[0])),
+                ("row_n1", self.kept["row_n1"][-1])):
+            st = time_shape(f"{label}: {form}", rows, items, layout, None, int_rate,
+                            busy_cycles)
+            st["prep_plain_ms"] = time_on_card(lambda: screen.screen_prep_plain(
+                rows["allow"], rows["out"], rows["defined"], layout), reps=5)
+            timed[form] = st
+        self.kept.clear()
+        return {"max_abs_err": float(bad > 0 or prep_bad > 0), "seen": dict(self.seen),
+                "kept": kept_n, "timed": timed}
+
+
+def phase_segmented_full(device="cuda", size=None, int_rate: float = 0.0,
+                         busy_cycles: int = 0) -> dict:
+    """17a: the partitionable mix at full width, solved cold then warm with
+    pack_scan="sequential" and with "segmented" on `device`. Fatal: a
+    placement check failing, placements that differ between the scans, a
+    segmented solve that did not engage `pools` segments with fixup 0.0,
+    or launched no screen_prep, block or row_n1. On the card the cold
+    segmented solve's screen calls are kept and held against their plain
+    versions (ScreenAudit: the partition's template rows, the lanes'
+    re-screens at C = 1,024) and timed."""
+    size = dict(SEGMENT_FULL, **(size or {}))
+    t0 = time.perf_counter()
+    pods, provs, its = segmented_mix(**size)
+    build_s = time.perf_counter() - t0
+    max_nodes = max(512, size["n_pods"] // 4 + 256)
+    sync = torch.cuda.synchronize if device == "cuda" else None
+    out = {}
+    audit = ScreenAudit()
+    for mode in ("sequential", "segmented"):
+        solver = torch_solver.TorchSolver(max_nodes=max_nodes, device=device, pack_scan=mode)
+        for turn in ("cold", "warm"):
+            audited = device == "cuda" and (mode, turn) == ("segmented", "cold")
+            with audit if audited else contextlib.nullcontext():
+                out[(mode, turn)] = segmented_solve(f"segmented 17a {mode} {turn}", solver,
+                                                    pods, provs, its, sync=sync)
+    checked = check_placements(out[("segmented", "cold")]["result"], len(pods))
+    for turn in ("cold", "warm"):
+        seq, seg = out[("sequential", turn)], out[("segmented", turn)]
+        if seq["placements"] != seg["placements"]:
+            raise AssertionError(f"segmented 17a ({turn}): placements differ from sequential")
+        st = seg["stats"]
+        if (st.get("mode") != "segmented" or st.get("segments") != size["pools"]
+                or st.get("fixup_fraction") != 0.0):
+            raise AssertionError(f"segmented 17a ({turn}): stats {json.dumps(st)}")
+        for k in ("screen_prep", "block", "row_n1"):
+            if device == "cuda" and not seg["launches"].get(k):
+                raise AssertionError(f"segmented 17a ({turn}): no {k} launch")
+    seg, seq = out[("segmented", "warm")], out[("sequential", "warm")]
+    res = seg["result"]
+    say(f"[segmented 17a] {len(pods)} pods x {len(next(iter(its.values())))} types over "
+        f"{size['pools']} pools (built in {build_s:.2f} s): new {res.pod_count_new()} on "
+        f"{len(res.new_machines)} machines, failed {len(res.failed_pods)}; segments "
+        f"{seg['stats']['segments']}, max segment {seg['stats']['max_segment']} items, lanes "
+        f"{seg['stats']['lanes']}, frozen {seg['stats']['frozen']}; warm: segment "
+        f"{seg['phases'].get('segment', 0.0):.3f} ms + device {seg['phases']['device']:.3f} "
+        f"+ fetch {seg['phases']['fetch']:.3f} + merge {seg['phases']['merge']:.3f} ms "
+        f"against the sequential device {seq['phases']['device']:.3f} + fetch "
+        f"{seq['phases']['fetch']:.3f} ms; cold segmented wall "
+        f"{out[('segmented', 'cold')]['wall_s']:.3f} s, sequential "
+        f"{out[('sequential', 'cold')]['wall_s']:.3f} s; placements byte-identical "
+        f"({len(seg['placements'])} bytes); checked {json.dumps(checked)}")
+    checked_calls = (audit.check("segmented 17a cold", int_rate, busy_cycles)
+                     if device == "cuda" else None)
+    return {"runs": out, "launches": _sum_launches(out.values()), "n_pods": len(pods),
+            "audit": checked_calls}
+
+
+def phase_segmented_pair(devices=("cuda", "cpu"), size=None) -> dict:
+    """17b and 17c on segmented_cluster: the segmented scan on each device
+    of `devices` and the sequential scan on the first place every pod
+    byte-identically with equal last_segment_stats (segment_ms aside);
+    then on the first device the degradation ladder: solver.segment armed
+    once gives reason error:<Type>, and bulk replicas with hostname
+    anti-affinity over the same nodes give "structure", each solve's
+    placements those of the sequential scan."""
+    size = dict(SEGMENT_EXIST, **(size or {}))
+    pods, provs, its, nodes = segmented_cluster(**size)
+    max_nodes = 1512
+    first = devices[0]
+    sync = torch.cuda.synchronize if first == "cuda" else None
+    runs = {}
+    for dev in devices:
+        solver = torch_solver.TorchSolver(max_nodes=max_nodes, device=dev,
+                                          pack_scan="segmented")
+        runs[("segmented", dev)] = segmented_solve(
+            f"segmented 17b segmented {dev}", solver, pods, provs, its, nodes,
+            sync=sync if dev == "cuda" else None)
+    seq_solver = torch_solver.TorchSolver(max_nodes=max_nodes, device=first,
+                                          pack_scan="sequential")
+    runs[("sequential", first)] = segmented_solve(
+        f"segmented 17b sequential {first}", seq_solver, pods, provs, its, nodes, sync=sync)
+    want = runs[("sequential", first)]["placements"]
+    for key, run in runs.items():
+        if run["placements"] != want:
+            raise AssertionError(f"segmented 17b: {key} placements differ")
+    stats = [_segment_stats_of(runs[("segmented", dev)]) for dev in devices]
+    if any(st != stats[0] for st in stats) or stats[0].get("mode") != "segmented" \
+            or stats[0].get("fixup_fraction") != 0.0:
+        raise AssertionError(f"segmented 17b: stats {json.dumps(stats)}")
+    res = runs[("segmented", first)]["result"]
+    if res.pod_count_existing() <= 0:
+        raise AssertionError("segmented 17b: no pod placed on an existing node")
+    checked = check_placements(res, len(pods))
+    say(f"[segmented 17b] {len(pods)} pods, {len(nodes)} nodes over {size['pools']} pools: "
+        f"existing {res.pod_count_existing()}, new {res.pod_count_new()} on "
+        f"{len(res.new_machines)} machines; {' and '.join(devices)} segmented and {first} "
+        f"sequential byte-identical ({len(want)} bytes); stats {json.dumps(stats[0])}; "
+        f"checked {json.dumps(checked)}")
+
+    # 17c: the degradation ladder on the first device
+    solver = torch_solver.TorchSolver(max_nodes=max_nodes, device=first, pack_scan="segmented")
+    chaos.arm(chaos.SOLVER_SEGMENT, error="runtime", times=1)
+    try:
+        runs["chaos"] = segmented_solve("segmented 17c solver.segment armed", solver, pods,
+                                        provs, its, nodes, sync=sync)
+    finally:
+        chaos.disarm(chaos.SOLVER_SEGMENT)
+    st = runs["chaos"]["stats"]
+    if (runs["chaos"]["placements"] != want or st.get("mode") != "sequential-fallback"
+            or not str(st.get("reason", "")).startswith("error:")
+            or st.get("fixup_fraction") != 1.0):
+        raise AssertionError(f"segmented 17c (chaos): stats {json.dumps(st)}")
+    anti = PodAffinityTerm(topology_key=LABEL_HOSTNAME,
+                           label_selector=LabelSelector(match_labels={"app": "seg-anti"}))
+    anti_pods = [testing.make_pod(name=f"seg-anti-{i}", labels={"app": "seg-anti"},
+                                  requests={"cpu": "0.5"}, pod_anti_affinity_required=[anti])
+                 for i in range(SEGMENT_ANTI_PODS)]
+    runs["anti"] = segmented_solve("segmented 17c anti-affinity", solver, anti_pods, provs,
+                                   its, nodes, sync=sync)
+    runs["anti seq"] = segmented_solve("segmented 17c anti-affinity sequential", seq_solver,
+                                       anti_pods, provs, its, nodes, sync=sync)
+    st = runs["anti"]["stats"]
+    if (runs["anti"]["placements"] != runs["anti seq"]["placements"]
+            or st.get("reason") != "structure" or st.get("fixup_fraction") != 1.0):
+        raise AssertionError(f"segmented 17c (anti-affinity): stats {json.dumps(st)}")
+    check_placements(runs["anti"]["result"], len(anti_pods))
+    say(f"[segmented 17c] solver.segment armed once: {json.dumps(runs['chaos']['stats'])}; "
+        f"{len(anti_pods)} anti-affinity replicas: {json.dumps(st)}; both placed as the "
+        f"sequential scan places them")
+    snap = encode_snapshot(pods, provs, its, None, nodes, max_nodes=max_nodes)
+    # launches are counted on the card only: the CPU's solves add none
+    return {"runs": runs, "launches": _sum_launches(runs.values()), "snapshot": (snap, provs)}
+
+
+def _segment_stats_of(run) -> dict:
+    return {k: v for k, v in run["stats"].items() if k != "segment_ms"}
+
+
+def phase_segmented_operator(device="cuda", size=None) -> dict:
+    """17d, hack/segment_smoke.py's gates at the card's size: new_operator
+    with TorchSolver(pack_scan="segmented") in process over 8 selector-
+    scoped pools and their backlog in the kube client; one step must
+    nominate every pod through a segmented solve (more than one segment,
+    fixup 0.0) whose placements are byte-identical to a sequential solve
+    of the same batch (run right after it, on the same inputs)."""
+    size = dict(SEGMENT_OPERATOR, **(size or {}))
+    n_pods, pools = size["n_pods"], size["pools"]
+    universe = fake.instance_types(size["n_types"])
+    provs, _its = testing.make_pool_provisioners(pools, universe)
+    client, clock = InMemoryKubeClient(), testing.FakeClock()
+    for p in provs:
+        client.create(p)
+    for i in range(n_pods):
+        client.create(testing.make_pod(
+            name=f"seg-op-{i}", labels={"app": f"seg-op-{i % 100}"},
+            requests={"cpu": "1", "memory": "1Gi"}, node_selector={"team": f"pool-{i % pools}"}))
+    max_nodes = 2048
+    solver = torch_solver.TorchSolver(max_nodes=max_nodes, device=device, pack_scan="segmented")
+    seq = torch_solver.TorchSolver(max_nodes=max_nodes, device=device, pack_scan="sequential")
+    real_solve, solves, compared = solver.solve, [], {}
+
+    def solve(*a, **kw):
+        res = real_solve(*a, **kw)
+        stats = dict(solver.last_segment_stats or {})
+        phases = dict(solver.last_phase_ms)
+        # the comparison's own launches are kept out of the phase's counts
+        before = screen.launch_counts()
+        want = seq.solve(*a, **kw)
+        _add_counts(compared, {k: v - before[k] for k, v in screen.launch_counts().items()})
+        solves.append({"pods": len(a[0]), "stats": stats, "phases": phases,
+                       "same": torch_solver.placements_json(res)
+                       == torch_solver.placements_json(want)})
+        return res
+
+    solver.solve = solve
+    op = new_operator(fake.FakeCloudProvider(universe), kube_client=client,
+                      settings=api_settings.Settings(), solver=solver, clock=clock)
+    bound = {}
+    op.provisioning.bind_listeners.append(
+        lambda pod, node_name: bound.__setitem__(pod.metadata.name, node_name))
+    screen.reset_launches()
+    t0 = time.perf_counter()
+    op.step()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v - compared.get(k, 0) for k, v in screen.launch_counts().items()}
+    if len(bound) != n_pods:
+        raise AssertionError(f"segmented 17d: {len(bound)} of {n_pods} pods nominated")
+    if not solves:
+        raise AssertionError("segmented 17d: the step solved nothing")
+    for sv in solves:
+        st = sv["stats"]
+        if (st.get("mode") != "segmented" or st.get("segments", 0) < 2
+                or st.get("fixup_fraction") != 0.0 or not sv["same"]):
+            raise AssertionError(f"segmented 17d: solve {json.dumps(sv)}")
+    say(f"[segmented 17d] the operator's step nominated {len(bound)} pods in {wall:.3f} s "
+        f"(a sequential solve of each batch inside it); solves "
+        f"{json.dumps([{k: v for k, v in sv.items() if k != 'phases'} for sv in solves])}, "
+        f"last_phase_ms {json.dumps({k: round(v, 3) for k, v in solves[-1]['phases'].items()})}"
+        f"; launches {json.dumps(counts)} (the sequential comparison's "
+        f"{json.dumps(compared)} apart)")
+    return {"launches": counts, "solves": solves}
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -4491,18 +4912,35 @@ def main() -> int:
     mark("phase 15b")
 
     # phase 16: the operator over HTTP: 16a the race gate on the card, 16b
-    # the process entry at phase 12's size over an apiserver of its own
-    prep16 = OverHTTP(chaos_p=HTTP_CHAOS_P)
+    # the process entry at HTTP_SIZE over an apiserver of its own
+    prep16 = OverHTTP(size=HTTP_SIZE, chaos_p=HTTP_CHAOS_P)
     try:
         race = phase_race_gate()
     except BaseException:
         prep16.close()
         raise
     mark("phase 16a")
-    over_http = phase_entry(http=prep16)["out"]
+    over_http = phase_entry(size=HTTP_SIZE, http=prep16)["out"]
     TRACER.enabled = tracing
     gc.collect()
     mark("phase 16b")
+
+    # phase 17: the segmented pack scan: 17a the partitionable mix at full
+    # width, 17b-17c card against CPU over existing nodes and the
+    # degradations, 17d the live operator; then the kernels at 17b's shapes
+    seg_full = phase_segmented_full(int_rate=int_rate, busy_cycles=busy_cycles)
+    audit17 = seg_full["audit"]
+    mark("phase 17a")
+    seg_pair = phase_segmented_pair()
+    segmented_shapes = snapshot_shapes("segmented (17b)", *seg_pair["snapshot"], int_rate,
+                                       busy_cycles)
+    mark("phase 17b-17c")
+    seg_op = phase_segmented_operator()
+    b17 = {k: seg_full["launches"][k] + seg_pair["launches"][k] + seg_op["launches"][k]
+           for k in seg_full["launches"]}
+    del seg_full, seg_pair
+    gc.collect()
+    mark("phase 17d")
 
     # phase 3: card and CPU place config 2 identically; the card's solve is
     # flight-recorded (phase 11 replays the record)
@@ -4756,7 +5194,7 @@ def main() -> int:
     gc.collect()
     mark("phase 9")
 
-    # phase 8b: the card and the CPU decide alike at phase 3c's size
+    # phase 8b: the card and the CPU decide alike at half of phase 3c's size
     s_its, s_client, s_cluster, s_clock = settled_cluster(*PAIR_HALF[:3],
                                                           distinct=PAIR_HALF[3],
                                                           n_ingress=150, n_sets=2)
@@ -4799,13 +5237,14 @@ def main() -> int:
     gc.collect()
     mark("phase 10")
 
-    # phase 10b: card against CPU at 3c's size, with the ICE and cap legs
+    # phase 10b: card against CPU at half of 3c's size, with the ICE and
+    # cap legs
     pair = phase_operator_pair()
     gc.collect()
     mark("phase 10b")
 
     # phase 11: the flight records replayed on the card: 8b's ladder
-    # decision, 10b's step-1 solve (its cluster context past the cap),
+    # decision, 10b's step-1 solve (its pods mount claims the record lacks),
     # phase 3's config-2 solve (a whole record) and an operator step's
     # solve whose record keeps its bound pods
     replay_consolidation_record("8b ladder record", ladder_8b)
@@ -4825,11 +5264,13 @@ def main() -> int:
     fb = phase_fallback()
     mark("phase 12")
 
-    # phase 14b: the wedge drill through the solver host at phase 12's size
+    # phase 14b: the wedge drill through the solver host at half of phase
+    # 13's size
     b14b = phase_wedge_drill()
     mark("phase 14b")
 
-    # phase 13: the process entry, run() on a thread over phase 12's cluster
+    # phase 13: the process entry, run() on a thread over PHASE12_SIZE's
+    # cluster
     # (it runs last: the collector tuning and the signal handlers are
     # process-wide; it restores the collector when it ends)
     ent = phase_entry(gen2_without=op10_gen2)
@@ -4854,9 +5295,9 @@ def main() -> int:
     b16 = {k: race["launches"][k] + over_http["launches"][k] for k in race["launches"]}
     runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
             cons_launches, life_launches, op_launches, fb_launches, ent_launches, b14, b15,
-            b16)
+            b16, b17)
     form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms,
-                 life_forms, op_forms, fb_forms, ent_forms, b14, b15, b16)
+                 life_forms, op_forms, fb_forms, ent_forms, b14, b15, b16, b17)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
     say(f"[launches] phase 10 {json.dumps(op_counts)}, phase 12a {json.dumps(fb['launches'])}"
@@ -4866,8 +5307,8 @@ def main() -> int:
         f"{json.dumps(b14c['launches']) if b14c else 'not run'}), phase 15 {json.dumps(b15)} "
         f"(15a {json.dumps(soak['launches'])}, 15b {json.dumps(steady['launches'])}), phase 16 "
         f"{json.dumps(b16)} (16a {json.dumps(race['launches'])}, 16b "
-        f"{json.dumps(over_http['launches'])}); phases 4-10, 12a and 13-16 summed "
-        f"{json.dumps(launches)} by form {json.dumps(forms)}")
+        f"{json.dumps(over_http['launches'])}), phase 17 {json.dumps(b17)}; phases 4-10, "
+        f"12a and 13-17 summed {json.dumps(launches)} by form {json.dumps(forms)}")
 
     # the line's numbers are those of this slice's main path, phase 10's
     # first operator step (the live cluster's backlog, solved through
@@ -4878,7 +5319,9 @@ def main() -> int:
     # shape
     main_shapes = operator_shapes
     err = max(kstats["max_abs_err"], simulate["max_abs_err"], operator_shapes["max_abs_err"],
-              entry_shapes["max_abs_err"], *(u["max_abs_err"] for u in union.values()))
+              entry_shapes["max_abs_err"], segmented_shapes["max_abs_err"],
+              audit17["max_abs_err"],
+              *(u["max_abs_err"] for u in union.values()))
     common = {"route": "cuda", "source": "karpenter_core_tpu_torch/csrc/screen.cu",
               "replaces": "karpenter_core_tpu/ops/pallas_kernels.py:29",
               "max_abs_err": err, "library_ms": None}
@@ -4886,7 +5329,8 @@ def main() -> int:
                 "union single (phase 8)": union["single"],
                 "simulate expiration 1 (phase 9)": simulate,
                 "operator step 1 (phase 10)": operator_shapes,
-                "entry first live solve (phase 13)": entry_shapes}
+                "entry first live solve (phase 13)": entry_shapes,
+                "segmented existing nodes (phase 17b)": segmented_shapes}
 
     def times(stats, prep=False):
         if prep:
@@ -4904,6 +5348,12 @@ def main() -> int:
                 st["plain_ms"] = sh["slot_prep_plain_ms"]
             out[where] = st
         return out
+
+    # phase 17a's own calls at full width (ScreenAudit): its largest block
+    # and a lane's row_n1 re-screen, beside the shapes above
+    where17 = "segmented full width (phase 17a)"
+    blk17, row17 = audit17["timed"]["block"], audit17["timed"]["row_n1"]
+    prep17 = dict(times(blk17, prep=True), plain_ms=blk17["prep_plain_ms"])
 
     def form_entry(form, stats, replaces, shapes):
         return dict(common, name=f"screen/{form}", replaces=replaces,
@@ -4924,16 +5374,16 @@ def main() -> int:
         dict(common, name="screen", launches=launches["screen"],
              ms=blk["ms"], kernel_ms=blk["kernel_ms"], plain_ms=blk["plain_ms"],
              bound_ms=blk["bound_ms"], bound_by=blk["bound_by"],
-             shapes=shapes_of("existing block E x C")),
+             shapes=dict(shapes_of("existing block E x C"), **{where17: times(blk17)})),
         dict(common, name="screen_prep", launches=launches["screen_prep"],
              ms=blk["prep_ms"], kernel_ms=blk["prep_kernel_ms"],
              plain_ms=main_shapes["slot_prep_plain_ms"],
              bound_ms=blk["prep_bound_ms"], bound_by=blk["prep_bound_by"],
-             shapes=shapes_of("existing block E x C", prep=True)),
+             shapes=dict(shapes_of("existing block E x C", prep=True), **{where17: prep17})),
         form_entry("block", blk, "karpenter_core_tpu/ops/pallas_kernels.py:160",
-                   shapes_of("existing block E x C")),
+                   dict(shapes_of("existing block E x C"), **{where17: times(blk17)})),
         form_entry("row_n1", row_n1, "karpenter_core_tpu/ops/pallas_kernels.py:160",
-                   shapes_of("virgin row 1 x C")),
+                   dict(shapes_of("virgin row 1 x C"), **{where17: times(row17)})),
         form_entry("row_b1", tiered_shape, "karpenter_core_tpu/ops/pallas_kernels.py:104",
                    {"tiered nopen x 1 (phase 6)": times(tiered_shape)}),
     ]

@@ -87,10 +87,10 @@ SOLVER_RPC_OVERLOAD = "solver.rpc.overload"
 # accounting stays clean. Arm with error:exhausted (any kind works; the
 # raised fault is swallowed at the hook)
 SOLVER_GATE_FLOOD = "solver.gate.flood"
-# the segmented pack-scan dispatch: an injected fault models a device
+# the segmented pack-scan dispatch (TorchSolver's segmented attempt,
+# consulted before the partition): an injected fault models a device
 # failure inside the segmented attempt, and the solve DEGRADES to the
-# sequential scan. No port site consults it until the segmented scan is
-# ported; it is named so that a spec naming it parses alike
+# sequential scan with last_segment_stats reason "error:<Type>"
 SOLVER_SEGMENT = "solver.segment"
 STATE_WATCH = "state.watch"
 # the state-store delta feed the incremental solve path gates on

@@ -17,7 +17,9 @@ is exact on every device.
 
 `resolve_screen_mode`, `resolve_incremental_mode` and `resolve_pack_scan`
 read the reference's environment flags for the device path's strategies
-(the solver service resolves its screen and residency through them).
+(the solver service resolves its screen and residency through them; it
+packs with the sequential scan whatever KCT_PACK_SCAN says, as the
+reference's service does).
 """
 from __future__ import annotations
 
@@ -45,16 +47,18 @@ def resolve_screen_mode() -> str:
 
 def resolve_pack_scan() -> str:
     """The pack scan's strategy, from KCT_PACK_SCAN (auto, sequential,
-    segmented). "auto" resolves to "sequential", as in the reference; the
-    segmented lanes are not ported (ROADMAP Queue A item 6), so asking for
-    them raises rather than run the sequential scan in their place."""
+    segmented), as the reference reads it: "sequential" is the one scan
+    over every FFD-ordered item; "segmented" partitions the items into
+    conflict-independent components off the [N, C] verdict tensor
+    (ops/pack.make_segment_partition_kernel), packs them as lanes and
+    merges the lanes' logs on the host, byte-identical to the sequential
+    scan and degrading to it wherever the partition proves nothing.
+    "auto" resolves to "sequential", as in the reference."""
     from karpenter_core_tpu_torch.obs import envflags
 
     mode = envflags.raw("KCT_PACK_SCAN", "auto").strip().lower()
-    if mode == "segmented":
-        raise NotImplementedError(
-            "KCT_PACK_SCAN=segmented: the segmented scan is not ported yet "
-            "(ROADMAP Queue A item 6); unset it or set it to sequential")
+    if mode in ("sequential", "segmented"):
+        return mode
     return "sequential"
 
 

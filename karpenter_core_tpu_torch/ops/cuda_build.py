@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is built
 with nvcc for sm_90a into ``csrc/build/lib<name>.so`` (rebuilt whenever the
 source is newer; written to a temporary file and renamed into place, so
 concurrent builders never load a half-written library) and loaded with
-ctypes. A failed build raises: there is no fallback.
+ctypes. A failed build raises KernelError: there is no fallback.
 """
 from __future__ import annotations
 
@@ -30,6 +30,11 @@ _LOCK = threading.Lock()
 BUILD_SECONDS: Dict[str, float] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch. Callers that degrade
+    on their own errors let this one through."""
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -38,7 +43,7 @@ def nvcc_path() -> str:
     cand = os.path.join(home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
 def build(name: str) -> str:
@@ -58,7 +63,7 @@ def build(name: str) -> str:
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError(
+            raise KernelError(
                 f"nvcc failed for {src} (exit {proc.returncode}):\n{proc.stderr}"
             )
         os.replace(tmp, out)
@@ -89,5 +94,9 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(build(name))
+            path = build(name)
+            try:
+                lib = _LIBS[name] = ctypes.CDLL(path)
+            except OSError as exc:
+                raise KernelError(f"cannot load {path}: {exc}") from exc
         return lib

@@ -30,7 +30,10 @@ Per item (one pod spec class with a replica count):
 
 The consolidation replan (make_batched_replan_kernel) runs the same scan
 once per candidate subset, in rung mode: no commit log, the subset's
-replica counts, and its victims' existing slots closed.
+replica counts, and its victims' existing slots closed. The segmented
+scan's lanes run it on a gathered subset of the items, each with its own
+existing slots and machine region, after the conflict partition
+(make_segment_partition_kernel) proved the lanes independent.
 
 The reference's lax.scan is a Python loop here, and its lax.while_loop and
 lax.cond are Python control flow on small scalars read from the device,
@@ -312,13 +315,13 @@ SCREEN_MODES = ("prescreen", "tiered")
 
 
 def _scan_constants(segments, V, screen_v, type_reqs, type_offering_ok, item_arrays,
-                    items_pl, tmpl_reqs, tiered, Q, W, groups, topo_terms, dev) -> dict:
-    """What a scan reads that depends only on the geometry, the item
+                    items_pl, tmpl_reqs, tiered, groups, topo_terms, dev) -> dict:
+    """What a scan reads that depends only on the geometry, the class
     planes, the templates and the types: the screen ops and the type rows
     at the screen width, the class planes and, under prescreen, each
     template's verdict row (a plane-neutral item merges as the identity,
-    so the row an open writes for it IS its template's), and the host
-    copies of the per-item flags the control flow reads."""
+    so the row an open writes for it IS its template's), and the node
+    filters' triviality per topology group."""
     ops = ScreenOps(segments, V, screen_v)
     WSCR = ops.width
     if items_pl is None:
@@ -336,18 +339,9 @@ def _scan_constants(segments, V, screen_v, type_reqs, type_offering_ok, item_arr
         "key_scr": np.asarray([lo < WSCR for (lo, _hi) in segments], dtype=bool),
         "items_pl": items_pl,
         "tmpl_rows": tmpl_rows,
-        "valid_h": item_arrays["valid"].cpu().numpy(),
-        "scls_h": item_arrays["scls"].cpu().numpy(),
-        "defined_h": item_arrays["defined"].cpu().numpy(),
-        "has_ports_h": item_arrays["ports"].any(dim=1).cpu().numpy() if Q else None,
-        "has_conflict_h": (item_arrays["port_conflict"].any(dim=1).cpu().numpy()
-                           if Q else None),
-        "has_vols_h": item_arrays["vols"].any(dim=1).cpu().numpy() if W else None,
-        "own_h": None, "sel_h": None, "nf_trivial": None, "seg_scr": None,
+        "nf_trivial": None, "seg_scr": None,
     }
     if groups:
-        out["own_h"] = item_arrays["topo_own"].cpu().numpy()
-        out["sel_h"] = item_arrays["topo_sel"].cpu().numpy()
         # a group whose node filter has an empty term (a spread pod with no
         # node selector or affinity) matches every merged row
         term_def = topo_terms["defined"].cpu().numpy()
@@ -358,6 +352,108 @@ def _scan_constants(segments, V, screen_v, type_reqs, type_offering_ok, item_arr
         ]
         out["seg_scr"] = [gm.seg[0] < WSCR for gm in groups]
     return out
+
+
+def _item_flags(item_arrays, Q, W, groups) -> dict:
+    """Host copies of the per-item flags the scan's control flow reads."""
+    out = {
+        "valid_h": item_arrays["valid"].cpu().numpy(),
+        "scls_h": item_arrays["scls"].cpu().numpy(),
+        "defined_h": item_arrays["defined"].cpu().numpy(),
+        "has_ports_h": item_arrays["ports"].any(dim=1).cpu().numpy() if Q else None,
+        "has_conflict_h": (item_arrays["port_conflict"].any(dim=1).cpu().numpy()
+                           if Q else None),
+        "has_vols_h": item_arrays["vols"].any(dim=1).cpu().numpy() if W else None,
+        "own_h": None, "sel_h": None,
+    }
+    if groups:
+        out["own_h"] = item_arrays["topo_own"].cpu().numpy()
+        out["sel_h"] = item_arrays["topo_sel"].cpu().numpy()
+    return out
+
+
+def make_segment_partition_kernel(segments, n_exist: int, screen_v: Optional[int] = None):
+    """The segmented scan's partitioner (make_segment_partition_kernel,
+    pack.py:410-551): label every verdict-tensor class column with its
+    conflict component, so that independent components can be packed as
+    separate lanes with the sequential scan's result.
+
+    Two classes conflict when their feasible existing slots intersect (the
+    existing prefix of the [N, C] verdict tensor), when their template
+    verdicts intersect (both could land on, or open, a machine of one
+    template), or when one defines a custom key the other custom-denies
+    and their values on that key can meet (a commit that defines the key
+    lifts the deny, requirements.go:123-133). Every test is a superset of
+    what the scan can route between two classes, so a missing edge proves
+    them independent.
+
+    The two Gram products run in float32 on 0/1 counts tested > 0.5 (exact:
+    the counts stay far below 2**24); the template rows come from the
+    screen kernel (ScreenOps.rows_vs_items). Components are labelled by
+    min-label propagation to its fixpoint, each class taking the least
+    class index of its component.
+
+    Returns partition(screen0 [N, C], pod_arrays, tmpl, well_known,
+    items_pl=None) -> (labels [C] int32, neutral [C] bool: no defined key
+    inside the screen width, slot_label [E] int32: the least label of the
+    classes feasible on an existing slot, -1 where none is), on the device.
+    `items_pl`, when given, is the prescreen's class planes (their prep is
+    reused)."""
+    segments = [tuple(s) for s in segments]
+
+    def partition(screen0, pod_arrays, tmpl, well_known, items_pl=None):
+        dev = screen0.device
+        V = pod_arrays["allow"].shape[1]
+        ops = ScreenOps(segments, V, screen_v)
+        if items_pl is None:
+            items_pl = class_planes(pod_arrays, ops)
+        items = items_pl.planes
+        C = items_pl.B
+        key_scr = torch.as_tensor(
+            np.asarray([lo < ops.width for (lo, _hi) in segments], dtype=bool), device=dev)
+        neutral = ~torch.any(items["defined"] & key_scr[None, :], dim=-1)
+        tmpl_rows = ops.rows_vs_items(items_pl, tmpl["allow"], tmpl["out"],
+                                      tmpl["defined"])  # [J, C]
+        conf = compat._count(tmpl_rows.T, tmpl_rows) > 0.5  # [C, C]
+        if n_exist:
+            a = screen0[:n_exist]
+            conf |= compat._count(a.T, a) > 0.5
+        # the deny-lift channel, per key: class c defines a custom key k,
+        # class c' custom-denies it, and their value sets on k can meet. A
+        # key no class defines off the well-known set, or none denies,
+        # adds no edge, so only the others are evaluated
+        lift_keys = (items["defined"].any(dim=0) & ~well_known
+                     & items["custom_deny"].any(dim=0)).cpu().numpy()
+        lift = torch.zeros((C, C), dtype=torch.bool, device=dev)
+        for k in np.nonzero(lift_keys)[0].tolist():
+            lo, hi = segments[k]
+            pair = items["defined"][:, k:k + 1] & items["custom_deny"][None, :, k]
+            nonempty = items["out"][:, k:k + 1] & items["out"][None, :, k]
+            if hi > lo:
+                a = items["allow"][:, lo:hi]
+                nonempty = nonempty | (compat._count(a, a.T) > 0.5)
+            lift |= pair & nonempty
+        conf |= lift | lift.T
+        conf |= torch.eye(C, dtype=torch.bool, device=dev)
+        # connected components by min-label propagation; the fixpoint is
+        # reached in at most the components' diameter rounds
+        labels = torch.arange(C, dtype=torch.int64, device=dev)
+        none = torch.full((), C, dtype=torch.int64, device=dev)
+        while True:
+            new = torch.where(conf, labels[None, :], none).min(dim=-1).values
+            new = torch.minimum(new, labels)
+            if not bool((new != labels).any()):
+                break
+            labels = new
+        if n_exist:
+            slot_label = torch.where(screen0[:n_exist], labels[None, :], none).min(
+                dim=-1).values
+            slot_label = torch.where(slot_label == C, -1, slot_label)
+        else:
+            slot_label = torch.zeros((0,), dtype=torch.int64, device=dev)
+        return labels.to(torch.int32), neutral, slot_label.to(torch.int32)
+
+    return partition
 
 
 def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] = None,
@@ -414,15 +510,26 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         log_commits: bool = True,
         counts_host: Optional[np.ndarray] = None,  # [I] replica counts, host
         shared: Optional[dict] = None,
+        item_ids: Optional[np.ndarray] = None,  # [I] global item id per row, host
+        bulk_len: Optional[int] = None,
     ):
         """One scan. log_commits=False is the consolidation replan's rung
         mode: no log is written and no commit waits on log space (so the
         bulk take matrix is one row). counts_host overrides the replica
         counts with a host array (the rung's count row). `shared` is a
-        dict the caller keeps across scans of one geometry whose item
-        planes, templates and types do not change (the K subsets of a
-        replan chunk): what depends only on those is computed by the
-        first scan and read back by the rest."""
+        dict the caller keeps across scans of one geometry: its "geo"
+        entry holds what depends only on the class planes, templates and
+        types, its "items" entry the host copies of the item rows' flags;
+        each is computed by the first scan that finds it empty (the K
+        subsets of a replan chunk share both, a segmented solve's lanes
+        only the first).
+
+        A segmented lane (make_device_run(segment_mode=True)) scans a
+        gathered subset of the item axis: `items_pl` is then the class
+        planes of the whole axis (the reference's class_planes argument:
+        scls_first indexes the whole axis), `item_ids` the global item
+        index each row logs, and `bulk_len` the lane's own take-matrix
+        budget."""
         dev = state.used.device
         N, V = state.allow.shape
         K = state.out.shape[1]
@@ -434,10 +541,15 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         EV = state.vols.shape[0]  # the existing prefix carrying volume state
         G = len(groups)
         pre = shared if shared is not None else {}
-        if "ops" not in pre:
-            pre.update(_scan_constants(
+        geo = pre.setdefault("geo", {})
+        if not geo:
+            geo.update(_scan_constants(
                 segments, V, screen_v, type_reqs, type_offering_ok, item_arrays,
-                items_pl, tmpl_reqs, tiered, Q, W, groups, topo_terms, dev))
+                items_pl, tmpl_reqs, tiered, groups, topo_terms, dev))
+        flags = pre.setdefault("items", {})
+        if not flags:
+            flags.update(_item_flags(item_arrays, Q, W, groups))
+        pre = dict(geo, **flags)
         ops = pre["ops"]
         WSCR = ops.width
         sm, type_rows, offer_f, key_scr = (
@@ -449,6 +561,9 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         L = log_len
         if BR == 0 or not log_commits:
             LB = 1
+        elif bulk_len is not None:
+            # a segmented lane sizes its take matrix to its own items
+            LB = max(int(bulk_len), 1)
         elif mach_bulk:
             # take rows per bulk commit: ~2 per plain bulk item plus one per
             # water-fill round of the value-key spread items
@@ -547,6 +662,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
             if not valid_h[i] or count <= 0:
                 continue
             LAST_SCAN["items"] += 1
+            iid = i if item_ids is None else int(item_ids[i])
             allow_i = item_arrays["allow"][i]
             out_i = item_arrays["out"][i]
             def_i = item_arrays["defined"][i]
@@ -799,7 +915,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                     row_mask = arange_n == n
                     record(m_allow, m_out, m_def, row_mask,
                            torch.where(row_mask, k, 0).to(torch.int32))
-                    log.write(i, n, 1, k, k)
+                    log.write(iid, n, 1, k, k)
                     remaining -= k
                     if plane_mut and not tiered:
                         screen[n] = ops.items_vs_row(
@@ -915,7 +1031,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                         topo_record_bulk(topo_meta, state.tcounts, state.thost,
                                          state.tdoms, own, sel, m_allow_rows,
                                          m_out_rows, take)
-                    log.write_bulk(i, take, BRo, placed)
+                    log.write_bulk(iid, take, BRo, placed)
                     remaining -= placed
                     if plane_mut and not tiered:
                         rows = torch.nonzero(touched).flatten()
@@ -1044,7 +1160,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
                     k_full = torch.zeros(N, dtype=torch.int32, device=dev)
                     k_full[lo:hi] = k_row
                     record(m_allow_o, m_out_o, m_def_o, row_mask, k_full)
-                log.write(i, lo, s, m_eff, k_last)
+                log.write(iid, lo, s, m_eff, k_last)
                 remaining -= placed
                 # opened slots become candidates for later fill rounds
                 score[lo:hi] = float(N) + k_row.to(torch.float32) * N + idx_f[lo:hi]

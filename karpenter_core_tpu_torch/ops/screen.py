@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from karpenter_core_tpu_torch.ops.compat import _count
+from karpenter_core_tpu_torch.ops.cuda_build import KernelError
 
 # launches of each CUDA kernel, counted where it is launched
 LAUNCHES: Dict[str, int] = {"screen": 0, "screen_prep": 0}
@@ -308,7 +309,7 @@ def screen_prep(allow, out, defined, layout: ScreenLayout, escape=None,
         _stream(dev),
     )
     if rc != 0:
-        raise RuntimeError(f"screen_prep kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"screen_prep kernel launch failed: CUDA error {rc}")
     LAUNCHES["screen_prep"] += 1
     return got
 
@@ -382,7 +383,7 @@ def _launch(form: str, slot: Dict[str, torch.Tensor], items: ScreenItems, b: int
         N, 1 if form == "row_b1" else B, W, KW, _stream(dev),
     )
     if rc != 0:
-        raise RuntimeError(f"screen kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"screen kernel launch failed: CUDA error {rc}")
     LAUNCHES["screen"] += 1
     FORM_LAUNCHES[form] += 1
     return verdict

@@ -146,6 +146,36 @@ def replan_k_pad(k: int) -> int:
     )
 
 
+# -- the segmented pack scan's axes ------------------------------------------
+# The segmented dispatch packs S conflict-independent lanes of at most M
+# items each (TorchSolver._try_segmented); both axes ride the reference's
+# ladders: the lane axis a short bucket list (the lane count is capped
+# below its top), the per-lane item axis a power-of-two bucket capped at
+# the snapshot's item tier.
+
+SEGMENT_LANE_BUCKETS = (4, 8, 16)
+
+
+def segment_lane_pad(s: int) -> int:
+    """Round a lane count up to SEGMENT_LANE_BUCKETS; a count above the
+    top bucket is a caller error (the dispatcher balances into fewer
+    lanes)."""
+    for v in SEGMENT_LANE_BUCKETS:
+        if s <= v:
+            return v
+    raise ValueError(
+        f"lane axis {s} exceeds the segment lane cap "
+        f"{SEGMENT_LANE_BUCKETS[-1]} (the dispatcher load-balances into "
+        f"fewer lanes)"
+    )
+
+
+def segment_item_pad(m: int, item_pad: int) -> int:
+    """Round a lane's item count up to its power-of-two bucket, capped at
+    the snapshot's item tier (a lane never holds more than every item)."""
+    return min(bucket_pow2(max(m, 1), 32), max(item_pad, 32))
+
+
 def replan_chunks(count_rows, exist_open):
     """Yield (k_real, k_pad, counts, open) dispatch chunks along the
     candidate axis: slices of at most REPLAN_K_BUCKETS[-1] subsets, padded
@@ -468,6 +498,14 @@ class EncodedSnapshot:
     scls_items: np.ndarray = None  # [C] int32 one item index per column
     item_pad: int = 0
     cls_pad: int = 0
+
+    # the segmented scan's gates: structural eligibility (no topology
+    # groups, host-port or volume planes: the couplings a conflict
+    # partition cannot express) and per class, plane neutrality (no
+    # defined key inside the screen width), which selects the lanes'
+    # read-only verdict variant when every class has it
+    seg_eligible: bool = False
+    seg_plane_neutral: np.ndarray = None  # [U] bool
 
     instance_types: List = field(default_factory=list)
     templates: List[MachineTemplate] = field(default_factory=list)
@@ -865,6 +903,15 @@ def encode_snapshot(
     item_pad = ladder_pad(max(len(item_counts), 1), ladder, "items", 32)
     cls_pad = ladder_pad(max(len(scls_items), 1), ladder, "items", 32)
 
+    seg_key_scr = np.array(
+        [dictionary.segment(k)[0] < screen_v for k in dictionary.keys], dtype=bool)
+    seg_plane_neutral = ~(pod_reqs_u_arr.defined & seg_key_scr[None, :]).any(axis=1)
+    seg_eligible = (
+        (topo_meta is None or len(topo_meta.groups) == 0)
+        and ports_vols["pod_ports_u"].shape[1] == 0
+        and ports_vols["pod_vols_u"].shape[1] == 0
+    )
+
     return EncodedSnapshot(
         dictionary=dictionary,
         resource_names=resource_names,
@@ -897,6 +944,8 @@ def encode_snapshot(
         scls_items=scls_items.astype(np.int32),
         item_pad=item_pad,
         cls_pad=cls_pad,
+        seg_eligible=seg_eligible,
+        seg_plane_neutral=seg_plane_neutral,
         instance_types=all_types,
         templates=templates,
         pods=pods_sorted,

@@ -36,10 +36,12 @@ KARPENTER_SOLVER_HOST=off keeps TorchSolver in process (the default of
 solver/factory.build_primary outside the operator entry).
 
 The child reads these variables (the parent's environment, with
-`child_env` on top): KCT_PACK_SCREEN, KCT_INCREMENTAL and KCT_PACK_SCAN
-(ops/compat.py), KARPENTER_TPU_TRACE (the parent's tracer state when
+`child_env` on top): KCT_PACK_SCREEN and KCT_INCREMENTAL (ops/compat.py),
+KARPENTER_TPU_TRACE (the parent's tracer state when
 unset), KARPENTER_TPU_LOG, KARPENTER_PROGHEALTH and the build directory of
-ops/cuda_build.py; KARPENTER_SOLVER_HOST is forced off in it.
+ops/cuda_build.py; KARPENTER_SOLVER_HOST is forced off in it. The child
+packs with the sequential scan whatever KCT_PACK_SCAN says, as the
+reference's does (its SolverService never reads the scan mode).
 """
 from __future__ import annotations
 

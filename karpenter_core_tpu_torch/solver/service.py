@@ -704,9 +704,6 @@ class SolverService:
             supervise.touch_heartbeat(f"solver.phase.{name}")
             return elapsed_ms
 
-        # the sequential scan is the only one ported: KCT_PACK_SCAN=segmented
-        # raises here (ROADMAP Queue A item 6)
-        ops_compat.resolve_pack_scan()
         tensors = {t.name: tensor_from_pb(t) for t in request.tensors}
         args = _unflatten_args(tensors)
         key, entry = self._entry(request.geometry, ops_compat.resolve_screen_mode())

@@ -28,6 +28,14 @@ and carries the instance-type planes (encode.EncodeReuse); the cluster's
 change feed gates the residency. `last_prescreen_mode` ("full" or
 "refresh") and `last_prescreen_delta` report the last dispatch.
 
+With pack_scan="segmented" (or KCT_PACK_SCAN=segmented) a prescreen solve
+first tries the segmented scan (tpu_solver.py:1451-1906): the partition of
+the class columns into conflict-independent components
+(ops/pack.make_segment_partition_kernel), one lane scan per group of
+components, and the host merge of the lanes' logs into global item order;
+`last_segment_stats` reports the attempt, which degrades to the
+sequential scan on the reference's grounds.
+
 One lock serializes a solver's solves, replans and prewarms: the
 provisioning and deprovisioning loops share the operator's solver, and the
 startup prewarm (`prewarm_snapshot`, solver/prewarm.py) runs on a thread
@@ -66,8 +74,11 @@ from karpenter_core_tpu_torch.obs.flightrec import (  # noqa: F401 — re-export
     canonical_placements,
     placements_json,
 )
+from karpenter_core_tpu_torch.obs import envflags
+from karpenter_core_tpu_torch.ops import compat as ops_compat
 from karpenter_core_tpu_torch.ops import pack as pack_ops
 from karpenter_core_tpu_torch.ops import screen as screen_ops
+from karpenter_core_tpu_torch.ops.cuda_build import KernelError
 from karpenter_core_tpu_torch.ops.feasibility import feasibility_static, openable_mask
 from karpenter_core_tpu_torch.ops.pack import (
     SCREEN_MODES,
@@ -76,6 +87,7 @@ from karpenter_core_tpu_torch.ops.pack import (
     class_planes,
     make_batched_replan_kernel,
     make_pack_kernel,
+    make_segment_partition_kernel,
     screen_refresh,
 )
 from karpenter_core_tpu_torch.ops.topology import TopoGroupMeta, TopoMeta
@@ -83,12 +95,15 @@ from karpenter_core_tpu_torch.scheduling.preferences import Preferences
 from karpenter_core_tpu_torch.scheduling.requirement import Requirement
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements
 from karpenter_core_tpu_torch.solver.encode import (
+    SEGMENT_LANE_BUCKETS,
     EncodedSnapshot,
     EncodeReuse,
     ReqSetArrays,
     bucket_pow2,
     encode_snapshot,
     replan_chunks,
+    segment_item_pad,
+    segment_lane_pad,
 )
 from karpenter_core_tpu_torch.solver.incremental import DiffGate, IncrementalScreen
 from karpenter_core_tpu_torch.utils import supervise
@@ -400,7 +415,8 @@ def topo_meta_from(obj) -> Optional[TopoMeta]:
 
 def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
                     log_len: int, screen_v: Optional[int] = None,
-                    screen_mode: str = "prescreen", rung_mode: bool = False):
+                    screen_mode: str = "prescreen", rung_mode: bool = False,
+                    segment_mode: bool = False):
     """The solve program (make_device_run with an external prescreen):
     feasibility + openable + the pack scan, a function of args_to_torch's
     tensors and the prescreen tensor (None under screen_mode="tiered"),
@@ -415,7 +431,23 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
     existing); no commit log is written. `shared` (a dict kept across
     the calls of one replan chunk) holds what does not depend on the
     subset: the feasibility planes, the openable mask and the scan's
-    constants."""
+    constants.
+
+    segment_mode=True is the segmented scan's lane run
+    (tpu_solver.py:282-316,423-556): seg_run(item_sel [S, M], exist_open
+    [S, E], screen0, *args, items_pl) packs each lane s on its own: the
+    items item_sel[s] names (global item indices in order, -1 pads), the
+    existing slots exist_open[s] leaves open (the partition proved the
+    lanes' slots disjoint) and a private machine region [E, N). The
+    feasibility planes are computed once over the whole item axis and
+    gathered per lane; `items_pl` must be the prescreen's class planes of
+    the whole axis. The lanes run one after another; a lane with no item
+    is not run (its scan would commit nothing). Each lane refreshes its
+    own copy of screen0 as the sequential scan does; the reference's
+    read-only variant for all-neutral lanes (seg_frozen) is not ported,
+    since a fully neutral batch is one component and never dispatches
+    lanes. Returns one (log, ptr, state) per lane, None for a lane not
+    run."""
     segments = [tuple(s) for s in segments]
     pack = make_pack_kernel(segments, zone_seg, ct_seg,
                             topo_meta=topo_meta_from(topo_meta), screen_v=screen_v,
@@ -425,7 +457,8 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
                  tmpl_type_mask, types, type_alloc, type_capacity, type_offering_ok,
                  pod_tol_all, exist, exist_used, exist_cap, well_known, remaining0,
                  topo_counts0, topo_hcounts0, topo_doms0, topo_terms, exist_ports,
-                 exist_vols, exist_vol_limits, vol_driver, items_pl=None, shared=None):
+                 exist_vols, exist_vol_limits, vol_driver, items_pl=None, shared=None,
+                 item_sel=None):
         dev = exist_used.device
         E = exist_used.shape[0]
         N = n_slots
@@ -441,6 +474,18 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             pre["openable"] = openable_mask(pre["f_static"], pod_arrays["requests"],
                                             tmpl_daemon, type_alloc)
         f_static, openable = pre["f_static"], pre["openable"]
+        lane = {}
+        if item_sel is not None:
+            # a lane scans its gathered items only; pads (-1) gather row 0
+            # with valid=False and count=0, so they skip as padded items do
+            gi = torch.as_tensor(np.maximum(item_sel, 0), dtype=torch.int64, device=dev)
+            onsel = torch.as_tensor(item_sel >= 0, device=dev)
+            pod_arrays = {k: v[gi] for k, v in pod_arrays.items() if k != "scls_first"}
+            pod_arrays["valid"] = pod_arrays["valid"] & onsel
+            pod_arrays["count"] = torch.where(onsel, pod_arrays["count"], 0)
+            pod_tol_all = pod_tol_all[gi]
+            f_static, openable = f_static[:, gi, :], openable[:, gi]
+            lane = dict(item_ids=item_sel, bulk_len=min(2 * len(item_sel) + 64, 4096))
         open0 = torch.arange(N, device=dev) < E
         if exist_open is not None:
             open0[:E] &= exist_open
@@ -482,9 +527,32 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             log_len=log_len, n_exist=E, vol_limits=exist_vol_limits,
             vol_driver=vol_driver, screen0=screen0, items_pl=items_pl,
             log_commits=count_row is None, counts_host=count_row,
-            shared=pre.setdefault("scan", {}),
+            shared=pre.setdefault("scan", {}), **lane,
         )
         return log, ptr, state
+
+    if segment_mode:
+        if screen_mode != "prescreen":
+            raise ValueError("the segmented scan reads the prescreen's verdict tensor")
+
+        def seg_run(item_sel, exist_open, screen0, *args, items_pl):
+            dev = args[RUN_ARG_NAMES.index("exist_used")].device
+            open_dev = torch.from_numpy(np.ascontiguousarray(exist_open)).to(dev)
+            # the feasibility planes and the scan's geometry constants are
+            # the lanes' own only through their item rows: shared
+            pre = {}
+            geo = {}
+            out = []
+            for sel, eo in zip(item_sel, open_dev):
+                if not (sel >= 0).any():
+                    out.append(None)
+                    continue
+                pre["scan"] = {"geo": geo}
+                out.append(run_impl(None, eo, screen0, *args, items_pl=items_pl,
+                                    shared=pre, item_sel=np.asarray(sel)))
+            return out
+
+        return seg_run
 
     if rung_mode:
         def rung_run(count_row, exist_open, screen0, *args, items_pl=None, shared=None):
@@ -623,6 +691,147 @@ class _HostState:
             setattr(self, f, getattr(state, f)[:nopen].cpu().numpy())
 
 
+class _MergedSlotState:
+    """The slot state a segmented solve decodes: each opened machine row
+    from its lane's final state, at its global slot (decode reads machine
+    rows only; the existing rows stay zero)."""
+
+    def __init__(self, fields: Dict[str, np.ndarray]):
+        self.__dict__.update(fields)
+
+
+def _segment_tmpl_fingerprint(host_args) -> bytes:
+    """A digest of the partitioner's template-side inputs (the template
+    planes and the well-known mask), which the verdict tensor's
+    fingerprints do not cover (tpu_solver.py:136-150)."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    tmpl = host_args[RUN_ARG_NAMES.index("tmpl")]
+    for k in sorted(tmpl):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(tmpl[k]).tobytes())
+    h.update(np.ascontiguousarray(host_args[RUN_ARG_NAMES.index("well_known")]).tobytes())
+    return h.digest()
+
+
+def _lane_plan(labels, slot_label, host_args, n_exist: int, item_pad: int, lanes_req: int):
+    """The segmented solve's host grouping (tpu_solver.py:1686-1746): items
+    grouped by their class's component label, the components LPT-balanced
+    by item count into at most `lanes_req` lanes (clamped to [2, the top
+    lane bucket]), each lane's items in global order, padded to the lane
+    and item buckets, and each existing slot open in the lane of its
+    label. Returns None when no item is valid, else (item_sel [S, M],
+    exist_open [S, E], components, lanes, the largest lane's items), the
+    first two None when there is one component (its items the last)."""
+    pa = host_args[0]
+    scls = np.asarray(pa["scls"])
+    valid = np.asarray(pa["valid"])
+    real = np.nonzero(valid)[0]
+    if len(real) == 0:
+        return None
+    labs = labels[scls[real]]
+    sort_i = np.argsort(labs, kind="stable")
+    sorted_labs = labs[sort_i]
+    cuts = np.nonzero(np.diff(sorted_labs))[0] + 1
+    group_items = np.split(real[sort_i], cuts)
+    group_labels = sorted_labs[np.concatenate(([0], cuts))]
+    s_real = len(group_items)
+    if s_real <= 1:
+        return None, None, s_real, 0, len(real)
+    max_lanes = min(max(lanes_req, 2), SEGMENT_LANE_BUCKETS[-1])
+    lanes_n = min(s_real, max_lanes)
+    # LPT by item count (a lane's scan length); ties keep the component
+    # order, as the reference's sorted() does
+    order_sz = sorted(range(s_real), key=lambda g: -len(group_items[g]))
+    lane_members = [[] for _ in range(lanes_n)]
+    loads = [0] * lanes_n
+    lane_of_label = {}
+    for g in order_sz:
+        tgt = min(range(lanes_n), key=lambda x: loads[x])
+        lane_members[tgt].append(group_items[g])
+        loads[tgt] += len(group_items[g])
+        lane_of_label[int(group_labels[g])] = tgt
+    m_real = max(loads)
+    s_pad = segment_lane_pad(lanes_n)
+    m_pad = segment_item_pad(m_real, item_pad)
+    item_sel = np.full((s_pad, m_pad), -1, np.int32)
+    for s, members in enumerate(lane_members):
+        rows = np.sort(np.concatenate(members))
+        item_sel[s, : len(rows)] = rows
+    exist_open = np.zeros((s_pad, n_exist), bool)
+    if n_exist:
+        lane_of = np.full(len(labels) + 1, -1, np.int32)
+        for lab, tgt in lane_of_label.items():
+            lane_of[lab] = tgt
+        sl = np.asarray(slot_label[:n_exist])
+        owner = np.where(sl >= 0, lane_of[np.maximum(sl, 0)], -1)
+        for s in range(lanes_n):
+            exist_open[s] = owner == s
+    return item_sel, exist_open, s_real, lanes_n, m_real
+
+
+def merge_lanes(lanes, n_exist: int):
+    """The host merge of a segmented solve (tpu_solver.py:1818-1892): the
+    lanes' commit logs interleaved into global item order, machine slots
+    numbered in first-open order (the sequential scan's nopen order), bulk
+    take rows renumbered in merged order, and each opened machine row's
+    state gathered from its lane. `lanes` holds per lane (log arrays on
+    the host with bulk_take cut to bulk_n, ptr, host state rows [:nopen])
+    or None. Returns (log, ptr, _MergedSlotState)."""
+    E = n_exist
+    run = [(s, ln) for s, ln in enumerate(lanes) if ln is not None]
+
+    def cat(name):
+        parts = [ln[0][name][: ln[1]] for _s, ln in run]
+        return np.concatenate(parts) if parts else np.zeros(0, np.int32)
+
+    items_c, slots_c, ns_c, k_c, kl_c = (cat(n) for n in ("item", "slot", "ns", "k", "k_last"))
+    lane_c = np.concatenate([np.full(ln[1], s, np.int32) for s, ln in run]) if run else (
+        np.zeros(0, np.int32))
+    order = np.argsort(items_c, kind="stable")
+    slot_map: Dict[tuple, int] = {}
+    next_g = E
+    m_item, m_slot, m_ns, m_k, m_kl = [], [], [], [], []
+    bulk_rows = []
+    for e in order:
+        ln, ns, sl = int(lane_c[e]), int(ns_c[e]), int(slots_c[e])
+        kk, kl = int(k_c[e]), int(kl_c[e])
+        if ns == -1:
+            bulk_rows.append(np.asarray(lanes[ln][0]["bulk_take"][kk]))
+            kk = len(bulk_rows) - 1
+            sl = 0
+        elif sl >= E:
+            for j in range(ns):
+                if (ln, sl + j) not in slot_map:
+                    slot_map[(ln, sl + j)] = next_g
+                    next_g += 1
+            sl = slot_map[(ln, sl)]
+        m_item.append(int(items_c[e]))
+        m_slot.append(sl)
+        m_ns.append(ns)
+        m_k.append(kk)
+        m_kl.append(kl)
+    log = {
+        "item": np.asarray(m_item, np.int32),
+        "slot": np.asarray(m_slot, np.int32),
+        "ns": np.asarray(m_ns, np.int32),
+        "k": np.asarray(m_k, np.int32),
+        "k_last": np.asarray(m_kl, np.int32),
+        "bulk_take": np.stack(bulk_rows) if bulk_rows else np.zeros((0, E), np.int32),
+        "bulk_n": len(bulk_rows),
+    }
+    fields = {}
+    like = run[0][1][2] if run else None
+    for f in _HostState.FIELDS:
+        arr0 = getattr(like, f) if like is not None else np.zeros((0,), np.int32)
+        out = np.zeros((next_g,) + arr0.shape[1:], dtype=arr0.dtype)
+        for (s, row), g in slot_map.items():
+            out[g] = getattr(lanes[s][2], f)[row]
+        fields[f] = out
+    return log, len(order), _MergedSlotState(fields)
+
+
 # -- the device path's dispatch, shared by TorchSolver and the solver
 # service (solver/service.py), so that a wire solve and an in-process solve
 # run the same code from device_args on
@@ -754,6 +963,7 @@ def load_screen_library(device) -> bool:
 
 
 INCREMENTAL_MODES = ("on", "off")
+PACK_SCANS = ("sequential", "segmented")
 
 
 # the planes the [N, C] verdict tensor is computed from (the prescreen's
@@ -786,12 +996,16 @@ class _Carried:
     thread) takes a fresh one, so no resident tensor is ever shared with a
     dispatch that may still write it."""
 
-    __slots__ = ("encode_reuse", "dictionary", "inc_screens", "diff_gate", "gate_ok", "held")
+    __slots__ = ("encode_reuse", "dictionary", "inc_screens", "segment_labels", "diff_gate",
+                 "gate_ok", "held")
 
     def __init__(self):
         self.encode_reuse = EncodeReuse()
         self.dictionary = None
         self.inc_screens: "OrderedDict[tuple, IncrementalScreen]" = OrderedDict()
+        # the segmented scan's partition by residency key: (labels,
+        # slot_label, the template fingerprint), an LRU
+        self.segment_labels: "OrderedDict[tuple, tuple]" = OrderedDict()
         self.diff_gate = DiffGate()
         self.gate_ok = True
         self.held = False
@@ -807,7 +1021,11 @@ class TorchSolver:
     item inside the scan. incremental: "on" (the default) keeps the
     prescreen tensor resident across solves and refreshes only what
     changed; "off" runs the full precompute every solve. It applies only
-    under "prescreen", as the reference resolves it.
+    under "prescreen", as the reference resolves it. pack_scan:
+    "sequential" or "segmented", None (the default) reading KCT_PACK_SCAN
+    at each solve (ops/compat.resolve_pack_scan); "segmented" applies only
+    under "prescreen" and degrades to the sequential scan wherever the
+    reference's does, `last_segment_stats` saying why.
 
     Concurrent calls do not wait for each other: the state carried across
     solves (_Carried) has one holder, and a call that finds it held runs
@@ -818,6 +1036,8 @@ class TorchSolver:
 
     # resident tensors kept, least recently used first out
     MAX_INC_SCREENS = 8
+    # resident segment partitions kept, likewise
+    MAX_SEGMENT = 16
     # the consolidation search screens its candidate subsets through
     # replan_screen (solver/replan.py)
     supports_batched_replan = True
@@ -825,7 +1045,7 @@ class TorchSolver:
     def __init__(self, max_nodes: int = 1024,
                  max_relax_rounds: int = DEFAULT_MAX_RELAX_ROUNDS,
                  device="cuda", screen_mode: str = "prescreen",
-                 incremental: str = "on"):
+                 incremental: str = "on", pack_scan: Optional[str] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -839,11 +1059,19 @@ class TorchSolver:
             raise ValueError(f"TorchSolver: screen_mode must be one of {SCREEN_MODES}")
         if incremental not in INCREMENTAL_MODES:
             raise ValueError(f"TorchSolver: incremental must be one of {INCREMENTAL_MODES}")
+        if pack_scan not in (None,) + PACK_SCANS:
+            raise ValueError(f"TorchSolver: pack_scan must be None or one of {PACK_SCANS}")
         self.max_nodes = max_nodes
         self.max_relax_rounds = max_relax_rounds
         self.screen_mode = screen_mode
         self.incremental = incremental
+        self.pack_scan = pack_scan
         self.last_phase_ms: Dict[str, float] = {}
+        # the last solve round's segmented attempt (None under sequential):
+        # mode "segmented" with its segments, lanes, largest lane, frozen,
+        # fixup_fraction 0.0, opens and segment_ms, or "sequential-fallback"
+        # with the reason and fixup_fraction 1.0, as the reference's
+        self.last_segment_stats: Optional[Dict[str, object]] = None
         # the last replan_screen's phases (args, upload, prescreen, device,
         # fetch), its K and chunks, and its screen launches by form
         self.last_replan_phase_ms: Dict[str, float] = {}
@@ -1066,6 +1294,28 @@ class TorchSolver:
                     "rb": delta.rb, "cb": delta.cb,
                 } if mode == "refresh" else None)
             mark("prescreen", mode=mode, cold=cold)
+            # the segmented scan (tpu_solver.py:2429-2456): a failure of its
+            # attempt degrades to the sequential scan below, but a kernel
+            # that did not build or launch is the card's fault, not the
+            # attempt's, and is raised
+            self._publish(last_segment_stats=None)
+            if (self.pack_scan or ops_compat.resolve_pack_scan()) == "segmented":
+                try:
+                    chaos.maybe_fail(chaos.SOLVER_SEGMENT)
+                    seg = self._try_segmented(snap, geom, key, warm_key, args, targs,
+                                              screen0, items_pl, mode, delta, mark, carried)
+                except KernelError:
+                    raise
+                except Exception as exc:  # noqa: BLE001 — the reference's degrade
+                    self._publish(last_segment_stats={
+                        "mode": "sequential-fallback", "reason": f"error:{type(exc).__name__}",
+                        "segments": 0, "max_segment": 0, "fixup_fraction": 1.0,
+                    })
+                    seg = None
+                if seg is not None:
+                    result = decode_solve(snap, seg[:2], seg[2])
+                    mark("decode")
+                    return result
         run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
                               screen_v=screen_v, screen_mode=self.screen_mode)
         # re-label for the long silent stretch ahead: a wedge inside the
@@ -1082,6 +1332,134 @@ class TorchSolver:
         result = decode_solve(snap, (log, ptr), host_state)
         mark("decode")
         return result
+
+    # -- the segmented pack scan ----------------------------------------------
+
+    def _segment_eligible(self, snap: EncodedSnapshot, geom, host_args):
+        """The reference's structural gate (tpu_solver.py:1453-1474):
+        (ok, the reason when not)."""
+        if not snap.seg_eligible:
+            return False, "structure"  # topology, host ports, volumes
+        remaining0 = host_args[RUN_ARG_NAMES.index("remaining0")]
+        if not bool((remaining0 >= np.float32(1e29)).all()):
+            return False, "finite-limits"
+        if host_args[0]["scls_first"].shape[0] > 4096:
+            return False, "class-axis"  # the [C, C] conflict matrix
+        if len(geom[8]) > 128:
+            return False, "key-axis"  # one deny-lift term per key
+        return True, ""
+
+    def _partition_fn(self, warm_key, geom):
+        """The partitioner for a solve geometry (ops/pack.
+        make_segment_partition_kernel) and whether its key was new in the
+        program ledger's segment family."""
+        cold = self._programs.mint("segment", (warm_key, "segmented", "partition"),
+                                   meta=dict(self._program_meta(geom), role="partition"))
+        return make_segment_partition_kernel(geom[8], geom[3], screen_v=geom[16]), cold
+
+    def _try_segmented(self, snap, geom, key, warm_key, host_args, targs, screen0, items_pl,
+                       scr_mode, delta, mark, carried):
+        """One segmented dispatch (_try_segmented, tpu_solver.py:1594-1906):
+        the partition (resident across churn while the refresh's delta is
+        empty and the template fingerprint matches), the lanes, the host
+        merge. Returns (log, ptr, merged state) or None to degrade to the
+        sequential scan; `last_segment_stats` says which, with the
+        reference's dict."""
+        E, N, L = geom[3], geom[7], geom[12]
+
+        def fallback(reason, segments=0, max_segment=0):
+            self._publish(last_segment_stats={
+                "mode": "sequential-fallback", "reason": reason,
+                "segments": int(segments), "max_segment": int(max_segment),
+                "fixup_fraction": 1.0,
+            })
+            return None
+
+        ok, reason = self._segment_eligible(snap, geom, host_args)
+        if not ok:
+            return fallback(reason)
+        t_seg = time.perf_counter()
+        tmpl_fp = _segment_tmpl_fingerprint(host_args)
+        cached = carried.segment_labels.get(key)
+        part_cold = False
+        if (cached is not None and scr_mode == "refresh" and delta is not None
+                and len(delta.rows) == 0 and len(delta.cols) == 0 and cached[2] == tmpl_fp):
+            labels, slot_label = cached[:2]
+            carried.segment_labels.move_to_end(key)
+        else:
+            part_fn, part_cold = self._partition_fn(warm_key, geom)
+            labels_d, _neutral, slot_label_d = part_fn(
+                screen0, targs[0], targs[RUN_ARG_NAMES.index("tmpl")],
+                targs[RUN_ARG_NAMES.index("well_known")], items_pl=items_pl)
+            self._programs.dispatch("segment", (warm_key, "segmented", "partition"))
+            labels, slot_label = labels_d.cpu().numpy(), slot_label_d.cpu().numpy()
+            carried.segment_labels[key] = (labels, slot_label, tmpl_fp)
+            carried.segment_labels.move_to_end(key)
+            while len(carried.segment_labels) > self.MAX_SEGMENT:
+                carried.segment_labels.popitem(last=False)
+
+        # an oversized or unparseable KCT_SEGMENT_LANES tunes down to the
+        # top bucket, as the reference's does
+        try:
+            lanes_req = int(envflags.raw("KCT_SEGMENT_LANES", "8") or 8)
+        except ValueError:
+            lanes_req = 8
+        plan = _lane_plan(labels, slot_label, host_args, E, geom[0], lanes_req)
+        if plan is None:
+            return fallback("empty")
+        item_sel, exist_open, s_real, lanes_n, m_real = plan
+        if item_sel is None:
+            return fallback("single-segment", segments=s_real, max_segment=m_real)
+        s_pad, m_pad = item_sel.shape
+        mark("segment", segments=s_real, lanes=lanes_n, max_segment=m_real, cold=part_cold)
+
+        # the reference's `frozen` stat (every class plane-neutral, when it
+        # runs read-only lanes); the port's lanes always refresh
+        neutral = snap.seg_plane_neutral
+        frozen = bool(neutral is not None and neutral.size and neutral.all())
+        lane_key = (warm_key, "segmented", s_pad, m_pad)
+        lane_cold = self._programs.mint("segment", lane_key, meta=dict(
+            self._program_meta(geom), lanes=s_pad, segment_bucket=m_pad))
+        seg_run = make_device_run(geom[8], geom[9], geom[10], None, N, L, screen_v=geom[16],
+                                  screen_mode="prescreen", segment_mode=True)
+        supervise.touch_heartbeat("solver.phase.device")
+        t0 = time.perf_counter()
+        with device_profiler():
+            runs = seg_run(item_sel, exist_open, screen0, *targs, items_pl=items_pl)
+            self._sync()
+        self._programs.dispatch("segment", lane_key,
+                                device_ms=(time.perf_counter() - t0) * 1e3)
+        mark("device", compile_cache="miss" if lane_cold else "hit", lanes=lanes_n)
+
+        ptr_a = np.asarray([0 if r is None else int(r[1]) for r in runs])
+        nopen_a = np.asarray([E if r is None else int(r[2].nopen) for r in runs])
+        bulkn_a = np.asarray([0 if r is None else int(r[0]["bulk_n"]) for r in runs])
+        opens = np.maximum(nopen_a - E, 0)
+        lane_lb = min(2 * m_pad + 64, 4096) if E else 1
+        if int(opens.sum()) > N - E:
+            # the slot budget is shared: the sequential scan would have run
+            # out mid-way, and from there its result depends on the order
+            return fallback("slot-budget", segments=s_real, max_segment=m_real)
+        if bool((ptr_a >= L).any()) or bool((bulkn_a >= lane_lb).any()):
+            return fallback("log-overflow", segments=s_real, max_segment=m_real)
+        lanes = [None if r is None else (fetch_log(r[0]), int(r[1]),
+                                         _HostState(r[2], int(r[2].nopen)))
+                 for r in runs]
+        mark("fetch")
+
+        log, ptr, state = merge_lanes(lanes, E)
+        mark("merge", entries=int(ptr))
+        self._publish(last_segment_stats={
+            "mode": "segmented",
+            "segments": int(s_real),
+            "lanes": int(lanes_n),
+            "max_segment": int(m_real),
+            "frozen": frozen,
+            "fixup_fraction": 0.0,
+            "opens": int(opens.sum()),
+            "segment_ms": round((time.perf_counter() - t_seg) * 1e3, 1),
+        })
+        return log, ptr, state
 
     # -- the batched consolidation replan ------------------------------------
 

@@ -260,6 +260,23 @@ def make_provisioner(
     )
 
 
+def make_pool_provisioners(pools: int, universe) -> tuple:
+    """`pools` selector-scoped provisioners ("pool-<p>", requiring `team In
+    [pool-<p>]`) over one shared instance-type universe: the partitionable
+    shape of the segmented pack scan, each pool's pods and nodes invisible
+    to every other pool's (pods select a pool with node_selector={"team":
+    "pool-<p>"}). Returns (provisioners, instance types by provisioner)."""
+    provisioners, its = [], {}
+    for p in range(pools):
+        pool = f"pool-{p}"
+        provisioners.append(make_provisioner(
+            name=pool,
+            requirements=[NodeSelectorRequirement(key="team", operator="In", values=[pool])],
+        ))
+        its[pool] = universe
+    return provisioners, its
+
+
 def make_node(
     name: Optional[str] = None,
     labels: Optional[Dict[str, str]] = None,
@@ -400,6 +417,40 @@ def subset_planes(snap, K: int, seed: int = 0):
         if n_nodes:
             exist_open[r, rng.choice(n_nodes, size=min(n_nodes, r % 3), replace=False)] = False
     return count_rows, exist_open
+
+
+def solve_scan_parity(solvers, pods, provisioners, instance_types, nodes=None,
+                      kube_client=None, max_nodes=96, device="cuda"):
+    """Solve one workload through the sequential and the segmented pack
+    scans and assert byte-identical canonical placements, equal relaxation
+    rounds and equal failed-pod counts (the reference's parity bar of the
+    segmented scan). `solvers` caches one TorchSolver per scan (on
+    `device`) across calls; the segmented attempt's outcome is
+    solvers["segmented"].last_segment_stats. Returns (sequential result,
+    segmented result)."""
+    import copy
+
+    from karpenter_core_tpu_torch.obs import flightrec
+    from karpenter_core_tpu_torch.solver.torch_solver import TorchSolver
+
+    results = {}
+    for mode in ("sequential", "segmented"):
+        solver = solvers.setdefault(
+            mode, TorchSolver(max_nodes=max_nodes, pack_scan=mode, device=device))
+        results[mode] = solver.solve(
+            copy.deepcopy(pods), provisioners, instance_types,
+            state_nodes=[n.deep_copy() for n in nodes] if nodes else None,
+            kube_client=kube_client,
+        )
+    seq, seg = results["sequential"], results["segmented"]
+    a = flightrec.canonical_placements(seq)
+    b = flightrec.canonical_placements(seg)
+    if flightrec.placements_json(a) != flightrec.placements_json(b):
+        raise AssertionError("segmented diverged from sequential:\n"
+                             + "\n".join(flightrec.diff_placements(a, b)))
+    assert seg.rounds == seq.rounds
+    assert len(seg.failed_pods) == len(seq.failed_pods)
+    return seq, seg
 
 
 class ControlLoop:

@@ -667,6 +667,43 @@ def test_card_and_cpu_placements_identical(family):
 
 
 @pytest.mark.cuda
+def test_card_segmented_scan_matches_cpu():
+    """The segmented scan on the card against the CPU over selector-scoped
+    pools with existing nodes per pool (tests/test_segmented.py's shape):
+    equal placements and last_segment_stats (segment_ms aside), and equal
+    to the card's sequential scan."""
+    _card()
+    m = _mods("torch")
+    universe = m.fake.instance_types(6)
+    provs, its = m.t.make_pool_provisioners(4, universe)
+    rng = np.random.default_rng(3)
+    nodes = [m.node(m.t.make_node(
+        name=f"seg-n-{e}",
+        labels={PROV: f"pool-{e % 4}", "karpenter.sh/initialized": "true",
+                "node.kubernetes.io/instance-type": universe[e % 6].name, CT: "on-demand",
+                ZONE: "test-zone-1", "team": f"pool-{e % 4}"},
+        capacity={k: str(v) for k, v in universe[e % 6].capacity.items()}))
+        for e in range(8)]
+    pods = []
+    for i in range(160):
+        p = int(rng.integers(4))
+        pods.append(_pod(m, "seg", i, labels={"app": f"dep-{p}-{int(rng.integers(8))}"},
+                         requests={"cpu": str(0.25 + 0.25 * int(rng.integers(3)))},
+                         node_selector={"team": f"pool-{p}"}))
+    got, stats = {}, {}
+    for dev, scan in (("cpu", "segmented"), ("cuda", "segmented"), ("cuda", "sequential")):
+        solver = tsolver.TorchSolver(max_nodes=96, device=dev, pack_scan=scan)
+        result = solver.solve(copy.deepcopy(pods), provs, its,
+                              state_nodes=[n.deep_copy() for n in nodes])
+        got[(dev, scan)] = tsolver.placements_json(result)
+        stats[(dev, scan)] = {k: v for k, v in (solver.last_segment_stats or {}).items()
+                              if k != "segment_ms"}
+    assert len(set(got.values())) == 1
+    assert stats[("cpu", "segmented")] == stats[("cuda", "segmented")]
+    assert stats[("cuda", "segmented")]["mode"] == "segmented"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rb, cb", [(8, 8), (16, 0), (0, 16), (8, 1)])
 def test_card_and_cpu_refresh_identical(rb, cb):
     """The delta refresh of a stale resident tensor on seeded planes, on

@@ -410,8 +410,31 @@ CASES = {name[len("case_"):]: fn for name, fn in sorted(globals().items())
          if name.startswith("case_")}
 
 
+# a probe still running past this long after its test is a leak
+PROBE_GRACE_S = 10.0
+
+
+def _quiesce(side):
+    """Start a case from the process-wide state a fresh process has, as far
+    as the case reads it. Tests that ran earlier on this process (an xdist
+    worker runs whole files one after another) leave two things behind: a
+    background card probe ("solver-probe") still running can transition a
+    breaker and move the series; and the breaker-open gauge keeps the
+    sample of its last transition, so that after a file that drove only
+    the port's ResilientSolver the port's gauge reads 0.0 where the
+    reference's has no sample. So wait for such probes (failing if one
+    outlives PROBE_GRACE_S), then drop the gauge's sample."""
+    deadline = time.monotonic() + PROBE_GRACE_S
+    while any(t.name == "solver-probe" and t.is_alive() for t in threading.enumerate()):
+        if time.monotonic() > deadline:
+            raise AssertionError("a background solver probe outlived its test")
+        time.sleep(0.02)
+    side.fb.BREAKER_OPEN.delete({"breaker": "solver.device"})
+
+
 def _run(pkg, case):
     side = _side(pkg)
+    _quiesce(side)
     before = _series(side)
     try:
         resilient, recorder, extra = CASES[case](side)
@@ -436,6 +459,28 @@ def test_recovery_case_matches_reference(case):
         assert got["extra"] == want["extra"] == (True, True)
         return
     assert got == want
+
+
+def test_cases_start_clean_after_an_earlier_file():
+    """What an earlier port-only file leaves on the worker (the port's open
+    gauge at 0.0, a background probe of a breaker still running) must not
+    reach a case: the first case in CASES' order runs against the
+    reference after both."""
+    case = sorted(CASES)[0]
+    tfallback.BREAKER_OPEN.set(0.0, {"breaker": "solver.device"})
+    straggler = tfallback.CircuitBreaker(name="solver.device")
+
+    def late_probe():
+        time.sleep(0.3)
+        straggler.record_failure()
+        straggler.record_failure()
+        straggler.record_failure()
+
+    probe = threading.Thread(target=late_probe, daemon=True, name="solver-probe")
+    probe.start()
+    got = _run("torch", case)
+    assert not probe.is_alive()
+    assert got == _run("jax", case)
 
 
 def test_recovery_cases_cover_the_reference_file():

@@ -104,6 +104,27 @@ def test_host_solve_byte_identical_to_reference_host():
         ths.close()
 
 
+def test_host_packs_sequentially_under_segmented_scan():
+    """A child started with KCT_PACK_SCAN=segmented serves with the
+    sequential scan, as the reference's child does: placements
+    byte-identical to the in-process sequential solve, no segment phase in
+    the child."""
+    from tests.test_torch_cuda import _mods
+    from tests.test_torch_segmented import MAX_NODES, pool_workload
+
+    pods, provs, its, _nodes = pool_workload(_mods("torch"), 7)
+    hs = _host(max_nodes=MAX_NODES, child_env={"KCT_PACK_SCAN": "segmented"})
+    try:
+        got = hs.solve(pods, provs, its)
+        assert "device" in hs.last_child_phase_ms
+        assert "segment" not in hs.last_child_phase_ms
+    finally:
+        hs.close()
+    want = TorchSolver(max_nodes=MAX_NODES, device="cpu", pack_scan="sequential").solve(
+        pods, provs, its)
+    assert _canon(got) == _canon(want)
+
+
 def test_host_replan_and_prewarm_match_in_process(host):
     w = workload("cluster", "torch")
     pods, provs, its, daemons, nodes, max_nodes, client, cluster = w

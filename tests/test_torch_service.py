@@ -35,7 +35,7 @@ from karpenter_core_tpu_torch.solver import service as tservice
 from karpenter_core_tpu_torch.solver import service_pb2 as tpb2
 from karpenter_core_tpu_torch.solver import torch_solver as tsolver
 
-from tests.test_torch_cuda import workload
+from tests.test_torch_cuda import _mods, workload
 
 WIRE_FAMILIES = ("mixed", "spread", "cluster")
 
@@ -165,6 +165,33 @@ def test_service_responses_match_reference(services, family):
     again = _response_tensors(tsvc.solve(codec.SolveRequest.FromString(body)))
     _assert_same_tensors(again, want_t)
     assert tsvc.last_prescreen_mode == "refresh"
+
+
+def test_services_pack_sequentially_under_segmented_scan(services, monkeypatch):
+    """KCT_PACK_SCAN=segmented: both packages' services serve a solve with
+    the sequential scan (the reference's never reads the scan mode), the
+    same response tensors, and placements byte-identical to the port's
+    in-process sequential solve, on a workload the segmented scan would
+    split."""
+    from tests.test_torch_segmented import MAX_NODES, pool_workload
+
+    monkeypatch.setenv("KCT_PACK_SCAN", "segmented")
+    tsvc, jsvc = services
+    m = _mods("torch")
+    pods, provs, its, nodes = pool_workload(m, 7)
+    ts = tencode.encode_snapshot(pods, provs, its, max_nodes=MAX_NODES)
+    body = tservice.solve_request(ts, provs).SerializeToString()
+    got = tsvc.solve(codec.SolveRequest.FromString(body))
+    want = jsvc.solve(jpb2.SolveRequest.FromString(body))
+    assert not got.error and not want.error, (got.error, want.error)
+    _assert_same_tensors(_response_tensors(got), _response_tensors(want))
+    assert "segment" not in tsvc.last_phase_ms
+    seq = tsolver.TorchSolver(max_nodes=MAX_NODES, device="cpu", pack_scan="sequential")
+    assert tsolver.placements_json(tservice.decode_response(ts, got)) == (
+        tsolver.placements_json(seq.solve(pods, provs, its)))
+    seg = tsolver.TorchSolver(max_nodes=MAX_NODES, device="cpu")
+    seg.solve(pods, provs, its)
+    assert seg.last_segment_stats["mode"] == "segmented"
 
 
 def test_service_replan_matches_reference_and_in_process(services):
