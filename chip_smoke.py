@@ -199,8 +199,8 @@ Phases, each fatal on failure:
   12. the fallback paths (phase_fallback), at half of phase 3c's pods and
      nodes (2,400 pods over 100 nodes, 18 pods bound a node, 1,800 under
      the recorder's cap, and no StatefulSet claims, so the record holds
-     the whole cluster context; the depth cut that, with 10b and 14b,
-     pays for phase 17):
+     the whole cluster context; the depth cut that, with 10b, pays for
+     phase 17):
      12a: solver/fallback.ResilientSolver(build_solver(), GreedySolver(),
      solve_timeout=900, wedge_stale_after=600) with the real subprocess
      card probe, the launch counts set to 0 just before its solve and read
@@ -221,7 +221,7 @@ Phases, each fatal on failure:
      small-batch work product; 12d: native.NativeSolver(device="cuda") on
      phase 4's topology-free share without its nodes against TorchSolver
      to the same bar, both walls and the g++ build time.
-  14b. the wedge drill at phase 12's size (DRILL_SIZE): ResilientSolver around a
+  14b. the wedge drill at a quarter of phase 13's size (QUARTER_SIZE): ResilientSolver around a
      HostSolver (stale_after 3 s, wedge_stale_after=None: the host
      watches) solves once in the child on the card; the child is stopped
      (SIGSTOP) once the next solve's request frame is written; fatal
@@ -301,7 +301,7 @@ Phases, each fatal on failure:
      pump's error, a thread left, a fallback, no screen launch, a
      lock-order cycle or an unsuppressed race; the tracked lock sites, the
      instrumented classes and the leg's wall printed. 16b, phase 13 over
-     HTTP: half of phase 13's cluster (HTTP_SIZE: 2,400 pods over 100
+     HTTP: a quarter of phase 13's cluster (HTTP_SIZE: 1,200 pods over 50
      nodes) loaded into an apiserver in a process of its own
      (ApiServerProcess) with kube.transport armed there at p 0.005 (an
      injected fault answers 503), run() with its default primary over
@@ -457,7 +457,7 @@ from karpenter_core_tpu_torch.testing.racegate import (  # noqa: E402
     deflake_iteration,
     race_report,
 )
-from karpenter_core_tpu_torch.utils import gctuning, resources  # noqa: E402
+from karpenter_core_tpu_torch.utils import compilecache, gctuning, resources  # noqa: E402
 from karpenter_core_tpu_torch.webhooks.server import HAVE_CRYPTOGRAPHY  # noqa: E402
 from karpenter_core_tpu_torch.utils.podutils import (  # noqa: E402
     is_owned_by_daemonset as pod_of_daemonset,
@@ -2307,12 +2307,18 @@ def span_tree(spans) -> list:
     return lines
 
 
+# phase spans without a last_phase_ms entry: the warm-state lookup and the
+# decode's span of the reference's names, and the log expansion inside it
+SPAN_ONLY_PHASES = ("pack", "bind", "expand")
+
+
 def check_spans(label: str, spans, solve: dict) -> dict:
     """Step 1's spans: one provisioner.reconcile root holding one
     solver.solve of context "provisioning" and a provisioner.launch; each
     solver.phase.<name> span's last occurrence within 1 ms of the solve's
-    last_phase_ms[name] (they are read off the same timestamps). Prints the
-    tree."""
+    last_phase_ms[name] (they are read off the same timestamps), and the
+    reference's pack and bind spans under the solve. Prints the tree and
+    returns the phase spans' names."""
     roots = [sp for sp in spans if sp.name == "provisioner.reconcile"]
     solves = [sp for sp in spans if sp.name == "solver.solve"]
     if len(roots) != 1 or len(solves) != 1 or solves[0].parent_id != roots[0].span_id:
@@ -2330,11 +2336,15 @@ def check_spans(label: str, spans, solve: dict) -> dict:
             last[sp.name[len("solver.phase."):]] = sp.duration_ms
     want = solve["phases_raw"]
     off = {k: round(abs(last.get(k, float("inf")) - v), 6) for k, v in want.items()}
-    if set(last) - set(want) - {"expand"} or any(d > 1.0 for d in off.values()):
+    if set(last) - set(want) - set(SPAN_ONLY_PHASES) or any(d > 1.0 for d in off.values()):
         raise AssertionError(f"{label}: phase spans {last} against last_phase_ms {want}")
+    if not {"pack", "bind"} <= set(last):
+        raise AssertionError(f"{label}: no solver.phase.pack or .bind under the solve: "
+                             f"{sorted(last)}")
     tree = span_tree(spans)
     say(f"[{label}] step 1 spans ({len(spans)}):\n" + "\n".join(tree))
-    return {"spans": len(spans), "phase_span_vs_last_phase_ms_max_ms": max(off.values())}
+    return {"spans": len(spans), "phase_spans": sorted(last),
+            "phase_span_vs_last_phase_ms_max_ms": max(off.values())}
 
 
 def check_exposition(label: str, run: "OperatorRun", n_pending: int, machines: int,
@@ -2969,10 +2979,15 @@ def replay_solve_record(label: str, taken: dict, must_match_live: bool) -> dict:
 # its whole cluster context and can replay to its placements: phase 13's
 # cluster, and phase 12's at half of it
 PHASE12_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=0, per_node=18))
-# phases 12 and 14b at half of it (2,400 pods over 100 nodes, 1,800 bound):
-# the depth cut that, with 10b at half of 3c's size and phase 8 at 300
-# nodes, pays for phase 17
+# phase 12 at half of it (2,400 pods over 100 nodes, 1,800 bound): the
+# depth cut that, with 10b at half of 3c's size and phase 8 at 300 nodes,
+# pays for phase 17
 DRILL_SIZE = (2250, 400, 100, 100, dict(n_ingress=150, n_sets=0, per_node=18))
+# phases 14b and 16b at a quarter of phase 13's cluster (1,200 pods over 50
+# nodes, 900 bound): the depth cut that keeps the smoke under 1,000 s on a
+# host 20% slower than the one it was sized on (991.4 s printed there with
+# both at half)
+QUARTER_SIZE = (1125, 400, 50, 100, dict(n_ingress=75, n_sets=0, per_node=18))
 # ResilientSolver as the reference's process entry wraps its primary
 # (operator/__main__.py:636-668)
 RESILIENT_KW = dict(solve_timeout=900.0, wedge_stale_after=600.0)
@@ -3290,10 +3305,10 @@ ENTRY_BOUND_S = 180.0
 ENTRY_FAMILIES = ("karpenter_prewarm_", "karpenter_slo_", "karpenter_solver_")
 # phase 16b: the share of the apiserver's store calls that answer 503
 HTTP_CHAOS_P = 0.005
-# phase 16b's cluster: half of phase 13's (DRILL_SIZE: 2,400 pods over 100
-# nodes, 1,800 bound), the depth cut that gives the smoke its margin
+# phase 16b's cluster: a quarter of phase 13's (QUARTER_SIZE: 1,200 pods
+# over 50 nodes, 900 bound), the depth cut that gives the smoke its margin
 # under 1,000 s with phase 17
-HTTP_SIZE = DRILL_SIZE
+HTTP_SIZE = QUARTER_SIZE
 
 
 def _free_port() -> int:
@@ -3471,6 +3486,60 @@ class OverHTTP:
         self.server.close()
 
 
+def cache_counts(primary) -> dict:
+    """karpenter_compile_cache_{hits,misses} by site, and the compile
+    seconds' count and sum, where the primary keeps them: the solver host's
+    child (its stats frame) or this process."""
+    if isinstance(primary, HostSolver):
+        stats = primary.host.stats()
+        return {"hits": stats["compile_cache_hits"], "misses": stats["compile_cache_misses"],
+                "compile_seconds": stats["compile_seconds"]}
+
+    def by_site(counter):
+        return {labels.get("site", ""): value for labels, value in counter.series()}
+
+    _buckets, count, total = compilecache.COMPILE_SECONDS.snapshot()
+    return {"hits": by_site(compilecache.CACHE_HITS),
+            "misses": by_site(compilecache.CACHE_MISSES),
+            "compile_seconds": {"count": count, "sum": total}}
+
+
+def check_prewarm_cache(tag, primary, outcomes) -> dict:
+    """After the prewarm: one miss per tier the prewarm compiled, at the
+    site that keys the primary's warm state (the service's entries in the
+    solver host's child, the prewarm's lookups in process)."""
+    got = cache_counts(primary)
+    site = "service" if isinstance(primary, HostSolver) else "prewarm"
+    compiled = sum(1 for o in outcomes.values() if o == "compiled")
+    if got["misses"].get(site, 0) != compiled:
+        raise AssertionError(f"{tag}: {got['misses']} compile-cache misses after the prewarm, "
+                             f"not one per tier compiled ({compiled} at {site})")
+    return got
+
+
+def check_live_hit(tag, proc, its, tier_name) -> dict:
+    """One live solve of a prewarmed geometry (the tier's synthetic
+    workload, as tests/test_bucket_ladder.py solves it) through the wired
+    primary: it must count as a compile-cache hit and mint no entry."""
+    primary = proc.primary
+    tier = next(t for t in api_settings.current().bucket_ladder if t.name == tier_name)
+    provs = [p for p in proc.operator.kube_client.list("Provisioner", copy_objects=False)]
+    pods, nodes = prewarm_mod.synthetic_workload(tier, provs, its)
+    before = cache_counts(primary)
+    t0 = time.perf_counter()
+    # the class's solve: the probe's per-instance wrapper records backlog solves
+    res = type(primary).solve(primary, pods[:40], provs, its, state_nodes=nodes)
+    wall = round(time.perf_counter() - t0, 3)
+    after = cache_counts(primary)
+    site = "service" if isinstance(primary, HostSolver) else "tpu_solver"
+    hits = after["hits"].get(site, 0) - before["hits"].get(site, 0)
+    misses = sum(after["misses"].values()) - sum(before["misses"].values())
+    if res.pod_count_new() + res.pod_count_existing() != 40 or hits != 1 or misses:
+        raise AssertionError(f"{tag}: the live solve of prewarmed tier {tier_name} counted "
+                             f"{hits} hits and {misses} misses at {site}")
+    return {"tier": tier_name, "site": site, "hits": hits, "misses": misses, "wall_s": wall}
+
+
 def _phase_entry(device, size, tiers, bound_s, gen2, gen2_without, http=None) -> dict:
     if http is None:
         pods, its, client = _entry_cluster(size, "entry")
@@ -3569,6 +3638,8 @@ def _phase_entry_run(device, tiers, bound_s, gen2, gen2_without, pods, its, clie
                 o not in ("compiled", "cached") for o in outcomes.values()) or ready != 1.0:
             raise AssertionError(f"entry: prewarm {json.dumps(out['prewarm'])}")
         out["launches_prewarm"] = launch_counts()
+        out["compile_cache"] = {"after_prewarm": check_prewarm_cache(tag, proc.primary,
+                                                                      outcomes)}
         host = proc.primary if isinstance(proc.primary, HostSolver) else None
         out["primary"] = describe(proc.primary)
         if device == "cuda" and host is None:
@@ -3642,6 +3713,11 @@ def _phase_entry_run(device, tiers, bound_s, gen2, gen2_without, pods, its, clie
                 programs = json.loads(body)
                 out["programs"] = sorted({(r["process"], r["family"])
                                           for r in programs["programs"]})
+                # each solve geometry's cold seconds, by its slot tier: the
+                # prewarmed tiers' and the backlog's
+                out["compile_cache"]["solve_programs"] = sorted(
+                    (r.get("tier", ""), r.get("origin", ""), r["compile_seconds"])
+                    for r in programs["programs"] if r["family"] == "solve")
             elif path == "/debug/config":
                 config = json.loads(body)
                 if (config["options"]["enable_profiling"] is not True
@@ -3651,6 +3727,10 @@ def _phase_entry_run(device, tiers, bound_s, gen2, gen2_without, pods, its, clie
             elif path == "/debug/backend":
                 out["backend"] = json.loads(body)
         out["served"] = served
+        out["compile_cache"]["after_backlog"] = cache_counts(proc.primary)
+        if server is None:
+            out["compile_cache"]["live_prewarmed"] = check_live_hit(tag, proc, its, tiers[0])
+        say(f"[{tag}] compile cache: {json.dumps(out['compile_cache'])}")
     finally:
         if server is not None:
             say(f"[{tag}] stopping {round(time.perf_counter() - t_run, 3)} s after run()")
@@ -3798,8 +3878,8 @@ def phase_boundary_full(pods, provs, its, client, cluster, max_nodes, want, devi
     return out
 
 
-def phase_wedge_drill(device="cuda", size=DRILL_SIZE, stale_s: float = WEDGE_STALE_S):
-    """14b: at phase 12's size (DRILL_SIZE), a ResilientSolver around a HostSolver
+def phase_wedge_drill(device="cuda", size=QUARTER_SIZE, stale_s: float = WEDGE_STALE_S):
+    """14b: at a quarter of phase 13's size (QUARTER_SIZE), a ResilientSolver around a HostSolver
     (wedge_stale_after=None: the host watches) solves once on the child;
     the child is stopped (SIGSTOP) once the next solve's request is
     written, the watchdog must kill its process group at `stale_s`, and

@@ -14,6 +14,8 @@ from karpenter_core_tpu_torch.kube.objects import (
 
 GROUP = "karpenter.sh"
 
+ARCHITECTURE_AMD64 = "amd64"
+ARCHITECTURE_ARM64 = "arm64"
 CAPACITY_TYPE_SPOT = "spot"
 CAPACITY_TYPE_ON_DEMAND = "on-demand"
 

@@ -163,6 +163,27 @@ def default_universe() -> List[InstanceType]:
     ]
 
 
+def instance_types_assorted() -> List[InstanceType]:
+    """The cross product of cpu x mem x zone x capacity type x os x arch
+    (fake/instancetype.go:109-148): 1,344 single-offering types."""
+    out = []
+    for cpu in [1, 2, 4, 8, 16, 32, 64]:
+        for mem in [1, 2, 4, 8, 16, 32, 64, 128]:
+            for zone in ["test-zone-1", "test-zone-2", "test-zone-3"]:
+                for ct in [api_labels.CAPACITY_TYPE_SPOT, api_labels.CAPACITY_TYPE_ON_DEMAND]:
+                    for os_ in ["linux", "windows"]:
+                        for arch in [api_labels.ARCHITECTURE_AMD64, api_labels.ARCHITECTURE_ARM64]:
+                            resources = {"cpu": float(cpu), "memory": float(mem * GI)}
+                            out.append(new_instance_type(
+                                f"{cpu}-cpu-{mem}-mem-{arch}-{os_}-{zone}-{ct}",
+                                resources=resources,
+                                architecture=arch,
+                                operating_systems=[os_],
+                                offerings=[Offering(ct, zone, price_from_resources(resources))],
+                            ))
+    return out
+
+
 def _allows_type(itype: Optional[Requirement], it: InstanceType) -> bool:
     """The instance-type key's share of Requirements.compatible between a
     machine's requirement `itype` and the type's own."""

@@ -51,7 +51,8 @@ class EvictionQueue:
         self.kube_client = kube_client
         self.recorder = recorder
         self.pdb_checker = pdb_checker
-        self._queued: Dict[NamespacedName, int] = {}  # key -> its generation
+        # the pending keys (the reference's set), each with its generation
+        self._set: Dict[NamespacedName, int] = {}
         self._heap: list = []  # (due, seq, key, attempts, generation)
         self._seq = 0
         self._cond = threading.Condition()
@@ -63,22 +64,22 @@ class EvictionQueue:
         with self._cond:
             for pod in pods:
                 key = object_key(pod)
-                if key not in self._queued:
-                    self._queued[key] = self._seq
+                if key not in self._set:
+                    self._set[key] = self._seq
                     heapq.heappush(self._heap, (0.0, self._seq, key, 0, self._seq))
                     self._seq += 1
             self._cond.notify()
 
     def __len__(self) -> int:
         with self._cond:
-            return len(self._queued)
+            return len(self._set)
 
     def _requeue(self, key: NamespacedName, attempts: int, generation: int) -> None:
         """A blocked eviction comes back after 0.1 s x 2^attempts, at most
         10 s (eviction.go:110-124), unless its key was drained meanwhile."""
         delay = min(0.1 * (2 ** attempts), 10.0)
         with self._cond:
-            if self._queued.get(key) != generation:
+            if self._set.get(key) != generation:
                 return
             heapq.heappush(self._heap, (time.monotonic() + delay, self._seq, key,
                                         attempts + 1, generation))
@@ -107,7 +108,7 @@ class EvictionQueue:
         with self._cond:
             while not self._stop.is_set():
                 now = time.monotonic()
-                while self._heap and self._queued.get(self._heap[0][2]) != self._heap[0][4]:
+                while self._heap and self._set.get(self._heap[0][2]) != self._heap[0][4]:
                     heapq.heappop(self._heap)  # drained synchronously meanwhile
                 if self._heap and self._heap[0][0] <= now:
                     _, _, key, attempts, generation = heapq.heappop(self._heap)
@@ -126,8 +127,8 @@ class EvictionQueue:
             key, attempts, generation = item
             if self.evict(key):
                 with self._cond:
-                    if self._queued.get(key) == generation:
-                        del self._queued[key]
+                    if self._set.get(key) == generation:
+                        del self._set[key]
             else:
                 self._requeue(key, attempts, generation)
 
@@ -154,14 +155,14 @@ class EvictionQueue:
         """Evict everything queued, repeating while evictions progress."""
         while True:
             with self._cond:
-                pending = list(self._queued)
+                pending = list(self._set)
             if not pending:
                 return
             progressed = False
             for key in pending:
                 if self.evict(key):
                     with self._cond:
-                        self._queued.pop(key, None)
+                        self._set.pop(key, None)
                     progressed = True
             if not progressed:
                 return

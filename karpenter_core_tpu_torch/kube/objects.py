@@ -451,11 +451,16 @@ class CSINode:
 @dataclass
 class PodDisruptionBudgetSpec:
     selector: Optional[LabelSelector] = None
+    min_available: Optional[object] = None  # an int or a percent string "50%"
+    max_unavailable: Optional[object] = None
 
 
 @dataclass
 class PodDisruptionBudgetStatus:
     disruptions_allowed: int = 0
+    current_healthy: int = 0
+    desired_healthy: int = 0
+    expected_pods: int = 0
 
 
 @dataclass

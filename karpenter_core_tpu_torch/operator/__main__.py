@@ -217,11 +217,10 @@ def _tenants_digest(slo=None) -> dict:
     """The /debug/tenants payload: who burned the budget. Per tenant: the
     latency percentiles, the shed and fallback breakdowns, the device
     time, the admission gate's depth and deadline expiries, the ladder's
-    demotions and the flight-record index, read off the live series the
-    tenant labels mark (this process's; the solver host's child series
-    arrive merged in /metrics). The reference's compile-cache columns
-    (compile_misses, compile_seconds) stay 0: the XLA compile cache is not
-    ported (ROADMAP Queue A item 3)."""
+    demotions, the warm-up misses and their seconds (utils/compilecache)
+    and the flight-record index, read off the live series the tenant
+    labels mark (this process's; the solver host's child series arrive
+    merged in /metrics)."""
     from karpenter_core_tpu_torch.controllers.provisioning.provisioner import (
         ADMISSION_TO_BIND,
     )
@@ -236,6 +235,7 @@ def _tenants_digest(slo=None) -> dict:
         SOLVER_QUEUE_WAIT,
         SOLVER_SHED_TOTAL,
     )
+    from karpenter_core_tpu_torch.utils.compilecache import CACHE_MISSES, COMPILE_SECONDS
 
     tenants: dict = {}
 
@@ -275,6 +275,14 @@ def _tenants_digest(slo=None) -> dict:
         t = labels.get("tenant")
         if t is not None and labels.get("phase") == "device":
             entry(t)["device_ms"] += round(float(data["sum"]) * 1e3, 1)
+    for labels, value in CACHE_MISSES.series():
+        t = labels.get("tenant")
+        if t is not None:
+            entry(t)["compile_misses"] += int(value)
+    for labels, data in COMPILE_SECONDS.series():
+        t = labels.get("tenant")
+        if t is not None:
+            entry(t)["compile_seconds"] += round(float(data["sum"]), 3)
     for labels, value in list(SOLVER_QUEUE_DEPTH.values.items()):
         d = dict(labels)
         t = d.get("tenant")
@@ -533,9 +541,11 @@ def run(cloud_provider, kube_client=None, stop_event=None, options=None,
 
     enable_tracing_from_env(default_on=True)
     enable_flightrec_from_env(default_on=True)
-    # the reference enables its persistent compile cache here; the port
-    # needs none: ops/cuda_build.py keeps the built kernels on disk and
-    # rebuilds one only when its source is newer
+    # the kernels' libraries outlive a restart (utils/compilecache): a
+    # rebooted control plane loads them instead of running nvcc again
+    from karpenter_core_tpu_torch.utils.compilecache import enable_persistent_cache
+
+    enable_persistent_cache()
     if kube_client is None:
         from karpenter_core_tpu_torch.kube.client import InMemoryKubeClient
 

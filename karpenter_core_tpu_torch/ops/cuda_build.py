@@ -17,8 +17,13 @@ import threading
 import time
 from typing import Dict, List
 
+from karpenter_core_tpu_torch.obs import envflags
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-BUILD_DIR = os.path.join(CSRC, "build")
+DEFAULT_BUILD_DIR = os.path.join(CSRC, "build")
+# where the libraries are built and looked for (utils/compilecache.
+# enable_persistent_cache moves it)
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -39,7 +44,7 @@ def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    home = envflags.raw("CUDA_HOME") or envflags.raw("CUDA_PATH") or "/usr/local/cuda"
     cand = os.path.join(home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand
@@ -49,12 +54,13 @@ def nvcc_path() -> str:
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless the library is newer; returns its path."""
     src = os.path.join(CSRC, f"{name}.cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    build_dir = BUILD_DIR
+    out = os.path.join(build_dir, f"lib{name}.so")
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         BUILD_SECONDS.setdefault(name, 0.0)
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     t0 = time.perf_counter()
     try:

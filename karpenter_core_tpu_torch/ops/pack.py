@@ -72,6 +72,7 @@ from karpenter_core_tpu_torch.ops.topology import (
     topo_record_bulk,
     topo_screen,
 )
+from karpenter_core_tpu_torch.utils import supervise
 
 BIG = 1e30  # float32(1e30) once it meets a float32 tensor
 BIGK = 2**30
@@ -661,6 +662,9 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
             count = int(count_h[i])
             if not valid_h[i] or count <= 0:
                 continue
+            # the scan's proof of life for the dispatch watchdogs: a long
+            # scan on a loaded host is slow, not wedged
+            supervise.touch_progress()
             LAST_SCAN["items"] += 1
             iid = i if item_ids is None else int(item_ids[i])
             allow_i = item_arrays["allow"][i]
@@ -1187,6 +1191,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
             # slots (<= N), failed opens end the item or retire a domain
             while remaining > 0 and not exhausted and tries < count + N + V + 64:
                 tries += 1
+                supervise.touch_progress()
                 force, cap, gate, dmark = None, BIGK, None, None
                 if owns_vk_spread:
                     force, cap, blocked, gate, dmark = spread_plan(remaining, dead)

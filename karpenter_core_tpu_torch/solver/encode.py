@@ -29,10 +29,6 @@ import numpy as np
 
 from karpenter_core_tpu_torch.api import labels as api_labels
 from karpenter_core_tpu_torch.api.provisioner import order_by_weight
-from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology import (
-    Topology,
-    build_domains,
-)
 from karpenter_core_tpu_torch.kube.objects import (
     LABEL_HOSTNAME,
     LABEL_TOPOLOGY_ZONE,
@@ -680,7 +676,13 @@ def encode_snapshot(
         reqs.add(Requirement(LABEL_HOSTNAME, OP_IN, [node.hostname()]))
         exist_reqs_list.append(reqs)
 
-    # the batch's topology groups, seeded with the cluster's pods
+    # the batch's topology groups, seeded with the cluster's pods (the host
+    # Topology is a controllers module: solver reaches it at call time only)
+    from karpenter_core_tpu_torch.controllers.provisioning.scheduling.topology import (
+        Topology,
+        build_domains,
+    )
+
     host_topology = Topology(kube_client, cluster,
                              build_domains(provisioners, instance_types),
                              pods_sorted, update_pods=uniq_pods)

@@ -438,17 +438,19 @@ class AdmissionGate:
         label = reqctx.TENANTS.admit(tenant)
         depth = self._tenant_depth.get(label, 0) + 1
         self._tenant_depth[label] = depth
-        SOLVER_QUEUE_DEPTH.set(float(depth), {"gate": self.name, "tenant": label})
+        SOLVER_QUEUE_DEPTH.set(float(depth),
+                               {"gate": self.name, "tenant": reqctx.TENANTS.admit(tenant)})
 
     def _tenant_exit_locked(self, tenant: str) -> None:
         label = reqctx.TENANTS.admit(tenant)
         depth = self._tenant_depth.get(label, 0) - 1
         if depth <= 0:
             self._tenant_depth.pop(label, None)
-            SOLVER_QUEUE_DEPTH.delete({"gate": self.name, "tenant": label})
+            SOLVER_QUEUE_DEPTH.delete({"gate": self.name, "tenant": reqctx.TENANTS.admit(tenant)})
         else:
             self._tenant_depth[label] = depth
-            SOLVER_QUEUE_DEPTH.set(float(depth), {"gate": self.name, "tenant": label})
+            SOLVER_QUEUE_DEPTH.set(float(depth),
+                                   {"gate": self.name, "tenant": reqctx.TENANTS.admit(tenant)})
 
     def _shed_locked(self, reason: str, retry_after: Optional[float], detail: str,
                      tenant: Optional[str] = None):
@@ -1514,9 +1516,11 @@ def host_main(argv=None) -> int:
     from karpenter_core_tpu_torch.obs.log import configure_logging_from_env
     from karpenter_core_tpu_torch.solver.incremental import OUTCOMES
     from karpenter_core_tpu_torch.solver.service import SolverService, classify_exception
+    from karpenter_core_tpu_torch.utils.compilecache import enable_persistent_cache
 
     configure_logging_from_env(default_level="info")
     enable_tracing_from_env(default_on=False)
+    enable_persistent_cache()
     # the process heartbeat: every phase mark of a dispatch touches this
     # file, whose mtime the parent's watchdog reads and whose label names
     # the phase a wedge verdict reports
@@ -1612,9 +1616,19 @@ def host_main(argv=None) -> int:
             elif op == "stats":
                 from karpenter_core_tpu_torch.ops import screen
 
+                from karpenter_core_tpu_torch.utils.compilecache import (
+                    CACHE_HITS,
+                    CACHE_MISSES,
+                    COMPILE_SECONDS,
+                )
+
+                _buckets, n_compiles, compile_s = COMPILE_SECONDS.snapshot()
                 info = {"pid": os.getpid(), "solves": service.solves,
                         "replans": service.replans,
                         "incremental": _counter_by_label(OUTCOMES, "outcome"),
+                        "compile_cache_hits": _counter_by_label(CACHE_HITS, "site"),
+                        "compile_cache_misses": _counter_by_label(CACHE_MISSES, "site"),
+                        "compile_seconds": {"count": n_compiles, "sum": compile_s},
                         "launches": screen.launch_counts(),
                         "entries": len(service._compiled)}
                 sheader: Dict[str, object] = {"op": "result", "id": rid, "ok": True}

@@ -67,6 +67,7 @@ from karpenter_core_tpu_torch.solver.torch_solver import (
     solve_with_relaxation,
 )
 from karpenter_core_tpu_torch.utils import supervise
+from karpenter_core_tpu_torch.utils.compilecache import record_compile_seconds, record_lookup
 
 LOG = get_logger("karpenter.solver.service")
 
@@ -319,7 +320,9 @@ def decode_response(snap, response) -> SolveResult:
     state = _StateView({k[len("state/"):]: v for k, v in tensors.items()
                         if k.startswith("state/")})
     ptr = int(np.asarray(tensors["ptr"]).reshape(-1)[0])
-    return decode_solve(snap, (log, ptr), state)
+    # "bind": the reference's span over the decode (expand_log's inside)
+    with TRACER.span("solver.phase.bind"):
+        return decode_solve(snap, (log, ptr), state)
 
 
 def replan_response(response, want_slots: bool):
@@ -566,17 +569,21 @@ class SolverService:
 
     # -- entries -------------------------------------------------------------
 
-    def _entry(self, geom_str: str, screen_mode: str) -> Tuple[tuple, _Entry]:
-        """(key, entry) of one wire geometry: made at first sight,
+    def _entry(self, geom_str: str, screen_mode: str, family: str = "service",
+               origin: str = "live") -> Tuple[tuple, _Entry, bool]:
+        """(key, entry, hit) of one wire geometry: made at first sight,
         LRU-bounded, shared by Solve and Replan (a replan reuses the solve
         entry's prescreen and residency, as the in-process solver's
-        does)."""
+        does). The lookup is a compile-cache hit or miss at `family`'s
+        site."""
         key = (geom_str, screen_mode)
         with self._mu:
             entry = self._compiled.get(key)
             if entry is not None:
                 self._compiled.move_to_end(key)
-                return key, entry
+        record_lookup(family, entry is not None)
+        if entry is not None:
+            return key, entry, True
         geometry = json.loads(geom_str)
         segments = [tuple(s) for s in geometry["segments"]]
         topo_meta = _topo_meta(geometry.get("topo_groups"))
@@ -595,11 +602,11 @@ class SolverService:
                 old_key, _ = self._compiled.popitem(last=False)
                 retired.append(("solve", old_key))
                 retired.extend(self._drop_incremental(old_key))
-        self._programs.mint("solve", key, meta={"tier": f"{n_slots}slots",
-                                                "mode": screen_mode})
+        self._programs.mint("solve", key, origin=origin,
+                            meta={"tier": f"{n_slots}slots", "mode": screen_mode})
         for family, old in retired:
             self._programs.retire(family, old)
-        return key, entry
+        return key, entry, False
 
     def _drop_incremental(self, key) -> list:
         """An evicted solve entry takes its resident tensor and its refresh
@@ -706,7 +713,11 @@ class SolverService:
 
         tensors = {t.name: tensor_from_pb(t) for t in request.tensors}
         args = _unflatten_args(tensors)
-        key, entry = self._entry(request.geometry, ops_compat.resolve_screen_mode())
+        # "pack": the wire geometry's entry lookup, a span at the head of
+        # the upload phase (the in-process solver's)
+        t_pack = time.perf_counter_ns()
+        key, entry, hit = self._entry(request.geometry, ops_compat.resolve_screen_mode())
+        TRACER.add_span("solver.phase.pack", t_pack, time.perf_counter_ns())
         targs = self._upload(args)
         mark("upload", tensors=len(request.tensors))
         screen0 = items_pl = None
@@ -717,8 +728,11 @@ class SolverService:
         # re-label for the long silent stretch ahead
         supervise.touch_heartbeat("solver.phase.device")
         log, ptr, state = dispatch_solve(entry.run, screen0, targs, items_pl, sync=self._sync)
-        device_ms = mark("device")
+        device_ms = mark("device", compile_cache="hit" if hit else "miss")
         self._programs.dispatch("solve", key, device_ms=cold_ms + device_ms)
+        if not hit:
+            # a miss's first dispatch pays the geometry's warm-up
+            record_compile_seconds((cold_ms + device_ms) / 1e3)
         log = fetch_log(log, whole=True)
         out = [tensor_to_pb("ptr", np.asarray(ptr, dtype=np.int32))]
         for name in sorted(log):
@@ -749,7 +763,8 @@ class SolverService:
         uninit[: min(len(raw_uninit), E)] = raw_uninit[:E]
         want_slots = bool(int(np.asarray(tensors.pop("replan/want_slots")).reshape(-1)[0]))
         args = _unflatten_args(tensors)
-        key, entry = self._entry(request.geometry, ops_compat.resolve_screen_mode())
+        key, entry, _hit = self._entry(request.geometry, ops_compat.resolve_screen_mode(),
+                                       family="service_replan_entry")
         targs = self._upload(args)
         uninit_t = torch.from_numpy(uninit).to(self.device)
         screen0 = items_pl = None
@@ -773,11 +788,13 @@ class SolverService:
             supervise.touch_heartbeat()
             rkey = (key, kp)
             with self._mu:
+                hit = rkey in self._replan_compiled
                 self._replan_compiled[rkey] = replan
                 self._replan_compiled.move_to_end(rkey)
                 evicted = []
                 while len(self._replan_compiled) > self.MAX_REPLAN:
                     evicted.append(self._replan_compiled.popitem(last=False)[0])
+            record_lookup("service_replan", hit)
             for old in evicted:
                 self._programs.retire("replan", old)
             self._programs.dispatch("replan", rkey, device_ms=ms,
@@ -804,15 +821,17 @@ class SolverService:
         t0 = time.perf_counter()
         fresh = load_screen_library(self.device)
         screen_mode = ops_compat.resolve_screen_mode()
-        with self._mu:
-            fresh = fresh or (request.geometry, screen_mode) not in self._compiled
-        key, entry = self._entry(request.geometry, screen_mode)
+        key, entry, hit = self._entry(request.geometry, screen_mode, origin="prewarm")
+        fresh = fresh or not hit
         args = _unflatten_args({t.name: tensor_from_pb(t) for t in request.tensors})
         # the prescreen at this geometry, with no resident tensor
         dispatch_prescreen(entry.segments, entry.screen_v, entry.n_slots, None,
                            self._upload(args))
         self._sync()
-        self._programs.mint("solve", key, origin="prewarm", seconds=time.perf_counter() - t0)
+        seconds = time.perf_counter() - t0
+        self._programs.mint("solve", key, origin="prewarm", seconds=seconds)
+        if fresh:
+            record_compile_seconds(seconds)
         return "compiled" if fresh else "cached"
 
     def health(self, request=None, context=None) -> pb.HealthResponse:
@@ -1138,7 +1157,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     _import_pb2()
     from karpenter_core_tpu_torch.obs import enable_tracing_from_env
     from karpenter_core_tpu_torch.obs.log import configure_logging_from_env
+    from karpenter_core_tpu_torch.utils.compilecache import enable_persistent_cache
 
+    # the kernels' libraries outlive a container restart (utils/compilecache)
+    enable_persistent_cache()
     # server-side tracing and logging, on by default as the operator's
     enable_tracing_from_env(default_on=True)
     configure_logging_from_env(default_level="info")

@@ -107,6 +107,7 @@ from karpenter_core_tpu_torch.solver.encode import (
 )
 from karpenter_core_tpu_torch.solver.incremental import DiffGate, IncrementalScreen
 from karpenter_core_tpu_torch.utils import supervise
+from karpenter_core_tpu_torch.utils.compilecache import record_compile_seconds, record_lookup
 from karpenter_core_tpu_torch.utils.gctuning import gc_paused
 
 # run()'s positional argument order, as device_args() produces it
@@ -1095,6 +1096,8 @@ class TorchSolver:
         # prewarm has met, in order (the counterpart of the reference's
         # compiled-program cache keys)
         self._warm_keys: Dict[tuple, None] = {}
+        # the replan's (warm key, K pad) entries met, likewise
+        self._replan_keys: Dict[tuple, None] = {}
         # the program ledger's view of them (obs/proghealth): the solve,
         # refresh and replan entries, each first dispatch booked as its
         # cold cost
@@ -1268,13 +1271,19 @@ class TorchSolver:
         chaos.maybe_fail(chaos.SOLVER_DEVICE_HANG)
         geom = solve_geometry(snap, self.max_nodes)
         warm_key = (geom, self.screen_mode)
-        cold = self._warm(warm_key)
-        self._programs.mint("solve", warm_key, meta=self._program_meta(geom))
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
             geom[7], geom[8], geom[9], geom[10], geom[12], geom[16]
         )
         args = device_args(snap, provisioners)
         mark("args")
+        # "pack": the geometry's warm-state lookup (the reference's bundle
+        # staging and compiled-program lookup); a span of its own at the
+        # head of the upload phase, which keeps its time
+        t_pack = time.perf_counter_ns()
+        cold = self._warm(warm_key)
+        record_lookup("tpu_solver", not cold)
+        self._programs.mint("solve", warm_key, meta=self._program_meta(geom))
+        TRACER.add_span("solver.phase.pack", t_pack, time.perf_counter_ns())
         targs = args_to_torch(args, self.device)
         mark("upload")
         self._publish(last_prescreen_mode=None, last_prescreen_delta=None,
@@ -1313,7 +1322,8 @@ class TorchSolver:
                     })
                     seg = None
                 if seg is not None:
-                    result = decode_solve(snap, seg[:2], seg[2])
+                    with TRACER.span("solver.phase.bind"):
+                        result = decode_solve(snap, seg[:2], seg[2])
                     mark("decode")
                     return result
         run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
@@ -1322,14 +1332,20 @@ class TorchSolver:
         # scan names the device phase, not the last host-side mark
         supervise.touch_heartbeat("solver.phase.device")
         log, ptr, state = dispatch_solve(run, screen0, targs, items_pl, sync=self._sync)
-        mark("device")
-        self._programs.dispatch("solve", warm_key,
-                                device_ms=phases.get("prescreen", 0.0) + phases["device"])
+        mark("device", compile_cache="miss" if cold else "hit")
+        first_ms = phases.get("prescreen", 0.0) + phases["device"]
+        self._programs.dispatch("solve", warm_key, device_ms=first_ms)
+        if cold:
+            # a miss's first dispatch pays the geometry's warm-up
+            record_compile_seconds(first_ms / 1e3)
         nopen = int(state.nopen)
         log = fetch_log(log)
         host_state = _HostState(state, nopen)
         mark("fetch")
-        result = decode_solve(snap, (log, ptr), host_state)
+        # "bind": the slot assignments decoded back into machines and
+        # placements (expand_log's span nests inside)
+        with TRACER.span("solver.phase.bind"):
+            result = decode_solve(snap, (log, ptr), host_state)
         mark("decode")
         return result
 
@@ -1496,12 +1512,12 @@ class TorchSolver:
                         cluster, want_slots, carried, phases):
         t = time.perf_counter_ns()
 
-        def mark(name):
+        def mark(name, **attrs):
             nonlocal t
             self._sync()
             now = time.perf_counter_ns()
             phases[name] = (now - t) / 1e6
-            TRACER.add_span(f"solver.phase.replan.{name}", t, now)
+            TRACER.add_span(f"solver.phase.replan.{name}", t, now, **attrs)
             t = now
             supervise.touch_heartbeat(f"solver.phase.replan.{name}")
 
@@ -1540,15 +1556,23 @@ class TorchSolver:
                                    rung_mode=True)
         replan = make_batched_replan_kernel(rung_run, E)
         warm_key = (geom, self.screen_mode)
+        misses = []
 
         def on_chunk(kp, ms):
-            self._programs.dispatch("replan", (warm_key, kp), device_ms=ms,
+            rkey = (warm_key, kp)
+            with self._lock:
+                hit = rkey in self._replan_keys
+                self._replan_keys[rkey] = None
+            record_lookup("replan", hit)
+            if not hit:
+                misses.append(rkey)
+            self._programs.dispatch("replan", rkey, device_ms=ms,
                                     meta={"tier": f"K{kp}", "mode": self.screen_mode})
 
         verdict_parts, pods_parts, chunks, scans = dispatch_replan(
             replan, count_rows, exist_open, uninit_t, screen0, targs, items_pl, want_slots,
             on_chunk=on_chunk, sync=self._sync)
-        mark("device")
+        mark("device", compile_cache="miss" if misses else "hit", subsets=int(count_rows.shape[0]))
         K = int(count_rows.shape[0])
         verdicts, pods = fetch_replan(verdict_parts, pods_parts, want_slots)
         mark("fetch")
@@ -1580,14 +1604,19 @@ class TorchSolver:
         fresh = load_screen_library(self.device)
         geom = solve_geometry(snap, self.max_nodes)
         key = (geom, self.screen_mode)
-        fresh = self._warm(key) or fresh
+        cold = self._warm(key)
+        record_lookup("prewarm", not cold)
+        fresh = cold or fresh
         args = device_args(snap, provisioners)
         # the prescreen at this geometry, with no resident tensor
         dispatch_prescreen(geom[8], geom[16], geom[7], None,
                            args_to_torch(args, self.device))
         self._sync()
+        seconds = time.perf_counter() - t0
         self._programs.mint("solve", key, origin="prewarm", meta=self._program_meta(geom),
-                            seconds=time.perf_counter() - t0)
+                            seconds=seconds)
+        if fresh:
+            record_compile_seconds(seconds)
         return "compiled" if fresh else "cached"
 
 

@@ -168,6 +168,21 @@ class Cluster:
                 self._consolidated = False
             return self._consolidated
 
+    def synced(self) -> bool:
+        """Every kube Node, and every Machine that has a provider id, is
+        tracked (cluster.go:77-111). A Machine without one is skipped, as
+        update_machine skips it: it cannot be reconciled yet, so it does
+        not hold startup back."""
+        with self._mu:
+            for node in self.kube_client.list("Node", copy_objects=False):
+                if node.metadata.name not in self.node_name_to_provider_id:
+                    return False
+            for machine in self.kube_client.list("Machine", copy_objects=False):
+                if machine.status.provider_id and (
+                        machine.metadata.name not in self.machine_name_to_provider_id):
+                    return False
+            return True
+
     # -- ingestion (cluster.go:204-267,341-505) -------------------------------
 
     def update_node(self, node) -> None:

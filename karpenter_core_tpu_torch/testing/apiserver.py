@@ -476,7 +476,8 @@ class ApiServerProcess:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", __name__, "--load", self._load,
              "--chaos-p", repr(chaos_p), "--chaos-seed", str(chaos_seed)],
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._err, cwd=_ROOT)
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._err, cwd=_ROOT,
+            start_new_session=True)
         self.pid = self.proc.pid
 
     @property
@@ -544,7 +545,9 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, lambda *_: done.set())
     threading.Thread(target=lambda: (sys.stdin.read(), done.set()), daemon=True,
                      name="apiserver-stdin").start()
-    print(f"apiserver {srv.port}", flush=True)
+    # the port hand-off: the one line the parent's `url` reads
+    sys.stdout.write(f"apiserver {srv.port}\n")
+    sys.stdout.flush()
     done.wait()
     srv.close()
     return 0

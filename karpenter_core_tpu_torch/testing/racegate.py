@@ -73,8 +73,8 @@ def deflake_iteration(seed: int, kube_client=None, solver=None, n_pods: int = 12
                 deleted.append(pod)
             time.sleep(rng.random() * 0.01)
 
-    threads = [threading.Thread(target=creator, name="deflake-creator"),
-               threading.Thread(target=deleter, name="deflake-deleter")]
+    threads = [threading.Thread(target=creator, name="deflake-creator", daemon=True),
+               threading.Thread(target=deleter, name="deflake-deleter", daemon=True)]
     try:
         for th in threads:
             th.start()
@@ -84,8 +84,8 @@ def deflake_iteration(seed: int, kube_client=None, solver=None, n_pods: int = 12
         survivors = {p.metadata.name for p in created} - {p.metadata.name for p in deleted}
         demand = 0.5 * len(survivors)
         capacity, machines = 0.0, []
-        deadline = time.time() + quiesce_s
-        while time.time() < deadline:
+        deadline = time.monotonic() + quiesce_s
+        while time.monotonic() < deadline:
             machines = client.list("Machine")
             capacity = sum(m.status.capacity.get("cpu") or 0.0 for m in machines)
             if machines and capacity >= demand:

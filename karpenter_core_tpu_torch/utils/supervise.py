@@ -14,7 +14,8 @@ whole budget; one that stopped touching it is wedged and is abandoned now
     thread-local binding. The watchdog binds a heartbeat into the thread it
     spawns, and the solver's phase marks (TorchSolver) touch it without
     the object being passed through every signature. An unbound thread's
-    touch is one thread-local read.
+    touch is one thread-local read. ``touch_progress`` is the rate-limited
+    touch of a long loop between two phase marks (the pack scan's items).
   * ``set_process_heartbeat`` / ``process_heartbeat``: the process-wide
     heartbeat of a supervised worker process (the solver host's child):
     every ``touch_heartbeat`` from any thread also touches it, so the
@@ -137,6 +138,22 @@ def touch_heartbeat(label: Optional[str] = None) -> None:
 
 def bound_heartbeat() -> Optional[ThreadHeartbeat]:
     return getattr(_TLS, "heartbeat", None)
+
+
+# the least seconds between two progress touches of one thread
+PROGRESS_EVERY_S = 0.5
+
+
+def touch_progress() -> None:
+    """A long loop's proof of life between two phase marks (the pack
+    scan's items): touch the heartbeats, label kept, at most every
+    PROGRESS_EVERY_S on this thread. A scan slowed by a loaded host keeps
+    its heartbeat fresh; a stopped one goes stale at the watchdog's
+    threshold as before. Costs one monotonic read between touches."""
+    now = time.monotonic()
+    if now - getattr(_TLS, "progress_at", 0.0) >= PROGRESS_EVERY_S:
+        _TLS.progress_at = now
+        touch_heartbeat()
 
 
 # -- a worker's output: redaction, tails, atomic writes ---------------------

@@ -190,8 +190,10 @@ def test_keep_armed_leaves_an_armed_point_alone():
 FRESH = """
 import importlib, pkgutil, sys
 import karpenter_core_tpu_torch.chaos, karpenter_core_tpu_torch.loadgen as lg
-for m in pkgutil.iter_modules(lg.__path__):
-    importlib.import_module(f"karpenter_core_tpu_torch.loadgen.{m.name}")
+import karpenter_core_tpu_torch.analysis as an
+for pkg in (lg, an):
+    for m in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(f"{pkg.__name__}.{m.name}")
 bad = sorted(n for n in sys.modules if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "karpenter_core_tpu" or n.startswith("karpenter_core_tpu."))
 print(",".join(bad) or "clean")

@@ -3,8 +3,7 @@ the port.
 
 Each case runs from its suite's own source, executed under an `__import__`
 that maps every import of the reference package to the port's module of
-the same path (tests/test_torch_entry_suites.py's method, through
-tests/test_torch_host_suites.py's runner, which shares a suite's
+the same path (tests/torch_suites.py's `PortSuites`, which shares a suite's
 module-scoped fixtures across its cases), and must pass on the port. The
 suites start operators with their threads, a gRPC server and soaks, so
 each case runs on the port only: the reference's own run is its own
@@ -27,14 +26,8 @@ import tests.test_chaos_operator as chaos_operator
 import tests.test_chaos_registry as chaos_registry
 import tests.test_chaos_solver as chaos_solver
 import tests.test_loadgen as loadgen_suite
-from tests.test_torch_entry_suites import _reference_owned
-from tests.test_torch_host_suites import (
-    _MODULE_FINALIZERS,
-    _MODULE_FIXTURES,
-    _cases,
-    _namespace,
-    run_case,
-)
+from tests.test_torch_host_suites import host_substitutes
+from tests.torch_suites import Mapping, PortSuites, cases, params_of, reference_names
 
 SUITES = {
     "chaos_registry": chaos_registry,
@@ -44,25 +37,14 @@ SUITES = {
 }
 
 
-def _marks(suite, case):
-    fn = vars(suite)[case.split("::")[0]]
-    if "::" in case:
-        fn = vars(fn)[case.split("::")[1]]
-    return [pytest.mark.slow] if any(
-        m.name == "slow" for m in getattr(fn, "pytestmark", [])) else []
-
-
-CASES = [c for name, suite in SUITES.items() for c in _cases(name, suite)]
+PORT_SUITES = PortSuites(Mapping(host_substitutes()))
+CASES = [c for name, suite in SUITES.items() for c in cases(name, suite)]
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _module_fixtures():
     yield
-    for gen in reversed(_MODULE_FINALIZERS):
-        for _ in gen:
-            pass
-    _MODULE_FINALIZERS.clear()
-    _MODULE_FIXTURES.clear()
+    PORT_SUITES.finish()
 
 
 @pytest.fixture(autouse=True)
@@ -72,12 +54,9 @@ def _disarmed():
     tchaos.reset()
 
 
-@pytest.mark.parametrize(
-    "suite,case,params",
-    [pytest.param(*c[:3], marks=_marks(SUITES[c[0]], c[1]), id=f"{c[0]}-{c[3]}")
-     for c in CASES])
+@pytest.mark.parametrize("suite,case,params", params_of(CASES))
 def test_case_passes_on_the_port(suite, case, params, tmp_path):
-    run_case(SUITES[suite], case, params, tmp_path)
+    PORT_SUITES.run(SUITES[suite], case, params, tmp_path)
 
 
 def test_cases_cover_the_suites():
@@ -90,5 +69,4 @@ def test_port_run_reaches_no_reference_object():
     """Every name a suite takes from the reference package resolves in the
     port."""
     for suite in SUITES.values():
-        for k, v in _namespace(suite).items():
-            assert k == "__builtins__" or not _reference_owned(v), (suite.__name__, k)
+        assert reference_names(PORT_SUITES.namespace(suite)) == [], suite.__name__

@@ -644,13 +644,17 @@ def test_probe_timeout_is_a_reason(monkeypatch):
 
 
 class _Labels:
+    """The labelled touches of a heartbeat, in order (a touch without a
+    label, the scan's progress proof, keeps the phase and is not one)."""
+
     def __init__(self, heartbeat_cls):
         self.labels = []
         outer = self
 
         class Recording(heartbeat_cls):
             def touch(self, label=None):
-                outer.labels.append(label)
+                if label is not None:
+                    outer.labels.append(label)
                 super().touch(label)
 
         self.hb = Recording()

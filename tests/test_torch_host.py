@@ -10,7 +10,8 @@ device="cpu".
 - a crash (SIGKILL of the child) and a wedge (SIGSTOP mid-dispatch) each
   kill and respawn it: the old pid reaped, no live zombie, no parent
   thread left; under ResilientSolver the wedge is served by greedy and
-  re-admitted through health();
+  re-admitted through health(); the pack scan touches the heartbeat as
+  it steps its items, so a slow scan is not read as a wedge;
 - the admission gate's deadline-expired, queue-full-with-retry-after and
   brownout cases;
 - the metrics, program and launch mergers idempotent across a respawn.
@@ -278,6 +279,32 @@ def test_wedge_kills_respawns_and_is_readmitted(monkeypatch):
         hs.close()
     left = [t for t in threading.enumerate() if t not in threads and t.is_alive()]
     assert not left, left
+
+
+def test_scan_proves_progress_between_phase_marks(monkeypatch):
+    """The pack scan touches the process heartbeat (the host child's file)
+    as it steps its items, label kept, so a scan slowed by a loaded host is
+    not read as a wedge: the device phase of the drill's workload is one
+    long silent stretch between two phase marks otherwise."""
+    from karpenter_core_tpu_torch.utils import supervise
+
+    class Touches:
+        def __init__(self):
+            self.labels = []
+
+        def touch(self, label=None):
+            self.labels.append(label)
+
+    hb = Touches()
+    monkeypatch.setattr(supervise, "PROGRESS_EVERY_S", 0.0)
+    monkeypatch.setattr(supervise, "_PROCESS_HB", hb)
+    _solve(TorchSolver(max_nodes=64, device="cpu"), workload("mixed", "torch"))
+    # between the prescreen's mark and the fetch's: the re-label for the
+    # scan, the scan's own touches and the device phase's mark
+    start = hb.labels.index("solver.phase.prescreen")
+    fetch = hb.labels.index("solver.phase.fetch")
+    scan = hb.labels[start + 1:fetch]
+    assert scan.count(None) > 10 and set(scan) == {None, "solver.phase.device"}
 
 
 def test_child_without_a_card_is_an_error_not_a_cpu_solve():

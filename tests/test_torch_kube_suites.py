@@ -3,7 +3,7 @@ wire fixtures, the race watchers and the deflake harness, run on the port.
 
 Each case runs from its suite's own source, executed under an `__import__`
 that maps every import of the reference package to the port's module of
-the same path (tests/test_torch_host_suites.py's runner), and must pass on
+the same path (tests/torch_suites.py's `PortSuites`), and must pass on
 the port:
 - tests/test_apiserver_client.py and tests/test_kube_retry.py: the port's
   kube/apiserver.py against the suites' mocked apiserver; the operator
@@ -40,13 +40,12 @@ import tests.test_kube_retry as kube_retry
 import tests.test_lockwatch as lockwatch_suite
 import tests.test_racewatch as racewatch_suite
 import tests.test_wire_fixtures as wire_fixtures
-from tests.test_torch_entry_suites import _reference_owned
-from tests.test_torch_host_suites import (
-    _MODULE_FINALIZERS,
-    _MODULE_FIXTURES,
-    _cases,
-    _namespace,
-    run_case,
+from tests.torch_suites import (
+    Mapping,
+    PortSuites,
+    cases,
+    cpu_substitutes,
+    reference_names,
 )
 
 SUITES = {
@@ -59,17 +58,14 @@ SUITES = {
     "deflake": deflake,
 }
 
-CASES = [c for name, suite in SUITES.items() for c in _cases(name, suite)]
+PORT_SUITES = PortSuites(Mapping(cpu_substitutes()))
+CASES = [c for name, suite in SUITES.items() for c in cases(name, suite)]
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _module_fixtures():
     yield
-    for gen in reversed(_MODULE_FINALIZERS):
-        for _ in gen:
-            pass
-    _MODULE_FINALIZERS.clear()
-    _MODULE_FIXTURES.clear()
+    PORT_SUITES.finish()
 
 
 @pytest.fixture
@@ -105,12 +101,12 @@ def test_case_passes_on_the_port(suite, case, params, tmp_path, request):
     if suite == "racewatch" and case.startswith("test_real_"):
         request.getfixturevalue("port_watchers")
         before = tracewatch.GLOBAL.stats()["tracked_instances"]
-        run_case(SUITES[suite], case, params, tmp_path)
+        PORT_SUITES.run(SUITES[suite], case, params, tmp_path)
         # the case's objects were the port's, and the port's watcher
         # tracked them
         assert tracewatch.GLOBAL.stats()["tracked_instances"] > before
         return
-    run_case(SUITES[suite], case, params, tmp_path)
+    PORT_SUITES.run(SUITES[suite], case, params, tmp_path)
 
 
 def test_cases_cover_the_suites():
@@ -123,5 +119,4 @@ def test_port_run_reaches_no_reference_object():
     """Every name a suite takes from the reference package resolves in the
     port."""
     for suite in SUITES.values():
-        for k, v in _namespace(suite).items():
-            assert k == "__builtins__" or not _reference_owned(v), (suite.__name__, k)
+        assert reference_names(PORT_SUITES.namespace(suite)) == [], suite.__name__

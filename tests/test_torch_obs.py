@@ -696,7 +696,9 @@ def test_port_imports_no_jax():
             "karpenter_core_tpu_torch.obs.flightrec, "
             "karpenter_core_tpu_torch.controllers.metrics.controllers, "
             "karpenter_core_tpu_torch.cloudprovider.metrics, "
-            "karpenter_core_tpu_torch.kube.serialization; "
+            "karpenter_core_tpu_torch.kube.serialization, "
+            "karpenter_core_tpu_torch.utils.compilecache, "
+            "karpenter_core_tpu_torch.analysis.__main__; "
             "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
             "or k == 'karpenter_core_tpu' or k.startswith('karpenter_core_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -707,14 +709,13 @@ def test_port_imports_no_jax():
 
 # -- one provisioning reconcile: the span tree -------------------------------------
 
-# phases the two solvers name differently, spliced out of both trees (their
-# children move up to the parent): the reference times its host-side arg
-# packing as `pack`, which the port does not have, and decodes under
-# `bind` (with `expand` inside it); the port decodes under `decode`, a
-# retroactive phase span recorded beside `expand`. Both time the prescreen
-# dispatch as `prescreen`.
-REF_ONLY_PHASES = ("solver.phase.pack", "solver.phase.bind")
+# the port also decodes under `decode`, a retroactive phase span recorded
+# beside `bind`, spliced out of its tree (its children move up to the
+# parent). `pack` and `bind` are spans without a phase: the port's
+# last_phase_ms keeps its own keys. Both time the prescreen dispatch as
+# `prescreen`.
 PORT_ONLY_PHASES = ("solver.phase.decode",)
+SPAN_ONLY_PHASES = ("solver.phase.pack", "solver.phase.bind")
 
 
 def _span_tree(spans, splice):
@@ -770,25 +771,26 @@ def _reconcile_spans(pkg):
 def test_provisioning_reconcile_span_tree_matches_reference():
     """One provisioning reconcile through each package's operator: the same
     span-name tree (provisioner.reconcile -> solver.solve -> solver.phase.*,
-    provisioner.launch), apart from the phases listed above; the port's
-    phase spans equal its last_phase_ms."""
+    provisioner.launch), apart from the port's own phase listed above;
+    the port's phase spans but `pack` and `bind` equal its last_phase_ms."""
     ref_spans, _ = _reconcile_spans("jax")
     port_spans, solver = _reconcile_spans("torch")
-    ref = _span_tree(ref_spans, REF_ONLY_PHASES)
+    ref = _span_tree(ref_spans, ())
     port = _span_tree(port_spans, PORT_ONLY_PHASES)
     assert port == ref
     assert ref == ((
         "provisioner.reconcile", (
             ("provisioner.launch", ()),
             ("solver.solve", tuple(sorted(
-                (f"solver.phase.{p}", ()) for p in
-                ("args", "device", "encode", "expand", "fetch", "prescreen", "upload")))),
+                [("solver.phase.bind", (("solver.phase.expand", ()),))]
+                + [(f"solver.phase.{p}", ()) for p in
+                   ("args", "device", "encode", "fetch", "pack", "prescreen", "upload")]))),
         )),)
     names = {s.name for s in port_spans}
     assert set(PORT_ONLY_PHASES) <= names
-    assert not names & set(REF_ONLY_PHASES)
     solve = next(s for s in port_spans if s.name == "solver.solve")
     assert solve.attrs["context"] == "provisioning" and solve.attrs["pods"] == 12
     phases = {s.name[len("solver.phase."):]: s.duration_ms for s in port_spans
-              if s.name.startswith("solver.phase.") and s.name != "solver.phase.expand"}
+              if s.name.startswith("solver.phase.")
+              and s.name not in ("solver.phase.expand", *SPAN_ONLY_PHASES)}
     assert phases == solver.last_phase_ms

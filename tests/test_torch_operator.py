@@ -456,7 +456,7 @@ def test_eviction_queue_keeps_one_live_entry_per_key():
     queue = EvictionQueue(client, pdb_checker=lambda pod: gate["open"])
 
     def live():
-        return [e for e in queue._heap if queue._queued.get(e[2]) == e[4]]
+        return [e for e in queue._heap if queue._set.get(e[2]) == e[4]]
 
     client.create(make_pod(name="held", node_name="n1"))
     queue.add(client.get("Pod", "default", "held"))
@@ -472,7 +472,7 @@ def test_eviction_queue_keeps_one_live_entry_per_key():
     assert len(queue._heap) == 2 and len(live()) == 1
     queue._requeue(key, 1, old)
     assert len(live()) == 1
-    assert queue._pop_ready(0)[1:] == (0, queue._queued[key])
+    assert queue._pop_ready(0)[1:] == (0, queue._set[key])
     assert queue._pop_ready(0.15) is None and queue._heap == []
 
 

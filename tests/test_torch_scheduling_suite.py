@@ -9,7 +9,9 @@ solver), and once with every name it takes from the reference package
 rebound to the port's module or object of the same path and name, on the
 port's Env(solver=GreedySolver()); the one spec that builds its Env on the
 reference's device solver runs on TorchSolver(device="cpu") there. Pods get pinned names, uids and
-creation timestamps on both sides (they break FFD ties). Each spec makes
+creation timestamps on both sides (they break FFD ties), and each Env
+launches a solve's machines one at a time in the solve's order (the
+in-flight nodes' order breaks ties in the next round). Each spec makes
 its own assertions, and the two runs must end in the same outcome: the
 nodes launched (by their labels) with the pods bound to each, the pods
 left unbound, and the cloud provider's create calls.
@@ -56,6 +58,27 @@ def _port_of(value, name):
     return value
 
 
+def _serial_launches(provisioning) -> None:
+    """Launch each solve's machines one at a time, in the solve's order.
+    Both packages launch a solve's machines on parallel threads, and the
+    fake provider names each machine (fake-machine-N) when its create runs:
+    so the order in which the in-flight nodes enter the cluster, which
+    breaks ties between equal pods in the next round (the zonal spread
+    over in-flight nodes), would follow the threads' timing, and two runs
+    of one spec could place the same pods differently."""
+    parallel = provisioning._launch_machines_with_errors
+
+    def serial(machines, opts=None):
+        names, errors = [], []
+        for machine in machines:
+            n, e = parallel([machine], opts)
+            names += n
+            errors += e
+        return names, errors
+
+    provisioning._launch_machines_with_errors = serial
+
+
 class _Run:
     """One package's run of one spec: its globals, the Envs it made."""
 
@@ -76,6 +99,7 @@ class _Run:
                 # body runs on the port's device solver
                 kw["solver"] = TorchSolver(max_nodes=solver.max_nodes, device="cpu")
             env = env_cls(*a, **kw)
+            _serial_launches(env.op.provisioning)
             self.envs.append(env)
             return env
 

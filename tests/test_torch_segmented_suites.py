@@ -2,8 +2,7 @@
 
 Each case runs from its suite's own source, executed under an `__import__`
 that maps every import of the reference package to the port's module of
-the same path (tests/test_torch_entry_suites.py's method), and must pass
-on the port. The reference's own run of each case is its own file's.
+the same path (tests/torch_suites.py), and must pass on the port. The reference's own run of each case is its own file's.
 
 The cases:
 - every spec of tests/test_segmented.py but the two written at the JAX
@@ -34,9 +33,7 @@ Left out: tests/test_perf_floor.py's segmented tripwire, which counts the
 reference's XLA compile-cache entries (`_segment_compiled`); the port
 compiles no program.
 """
-import builtins
 import functools
-import inspect
 import types
 
 import pytest
@@ -52,7 +49,7 @@ import tests.test_differential_fuzz as fuzz
 import tests.test_differential_fuzz_wide as fuzz_wide
 import tests.test_screen_parity as screen_parity
 import tests.test_segmented as segmented
-from tests.test_torch_entry_suites import PORT, _reference_owned, port_module_name
+from tests.torch_suites import PORT, Case, Mapping, cases, reference_owned
 
 SUITES = {
     "segmented": segmented,
@@ -113,80 +110,14 @@ SUBSTITUTES = {
 }
 
 
-def _proxy(module, mapped):
-    subs = {attr: v for (m, attr), v in SUBSTITUTES.items() if m == mapped}
-    if not subs:
-        return module
-    proxy = types.ModuleType(module.__name__)
-    proxy.__dict__.update(vars(module))
-    proxy.__dict__.update(subs)
-    return proxy
-
-
-_MODULES = {}
-
-
-def _port_suite_module(name: str) -> types.ModuleType:
-    """A reference suite's module executed afresh under the port's
-    mapping (once per name)."""
-    mod = _MODULES.get(name)
-    if mod is None:
-        ref = __import__(name, fromlist=["_"])
-        with open(ref.__file__) as f:
-            code = compile(f.read(), ref.__file__, "exec")
-        mod = _MODULES[name] = types.ModuleType(name)
-        mod.__dict__.update(__name__=name, __file__=ref.__file__,
-                            __builtins__=PORT_BUILTINS)
-        exec(code, mod.__dict__)
-    return mod
-
-
-def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
-    if level == 0 and name in MAPPED_SUITES:
-        return _port_suite_module(name)
-    mapped = port_module_name(name) if level == 0 else None
-    module = builtins.__import__(mapped or name, globals, locals, fromlist, level)
-    if mapped and fromlist:
-        return _proxy(module, mapped)
-    return module
-
-
-PORT_BUILTINS = dict(vars(builtins), __import__=_port_import)
+MAPPING = Mapping(SUBSTITUTES, mapped_suites=MAPPED_SUITES)
+CASES = [c for name, suite in SUITES.items()
+         for c in cases(name, suite, left_out=LEFT_OUT.get(name, ()), selected=SELECTED[name])]
 
 
 def run_case(suite, case: str, params: dict) -> None:
     """One case on the port, its monkeypatch fixture undone after it."""
-    ns = vars(_port_suite_module(suite.__name__))
-    fn = ns[case]
-    mp = pytest.MonkeyPatch()
-    kwargs = dict(params)
-    if "monkeypatch" in inspect.signature(fn).parameters:
-        kwargs["monkeypatch"] = mp
-    try:
-        fn(**kwargs)
-    finally:
-        mp.undo()
-
-
-def _cases(name, suite):
-    out = []
-    wanted = SELECTED[name]
-    for attr, v in sorted(vars(suite).items()):
-        if not (attr.startswith("test_") and isinstance(v, types.FunctionType)):
-            continue
-        if (wanted is not None and attr not in wanted) or attr in LEFT_OUT.get(name, {}):
-            continue
-        marks = [m for m in getattr(v, "pytestmark", []) if m.name == "parametrize"]
-        if not marks:
-            out.append((name, attr, {}, attr))
-            continue
-        argname, values = marks[0].args[:2]
-        for i, val in enumerate(values):
-            out.append((name, attr, {argname: val}, f"{attr}[{i}]"))
-    return out
-
-
-CASES = [c for name, suite in SUITES.items() for c in _cases(name, suite)]
+    Case(vars(MAPPING.suite_module(suite.__name__))).run(case, params, reraise=True)
 
 
 @pytest.mark.parametrize("suite,case,params", [c[:3] for c in CASES],
@@ -198,11 +129,11 @@ def test_case_passes_on_the_port(suite, case, params):
 def test_cases_cover_the_suites():
     counts = {name: sum(1 for c in CASES if c[0] == name) for name in SUITES}
     assert counts == {"segmented": 11, "screen_parity": 8, "fuzz": 3, "fuzz_wide": 6}
-    for name, cases in LEFT_OUT.items():
-        for case in cases:
+    for name, left in LEFT_OUT.items():
+        for case in left:
             assert case in vars(SUITES[name]), (name, case)
-    for name, cases in SELECTED.items():
-        for case in cases or ():
+    for name, selected in SELECTED.items():
+        for case in selected or ():
             assert case in vars(SUITES[name]), (name, case)
 
 
@@ -210,7 +141,7 @@ def test_port_run_reaches_no_reference_object():
     """Every name a suite takes from the reference package resolves in the
     port (the builders of the suites it imports included)."""
     for suite in SUITES.values():
-        for k, v in vars(_port_suite_module(suite.__name__)).items():
+        for k, v in vars(MAPPING.suite_module(suite.__name__)).items():
             if k in ("__builtins__", "validate_machines"):
                 continue
-            assert not _reference_owned(v), (suite.__name__, k)
+            assert not reference_owned(v), (suite.__name__, k)
