@@ -340,11 +340,32 @@ Phases, each fatal on failure:
      segment, fixup 0.0) byte-identical to a sequential solve of the same
      batch. Then screen_prep and every form held exactly against their
      plain versions on 17b's snapshot and timed there.
+  18. the device grid (parallel/; right after phase 17): every visible
+     card when there are several, else a 2 x 2 grid of logical devices on
+     the card, named in the output beside every number. 18a: 17a's
+     workload through ShardedSolver over the grid, sequential and
+     segmented (the lanes over dp), each byte-identical to 17a's cold
+     single-card solve of the same scan; fatal: a solve off the grid, a
+     segmented solve without 17a's segments, no screen_prep, block or
+     row_n1 launch; printed: the prescreen, segment and device ms beside
+     17a's, the launches by form and by device, each verdict tile's
+     device and launches, the gathers' bytes (and those from another
+     device) and the largest gather timed alone. 18b:
+     tests/test_solver_factory.py's mixed batch at 3c's size (5,000 pods,
+     200 nodes) solved by TorchSolver, then over the grid through
+     serve(mesh=grid) and RemoteSolver (Health naming dp and tp) and
+     through ResilientSolver(primary=ShardedSolver), both byte-identical
+     to TorchSolver's, no fallback. 18c: the verdict tile of the grid's
+     last device (its existing rows against its class columns) held
+     exactly against screen_plain and timed there, and the process entry
+     with KARPENTER_SOLVER_MODE=sharded: its solver host's child serves
+     over the grid, a 600-pod backlog is nominated within 180 s through a
+     lookup at the child's service_sharded compile-cache site.
 Phase 1 builds the native packer (g++, native/fast_pack.cpp) beside the
 CUDA kernels. Phases 4-6 solve with incremental="off", so their warm solves
 run the full precompute as before. It prints one JSON line describing
 every kernel (the screen, screen_prep, and the screen's three forms with
-their launches over phases 4-10, 12a and 13-17, the solver host's
+their launches over phases 4-10, 12a and 13-18, the solver host's
 children's, the gRPC service's and 16a's child's summed in), then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
@@ -433,6 +454,9 @@ from karpenter_core_tpu_torch.operator import leaderelection, new_operator  # no
 from karpenter_core_tpu_torch.operator.options import parse_options  # noqa: E402
 from karpenter_core_tpu_torch.ops import cuda_build, pack, screen  # noqa: E402
 from karpenter_core_tpu_torch.ops.pack import ScreenOps, class_planes  # noqa: E402
+from karpenter_core_tpu_torch.parallel import specs  # noqa: E402
+from karpenter_core_tpu_torch.parallel.sharded import ShardedSolver  # noqa: E402
+from karpenter_core_tpu_torch.parallel.specs import DeviceGrid  # noqa: E402
 from karpenter_core_tpu_torch.scheduling import taints as taints_mod  # noqa: E402
 from karpenter_core_tpu_torch.scheduling.requirement import Requirement  # noqa: E402
 from karpenter_core_tpu_torch.scheduling.requirements import Requirements  # noqa: E402
@@ -442,6 +466,7 @@ from karpenter_core_tpu_torch.solver import prewarm as prewarm_mod  # noqa: E402
 from karpenter_core_tpu_torch.solver import replan  # noqa: E402
 from karpenter_core_tpu_torch.solver.encode import encode_snapshot  # noqa: E402
 from karpenter_core_tpu_torch.solver import host as host_mod  # noqa: E402
+from karpenter_core_tpu_torch.solver import factory  # noqa: E402
 from karpenter_core_tpu_torch.solver.factory import build_solver, describe  # noqa: E402
 from karpenter_core_tpu_torch.solver.host import HostSolver  # noqa: E402
 from karpenter_core_tpu_torch.state import informer  # noqa: E402
@@ -4614,8 +4639,10 @@ def segmented_solve(label, solver, pods, provs, its, nodes=None, sync=None) -> d
         sync()
     wall = time.perf_counter() - t0
     counts = screen.launch_counts()
-    out = {"result": res, "wall_s": wall, "phases": dict(solver.last_phase_ms),
-           "stats": dict(solver.last_segment_stats or {}), "launches": counts,
+    # a ResilientSolver's phases and stats are its primary's
+    inner = getattr(solver, "primary", solver)
+    out = {"result": res, "wall_s": wall, "phases": dict(inner.last_phase_ms),
+           "stats": dict(inner.last_segment_stats or {}), "launches": counts,
            "placements": torch_solver.placements_json(res), "scan": dict(pack.LAST_SCAN)}
     say(f"[{label}] {wall:.3f} s wall; last_phase_ms "
         + json.dumps({k: round(v, 3) for k, v in out["phases"].items()})
@@ -4761,7 +4788,7 @@ def phase_segmented_full(device="cuda", size=None, int_rate: float = 0.0,
     checked_calls = (audit.check("segmented 17a cold", int_rate, busy_cycles)
                      if device == "cuda" else None)
     return {"runs": out, "launches": _sum_launches(out.values()), "n_pods": len(pods),
-            "audit": checked_calls}
+            "audit": checked_calls, "workload": (pods, provs, its, max_nodes)}
 
 
 def phase_segmented_pair(devices=("cuda", "cpu"), size=None) -> dict:
@@ -4912,6 +4939,377 @@ def phase_segmented_operator(device="cuda", size=None) -> dict:
     return {"launches": counts, "solves": solves}
 
 
+# -- phase 18: the device grid -------------------------------------------------
+
+GRID_MIXED = dict(n_pods=5000, n_existing=200)
+GRID_ENTRY = dict(n_pods=600, n_types=100)
+GRID_LOGICAL = 4
+
+
+def smoke_grid(device="cuda"):
+    """Phase 18's grid and its kind: every visible card ("real") when the
+    machine has more than one, else a 2 x 2 grid of logical devices on the
+    first card (or on the CPU), the port's form of the reference's virtual
+    devices."""
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        return factory.detect_mesh(device="cuda"), "real"
+    dev = torch.device("cuda:0" if device == "cuda" else device)
+    return DeviceGrid.of([dev] * GRID_LOGICAL, 2), "logical"
+
+
+def _grid_name(grid, kind) -> str:
+    return (f"{kind} {grid.shape['dp']} x {grid.shape['tp']} grid over "
+            f"{', '.join(str(d) for d in grid.distinct())}")
+
+
+def grid_mixed_batch(n_pods=5000, n_existing=200):
+    """tests/test_solver_factory.py's mixed_batch at phase 3c's size: a
+    zonal spread, zonal pod affinity, hostPort 8080 and generic pods (one
+    kind in five each, two generic) over `n_existing` initialized nodes of
+    4 cpu, 8Gi and 20 pods, the fake provider's 8 types."""
+    spread = TopologySpreadConstraint(
+        max_skew=1, topology_key=LABEL_TOPOLOGY_ZONE, when_unsatisfiable="DoNotSchedule",
+        label_selector=LabelSelector(match_labels={"app": "spread"}))
+    aff = PodAffinityTerm(topology_key=LABEL_TOPOLOGY_ZONE,
+                          label_selector=LabelSelector(match_labels={"app": "aff"}))
+    pods = []
+    for i in range(n_pods):
+        kind, name = i % 5, f"grid-mixed-{i}"
+        if kind == 0:
+            pods.append(testing.make_pod(name=name, labels={"app": "spread"},
+                                         requests={"cpu": "1"}, topology_spread=[spread]))
+        elif kind == 1:
+            pods.append(testing.make_pod(name=name, labels={"app": "aff"},
+                                         requests={"cpu": "1"}, pod_affinity_required=[aff]))
+        elif kind == 2:
+            pods.append(testing.make_pod(name=name, requests={"cpu": "1"}, host_ports=[8080]))
+        else:
+            pods.append(testing.make_pod(name=name, requests={"cpu": "1", "memory": "1Gi"}))
+    nodes = [StateNode(node=testing.make_node(
+        name=f"grid-node-{e}",
+        labels={PROVISIONER_NAME_LABEL_KEY: "default", LABEL_NODE_INITIALIZED: "true"},
+        capacity={"cpu": "4", "memory": "8Gi", "pods": "20"})) for e in range(n_existing)]
+    return pods, [testing.make_provisioner(name="default")], {
+        "default": fake.instance_types(8)}, nodes
+
+
+def grid_solve(label, solver, pods, provs, its, nodes=None, sync=None) -> dict:
+    """segmented_solve through the grid: also the launches by device, the
+    verdict tiles' launches and the gather's bytes, each set to 0 just
+    before the solve and read just after."""
+    specs.reset_gather()
+    shapes, real = [], specs.SpecLayout.gather
+
+    def gather(self, tiles, spec):
+        got = real(self, tiles, spec)
+        shapes.append((spec, tuple(got.shape), got.dtype))
+        return got
+
+    specs.SpecLayout.gather = gather
+    try:
+        out = segmented_solve(label, solver, pods, provs, its, nodes=nodes, sync=sync)
+    finally:
+        specs.SpecLayout.gather = real
+    out["gathered"] = shapes
+    out["by_device"] = screen.device_launch_counts()
+    out["tiles"] = [dict(tile=[i, j], device=d, launches={k: v for k, v in c.items() if v})
+                    for i, j, d, c in pack.LAST_TILES]
+    out["gather"] = dict(specs.GATHER)
+    out["path"] = getattr(solver, "last_path", None)
+    say(f"[grid] {label}: path {out['path']}, launches by device "
+        f"{json.dumps(out['by_device'])}, verdict tiles {json.dumps(out['tiles'])}, gather "
+        f"{json.dumps(out['gather'])}")
+    return out
+
+
+def gather_ms(layout, tensor, spec, device) -> float:
+    """One gather of `tensor`'s tiles under `spec` onto the lead, timed
+    with a synchronize of every grid device on each side."""
+    tiles = layout.split(tensor, spec)
+
+    def sync():
+        if device == "cuda":
+            for d in layout.mesh.distinct():
+                torch.cuda.synchronize(d)
+
+    sync()
+    t0 = time.perf_counter()
+    layout.gather(tiles, spec)
+    sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_grid_segmented(seg_full, grid, kind, device="cuda") -> dict:
+    """18a: phase 17a's workload (its pods, pools and types) through
+    ShardedSolver over the grid, sequential and segmented (the lanes on
+    the lead device), each placed byte-identically to phase 17a's
+    single-card cold solve of the same scan. The grid solve's wall is set
+    against a first solve of a new TorchSolver on the lead device, run
+    just before it in the same process state. Fatal: a placement that
+    differs, a solve that did not take the grid, a segmented solve
+    without 17a's segments, or one that launched no screen_prep, block
+    or row_n1 (counts set to 0 just before, read just after)."""
+    pods, provs, its, max_nodes = seg_full["workload"]
+
+    def sync():
+        for d in grid.distinct():
+            torch.cuda.synchronize(d)
+
+    out = {"grid": _grid_name(grid, kind)}
+    for mode in ("sequential", "segmented"):
+        beside = segmented_solve(f"grid 18a {mode} single card beside", torch_solver.TorchSolver(
+            max_nodes=max_nodes, device=str(grid.lead), pack_scan=mode), pods, provs, its,
+            sync=sync if device == "cuda" else None)
+        solver = ShardedSolver(grid, max_nodes=max_nodes, pack_scan=mode)
+        run = grid_solve(f"grid 18a {mode}", solver, pods, provs, its,
+                         sync=sync if device == "cuda" else None)
+        single = seg_full["runs"][(mode, "cold")]
+        if run["path"] != "mesh":
+            raise AssertionError(f"grid 18a ({mode}): the solve took the {run['path']} path")
+        if single["placements"] not in (run["placements"], beside["placements"]) or (
+                run["placements"] != beside["placements"]):
+            raise AssertionError(f"grid 18a ({mode}): placements differ from phase 17a's "
+                                 f"single-card solve")
+        run["beside_s"], run["beside_phases"] = beside["wall_s"], beside["phases"]
+        for k in ("screen_prep", "block", "row_n1"):
+            if device == "cuda" and not run["launches"].get(k):
+                raise AssertionError(f"grid 18a ({mode}): no {k} launch")
+        if mode == "segmented" and (run["stats"].get("mode") != "segmented"
+                                    or run["stats"].get("segments")
+                                    != single["stats"].get("segments")):
+            raise AssertionError(f"grid 18a: stats {json.dumps(run['stats'])}")
+        # the largest gather of the solve, again, timed alone on a tensor
+        # of its shape
+        layout = solver.last_spec_layout
+        spec, shape, dtype = max(run["gathered"], key=lambda g: int(np.prod(g[1])))
+        run["largest_gather"] = {"spec": list(spec), "shape": list(shape), "dtype": str(dtype),
+                                 "ms": gather_ms(layout, torch.zeros(shape, dtype=dtype,
+                                                                     device=grid.lead),
+                                                 spec, device)}
+        run["gathered"] = [[list(sp), list(sh)] for sp, sh, _dt in run["gathered"]]
+        say(f"[grid 18a] {mode} over the {out['grid']}: wall {run['wall_s']:.3f} s against "
+            f"{beside['wall_s']:.3f} s for a new single-card solver just before it (phase "
+            f"17a's cold {single['wall_s']:.3f} s, warm "
+            f"{seg_full['runs'][(mode, 'warm')]['wall_s']:.3f} s); prescreen "
+            f"{run['phases'].get('prescreen', 0.0):.3f} ms, segment "
+            f"{run['phases'].get('segment', 0.0):.3f} ms, device "
+            f"{run['phases']['device']:.3f} ms (the single-card solver beside: prescreen "
+            f"{beside['phases'].get('prescreen', 0.0):.3f}, segment "
+            f"{beside['phases'].get('segment', 0.0):.3f}, device "
+            f"{beside['phases']['device']:.3f}); screen launches by form "
+            f"{json.dumps(run['launches'])}; gathered {run['gather']['bytes']} bytes "
+            f"({run['gather']['moved_bytes']} from another device) in "
+            f"{run['gather']['calls']} gathers, {run['gather']['host_ms']:.3f} ms of host "
+            f"time; the largest gather {json.dumps(run['largest_gather'])}; "
+            f"placements byte-identical ({len(run['placements'])} bytes)")
+        out[mode] = {k: v for k, v in run.items() if k != "result"}
+    return out
+
+
+def phase_grid_mixed(grid, kind, device="cuda", size=None) -> dict:
+    """18b: test_solver_factory.py's mixed batch at phase 3c's size, solved
+    by TorchSolver on the lead device, then over the grid through
+    serve(mesh=grid) and RemoteSolver, and through
+    ResilientSolver(primary=ShardedSolver); both byte-identical to the
+    single device's, the service's Health naming the grid, no fallback."""
+    from karpenter_core_tpu_torch.solver.service import RemoteSolver, serve
+
+    size = dict(GRID_MIXED, **(size or {}))
+    pods, provs, its, nodes = grid_mixed_batch(**size)
+    max_nodes = size["n_pods"] // 2 + size["n_existing"]
+    lead = str(grid.lead)
+    sync = torch.cuda.synchronize if device == "cuda" else None
+    single = segmented_solve("grid 18b single", torch_solver.TorchSolver(
+        max_nodes=max_nodes, device=lead), pods, provs, its, nodes=nodes, sync=sync)
+    checked = check_placements(single["result"], len(pods))
+    out = {"grid": _grid_name(grid, kind), "pods": len(pods), "nodes": len(nodes),
+           "single_s": single["wall_s"], "checked": checked}
+    server, port, service = serve(mesh=grid, device=lead)
+    client = RemoteSolver(f"127.0.0.1:{port}", max_nodes=max_nodes, timeout=600.0)
+    try:
+        health = client.health()
+        if f"dp={grid.shape['dp']}" not in health.device or "tp=" not in health.device:
+            raise AssertionError(f"grid 18b: health device {health.device!r}")
+        screen.reset_launches()
+        t0 = time.perf_counter()
+        remote = client.solve(pods, provs, its, state_nodes=[n.deep_copy() for n in nodes])
+        out["remote_s"] = time.perf_counter() - t0
+        out["remote_launches"] = screen.launch_counts()
+        out["remote_by_device"] = screen.device_launch_counts()
+        out["remote_phases"] = service.phase_ms()
+        out["health"] = health.device
+        out["service_keys"] = [str(k[-1]) for k in service._compiled]
+    finally:
+        client.close()
+        server.stop(0)
+    if torch_solver.placements_json(remote) != single["placements"]:
+        raise AssertionError("grid 18b: serve(mesh=grid) placements differ from TorchSolver's")
+    if all(k == "None" for k in out["service_keys"]):
+        raise AssertionError("grid 18b: the service solved off the grid")
+    primary = ShardedSolver(grid, max_nodes=max_nodes)
+    before = fallback_counts()
+    resilient = fallback.ResilientSolver(primary, torch_solver.GreedySolver(),
+                                         prober=lambda: None, small_batch_work_max=1,
+                                         **RESILIENT_KW)
+    run = segmented_solve("grid 18b resilient", resilient, pods, provs, its, nodes=nodes,
+                          sync=sync)
+    moved = counts_moved(before)
+    if run["placements"] != single["placements"] or primary.last_path != "mesh" or moved:
+        raise AssertionError(f"grid 18b: ResilientSolver(ShardedSolver) path "
+                             f"{primary.last_path}, fallbacks {json.dumps(moved)}, placements "
+                             f"{'equal' if run['placements'] == single['placements'] else 'differ'}")
+    out.update(resilient_s=run["wall_s"], resilient_phases=run["phases"],
+               resilient_launches=run["launches"])
+    say(f"[grid 18b] {len(pods)} mixed pods over {len(nodes)} nodes on the {out['grid']}: "
+        f"TorchSolver {single['wall_s']:.3f} s, serve(mesh) + RemoteSolver "
+        f"{out['remote_s']:.3f} s (service phases {json.dumps(out['remote_phases'])}, "
+        f"launches {json.dumps(out['remote_launches'])} by device "
+        f"{json.dumps(out['remote_by_device'])}), ResilientSolver(ShardedSolver) "
+        f"{run['wall_s']:.3f} s (phases "
+        f"{json.dumps({k: round(v, 3) for k, v in run['phases'].items()})}); health "
+        f"{health.device!r}; placements byte-identical ({len(single['placements'])} bytes); "
+        f"checked {json.dumps(checked)}")
+    return out
+
+
+def grid_tile_check(grid, kind, int_rate: float, busy_cycles: int,
+                    size=None) -> dict:
+    """18c's kernel check: the verdict tile of the grid's last device (the
+    last dp row's existing slots against the last tp column's classes) of
+    18b's snapshot, screened on that device by the screen kernel, held
+    exactly against screen_plain on the same inputs and timed there."""
+    size = dict(GRID_MIXED, **(size or {}))
+    pods, provs, its, nodes = grid_mixed_batch(**size)
+    max_nodes = size["n_pods"] // 2 + size["n_existing"]
+    snap = encode_snapshot(pods, provs, its, state_nodes=nodes, max_nodes=max_nodes)
+    geom = torch_solver.solve_geometry(snap, max_nodes)
+    layout = specs.SpecLayout(grid)
+    targs = torch_solver.args_to_torch(torch_solver.device_args(snap, provs), grid.lead)
+    ops = ScreenOps(geom[8], targs[0]["allow"].shape[1], geom[16])
+    items_pl = class_planes(targs[0], ops)
+    cols = layout.split(items_pl.planes, (layout.tp_axis, None))[-1][-1]
+    rows = layout.split({k: targs[9][k] for k in ("allow", "out", "defined")},
+                        layout.slot_plane())[-1][-1]
+    dev = grid.devices[-1][-1]
+    # the lead current, as a solve leaves it: the tile's launches must take
+    # their own card (the wrappers' device guard); the timing then runs
+    # with the tile's card current, where time_shape's events record
+    torch.cuda.set_device(grid.lead)
+    items = screen.ScreenItems(cols, ops.rows_layout)
+    got = screen.screen_block(rows["allow"], rows["out"], rows["defined"], items,
+                              ops.rows_layout)
+    want = _plain(rows, items.planes, ops.rows_layout)
+    torch.cuda.synchronize(dev)
+    if got.device != dev or not torch.equal(got.reshape(want.shape), want):
+        raise AssertionError(f"grid 18c: the verdict tile on {dev}, launched with "
+                             f"{grid.lead} current, disagrees with screen_plain")
+    with torch.cuda.device(dev):
+        st = time_shape(f"grid tile ({dev}, {kind})", rows, items, ops.rows_layout, None,
+                        int_rate, busy_cycles)
+    st["max_abs_err"] = 0.0  # both checks raised on any mismatch
+    st["device"] = str(dev)
+    return st
+
+
+def phase_grid_entry(device="cuda", logical: bool = True, size=None) -> dict:
+    """18c's entry drill: run() on a thread with KARPENTER_SOLVER_MODE=
+    sharded (and KARPENTER_MESH_LOGICAL_DEVICES for a logical grid), its
+    default primary the solver host, whose child builds its service over
+    the grid; a backlog of pending pods (above the small-batch bound) is
+    created and must be nominated within ENTRY_BOUND_S through one live
+    solve counted at the child's service_sharded compile-cache site. No
+    fallback. Restores the collector, the tracer, the recorder and the log
+    as phase 13 does."""
+    size = dict(GRID_ENTRY, **(size or {}))
+    env = {"KARPENTER_SOLVER_MODE": "sharded", "KARPENTER_PREWARM": "0",
+           "KARPENTER_MESH_LOGICAL_DEVICES": str(GRID_LOGICAL) if logical else "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    threshold = gc.get_threshold()
+    its = fake.instance_types(size["n_types"])
+    client = InMemoryKubeClient()
+    client.create(testing.make_provisioner(name="default"))
+    stop, got, bound = threading.Event(), {}, {}
+    fb_before = fallback_counts()
+
+    def main():
+        try:
+            got["op"] = entry.run(
+                fake.FakeCloudProvider(its), kube_client=client, stop_event=stop,
+                options=parse_options(["--metrics-port", "0", "--disable-webhook",
+                                       "--no-leader-elect"]),
+                device=None if device == "cuda" else device,
+                on_start=lambda proc: got.update(proc=proc))
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            got["error"] = exc
+
+    thread = threading.Thread(target=main, name="grid-entry-main")
+    t0 = time.perf_counter()
+    thread.start()
+    out = {}
+    try:
+        out["start_s"] = _wait_for(lambda: "proc" in got or "error" in got, 300,
+                                   "the sharded entry's start")
+        if "error" in got:
+            raise got["error"]
+        proc = got["proc"]
+        proc.operator.provisioning.bind_listeners.append(
+            lambda pod, node: bound.setdefault(pod.metadata.name, node))
+        out["primary"] = describe(proc.primary)
+        before = cache_counts(proc.primary)
+        names = [f"grid-entry-{i}" for i in range(size["n_pods"])]
+        t_backlog = time.perf_counter()
+        for name in names:
+            client.create(testing.make_pod(name=name, requests={"cpu": "1", "memory": "1Gi"}))
+        out["nominated_s"] = _wait_for(lambda: all(n in bound for n in names), ENTRY_BOUND_S,
+                                       "the sharded entry's backlog")
+        out["backlog_s"] = time.perf_counter() - t_backlog
+        after = cache_counts(proc.primary)
+        out["compile_cache"] = {
+            kind: {s: after[kind].get(s, 0) - before[kind].get(s, 0)
+                   for s in set(after[kind]) | set(before[kind])
+                   if after[kind].get(s, 0) != before[kind].get(s, 0)}
+            for kind in ("hits", "misses")}
+        grid_lookups = (out["compile_cache"]["hits"].get("service_sharded", 0)
+                        + out["compile_cache"]["misses"].get("service_sharded", 0)
+                        + out["compile_cache"]["hits"].get("tpu_solver", 0)
+                        + out["compile_cache"]["misses"].get("tpu_solver", 0))
+        if not grid_lookups:
+            raise AssertionError(f"grid 18c: the entry's live solve counted no lookup at a "
+                                 f"grid site: {json.dumps(out['compile_cache'])}")
+        if isinstance(proc.primary, HostSolver) and not (
+                out["compile_cache"]["misses"].get("service_sharded", 0)
+                + out["compile_cache"]["hits"].get("service_sharded", 0)):
+            raise AssertionError(f"grid 18c: the solver host's child served off the grid: "
+                                 f"{json.dumps(out['compile_cache'])}")
+        moved = counts_moved(fb_before)
+        if moved:
+            raise AssertionError(f"grid 18c: fallbacks {json.dumps(moved)}")
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        gc.unfreeze()
+        gc.set_threshold(*threshold)
+        gctuning._applied = False
+        TRACER.disable()
+        FLIGHTREC.disable()
+        LOG_SINK.disable()
+    if thread.is_alive():
+        raise AssertionError("grid 18c: the entry did not stop")
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"[grid 18c] the entry with KARPENTER_SOLVER_MODE=sharded "
+        f"({'logical' if logical else 'real'} grid): primary {out['primary']}, started in "
+        f"{out['start_s']:.3f} s; {size['n_pods']} pods x {size['n_types']} types nominated "
+        f"{out['backlog_s']:.3f} s after their creation; compile-cache lookups by site "
+        f"{json.dumps(out['compile_cache'])}; wall {out['wall_s']:.3f} s")
+    return out
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -5018,9 +5416,30 @@ def main() -> int:
     seg_op = phase_segmented_operator()
     b17 = {k: seg_full["launches"][k] + seg_pair["launches"][k] + seg_op["launches"][k]
            for k in seg_full["launches"]}
+    mark("phase 17d")
+
+    # phase 18: the device grid, every card when there are several, else a
+    # 2 x 2 grid of logical devices on the card: 18a phase 17a's workload
+    # through ShardedSolver against 17a's single-card placements, 18b the
+    # mixed batch through serve(mesh=grid) and ResilientSolver(
+    # ShardedSolver), 18c a verdict tile on the grid's last device against
+    # its plain version and the entry with KARPENTER_SOLVER_MODE=sharded
+    grid, grid_kind = smoke_grid()
+    say(f"[grid] phase 18 on the {_grid_name(grid, grid_kind)}")
+    g18a = phase_grid_segmented(seg_full, grid, grid_kind)
     del seg_full, seg_pair
     gc.collect()
-    mark("phase 17d")
+    mark("phase 18a")
+    g18b = phase_grid_mixed(grid, grid_kind)
+    mark("phase 18b")
+    tile18 = grid_tile_check(grid, grid_kind, int_rate, busy_cycles)
+    g18c = phase_grid_entry(logical=grid_kind == "logical")
+    mark("phase 18c")
+    b18 = {k: g18a["sequential"]["launches"][k] + g18a["segmented"]["launches"][k]
+           + g18b["remote_launches"][k] + g18b["resilient_launches"][k]
+           for k in g18b["remote_launches"]}
+    say(f"[grid] phase 18 on the {_grid_name(grid, grid_kind)}: launches {json.dumps(b18)}; "
+        f"18c the entry's primary {g18c['primary']}")
 
     # phase 3: card and CPU place config 2 identically; the card's solve is
     # flight-recorded (phase 11 replays the record)
@@ -5375,9 +5794,9 @@ def main() -> int:
     b16 = {k: race["launches"][k] + over_http["launches"][k] for k in race["launches"]}
     runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
             cons_launches, life_launches, op_launches, fb_launches, ent_launches, b14, b15,
-            b16, b17)
+            b16, b17, b18)
     form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms,
-                 life_forms, op_forms, fb_forms, ent_forms, b14, b15, b16, b17)
+                 life_forms, op_forms, fb_forms, ent_forms, b14, b15, b16, b17, b18)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
     say(f"[launches] phase 10 {json.dumps(op_counts)}, phase 12a {json.dumps(fb['launches'])}"
@@ -5387,8 +5806,9 @@ def main() -> int:
         f"{json.dumps(b14c['launches']) if b14c else 'not run'}), phase 15 {json.dumps(b15)} "
         f"(15a {json.dumps(soak['launches'])}, 15b {json.dumps(steady['launches'])}), phase 16 "
         f"{json.dumps(b16)} (16a {json.dumps(race['launches'])}, 16b "
-        f"{json.dumps(over_http['launches'])}), phase 17 {json.dumps(b17)}; phases 4-10, "
-        f"12a and 13-17 summed {json.dumps(launches)} by form {json.dumps(forms)}")
+        f"{json.dumps(over_http['launches'])}), phase 17 {json.dumps(b17)}, phase 18 "
+        f"{json.dumps(b18)}; phases 4-10, 12a and 13-18 summed {json.dumps(launches)} by "
+        f"form {json.dumps(forms)}")
 
     # the line's numbers are those of this slice's main path, phase 10's
     # first operator step (the live cluster's backlog, solved through
@@ -5400,7 +5820,7 @@ def main() -> int:
     main_shapes = operator_shapes
     err = max(kstats["max_abs_err"], simulate["max_abs_err"], operator_shapes["max_abs_err"],
               entry_shapes["max_abs_err"], segmented_shapes["max_abs_err"],
-              audit17["max_abs_err"],
+              audit17["max_abs_err"], tile18["max_abs_err"],
               *(u["max_abs_err"] for u in union.values()))
     common = {"route": "cuda", "source": "karpenter_core_tpu_torch/csrc/screen.cu",
               "replaces": "karpenter_core_tpu/ops/pallas_kernels.py:29",
@@ -5433,6 +5853,8 @@ def main() -> int:
     # and a lane's row_n1 re-screen, beside the shapes above
     where17 = "segmented full width (phase 17a)"
     blk17, row17 = audit17["timed"]["block"], audit17["timed"]["row_n1"]
+    # phase 18c's verdict tile on the grid's last device
+    where18 = f"grid tile on {tile18['device']}, {grid_kind} grid (phase 18c)"
     prep17 = dict(times(blk17, prep=True), plain_ms=blk17["prep_plain_ms"])
 
     def form_entry(form, stats, replaces, shapes):
@@ -5454,14 +5876,16 @@ def main() -> int:
         dict(common, name="screen", launches=launches["screen"],
              ms=blk["ms"], kernel_ms=blk["kernel_ms"], plain_ms=blk["plain_ms"],
              bound_ms=blk["bound_ms"], bound_by=blk["bound_by"],
-             shapes=dict(shapes_of("existing block E x C"), **{where17: times(blk17)})),
+             shapes=dict(shapes_of("existing block E x C"), **{where17: times(blk17),
+                                                               where18: times(tile18)})),
         dict(common, name="screen_prep", launches=launches["screen_prep"],
              ms=blk["prep_ms"], kernel_ms=blk["prep_kernel_ms"],
              plain_ms=main_shapes["slot_prep_plain_ms"],
              bound_ms=blk["prep_bound_ms"], bound_by=blk["prep_bound_by"],
              shapes=dict(shapes_of("existing block E x C", prep=True), **{where17: prep17})),
         form_entry("block", blk, "karpenter_core_tpu/ops/pallas_kernels.py:160",
-                   dict(shapes_of("existing block E x C"), **{where17: times(blk17)})),
+                   dict(shapes_of("existing block E x C"), **{where17: times(blk17),
+                                                              where18: times(tile18)})),
         form_entry("row_n1", row_n1, "karpenter_core_tpu/ops/pallas_kernels.py:160",
                    dict(shapes_of("virgin row 1 x C"), **{where17: times(row17)})),
         form_entry("row_b1", tiered_shape, "karpenter_core_tpu/ops/pallas_kernels.py:104",

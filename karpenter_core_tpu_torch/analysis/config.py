@@ -59,13 +59,17 @@ DEFAULT_LAYERING: Dict[str, FrozenSet[str]] = {
     "state": frozenset({"api", "chaos", "kube", "obs", "scheduling", "utils"}),
     "ops": frozenset({"metrics", "obs", "utils"}),
     "native": frozenset({"metrics", "obs", "utils"}),
+    # parallel sits above solver, as the reference's: ShardedSolver is a
+    # TorchSolver subclass (parallel/sharded.py), so parallel may see solver
+    # and solver reaches parallel only at function scope (factory, service)
+    "parallel": frozenset({"chaos", "metrics", "obs", "ops", "solver", "utils"}),
     "solver": frozenset({
         "api", "chaos", "cloudprovider", "events", "kube", "metrics", "native",
         "obs", "ops", "scheduling", "state", "utils",
     }),
     "controllers": frozenset({
         "api", "chaos", "cloudprovider", "events", "kube", "metrics", "native",
-        "obs", "ops", "scheduling", "solver", "state", "utils",
+        "obs", "ops", "parallel", "scheduling", "solver", "state", "utils",
     }),
     "operator": frozenset({
         "api", "chaos", "cloudprovider", "controllers", "events", "kube",

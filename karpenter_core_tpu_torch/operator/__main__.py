@@ -27,7 +27,12 @@ fallback (flags > environment > defaults), and these variables:
   KARPENTER_CHAOS                a fault-injection spec (chaos/): armed at
                                  import and by run(); unset in production
   KARPENTER_CHAOS_SEED           the spec's default per-point seed
-  KARPENTER_SOLVER_MODE          sharded is refused: see below
+  KARPENTER_SOLVER_MODE          auto (default), single or sharded: see
+                                 below
+  KARPENTER_MESH_TP              the device grid's tp (solver/factory.py)
+  KARPENTER_MESH_LOGICAL_DEVICES a test and smoke hook: N logical devices
+                                 on one card (or the CPU); unset in
+                                 production
 
 The karpenter-global-settings ConfigMap, when the client holds one,
 overrides the flags' settings (settings.go:53-68).
@@ -38,10 +43,12 @@ process solves on the CUDA card, a wedge killing and respawning it;
 KARPENTER_SOLVER_HOST=off restores the in-process TorchSolver. Either way
 ResilientSolver wraps it with the greedy fallback. The card is required
 (run() raises without one) unless the caller passes device="cpu" (the
-tests), the port's counterpart of the reference's JAX_PLATFORMS. It
-raises rather than run without a module that is not ported yet:
-KARPENTER_SOLVER_MODE=sharded waits for the multi-GPU mesh (ROADMAP
-Queue A item 9).
+tests), the port's counterpart of the reference's JAX_PLATFORMS.
+KARPENTER_SOLVER_MODE picks the solve path as solver/factory.build_solver
+does: auto (the default) solves over a grid of the visible devices when
+there are two or more (parallel/sharded.ShardedSolver, in the solver
+host's child or in process), single on one device, and sharded fails the
+start with one device.
 """
 from __future__ import annotations
 
@@ -61,9 +68,6 @@ from karpenter_core_tpu_torch.operator import new_operator
 from karpenter_core_tpu_torch.webhooks import SETTINGS_CONFIG_MAP_NAME
 
 LOG = get_logger("karpenter.operator")
-
-MESH_ITEM = "ROADMAP Queue A item 9: the multi-GPU mesh"
-
 
 def solver_from_env():
     """KARPENTER_SOLVER_ENDPOINT -> a RemoteSolver, else None."""
@@ -520,10 +524,6 @@ def run(cloud_provider, kube_client=None, stop_event=None, options=None,
         host_mode_enabled,
     )
 
-    if envflags.raw("KARPENTER_SOLVER_MODE", "auto").lower() == "sharded":
-        raise NotImplementedError(
-            f"KARPENTER_SOLVER_MODE=sharded: the sharded solver is not ported yet "
-            f"({MESH_ITEM}); unset it or set it to single")
     # KARPENTER_CHAOS, armed when chaos was imported; a spec set since (an
     # embedding that sets it before run()) arms its points now, and a
     # malformed spec fails the start

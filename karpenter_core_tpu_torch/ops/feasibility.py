@@ -9,6 +9,13 @@
 plus openable[j, P] = F_static ∧ fits(daemon_j + pod): a fresh machine from
 template j could host this pod alone. Resource fit against accumulated
 machine usage is left to the pack scan (ops/pack.py).
+
+On a device grid (parallel/specs.py) F_static is computed as tiles
+(feasibility_tiles): item rows over dp, type columns over tp, each tile on
+its own device, gathered on the lead device. Every entry depends only on
+its own item row and type column, so the gathered tensor equals
+feasibility_static's. openable_mask, a reduction over the type axis, runs
+on the lead device after the gather.
 """
 from __future__ import annotations
 
@@ -72,6 +79,32 @@ def feasibility_static(
             & offer_ok
         )
     return torch.stack(outs, dim=0)
+
+
+def feasibility_tiles(layout, pod_reqs: dict, tmpl_reqs: dict, type_reqs: dict,
+                      pod_tol: torch.Tensor, tmpl_type_mask: torch.Tensor,
+                      type_offering_ok: torch.Tensor, zone_seg: Tuple[int, int],
+                      ct_seg: Tuple[int, int], segments, well_known: torch.Tensor,
+                      targs=None) -> torch.Tensor:
+    """F_static [J, P, T] on `layout`'s grid (make_device_run with
+    spec_layout=): tile (i, j) runs feasibility_static on grid device
+    (i, j) over item rows P_i and type columns T_j, templates whole; the
+    tiles are gathered on the lead device. `targs`, when given, may carry
+    the type planes' tiles its upload made (SpecLayout.put_args)."""
+    rows = layout.slot_plane()
+    pods_t = layout.split(pod_reqs, rows)
+    tol_t = layout.split(pod_tol, rows)
+    types_t = layout.split_arg(targs, "types", type_reqs, layout.type_plane())
+    mask_t = layout.split_arg(targs, "tmpl_type_mask", tmpl_type_mask, layout.type_cols())
+    offer_t = layout.split_arg(targs, "type_offering_ok", type_offering_ok,
+                               layout.type_plane(3))
+    whole = layout.split(tmpl_reqs, layout.replicated())
+    wk = layout.split(well_known, layout.replicated())
+    tiles = [[feasibility_static(pods_t[i][j], whole[i][j], types_t[i][j], tol_t[i][j],
+                                 mask_t[i][j], offer_t[i][j], zone_seg, ct_seg, segments,
+                                 wk[i][j])
+              for j in range(layout.ntp)] for i in range(layout.ndp)]
+    return layout.gather(tiles, layout.feasibility())
 
 
 def openable_mask(

@@ -54,6 +54,7 @@ from karpenter_core_tpu_torch.ops import compat
 from karpenter_core_tpu_torch.ops.screen import (
     ScreenItems,
     ScreenLayout,
+    launch_counts,
     screen_block,
     screen_row,
 )
@@ -181,18 +182,71 @@ def class_planes(pod_arrays, ops: ScreenOps) -> ScreenItems:
     }, ops.rows_layout)
 
 
-def make_prescreen_kernel(segments, n_slots: int, screen_v: Optional[int] = None):
+# the last grid_initial_screen's tiles: (i, j, device, screen launches by
+# kernel and form) per tile, in grid order
+LAST_TILES: List[tuple] = []
+
+
+def grid_initial_screen(ops: ScreenOps, layout, items_pl: ScreenItems, exist, n_slots: int,
+                        targs=None) -> torch.Tensor:
+    """initial_screen's [N, C] tensor as tiles of `layout`'s device grid
+    (parallel/specs.py): tile (i, j), on grid device (i, j), screens the
+    existing-slot rows E_i against the class columns C_j (rows_vs_items,
+    the block form on the card), its class planes prepared there; the last
+    dp row's tiles also screen the virgin row against C_j (items_vs_row,
+    row_n1). The tiles are gathered on the lead device, where the virgin
+    row is broadcast over the machine region as initial_screen does, so
+    the tensor equals initial_screen's. The reference tiles the whole N
+    axis over dp; the machine region is one broadcast row, so the port
+    tiles the existing prefix and moves one row per column tile. `targs`,
+    when given, may carry the existing planes' tiles its upload made."""
+    E = exist["allow"].shape[0]
+    spec = layout.verdict()
+    cols = layout.split(items_pl.planes, (layout.tp_axis, None))
+    ex = layout.split_arg(targs, "exist", {k: exist[k] for k in ("allow", "out", "defined")},
+                          layout.slot_plane())
+    V, K = exist["allow"].shape[1], exist["out"].shape[1]
+    blocks = [[None] * layout.ntp for _ in range(layout.ndp)]
+    virgin = [None] * layout.ntp
+    tiles = []
+    for i in range(layout.ndp):
+        for j in range(layout.ntp):
+            dev = layout.mesh.devices[i][j]
+            before = launch_counts()
+            items = ScreenItems(cols[i][j], ops.rows_layout)
+            e = ex[i][j]
+            blocks[i][j] = ops.rows_vs_items(items, e["allow"], e["out"], e["defined"])
+            if i == layout.ndp - 1 and n_slots > E:
+                virgin[j] = ops.items_vs_row(
+                    items, torch.ones(V, dtype=torch.bool, device=dev),
+                    torch.ones(K, dtype=torch.bool, device=dev),
+                    torch.zeros(K, dtype=torch.bool, device=dev))
+            after = launch_counts()
+            tiles.append((i, j, str(dev), {k: after[k] - before[k] for k in after}))
+    LAST_TILES[:] = tiles
+    block = layout.gather(blocks, spec)
+    if n_slots <= E:
+        return block
+    row = layout.gather([virgin], (layout.tp_axis,))
+    return torch.cat([block, row[None, :].expand(n_slots - E, row.shape[0])], dim=0)
+
+
+def make_prescreen_kernel(segments, n_slots: int, screen_v: Optional[int] = None,
+                          spec_layout=None):
     """(pod item planes, existing planes) -> [N, C] slot-major verdicts over
-    the deduped class columns (make_prescreen_kernel, single device)."""
+    the deduped class columns (make_prescreen_kernel). With spec_layout
+    (parallel/specs.SpecLayout) the tensor is computed as the grid's tiles
+    and gathered on its lead device (grid_initial_screen)."""
     segments = [tuple(s) for s in segments]
 
     def prescreen(pod_arrays, exist):
         V = pod_arrays["allow"].shape[1]
         ops = ScreenOps(segments, V, screen_v)
-        return ops.initial_screen(
-            class_planes(pod_arrays, ops), exist["allow"], exist["out"],
-            exist["defined"], n_slots,
-        )
+        items_pl = class_planes(pod_arrays, ops)
+        if spec_layout is not None:
+            return grid_initial_screen(ops, spec_layout, items_pl, exist, n_slots)
+        return ops.initial_screen(items_pl, exist["allow"], exist["out"], exist["defined"],
+                                  n_slots)
 
     return prescreen
 
@@ -209,6 +263,9 @@ def screen_refresh(screen, ops: ScreenOps, items_pl: ScreenItems, exist, rows, c
     in full: the block over the existing prefix (rows_vs_items) and the
     virgin row (items_vs_row) broadcast over the machine region, as
     initial_screen builds them. `items_pl` is the solve's class planes.
+    On a device grid the resident tensor, the class planes and the
+    existing planes all live on the lead device, and so does the refresh,
+    as the reference's runs on its gathered (replicated) operands.
     Rows outside the existing prefix and columns outside the tensor are
     dropped, never clamped, wrapped or written; an empty side is skipped.
     The writes are index ops on the tensor."""
@@ -399,7 +456,9 @@ def make_segment_partition_kernel(segments, n_exist: int, screen_v: Optional[int
     inside the screen width, slot_label [E] int32: the least label of the
     classes feasible on an existing slot, -1 where none is), on the device.
     `items_pl`, when given, is the prescreen's class planes (their prep is
-    reused)."""
+    reused). On a device grid it runs on the lead device, where the
+    gathered verdict tensor and the class planes are (the reference's
+    partition runs on gathered, replicated operands, pack.py:456)."""
     segments = [tuple(s) for s in segments]
 
     def partition(screen0, pod_arrays, tmpl, well_known, items_pl=None):

@@ -33,7 +33,10 @@ Semantics match the reference's screen ops exactly:
 * the custom-key deny reads all K keys.
 
 The wrappers use the plain versions only for tensors on the CPU (the
-tests); a CUDA tensor launches the kernels or raises.
+tests); a CUDA tensor launches the kernels or raises. Each launch runs on
+its tensors' card, under that card's device guard and stream, whatever
+card the calling thread has current (a tile of the device grid,
+parallel/specs.py, may sit on any card of the process).
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ LAUNCHES: Dict[str, int] = {"screen": 0, "screen_prep": 0}
 # launches of the screen kernel by form: block (N > 1, B > 1), row_n1 (one
 # slot row against every item row), row_b1 (every slot row against one item)
 FORM_LAUNCHES: Dict[str, int] = {"block": 0, "row_n1": 0, "row_b1": 0}
+# launches of either kernel by the device they ran on ("cuda:1")
+DEVICE_LAUNCHES: Dict[str, int] = {}
 
 ITEM_KEYS = ("allow", "out", "defined", "escape", "custom_deny")
 _FORM_CODE = {"block": 0, "row_n1": 1, "row_b1": 2}
@@ -66,11 +71,24 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, FORM_LAUNCHES):
         for k in counts:
             counts[k] = 0
+    DEVICE_LAUNCHES.clear()
+
+
+def _counted(kernel: str, dev: torch.device, form: Optional[str] = None) -> None:
+    LAUNCHES[kernel] += 1
+    if form is not None:
+        FORM_LAUNCHES[form] += 1
+    DEVICE_LAUNCHES[str(dev)] = DEVICE_LAUNCHES.get(str(dev), 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
     """A copy of the launch counts, by kernel and by form of the screen."""
     return {**LAUNCHES, **FORM_LAUNCHES}
+
+
+def device_launch_counts() -> Dict[str, int]:
+    """A copy of the launch counts of both kernels, by device."""
+    return dict(DEVICE_LAUNCHES)
 
 
 def _clip(segments, width: int, every_key: bool):
@@ -301,16 +319,18 @@ def screen_prep(allow, out, defined, layout: ScreenLayout, escape=None,
         ptrs += [None, 0] if t is None else [t.data_ptr(), t.stride(0)]
     lay = layout.device_arrays(dev)
     prep, _ = _c_kernels()
-    rc = prep(
-        *ptrs, lay["bit_col"].data_ptr(), lay["word_key"].data_ptr(),
-        got["words"].data_ptr() if words else None,
-        got["bytes"].data_ptr() if planes else None,
-        got["flags"].data_ptr(), R, W, K, KW,
-        _stream(dev),
-    )
+    # the C entry launches on the calling thread's current card
+    with torch.cuda.device(dev):
+        rc = prep(
+            *ptrs, lay["bit_col"].data_ptr(), lay["word_key"].data_ptr(),
+            got["words"].data_ptr() if words else None,
+            got["bytes"].data_ptr() if planes else None,
+            got["flags"].data_ptr(), R, W, K, KW,
+            _stream(dev),
+        )
     if rc != 0:
         raise KernelError(f"screen_prep kernel launch failed: CUDA error {rc}")
-    LAUNCHES["screen_prep"] += 1
+    _counted("screen_prep", dev)
     return got
 
 
@@ -376,16 +396,16 @@ def _launch(form: str, slot: Dict[str, torch.Tensor], items: ScreenItems, b: int
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lay = layout.device_arrays(dev)
     _, scr = _c_kernels()
-    rc = scr(
-        _FORM_CODE[form], ptr(slot["words"]), ptr(slot["bytes"]), slot["flags"].data_ptr(),
-        ptr(it["words"]), ptr(it["bytes"]), it["flags"].data_ptr(), B, b,
-        lay["on_mask"].data_ptr(), lay["word_key"].data_ptr(), verdict.data_ptr(),
-        N, 1 if form == "row_b1" else B, W, KW, _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        rc = scr(
+            _FORM_CODE[form], ptr(slot["words"]), ptr(slot["bytes"]), slot["flags"].data_ptr(),
+            ptr(it["words"]), ptr(it["bytes"]), it["flags"].data_ptr(), B, b,
+            lay["on_mask"].data_ptr(), lay["word_key"].data_ptr(), verdict.data_ptr(),
+            N, 1 if form == "row_b1" else B, W, KW, _stream(dev),
+        )
     if rc != 0:
         raise KernelError(f"screen kernel launch failed: CUDA error {rc}")
-    LAUNCHES["screen"] += 1
-    FORM_LAUNCHES[form] += 1
+    _counted("screen", dev, form)
     return verdict
 
 

@@ -1,21 +1,41 @@
 """The one place that decides which solver serves a Solve()
 (solver/factory.py of the reference).
 
-    build_solver(max_nodes=1024, mode=None, device=None)
+    build_solver(max_nodes=1024, mode=None, device=None, devices=None)
 
-mode (default "auto"): "auto" and "single" give a TorchSolver on the CUDA
-card; "sharded" raises NotImplementedError until the multi-GPU slice
-(ROADMAP Queue A). With more than one card "auto" stays single until then.
+mode (KARPENTER_SOLVER_MODE when None, default "auto"):
+  auto     more than one visible device -> ShardedSolver over a dp x tp
+           DeviceGrid (parallel/); otherwise TorchSolver;
+  single   TorchSolver whatever the device count;
+  sharded  ShardedSolver; raises RuntimeError with one device.
 device: "cuda" by default; with no card the factory raises, and it never
-falls back to the CPU unless the caller passes device="cpu".
+falls back to the CPU unless the caller passes device="cpu". `devices`
+names the grid's devices directly (the tests pass logical CPU devices).
+
+The visible devices (visible_devices) are the process's CUDA cards, or the
+one CPU device for device="cpu"; KARPENTER_MESH_LOGICAL_DEVICES=N makes
+them N logical devices on the first card (on the CPU for device="cpu"),
+the port's counterpart of the reference's virtual devices (XLA's host
+platform device count): the grid's tiles, launches and gathers then all
+run on that one card.
+
+Grid shape: tp = KARPENTER_MESH_TP when set; else 2 when the device count
+is even and at least 4, else 1 (the reference's rule); dp takes the rest.
+
+Several processes: a grid that spans them is not ported (ROADMAP Queue A
+item 12). ensure_distributed() refuses KARPENTER_DIST_COORDINATOR, the
+reference's switch to start jax.distributed, rather than serve this
+process's cards alone; and where the caller has started torch.distributed
+itself, detect_mesh raises for a world size above 1.
 
     build_primary(max_nodes=1024, host_default=False, device=None)
 
 is the process entry's primary: with KARPENTER_SOLVER_HOST on (the
 entry passes host_default=True, so the host is its default) a HostSolver,
-whose supervised child process (solver/host.py) solves on `device`;
-otherwise build_solver's in-process TorchSolver. The out-of-process
-primaries (HostSolver, service.RemoteSolver) answer health(), the probe
+whose supervised child process (solver/host.py) builds its service over
+detect_mesh() under KARPENTER_SOLVER_MODE on `device`; otherwise
+build_solver's in-process solver. The out-of-process primaries
+(HostSolver, service.RemoteSolver) answer health(), the probe
 ResilientSolver's breaker re-admits them through.
 """
 from __future__ import annotations
@@ -25,35 +45,100 @@ from typing import Optional
 from karpenter_core_tpu_torch.obs import envflags
 
 MODES = ("auto", "single", "sharded")
+SPANNING_ITEM = "ROADMAP Queue A item 12: a grid that spans processes"
+
+
+def ensure_distributed() -> bool:
+    """The reference's multi-process set-up, which the port does not have
+    (SPANNING_ITEM): without KARPENTER_DIST_COORDINATOR, nothing to do;
+    with it, RuntimeError. Returns whether torch.distributed is already
+    initialized (by the caller)."""
+    if envflags.raw("KARPENTER_DIST_COORDINATOR"):
+        raise RuntimeError(f"KARPENTER_DIST_COORDINATOR is set, but a device grid over "
+                           f"processes is not ported ({SPANNING_ITEM})")
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def visible_devices(device: Optional[str] = None) -> list:
+    """The devices a grid may span (see the module docstring): every CUDA
+    card for device None or "cuda", the CPU for "cpu", or
+    KARPENTER_MESH_LOGICAL_DEVICES logical devices on the first of them."""
+    import torch
+
+    kind = torch.device(device or "cuda").type
+    logical = int(envflags.raw("KARPENTER_MESH_LOGICAL_DEVICES", "0") or 0)
+    if kind == "cpu":
+        return [torch.device("cpu")] * max(logical, 1)
+    cards = [torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())]
+    if logical and cards:
+        return [cards[0]] * logical
+    return cards
+
+
+def detect_mesh(devices=None, tp: Optional[int] = None, device: Optional[str] = None):
+    """The dp x tp DeviceGrid over `devices` (default: visible_devices(
+    device), after ensure_distributed()); None below two devices."""
+    if devices is None:
+        if ensure_distributed():
+            import torch.distributed as dist
+
+            if dist.get_world_size() > 1:
+                raise RuntimeError(
+                    f"detect_mesh: torch.distributed spans {dist.get_world_size()} "
+                    f"processes; a device grid over processes is not ported ({SPANNING_ITEM})")
+        devices = visible_devices(device)
+    n = len(devices)
+    if n < 2:
+        return None
+    if tp is None:
+        tp_env = envflags.raw("KARPENTER_MESH_TP")
+        tp = int(tp_env) if tp_env else (2 if n % 2 == 0 and n >= 4 else 1)
+    if tp < 1 or n % tp != 0:
+        raise ValueError(f"tp={tp} does not divide device count {n}")
+    from karpenter_core_tpu_torch.parallel.specs import DeviceGrid
+
+    return DeviceGrid.of(devices, tp)
+
+
+def describe(solver) -> str:
+    """One line naming the chosen solver, for the start-up log: its grid's
+    shape, or else its device."""
+    name = type(solver).__name__
+    mesh = getattr(solver, "mesh", None)
+    if mesh is not None:
+        return f"{name}(dp={mesh.shape['dp']}, tp={mesh.shape['tp']})"
+    device = getattr(solver, "device", None)
+    return f"{name}({device})" if device is not None else name
 
 
 def build_solver(max_nodes: int = 1024, mode: Optional[str] = None,
-                 device: Optional[str] = None, **solver_kwargs):
-    """The primary solver; `solver_kwargs` go to TorchSolver
-    (screen_mode, incremental, max_relax_rounds)."""
+                 device: Optional[str] = None, devices=None, **solver_kwargs):
+    """The primary solver; `solver_kwargs` go to TorchSolver or
+    ShardedSolver (screen_mode, incremental, max_relax_rounds, pack_scan).
+    The port's detection reads only the device count, which cannot wedge,
+    so a detection that raises (a tp that does not divide, a world size
+    above 1) raises in every mode."""
     import torch
 
-    from karpenter_core_tpu_torch.solver.torch_solver import TorchSolver
-
-    mode = (mode or "auto").lower()
+    mode = (mode or envflags.raw("KARPENTER_SOLVER_MODE", "auto") or "auto").lower()
     if mode not in MODES:
         raise ValueError(f"unknown solver mode {mode!r}; expected one of {MODES}")
+    mesh = detect_mesh(devices, device=device) if mode != "single" else None
+    if mesh is not None:
+        from karpenter_core_tpu_torch.parallel.sharded import ShardedSolver
+
+        return ShardedSolver(mesh, max_nodes=max_nodes, **solver_kwargs)
     if mode == "sharded":
-        raise NotImplementedError(
-            "the sharded solver is not ported yet (ROADMAP Queue A: multi-GPU)")
+        raise RuntimeError("KARPENTER_SOLVER_MODE=sharded but only one device is visible")
+    from karpenter_core_tpu_torch.solver.torch_solver import TorchSolver
+
     device = device or "cuda"
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_solver: no CUDA card is available; pass device='cpu' "
                            "to solve on the CPU")
     return TorchSolver(max_nodes=max_nodes, device=device, **solver_kwargs)
-
-
-
-def describe(solver) -> str:
-    """One line naming the chosen solver, for the start-up log."""
-    name = type(solver).__name__
-    device = getattr(solver, "device", None)
-    return f"{name}({device})" if device is not None else name
 
 
 def host_mode_enabled(default: bool = False) -> bool:
@@ -66,8 +151,8 @@ def build_primary(max_nodes: int = 1024, host_default: bool = False,
                   device: Optional[str] = None, **kwargs):
     """The process entry's primary: the hard-killable HostSolver when
     KARPENTER_SOLVER_HOST resolves on (a wedge kills and respawns its
-    child), build_solver's in-process TorchSolver otherwise. `kwargs` go
-    to the solver built."""
+    child), build_solver's in-process solver otherwise. `kwargs` go to the
+    solver built."""
     if host_mode_enabled(host_default):
         from karpenter_core_tpu_torch.solver.host import HostSolver
 

@@ -9,7 +9,8 @@ across a process boundary instead:
 
   * ``host_main``: the child (`python -m karpenter_core_tpu_torch.solver.host
     --heartbeat PATH --device cuda`), a ``SolverService`` on the device the
-    parent names, behind length-prefixed frames on stdin/stdout, the
+    parent names (over the grid of its devices under
+    KARPENTER_SOLVER_MODE, solver/factory.detect_mesh), behind length-prefixed frames on stdin/stdout, the
     messages those of solver/codec.py (protobuf's wire format, no protobuf
     or grpc needed). A file ``Heartbeat`` is its process heartbeat
     (utils/supervise), so the phase marks of every dispatch touch the file
@@ -1535,7 +1536,23 @@ def host_main(argv=None) -> int:
     # before the ready frame: the parent reports the stderr tail); on the
     # card, its context and the screen library are made before the ready
     # frame too, so a dispatch's watchdog never waits on them
-    service = SolverService(device=args.device)
+    # a child that sees several devices serves over their grid (reference
+    # host.py:1758-1769): KARPENTER_SOLVER_MODE=single pins the one
+    # device; auto degrades to it when detection fails; sharded fails the
+    # start without a grid, as solver/factory.build_solver does
+    from karpenter_core_tpu_torch.solver.factory import detect_mesh
+
+    mode = envflags.raw("KARPENTER_SOLVER_MODE", "auto").lower()
+    mesh = None
+    if mode != "single":
+        try:
+            mesh = detect_mesh(device=args.device)
+        except Exception:  # noqa: BLE001 — auto serves the single device
+            if mode == "sharded":
+                raise
+        if mesh is None and mode == "sharded":
+            raise RuntimeError("KARPENTER_SOLVER_MODE=sharded but only one device is visible")
+    service = SolverService(device=args.device, mesh=mesh)
     if service.device.type == "cuda":
         import torch
 

@@ -17,6 +17,11 @@ compile, and its built library already persists on disk
 loaded the library or first met its geometry, "cached" that a live solve
 or an earlier tier got there first.
 
+On a device grid (parallel/sharded.ShardedSolver) each tier routes as a
+live solve at its geometry would: a tier that clears the routing floor
+prewarms the grid's tiles under the grid's key, one below it the single
+device under its own, so the live solve at either counts a hit.
+
 A live solve that arrives mid-prewarm waits for the one tier in flight
 (the solver's lock), never for the ladder. A tier that fails is logged as
 a warning and counted with outcome "error", `karpenter_prewarm_ready`

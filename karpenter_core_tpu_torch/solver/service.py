@@ -9,11 +9,21 @@ solver/replan.py) and returns the commit log and the final slot state. It
 calls the same dispatch functions TorchSolver does
 (torch_solver.dispatch_prescreen / dispatch_solve / dispatch_replan), so a
 wire solve and an in-process solve run one code path from device_args on.
-Its entries are keyed by the wire geometry and the screen mode, LRU-bounded
+Its entries are keyed by the wire geometry, the screen mode and the device
+grid's key (None: the single device), LRU-bounded
 (MAX_COMPILED 32 solve entries, MAX_REFRESH 16 refresh and MAX_REPLAN 16
 replan entries), each a program of obs/proghealth's ledger. Every Solve and
 Replan binds a ThreadHeartbeat its phase marks touch; Health reports
 "wedged" when an in-flight dispatch's heartbeat went stale.
+
+`SolverService(mesh=...)` (a parallel/specs.DeviceGrid, or True to detect
+one with solver/factory.detect_mesh) serves every Solve whose batch clears
+the routing floor (parallel/sharded.route_to_mesh) on the grid: the upload
+is pre-split (SpecLayout.put_args), the precomputes run as the grid's
+tiles and the scan on its lead device, byte-identical to the single
+device's; those entries count at the "service_sharded" compile-cache site
+and Health names the grid, "x4(dp=2,tp=2)". Replans run on the lead
+device, as the reference's.
 
 `serve()` puts it behind gRPC (with the AdmissionGate of solver/host.py in
 front); `RemoteSolver` is the Solver-interface client: encode locally, ship
@@ -361,12 +371,6 @@ def _check_device(device) -> torch.device:
     return device
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the multi-GPU mesh is not ported yet (ROADMAP Queue A "
-                                  "item 9); serve one card")
-
-
 @dataclass
 class _Entry:
     """One wire geometry's solve entry: its parsed geometry and the solve
@@ -383,6 +387,7 @@ class _Entry:
     screen_mode: str
     run: object
     replan: object = None
+    layout: object = None
 
 
 class SolverService:
@@ -404,9 +409,14 @@ class SolverService:
     MAX_REFRESH = 16
     MAX_REPLAN = 16
 
-    def __init__(self, device="cuda", admission=None, mesh=None):
-        _refuse_mesh(mesh)
-        self.device = _check_device(device)
+    def __init__(self, device=None, admission=None, mesh=None):
+        if mesh is True:
+            from karpenter_core_tpu_torch.solver.factory import detect_mesh
+
+            mesh = detect_mesh(device=device)
+        self.mesh = mesh
+        # a grid's solves gather on its lead device, which is the service's
+        self.device = mesh.lead if mesh is not None else _check_device(device or "cuda")
         self.admission = admission
         self._mu = threading.Lock()
         self._compiled: "OrderedDict[tuple, _Entry]" = OrderedDict()
@@ -432,8 +442,9 @@ class SolverService:
         self._inflight_seq = 0
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self.mesh.distinct() if self.mesh is not None else (self.device,):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def phase_ms(self) -> Dict[str, float]:
         """The last solve's phases, read under the lock they are written
@@ -569,14 +580,29 @@ class SolverService:
 
     # -- entries -------------------------------------------------------------
 
+    def _layout_for(self, args):
+        """The device grid's layout of this request: the service's grid
+        for batches that clear the routing floor (route_to_mesh on the
+        wire's item counts), None on a single device or for a small
+        batch."""
+        if self.mesh is None:
+            return None
+        from karpenter_core_tpu_torch.parallel import sharded
+        from karpenter_core_tpu_torch.parallel.specs import layout_for
+
+        total = int(np.asarray(args[0]["count"]).sum())
+        if not sharded.route_to_mesh(total, self.mesh.shape["dp"]):
+            return None
+        return layout_for(self.mesh)
+
     def _entry(self, geom_str: str, screen_mode: str, family: str = "service",
-               origin: str = "live") -> Tuple[tuple, _Entry, bool]:
-        """(key, entry, hit) of one wire geometry: made at first sight,
-        LRU-bounded, shared by Solve and Replan (a replan reuses the solve
-        entry's prescreen and residency, as the in-process solver's
-        does). The lookup is a compile-cache hit or miss at `family`'s
-        site."""
-        key = (geom_str, screen_mode)
+               origin: str = "live", layout=None) -> Tuple[tuple, _Entry, bool]:
+        """(key, entry, hit) of one wire geometry on the single device or
+        on `layout`'s grid: made at first sight, LRU-bounded, shared by
+        Solve and Replan (a replan reuses the single-device entry's
+        prescreen and residency, as the in-process solver's does). The
+        lookup is a compile-cache hit or miss at `family`'s site."""
+        key = (geom_str, screen_mode, None if layout is None else layout.key)
         with self._mu:
             entry = self._compiled.get(key)
             if entry is not None:
@@ -593,7 +619,9 @@ class SolverService:
         entry = _Entry(segments, zone_seg, ct_seg, topo_meta, n_slots, log_len, screen_v,
                        screen_mode,
                        make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots, log_len,
-                                       screen_v=screen_v, screen_mode=screen_mode))
+                                       screen_v=screen_v, screen_mode=screen_mode,
+                                       spec_layout=layout),
+                       layout=layout)
         retired = []
         with self._mu:
             entry = self._compiled.setdefault(key, entry)
@@ -639,8 +667,12 @@ class SolverService:
 
     # -- the device path ---------------------------------------------------------
 
-    def _upload(self, args):
-        """The wire's arrays onto the device (read-only views copied)."""
+    def _upload(self, args, layout=None):
+        """The wire's arrays onto the device (read-only views copied); on
+        a grid pre-split, each on the lead device and the tiled families
+        also as tiles on their devices (SpecLayout.put_args)."""
+        if layout is not None:
+            return layout.put_args(_ARG_NAMES, args)
         return args_to_torch(args, self.device)
 
     def _prescreen(self, key, entry: _Entry, host_args, targs):
@@ -654,7 +686,8 @@ class SolverService:
 
         if ops_compat.resolve_incremental_mode() == "off":
             screen0, mode, _d, items_pl, _e = dispatch_prescreen(
-                entry.segments, entry.screen_v, entry.n_slots, host_args, targs)
+                entry.segments, entry.screen_v, entry.n_slots, host_args, targs,
+                spec_layout=entry.layout)
             with self._mu:
                 self.last_prescreen_mode = mode
             return screen0, items_pl, mode
@@ -664,7 +697,7 @@ class SolverService:
         with lock:
             screen0, mode, delta, items_pl, _error = dispatch_prescreen(
                 entry.segments, entry.screen_v, entry.n_slots, host_args, targs, inc=inc,
-                key=key)
+                key=key, spec_layout=entry.layout)
         with self._mu:
             self.last_prescreen_mode = mode
         if mode == "refresh":
@@ -716,9 +749,12 @@ class SolverService:
         # "pack": the wire geometry's entry lookup, a span at the head of
         # the upload phase (the in-process solver's)
         t_pack = time.perf_counter_ns()
-        key, entry, hit = self._entry(request.geometry, ops_compat.resolve_screen_mode())
+        layout = self._layout_for(args)
+        key, entry, hit = self._entry(
+            request.geometry, ops_compat.resolve_screen_mode(), layout=layout,
+            family="service" if layout is None else "service_sharded")
         TRACER.add_span("solver.phase.pack", t_pack, time.perf_counter_ns())
-        targs = self._upload(args)
+        targs = self._upload(args, layout)
         mark("upload", tensors=len(request.tensors))
         screen0 = items_pl = None
         cold_ms = 0.0
@@ -821,12 +857,15 @@ class SolverService:
         t0 = time.perf_counter()
         fresh = load_screen_library(self.device)
         screen_mode = ops_compat.resolve_screen_mode()
-        key, entry, hit = self._entry(request.geometry, screen_mode, origin="prewarm")
-        fresh = fresh or not hit
         args = _unflatten_args({t.name: tensor_from_pb(t) for t in request.tensors})
+        layout = self._layout_for(args)
+        key, entry, hit = self._entry(
+            request.geometry, screen_mode, origin="prewarm", layout=layout,
+            family="service" if layout is None else "service_sharded")
+        fresh = fresh or not hit
         # the prescreen at this geometry, with no resident tensor
         dispatch_prescreen(entry.segments, entry.screen_v, entry.n_slots, None,
-                           self._upload(args))
+                           self._upload(args, layout), spec_layout=layout)
         self._sync()
         seconds = time.perf_counter() - t0
         self._programs.mint("solve", key, origin="prewarm", seconds=seconds)
@@ -846,7 +885,11 @@ class SolverService:
                 status=(f"wedged: dispatch heartbeat stale for {age:.0f}s "
                         f"(threshold {self.wedge_stale_after:.0f}s)"),
                 device="", solves=solves)
-        return pb.HealthResponse(status="ok", device=self.device_name(), solves=solves)
+        device = self.device_name()
+        if self.mesh is not None:
+            device += (f" x{self.mesh.size}"
+                       f"(dp={self.mesh.shape['dp']},tp={self.mesh.shape['tp']})")
+        return pb.HealthResponse(status="ok", device=device, solves=solves)
 
 
 def _topo_meta(groups):
@@ -873,9 +916,11 @@ def serve(address: str = "127.0.0.1:0", max_workers: int = 4, mesh=None,
           maximum_concurrent_rpcs: Optional[int] = None,
           max_queue: Optional[int] = 8, brownout_at: Optional[int] = None,
           tenant_quota: Optional[int] = None,
-          weights: Optional[Dict[str, float]] = None, device="cuda"):
-    """Start the gRPC server on `device`; returns (server, bound port,
-    service).
+          weights: Optional[Dict[str, float]] = None, device=None):
+    """Start the gRPC server on `device` (the card by default), or on a
+    device grid: `mesh` a parallel/specs.DeviceGrid, or True to detect
+    one over `device`'s kind (solver/factory.detect_mesh; none below two
+    devices). Returns (server, bound port, service).
 
     Overload control has two bounded layers: `maximum_concurrent_rpcs`
     caps what gRPC accepts (excess RPCs are refused RESOURCE_EXHAUSTED at
@@ -886,7 +931,6 @@ def serve(address: str = "127.0.0.1:0", max_workers: int = 4, mesh=None,
     Messages up to MAX_MESSAGE_BYTES pass both ways."""
     grpc = _import_grpc()
     pb2 = _import_pb2()
-    _refuse_mesh(mesh)
     admission = None
     if max_queue is not None:
         from karpenter_core_tpu_torch.solver.host import AdmissionGate
@@ -899,7 +943,7 @@ def serve(address: str = "127.0.0.1:0", max_workers: int = 4, mesh=None,
         max_workers = max(max_workers, max_queue + 1 + 2)
     if maximum_concurrent_rpcs is None:
         maximum_concurrent_rpcs = max_workers + (max_queue or 0) + 4
-    service = SolverService(device=device, admission=admission)
+    service = SolverService(device=device, admission=admission, mesh=mesh)
     handlers = {
         "Solve": grpc.unary_unary_rpc_method_handler(
             service.solve, request_deserializer=pb2.SolveRequest.FromString,
@@ -1164,9 +1208,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     # server-side tracing and logging, on by default as the operator's
     enable_tracing_from_env(default_on=True)
     configure_logging_from_env(default_level="info")
+    # a container that sees several devices serves every Solve over their
+    # grid; KARPENTER_SOLVER_MODE=single pins the one device, and sharded
+    # fails the start with one device (factory.build_solver's contract)
+    from karpenter_core_tpu_torch.solver.factory import detect_mesh
+
     mode = envflags.raw("KARPENTER_SOLVER_MODE", "auto").lower()
-    if mode == "sharded":
-        _refuse_mesh(mode)
+    mesh = None
+    if mode != "single":
+        mesh = detect_mesh(device=args.device)
+        if mesh is None and mode == "sharded":
+            raise RuntimeError("KARPENTER_SOLVER_MODE=sharded but only one device is visible")
     # a boot warmup before the port binds (before readiness): the screen
     # library's load and a small solve's first allocations
     if envflags.raw("KARPENTER_SOLVER_WARMUP", "1") != "0":
@@ -1185,7 +1237,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             LOG.warning("solver warmup failed, serving anyway", error=type(exc).__name__,
                         error_detail=str(exc))
     server, port, _service = serve(f"{args.host}:{args.port}", max_workers=args.max_workers,
-                                   device=args.device)
+                                   device=args.device, mesh=mesh)
     from karpenter_core_tpu_torch.utils.gctuning import apply_server_gc_tuning
 
     apply_server_gc_tuning()

@@ -36,6 +36,17 @@ components, and the host merge of the lanes' logs into global item order;
 `last_segment_stats` reports the attempt, which degrades to the
 sequential scan on the reference's grounds.
 
+On a device grid (parallel/sharded.ShardedSolver, whose `_layout_for`
+returns a parallel/specs.SpecLayout for batches that clear the routing
+floor) the prescreen's verdict tensor and the static feasibility planes
+are computed as tiles, each on its grid device, and gathered on the lead
+device; the scan runs there, and so do the segmented scan's lanes, one
+after another (the reference splits them over dp; the port's scan steps
+items from the host, so lanes on threads would take turns at the GIL and
+could not overlap). The layout's key joins the warm-state and residency
+keys, so the grid's entries never meet the single device's. `last_spec_layout` is the last
+solve's layout (None: the single-device path).
+
 One lock serializes a solver's solves, replans and prewarms: the
 provisioning and deprovisioning loops share the operator's solver, and the
 startup prewarm (`prewarm_snapshot`, solver/prewarm.py) runs on a thread
@@ -79,12 +90,17 @@ from karpenter_core_tpu_torch.ops import compat as ops_compat
 from karpenter_core_tpu_torch.ops import pack as pack_ops
 from karpenter_core_tpu_torch.ops import screen as screen_ops
 from karpenter_core_tpu_torch.ops.cuda_build import KernelError
-from karpenter_core_tpu_torch.ops.feasibility import feasibility_static, openable_mask
+from karpenter_core_tpu_torch.ops.feasibility import (
+    feasibility_static,
+    feasibility_tiles,
+    openable_mask,
+)
 from karpenter_core_tpu_torch.ops.pack import (
     SCREEN_MODES,
     PackState,
     ScreenOps,
     class_planes,
+    grid_initial_screen,
     make_batched_replan_kernel,
     make_pack_kernel,
     make_segment_partition_kernel,
@@ -417,7 +433,7 @@ def topo_meta_from(obj) -> Optional[TopoMeta]:
 def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
                     log_len: int, screen_v: Optional[int] = None,
                     screen_mode: str = "prescreen", rung_mode: bool = False,
-                    segment_mode: bool = False):
+                    segment_mode: bool = False, spec_layout=None):
     """The solve program (make_device_run with an external prescreen):
     feasibility + openable + the pack scan, a function of args_to_torch's
     tensors and the prescreen tensor (None under screen_mode="tiered"),
@@ -448,18 +464,33 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
     read-only variant for all-neutral lanes (seg_frozen) is not ported,
     since a fully neutral batch is one component and never dispatches
     lanes. Returns one (log, ptr, state) per lane, None for a lane not
-    run."""
+    run.
+
+    spec_layout (parallel/specs.SpecLayout) is the device grid's form
+    (tpu_solver.py:367-410,528-553): feasibility_static runs as the
+    grid's tiles (ops/feasibility.feasibility_tiles) and is gathered on
+    the lead device, where openable_mask and the scan run on the inputs
+    the lead holds. The segmented lanes run there too, one after
+    another, where the reference splits them over dp (segment_axis): the
+    scan steps items from the host, so lanes on a thread per card would
+    take turns at the GIL and not overlap (ROADMAP Queue B item 4). The
+    replan (rung_mode) runs on the lead device, as the reference's runs
+    the single-device program. run() and seg_run() take `placed`, the
+    GridArgs of SpecLayout.put_args, whose type-plane tiles the
+    feasibility tiles read."""
     segments = [tuple(s) for s in segments]
     pack = make_pack_kernel(segments, zone_seg, ct_seg,
                             topo_meta=topo_meta_from(topo_meta), screen_v=screen_v,
                             screen_mode=screen_mode)
+    if rung_mode:
+        spec_layout = None
 
     def run_impl(count_row, exist_open, screen0, pod_arrays, tmpl, tmpl_daemon,
                  tmpl_type_mask, types, type_alloc, type_capacity, type_offering_ok,
                  pod_tol_all, exist, exist_used, exist_cap, well_known, remaining0,
                  topo_counts0, topo_hcounts0, topo_doms0, topo_terms, exist_ports,
                  exist_vols, exist_vol_limits, vol_driver, items_pl=None, shared=None,
-                 item_sel=None):
+                 item_sel=None, placed=None):
         dev = exist_used.device
         E = exist_used.shape[0]
         N = n_slots
@@ -467,11 +498,13 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
         J = tmpl_daemon.shape[0]
         pre = shared if shared is not None else {}
         if "f_static" not in pre:
-            pre["f_static"] = feasibility_static(
-                {k: pod_arrays[k] for k in ("allow", "out", "defined", "escape")},
-                tmpl, types, pod_arrays["tol_tmpl"], tmpl_type_mask,
-                type_offering_ok, zone_seg, ct_seg, segments, well_known,
-            )
+            feas_args = ({k: pod_arrays[k] for k in ("allow", "out", "defined", "escape")},
+                         tmpl, types, pod_arrays["tol_tmpl"], tmpl_type_mask,
+                         type_offering_ok, zone_seg, ct_seg, segments, well_known)
+            if spec_layout is not None:
+                pre["f_static"] = feasibility_tiles(spec_layout, *feas_args, targs=placed)
+            else:
+                pre["f_static"] = feasibility_static(*feas_args)
             pre["openable"] = openable_mask(pre["f_static"], pod_arrays["requests"],
                                             tmpl_daemon, type_alloc)
         f_static, openable = pre["f_static"], pre["openable"]
@@ -536,7 +569,7 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
         if screen_mode != "prescreen":
             raise ValueError("the segmented scan reads the prescreen's verdict tensor")
 
-        def seg_run(item_sel, exist_open, screen0, *args, items_pl):
+        def seg_run(item_sel, exist_open, screen0, *args, items_pl, placed=None):
             dev = args[RUN_ARG_NAMES.index("exist_used")].device
             open_dev = torch.from_numpy(np.ascontiguousarray(exist_open)).to(dev)
             # the feasibility planes and the scan's geometry constants are
@@ -550,7 +583,7 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
                     continue
                 pre["scan"] = {"geo": geo}
                 out.append(run_impl(None, eo, screen0, *args, items_pl=items_pl,
-                                    shared=pre, item_sel=np.asarray(sel)))
+                                    shared=pre, item_sel=np.asarray(sel), placed=placed))
             return out
 
         return seg_run
@@ -563,8 +596,8 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
         rung_run.n_slots = n_slots
         return rung_run
 
-    def run(screen0, *args, items_pl=None):
-        return run_impl(None, None, screen0, *args, items_pl=items_pl)
+    def run(screen0, *args, items_pl=None, placed=None):
+        return run_impl(None, None, screen0, *args, items_pl=items_pl, placed=placed)
 
     return run
 
@@ -839,13 +872,18 @@ def merge_lanes(lanes, n_exist: int):
 
 
 def dispatch_prescreen(segments, screen_v, n_slots: int, host_args, targs, inc=None,
-                       key=None, gate_ok: bool = True):
+                       key=None, gate_ok: bool = True, spec_layout=None):
     """The [N, C] verdict tensor of a solve or replan (_dispatch_prescreen,
     tpu_solver.py:1369-1458). With `inc` (an IncrementalScreen) the tensor
     resident at `key` is refreshed in its changed rows and columns when
     the delta is narrow; otherwise, and when planning or the refresh
     fails, the full precompute runs. `host_args` are device_args' numpy
     arrays (the fingerprints read them), `targs` their tensors.
+
+    With spec_layout (a device grid) the full precompute runs as the
+    grid's tiles, gathered on the lead device (ops/pack.
+    grid_initial_screen); the refresh runs on the lead device, where the
+    resident tensor, `targs` and the class planes are.
 
     Returns (tensor, "full" | "refresh", the delta or None, the class
     planes the scan reuses, the traceback of a failed refresh or None)."""
@@ -873,7 +911,9 @@ def dispatch_prescreen(segments, screen_v, n_slots: int, host_args, targs, inc=N
                 inc.drop_resident()
                 inc.count_degraded()
                 screen0 = None
-    if screen0 is None:
+    if screen0 is None and spec_layout is not None:
+        screen0 = grid_initial_screen(ops, spec_layout, items_pl, exist, n_slots, targs=targs)
+    elif screen0 is None:
         screen0 = ops.initial_screen(items_pl, exist["allow"], exist["out"], exist["defined"],
                                      n_slots)
     if inc is not None:
@@ -883,9 +923,10 @@ def dispatch_prescreen(segments, screen_v, n_slots: int, host_args, targs, inc=N
 
 def dispatch_solve(run, screen0, targs, items_pl, sync=None):
     """One solve program's run on its device (under obs.device_profiler):
-    (log, ptr, PackState), still on the device."""
+    (log, ptr, PackState), still on the device. `targs` may be a
+    device grid's GridArgs, whose tiles the tiled precompute reads."""
     with device_profiler():
-        log, ptr, state = run(screen0, *targs, items_pl=items_pl)
+        log, ptr, state = run(screen0, *targs, items_pl=items_pl, placed=targs)
         if profile_dir() and sync is not None:
             sync()  # keep the device work inside the capture
     return log, ptr, state
@@ -975,16 +1016,17 @@ _SCREEN_PLANES = {
 }
 
 
-def _residency_key(geom, args, screen_mode: str) -> tuple:
+def _residency_key(geom, args, screen_mode: str, layout_key=None) -> tuple:
     """The key of a resident verdict tensor: what its shape and contents
     depend on besides the planes' values (which plan() fingerprints): N,
     the label segments, the screen width, the shape and dtype of every
-    plane the prescreen reads, and the screen mode."""
+    plane the prescreen reads, the screen mode, and the device grid's key
+    (None: the single device)."""
     N, segments, screen_v = geom[7], geom[8], geom[16]
     named = dict(zip(RUN_ARG_NAMES, args))
     shapes = tuple((name, k, named[name][k].shape, str(named[name][k].dtype))
                    for name, keys in _SCREEN_PLANES.items() for k in keys)
-    return (N, segments, screen_v, shapes, screen_mode)
+    return (N, segments, screen_v, shapes, screen_mode, layout_key)
 
 
 class _Carried:
@@ -1086,15 +1128,18 @@ class TorchSolver:
         self.last_prescreen_launches: Optional[Dict[str, int]] = None
         # the traceback of the last refresh that failed (full_deg)
         self.last_refresh_error: Optional[str] = None
+        # the device grid's layout the last solve ran on (None: the single
+        # device; parallel/sharded.ShardedSolver routes)
+        self.last_spec_layout = None
         # the state carried across solves, and the lock of its hand-over
         # (held only to take or return it, never across a dispatch); the
         # per-call results above and the warm keys below are written under
         # it too, since calls on several threads may run at once
         self._carried = _Carried()
         self._lock = threading.Lock()
-        # the solve geometries (solve_geometry, screen mode) a solve or a
-        # prewarm has met, in order (the counterpart of the reference's
-        # compiled-program cache keys)
+        # the solve geometries (solve_geometry, screen mode, the grid's
+        # key or None) a solve or a prewarm has met, in order (the
+        # counterpart of the reference's compiled-program cache keys)
         self._warm_keys: Dict[tuple, None] = {}
         # the replan's (warm key, K pad) entries met, likewise
         self._replan_keys: Dict[tuple, None] = {}
@@ -1140,6 +1185,12 @@ class TorchSolver:
 
     def _program_meta(self, geom) -> dict:
         return {"tier": f"{geom[7]}slots", "mode": self.screen_mode}
+
+    def _layout_for(self, snap):
+        """The device grid's layout this snapshot solves on: None, the
+        single device. parallel/sharded.ShardedSolver returns its grid's
+        for batches that clear the routing floor."""
+        return None
 
     def _inc_enabled(self) -> bool:
         """The delta re-solve applies only under prescreen: tiered keeps
@@ -1193,7 +1244,7 @@ class TorchSolver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _dispatch_prescreen(self, key, geom, host_args, targs, carried):
+    def _dispatch_prescreen(self, key, geom, host_args, targs, carried, layout=None):
         """dispatch_prescreen at the carried residency: the resident
         tensor at `key` (an LRU of MAX_INC_SCREENS), the change feed's
         verdict poisoning every key on a fault. Returns (tensor, "full" |
@@ -1211,7 +1262,8 @@ class TorchSolver:
             while len(screens) > self.MAX_INC_SCREENS:
                 screens.popitem(last=False)
         screen0, mode, delta, items_pl, error = dispatch_prescreen(
-            geom[8], geom[16], geom[7], host_args, targs, inc=inc, key=key, gate_ok=gate_ok)
+            geom[8], geom[16], geom[7], host_args, targs, inc=inc, key=key, gate_ok=gate_ok,
+            spec_layout=layout)
         if error is not None:
             self._publish(last_refresh_error=error)
         elif mode == "refresh":
@@ -1270,7 +1322,10 @@ class TorchSolver:
         chaos.maybe_fail(chaos.SOLVER_DEVICE)
         chaos.maybe_fail(chaos.SOLVER_DEVICE_HANG)
         geom = solve_geometry(snap, self.max_nodes)
-        warm_key = (geom, self.screen_mode)
+        layout = self._layout_for(snap)
+        layout_key = None if layout is None else layout.key
+        self._publish(last_spec_layout=layout)
+        warm_key = (geom, self.screen_mode, layout_key)
         N, segments, zone_seg, ct_seg, log_len, screen_v = (
             geom[7], geom[8], geom[9], geom[10], geom[12], geom[16]
         )
@@ -1290,10 +1345,10 @@ class TorchSolver:
                       last_prescreen_launches=None)
         screen0 = items_pl = None
         if self.screen_mode == "prescreen":
-            key = _residency_key(geom, args, self.screen_mode)
+            key = _residency_key(geom, args, self.screen_mode, layout_key)
             before = screen_ops.launch_counts()
             screen0, mode, delta, items_pl = self._dispatch_prescreen(key, geom, args, targs,
-                                                                      carried)
+                                                                      carried, layout)
             self._publish(
                 last_prescreen_mode=mode,
                 last_prescreen_launches={
@@ -1312,7 +1367,8 @@ class TorchSolver:
                 try:
                     chaos.maybe_fail(chaos.SOLVER_SEGMENT)
                     seg = self._try_segmented(snap, geom, key, warm_key, args, targs,
-                                              screen0, items_pl, mode, delta, mark, carried)
+                                              screen0, items_pl, mode, delta, mark, carried,
+                                              layout)
                 except KernelError:
                     raise
                 except Exception as exc:  # noqa: BLE001 — the reference's degrade
@@ -1327,7 +1383,8 @@ class TorchSolver:
                     mark("decode")
                     return result
         run = make_device_run(segments, zone_seg, ct_seg, snap.topo_meta, N, log_len,
-                              screen_v=screen_v, screen_mode=self.screen_mode)
+                              screen_v=screen_v, screen_mode=self.screen_mode,
+                              spec_layout=layout)
         # re-label for the long silent stretch ahead: a wedge inside the
         # scan names the device phase, not the last host-side mark
         supervise.touch_heartbeat("solver.phase.device")
@@ -1374,7 +1431,7 @@ class TorchSolver:
         return make_segment_partition_kernel(geom[8], geom[3], screen_v=geom[16]), cold
 
     def _try_segmented(self, snap, geom, key, warm_key, host_args, targs, screen0, items_pl,
-                       scr_mode, delta, mark, carried):
+                       scr_mode, delta, mark, carried, layout=None):
         """One segmented dispatch (_try_segmented, tpu_solver.py:1594-1906):
         the partition (resident across churn while the refresh's delta is
         empty and the template fingerprint matches), the lanes, the host
@@ -1437,11 +1494,13 @@ class TorchSolver:
         lane_cold = self._programs.mint("segment", lane_key, meta=dict(
             self._program_meta(geom), lanes=s_pad, segment_bucket=m_pad))
         seg_run = make_device_run(geom[8], geom[9], geom[10], None, N, L, screen_v=geom[16],
-                                  screen_mode="prescreen", segment_mode=True)
+                                  screen_mode="prescreen", segment_mode=True,
+                                  spec_layout=layout)
         supervise.touch_heartbeat("solver.phase.device")
         t0 = time.perf_counter()
         with device_profiler():
-            runs = seg_run(item_sel, exist_open, screen0, *targs, items_pl=items_pl)
+            runs = seg_run(item_sel, exist_open, screen0, *targs, items_pl=items_pl,
+                           placed=targs)
             self._sync()
         self._programs.dispatch("segment", lane_key,
                                 device_ms=(time.perf_counter() - t0) * 1e3)
@@ -1555,7 +1614,9 @@ class TorchSolver:
                                    screen_v=screen_v, screen_mode=self.screen_mode,
                                    rung_mode=True)
         replan = make_batched_replan_kernel(rung_run, E)
-        warm_key = (geom, self.screen_mode)
+        # the replan runs on the single device (the lead of a grid), as
+        # the reference's dispatches the single-device program
+        warm_key = (geom, self.screen_mode, None)
         misses = []
 
         def on_chunk(kp, ms):
@@ -1603,14 +1664,17 @@ class TorchSolver:
         t0 = time.perf_counter()
         fresh = load_screen_library(self.device)
         geom = solve_geometry(snap, self.max_nodes)
-        key = (geom, self.screen_mode)
+        # a tier that a live solve would route to the device grid prewarms
+        # under the grid's key, and its tiles (tpu_solver.py:1133-1161)
+        layout = self._layout_for(snap)
+        key = (geom, self.screen_mode, None if layout is None else layout.key)
         cold = self._warm(key)
         record_lookup("prewarm", not cold)
         fresh = cold or fresh
         args = device_args(snap, provisioners)
         # the prescreen at this geometry, with no resident tensor
         dispatch_prescreen(geom[8], geom[16], geom[7], None,
-                           args_to_torch(args, self.device))
+                           args_to_torch(args, self.device), spec_layout=layout)
         self._sync()
         seconds = time.perf_counter() - t0
         self._programs.mint("solve", key, origin="prewarm", meta=self._program_meta(geom),

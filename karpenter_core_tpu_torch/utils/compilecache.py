@@ -45,7 +45,9 @@ DISABLED = ("0", "off", "disabled")
 
 def record_lookup(site: str, hit: bool) -> None:
     """One warm-state lookup outcome (site: 'tpu_solver', 'prewarm',
-    'replan', 'service', 'service_replan_entry', 'service_replan'). A
+    'replan', 'service', 'service_sharded' (a device grid's entries in the
+    solver service; a grid's in-process solves count at 'tpu_solver'
+    under keys of their own), 'service_replan_entry', 'service_replan'). A
     bound request context adds a tenant label: which tenant's request paid
     the cold dispatch."""
     (CACHE_HITS if hit else CACHE_MISSES).inc(reqctx.tenant_labels(site=site))

@@ -1072,3 +1072,44 @@ def test_card_process_entry_serves_a_backlog():
             else:
                 os.environ[k] = v
     assert not th.is_alive() and got["proc"].alive == []
+
+
+@pytest.mark.cuda
+def test_verdict_tile_on_a_second_card_matches_plain():
+    """A verdict tile of the device grid on cuda:1, launched while cuda:0
+    is the calling thread's current card: the screen kernels run under
+    the tile's card's guard and stream (ops/screen.py), so the tile equals
+    the plain version; and the whole grid's gathered verdict tensor equals
+    the single card's."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from karpenter_core_tpu_torch.ops import pack
+    from karpenter_core_tpu_torch.parallel.specs import DeviceGrid, SpecLayout
+
+    rng = np.random.default_rng(13)
+    segments = MANY
+    slot, items = _random_case(rng, 301, 257, segments)
+    layout = screen.ScreenLayout(segments, segments[-1][1])
+    want = screen.screen_block(slot["allow"], slot["out"], slot["defined"],
+                               screen.ScreenItems(items, layout), layout)
+    torch.cuda.set_device(0)
+    second = torch.device("cuda:1")
+    with torch.cuda.device(0):
+        got = screen.screen_block(*(slot[k].to(second) for k in ("allow", "out", "defined")),
+                                  screen.ScreenItems({k: v.to(second) for k, v in items.items()},
+                                                     layout), layout)
+        torch.cuda.synchronize(second)
+    assert got.device == second
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+    n = torch.cuda.device_count()
+    grid = DeviceGrid.of([torch.device(f"cuda:{i}") for i in range(n)], 2 if n % 2 == 0 else 1)
+    ops = pack.ScreenOps(segments, segments[-1][1], None)
+    exist = {k: slot[k].cuda() for k in ("allow", "out", "defined")}
+    planes = screen.ScreenItems({k: v.cuda() for k, v in items.items()}, ops.rows_layout)
+    single = ops.initial_screen(planes, exist["allow"], exist["out"], exist["defined"], 400)
+    tiled = pack.grid_initial_screen(ops, SpecLayout(grid), planes, exist, 400)
+    assert tiled.device == grid.lead
+    assert {d for _i, _j, d, _c in pack.LAST_TILES} == {str(d) for d in grid.distinct()}
+    np.testing.assert_array_equal(tiled.cpu().numpy(), single.cpu().numpy())

@@ -5,7 +5,8 @@ wires, on the CPU.
   S and M tiers, leader election, a backlog provisioned through the
   ResilientSolver, every endpoint of the health server, the webhook
   server, and a clean stop (threads joined, the lease released);
-- what the entry refuses: no card, KARPENTER_SOLVER_MODE=sharded; a run
+- what the entry refuses: no card, KARPENTER_SOLVER_MODE=sharded over one
+  device; a run
   with KARPENTER_CHAOS armed (two injected create failures, every pod
   nominated) and a malformed spec refused; the primary it wires: the
   solver host by default, a
@@ -232,13 +233,15 @@ def test_run_refuses_without_a_card(process_state):
 
 
 @pytest.mark.parametrize("env,argv,item", [
-    ({"KARPENTER_SOLVER_MODE": "sharded"}, [], "ROADMAP Queue A item 9"),
+    ({"KARPENTER_SOLVER_MODE": "sharded"}, [], "only one device is visible"),
 ], ids=["sharded"])
 def test_run_refuses_what_is_not_ported(monkeypatch, process_state, env, argv, item):
+    """KARPENTER_SOLVER_MODE=sharded over one device fails the start, as
+    the reference's factory does (a grid needs two devices or more)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     threads = threading.active_count()
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError, match=item):
         entry.run(fake.FakeCloudProvider(), options=parse_options(argv + ["--metrics-port",
                                                                           "0"]),
                   device="cpu")

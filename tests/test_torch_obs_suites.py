@@ -13,9 +13,9 @@ them, and `compile_cache` on the device span) on `TorchSolver(device=
 The suites: tests/test_metrics_exposition.py (17), tests/test_obs_log.py
 (17) and tests/test_obs_tracer.py (21).
 
-Left out (LEFT_OUT): tests/test_solver_factory.py, all 16 cases. They
-build the mesh solver of `parallel/`, which the port has no counterpart of
-until its multi-device slice (ROADMAP Queue A item 9).
+Nothing is left out (LEFT_OUT): tests/test_solver_factory.py, which
+builds the mesh solver of `parallel/`, runs on the port's device grid in
+tests/test_torch_mesh_suites.py.
 """
 import pytest
 
@@ -26,7 +26,6 @@ from karpenter_core_tpu_torch.cloudprovider import fake as _port_fake  # noqa: F
 import tests.test_metrics_exposition as metrics_exposition
 import tests.test_obs_log as obs_log
 import tests.test_obs_tracer as obs_tracer
-import tests.test_solver_factory as solver_factory
 from tests.torch_suites import (  # noqa: F401  (restore_process_state: autouse)
     Mapping,
     cases,
@@ -43,13 +42,8 @@ SUITES = {
     "obs_log": obs_log,
     "obs_tracer": obs_tracer,
 }
-LEFT_OUT = {
-    "solver_factory": (
-        solver_factory,
-        "builds the parallel/ mesh solver: no port counterpart until the "
-        "multi-device slice (ROADMAP Queue A item 9)",
-    ),
-}
+# suite name -> (suite, why its cases do not run here)
+LEFT_OUT = {}
 MAPPING = Mapping(cpu_substitutes())
 CASES = [c for name, suite in SUITES.items() for c in cases(name, suite)]
 
@@ -63,7 +57,7 @@ def test_cases_cover_the_suites():
     counts = {name: sum(1 for c in CASES if c[0] == name) for name in SUITES}
     assert counts == {"metrics_exposition": 17, "obs_log": 17, "obs_tracer": 21}
     left_out = {name: len(cases(name, suite)) for name, (suite, _why) in LEFT_OUT.items()}
-    assert left_out == {"solver_factory": 16}
+    assert left_out == {}
 
 
 def test_port_run_reaches_no_reference_object():

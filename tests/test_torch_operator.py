@@ -1005,7 +1005,7 @@ def test_build_solver_never_falls_back_to_the_cpu():
     assert solver.max_nodes == 32
     single = build_solver(max_nodes=32, mode="single", device="cpu")
     assert isinstance(single, TorchSolver) and single.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="only one device"):
         build_solver(mode="sharded", device="cpu")
     with pytest.raises(ValueError):
         build_solver(mode="greedy", device="cpu")

@@ -33,7 +33,9 @@ def test_config_describes_the_port(full_run):
     assert config.package_name == PACKAGE
     assert config.env_funnel == f"{PACKAGE}/obs/envflags.py"
     assert config.env_funnel in {f.relpath for f in files}
-    assert "parallel" not in config.layering
+    # the device grid (parallel/) sits above solver, as the reference's
+    assert "solver" in config.layering["parallel"]
+    assert "parallel" not in config.layering["solver"]
     assert all(PACKAGE + "/" in entry for entry in
                config.wallclock_allowlist | config.plain_write_allowlist
                | config.popen_funnels | config.atomic_write_funnels)
