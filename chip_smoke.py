@@ -84,8 +84,9 @@ Phases, each fatal on failure:
      of phase 6's snapshot (equal to the in-process replan), the request
      and response bytes printed;
   8. consolidation at full width: phase 6's live cluster built afresh
-     without its backlog, at 300 of its 1,000 nodes (9,000 bound pods;
-     the depth cut that pays for phases 14, 16 and 17), and a
+     without its backlog, at 200 of its 1,000 nodes (6,000 bound pods;
+     the depth cut that pays for phases 14, 16, 17 and, from 300 nodes,
+     19), and a
      provisioner with consolidation enabled; through the port's
      deprovisioning modules (candidate_nodes, the ProvisioningController, the
      consolidation deprovisioners, solver/replan.py) on a FakeClock with
@@ -168,7 +169,7 @@ Phases, each fatal on failure:
      the tracer's Chrome trace (exported into the temporary directory);
   10b. phase 10's script at half of 3c's size (2,250 pods of the mix, 150
      ingress and 200 claim pods over 100 nodes with 42 pods bound on each;
-     the depth cut that, with phase 8 at 300 nodes and phases 12 and 14b
+     the depth cut that, with phase 8 at 200 nodes and phases 12 and 14b
      at half size, pays for phase 17) on the card and on the CPU: equal
      placements, launched machines' instance-type options, (reason, kind)
      events, counter resources and counters; then, on the card, an ICE
@@ -278,7 +279,7 @@ Phases, each fatal on failure:
      deadline violation and a re-converged latency. 15b, steady churn at
      a cluster's size: 1,000 seed nodes over 400 types, 40 arrival
      events/s (~100 pods/s), 24 terminations and 3.2 resizes a second for
-     30 s, the default Settings() batch windows, the same two faults, the
+     25 s (30 s before phase 19), the default Settings() batch windows, the same two faults, the
      entry's default primary (a HostSolver in the entry's ResilientSolver);
      every SoakReport column, the card's solves, the fallbacks and small
      batches, the chaos counts and the children's launches by form
@@ -344,13 +345,13 @@ Phases, each fatal on failure:
      card when there are several, else a 2 x 2 grid of logical devices on
      the card, named in the output beside every number. 18a: 17a's
      workload through ShardedSolver over the grid, sequential and
-     segmented (the lanes over dp), each byte-identical to 17a's cold
-     single-card solve of the same scan; fatal: a solve off the grid, a
-     segmented solve without 17a's segments, no screen_prep, block or
-     row_n1 launch; printed: the prescreen, segment and device ms beside
-     17a's, the launches by form and by device, each verdict tile's
-     device and launches, the gathers' bytes (and those from another
-     device) and the largest gather timed alone. 18b:
+     segmented (the lanes on the lead), each byte-identical to 17a's cold
+     single-card solve of the same scan and timed against it; fatal: a
+     solve off the grid, a segmented solve without 17a's segments, no
+     screen_prep, block or row_n1 launch; printed: the prescreen, segment
+     and device ms beside 17a's, the launches by form and by device, each
+     verdict tile's rank, device and launches, the gathers' bytes (and
+     those from another device) and the largest gather timed alone. 18b:
      tests/test_solver_factory.py's mixed batch at 3c's size (5,000 pods,
      200 nodes) solved by TorchSolver, then over the grid through
      serve(mesh=grid) and RemoteSolver (Health naming dp and tp) and
@@ -361,12 +362,27 @@ Phases, each fatal on failure:
      with KARPENTER_SOLVER_MODE=sharded: its solver host's child serves
      over the grid, a 600-pod backlog is nominated within 180 s through a
      lookup at the child's service_sharded compile-cache site.
+  19. the device grid over processes (right after phase 18): this script
+     started again as ranks (--dist-rank) through KARPENTER_DIST_COORDINATOR
+     on 127.0.0.1 with _NUM_PROCESSES and _PROCESS_ID: on one card two
+     ranks with two logical devices each (a 2 x 2 grid, dp over the ranks,
+     gloo), on several one rank per card (NCCL). Every rank builds its
+     solver through build_solver(mode="sharded"); 19a solves 17a's
+     workload at full width (sequential scan), 19b 18b's mixed batch twice
+     on one solver (the second the refresh; the verdict tiles' block form
+     on every rank). Every rank prints its placements' sha256, wall,
+     prescreen and device ms, gathers (bytes, bytes from other ranks,
+     collective ms) and launches; fatal: a digest other than 17a's
+     single-card sequential solve's (19a) or 18b's TorchSolver's (19b), a
+     rank that exits non-zero or still runs at DIST_DEADLINE_S (every rank
+     then killed), a solve off the grid, no refresh, a missing launch.
 Phase 1 builds the native packer (g++, native/fast_pack.cpp) beside the
 CUDA kernels. Phases 4-6 solve with incremental="off", so their warm solves
 run the full precompute as before. It prints one JSON line describing
 every kernel (the screen, screen_prep, and the screen's three forms with
-their launches over phases 4-10, 12a and 13-18, the solver host's
-children's, the gRPC service's and 16a's child's summed in), then as its last line
+their launches over phases 4-10, 12a and 13-19, the solver host's
+children's, the gRPC service's, 16a's child's and phase 19's ranks'
+summed in), then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 
     python3 chip_smoke.py --profile
@@ -378,6 +394,7 @@ costliest device operations and the host's operator count and time.
 import contextlib
 import copy
 import gc
+import hashlib
 import json
 import os
 import pickle
@@ -1592,10 +1609,14 @@ def phase_churn(pods, provs, its, client, cluster, max_nodes: int, zones, steps:
 
 # -- phase 8: consolidation over a live cluster --------------------------------
 
-# phase 8's settled cluster: phase 6's at 300 of its 1,000 nodes (9,000
+# phase 8's settled cluster: phase 6's at 200 of its 1,000 nodes (6,000
 # bound pods), the depth cut that, with 10b at half of 3c's size, pays for
-# phases 14, 16 and 17
-PHASE8_NODES = 300
+# phases 14, 16 and 17 and, with 18a's single-card solves gone and 15b's
+# shorter churn, phase 19 (300 nodes before it: 47.5 s of phase 8 against
+# 35.8 s at 200 nodes and 25.7 s of phase 19 on one H100's host). At 150
+# nodes the sweep's replan ran the full precompute where the check wants
+# the refresh
+PHASE8_NODES = 200
 
 
 def settled_cluster(*args, **kw):
@@ -3005,7 +3026,7 @@ def replay_solve_record(label: str, taken: dict, must_match_live: bool) -> dict:
 # cluster, and phase 12's at half of it
 PHASE12_SIZE = (4500, 400, 200, 100, dict(n_ingress=300, n_sets=0, per_node=18))
 # phase 12 at half of it (2,400 pods over 100 nodes, 1,800 bound): the
-# depth cut that, with 10b at half of 3c's size and phase 8 at 300 nodes,
+# depth cut that, with 10b at half of 3c's size and phase 8 at 200 nodes,
 # pays for phase 17
 DRILL_SIZE = (2250, 400, 100, 100, dict(n_ingress=150, n_sets=0, per_node=18))
 # phases 14b and 16b at a quarter of phase 13's cluster (1,200 pods over 50
@@ -4075,7 +4096,9 @@ SOAK_DRILL = dict(seed=42, duration_s=12.0, arrival_rate=2.5, termination_rate=2
 # arrival events/s (~100 pods/s with the default mix at 2.4 pods an event,
 # upstream's floor, scheduling_benchmark_test.go:50), the soak's ratios for
 # terminations and resizes
-STEADY_CHURN = dict(seed=42, duration_s=30.0, arrival_rate=40.0, termination_rate=24.0,
+# 15b's churn runs 25 s (30 s before phase 19: the depth cut that, with
+# phase 8 at 200 nodes and 18a's single-card solves gone, pays for it)
+STEADY_CHURN = dict(seed=42, duration_s=25.0, arrival_rate=40.0, termination_rate=24.0,
                     resize_rate=3.2, initial_nodes=1000)
 STEADY_TYPES = 400
 STEADY_TAIL_S = 60.0
@@ -5000,8 +5023,8 @@ def grid_solve(label, solver, pods, provs, its, nodes=None, sync=None) -> dict:
     specs.reset_gather()
     shapes, real = [], specs.SpecLayout.gather
 
-    def gather(self, tiles, spec):
-        got = real(self, tiles, spec)
+    def gather(self, tiles, spec, *a, **kw):
+        got = real(self, tiles, spec, *a, **kw)
         shapes.append((spec, tuple(got.shape), got.dtype))
         return got
 
@@ -5012,8 +5035,9 @@ def grid_solve(label, solver, pods, provs, its, nodes=None, sync=None) -> dict:
         specs.SpecLayout.gather = real
     out["gathered"] = shapes
     out["by_device"] = screen.device_launch_counts()
-    out["tiles"] = [dict(tile=[i, j], device=d, launches={k: v for k, v in c.items() if v})
-                    for i, j, d, c in pack.LAST_TILES]
+    out["tiles"] = [dict(tile=[i, j], rank=r, device=d,
+                         launches={k: v for k, v in c.items() if v})
+                    for i, j, r, d, c in pack.LAST_TILES]
     out["gather"] = dict(specs.GATHER)
     out["path"] = getattr(solver, "last_path", None)
     say(f"[grid] {label}: path {out['path']}, launches by device "
@@ -5043,12 +5067,11 @@ def phase_grid_segmented(seg_full, grid, kind, device="cuda") -> dict:
     """18a: phase 17a's workload (its pods, pools and types) through
     ShardedSolver over the grid, sequential and segmented (the lanes on
     the lead device), each placed byte-identically to phase 17a's
-    single-card cold solve of the same scan. The grid solve's wall is set
-    against a first solve of a new TorchSolver on the lead device, run
-    just before it in the same process state. Fatal: a placement that
-    differs, a solve that did not take the grid, a segmented solve
-    without 17a's segments, or one that launched no screen_prep, block
-    or row_n1 (counts set to 0 just before, read just after)."""
+    single-card cold solve of the same scan and timed against it. Fatal:
+    a placement that differs, a solve that did not take the grid, a
+    segmented solve without 17a's segments, or one that launched no
+    screen_prep, block or row_n1 (counts set to 0 just before, read just
+    after)."""
     pods, provs, its, max_nodes = seg_full["workload"]
 
     def sync():
@@ -5057,20 +5080,15 @@ def phase_grid_segmented(seg_full, grid, kind, device="cuda") -> dict:
 
     out = {"grid": _grid_name(grid, kind)}
     for mode in ("sequential", "segmented"):
-        beside = segmented_solve(f"grid 18a {mode} single card beside", torch_solver.TorchSolver(
-            max_nodes=max_nodes, device=str(grid.lead), pack_scan=mode), pods, provs, its,
-            sync=sync if device == "cuda" else None)
         solver = ShardedSolver(grid, max_nodes=max_nodes, pack_scan=mode)
         run = grid_solve(f"grid 18a {mode}", solver, pods, provs, its,
                          sync=sync if device == "cuda" else None)
         single = seg_full["runs"][(mode, "cold")]
         if run["path"] != "mesh":
             raise AssertionError(f"grid 18a ({mode}): the solve took the {run['path']} path")
-        if single["placements"] not in (run["placements"], beside["placements"]) or (
-                run["placements"] != beside["placements"]):
+        if run["placements"] != single["placements"]:
             raise AssertionError(f"grid 18a ({mode}): placements differ from phase 17a's "
                                  f"single-card solve")
-        run["beside_s"], run["beside_phases"] = beside["wall_s"], beside["phases"]
         for k in ("screen_prep", "block", "row_n1"):
             if device == "cuda" and not run["launches"].get(k):
                 raise AssertionError(f"grid 18a ({mode}): no {k} launch")
@@ -5087,16 +5105,15 @@ def phase_grid_segmented(seg_full, grid, kind, device="cuda") -> dict:
                                                                      device=grid.lead),
                                                  spec, device)}
         run["gathered"] = [[list(sp), list(sh)] for sp, sh, _dt in run["gathered"]]
+        warm = seg_full["runs"][(mode, "warm")]
         say(f"[grid 18a] {mode} over the {out['grid']}: wall {run['wall_s']:.3f} s against "
-            f"{beside['wall_s']:.3f} s for a new single-card solver just before it (phase "
-            f"17a's cold {single['wall_s']:.3f} s, warm "
-            f"{seg_full['runs'][(mode, 'warm')]['wall_s']:.3f} s); prescreen "
-            f"{run['phases'].get('prescreen', 0.0):.3f} ms, segment "
-            f"{run['phases'].get('segment', 0.0):.3f} ms, device "
-            f"{run['phases']['device']:.3f} ms (the single-card solver beside: prescreen "
-            f"{beside['phases'].get('prescreen', 0.0):.3f}, segment "
-            f"{beside['phases'].get('segment', 0.0):.3f}, device "
-            f"{beside['phases']['device']:.3f}); screen launches by form "
+            f"phase 17a's single-card cold {single['wall_s']:.3f} s and warm "
+            f"{warm['wall_s']:.3f} s; prescreen {run['phases'].get('prescreen', 0.0):.3f} "
+            f"ms, segment {run['phases'].get('segment', 0.0):.3f} ms, device "
+            f"{run['phases']['device']:.3f} ms (17a's cold: prescreen "
+            f"{single['phases'].get('prescreen', 0.0):.3f}, segment "
+            f"{single['phases'].get('segment', 0.0):.3f}, device "
+            f"{single['phases']['device']:.3f}); screen launches by form "
             f"{json.dumps(run['launches'])}; gathered {run['gather']['bytes']} bytes "
             f"({run['gather']['moved_bytes']} from another device) in "
             f"{run['gather']['calls']} gathers, {run['gather']['host_ms']:.3f} ms of host "
@@ -5123,7 +5140,8 @@ def phase_grid_mixed(grid, kind, device="cuda", size=None) -> dict:
         max_nodes=max_nodes, device=lead), pods, provs, its, nodes=nodes, sync=sync)
     checked = check_placements(single["result"], len(pods))
     out = {"grid": _grid_name(grid, kind), "pods": len(pods), "nodes": len(nodes),
-           "single_s": single["wall_s"], "checked": checked}
+           "single_s": single["wall_s"], "checked": checked,
+           "single_sha": sha256_of(single["placements"])}
     server, port, service = serve(mesh=grid, device=lead)
     client = RemoteSolver(f"127.0.0.1:{port}", max_nodes=max_nodes, timeout=600.0)
     try:
@@ -5310,6 +5328,172 @@ def phase_grid_entry(device="cuda", logical: bool = True, size=None) -> dict:
     return out
 
 
+# -- phase 19: the device grid over processes ------------------------------------
+
+# on a one-card machine: two ranks, each with two logical devices on the
+# card (a 2 x 2 grid, dp over the ranks, gloo); on several cards one rank
+# per card (NCCL)
+DIST_RANKS_ONE_CARD = 2
+DIST_LOGICAL = 2
+DIST_DEADLINE_S = 360.0
+
+
+def sha256_of(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def dist_solve(label: str, solver, pods, provs, its, nodes=None) -> dict:
+    """One solve of a rank, its counts set to 0 just before and read just
+    after: the placements' sha256, the wall, the phases, the gathers, the
+    launches, the path and the verdict tiles this rank screened."""
+    screen.reset_launches()
+    specs.reset_gather()
+    t0 = time.perf_counter()
+    res = solver.solve(pods, provs, its,
+                       state_nodes=[n.deep_copy() for n in nodes] if nodes else None)
+    solver._sync()
+    wall = time.perf_counter() - t0
+    out = {"sha": sha256_of(torch_solver.placements_json(res)), "wall_s": wall,
+           "phases": dict(solver.last_phase_ms), "gather": dict(specs.GATHER),
+           "launches": screen.launch_counts(), "path": solver.last_path,
+           "prescreen_mode": solver.last_prescreen_mode,
+           "tiles": [dict(tile=[i, j], rank=r, device=d,
+                          launches={k: v for k, v in c.items() if v})
+                     for i, j, r, d, c in pack.LAST_TILES]}
+    say(f"[dist] {label}: {json.dumps({k: v for k, v in out.items() if k != 'phases'})}; "
+        f"last_phase_ms {json.dumps({k: round(v, 3) for k, v in out['phases'].items()})}")
+    return out
+
+
+def dist_rank() -> int:
+    """One rank of phase 19 (python3 chip_smoke.py --dist-rank), started by
+    phase_dist with KARPENTER_DIST_*: build_solver(mode="sharded") lays
+    the grid over every rank's devices; 19a solves phase 17a's workload
+    (sequential scan), 19b 18b's mixed batch twice on one solver (the
+    second the refresh). Prints its results as one line "RANK19 {json}"."""
+    t0 = time.perf_counter()
+    out = {}
+    max_nodes = max(512, SEGMENT_FULL["n_pods"] // 4 + 256)
+    solver = build_solver(max_nodes=max_nodes, mode="sharded", pack_scan="sequential")
+    grid = solver.mesh
+    out["grid"] = {"shape": grid.shape, "ranks": [list(r) for r in grid.ranks],
+                   "rank": grid.rank, "world": grid.world, "backend": grid.backend,
+                   "lead": str(grid.lead), "card": torch.cuda.get_device_name(grid.lead)}
+    out["start_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    pods, provs, its = segmented_mix(**SEGMENT_FULL)
+    out["build_s"] = time.perf_counter() - t1
+    out["19a"] = dist_solve(f"19a rank {grid.rank}", solver, pods, provs, its)
+    del pods, provs, its
+    gc.collect()
+    pods, provs, its, nodes = grid_mixed_batch(**GRID_MIXED)
+    solver = build_solver(max_nodes=GRID_MIXED["n_pods"] // 2 + GRID_MIXED["n_existing"],
+                          mode="sharded")
+    out["19b"] = [dist_solve(f"19b rank {grid.rank} solve {k + 1}", solver, pods, provs, its,
+                             nodes=nodes) for k in range(2)]
+    out["wall_s"] = time.perf_counter() - t0
+    print("RANK19 " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_dist(want_19a: str, want_19b: str) -> dict:
+    """Phase 19: the grid over processes. Starts the ranks (this script
+    with --dist-rank) through KARPENTER_DIST_COORDINATOR on 127.0.0.1 with
+    _NUM_PROCESSES and _PROCESS_ID: on one card DIST_RANKS_ONE_CARD ranks
+    with KARPENTER_MESH_LOGICAL_DEVICES=DIST_LOGICAL each, on several one
+    rank per card (CUDA_VISIBLE_DEVICES). Fatal: a rank that exits
+    non-zero, one still running at DIST_DEADLINE_S (then every rank is
+    killed), a solve off the grid, a digest of 19a other than phase 17a's
+    single-card sequential solve's (`want_19a`) or of 19b other than
+    18b's single-card solve's (`want_19b`), a second 19b solve that did
+    not refresh, or a 19a or first 19b solve of a rank that launched no
+    screen_prep or row_n1 (19b also no block)."""
+    cards = torch.cuda.device_count()
+    ranks = cards if cards > 1 else DIST_RANKS_ONE_CARD
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(ranks):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("KARPENTER_DIST_", "KARPENTER_MESH_"))}
+        env.update(KARPENTER_DIST_COORDINATOR=f"127.0.0.1:{port}",
+                   KARPENTER_DIST_NUM_PROCESSES=str(ranks), KARPENTER_DIST_PROCESS_ID=str(r),
+                   KARPENTER_SOLVER_HOST="0", KARPENTER_PREWARM="0")
+        if cards > 1:
+            env["CUDA_VISIBLE_DEVICES"] = str(r)
+        else:
+            env["KARPENTER_MESH_LOGICAL_DEVICES"] = str(DIST_LOGICAL)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dist-rank"], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True))
+    results, errors = [], []
+    deadline = t0 + DIST_DEADLINE_S
+    try:
+        for r, p in enumerate(procs):
+            try:
+                stdout, stderr = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"dist 19: rank {r} still running at the phase's "
+                                     f"{DIST_DEADLINE_S:.0f} s deadline") from None
+            for line in stderr.splitlines()[-12:]:
+                say(f"[dist] rank {r} stderr: {line}")
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("RANK19 ")]
+            if p.returncode != 0 or not lines:
+                errors.append(f"rank {r} exited {p.returncode}")
+                continue
+            results.append(json.loads(lines[-1][len("RANK19 "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    if errors:
+        raise AssertionError(f"dist 19: {'; '.join(errors)}")
+    wall = time.perf_counter() - t0
+    for res in results:
+        r = res["grid"]["rank"]
+        a, b1, b2 = res["19a"], res["19b"][0], res["19b"][1]
+        if a["path"] != "mesh" or b1["path"] != "mesh":
+            raise AssertionError(f"dist 19 rank {r}: a solve took the single path")
+        if a["sha"] != want_19a:
+            raise AssertionError(f"dist 19a rank {r}: placements differ from phase 17a's "
+                                 f"single-card solve")
+        if b1["sha"] != want_19b or b2["sha"] != want_19b:
+            raise AssertionError(f"dist 19b rank {r}: placements differ from 18b's single card")
+        if b2["prescreen_mode"] != "refresh":
+            raise AssertionError(f"dist 19b rank {r}: the second solve's prescreen "
+                                 f"{b2['prescreen_mode']}")
+        for run, kinds in ((a, ("screen_prep", "row_n1")), (b1, ("screen_prep", "block"))):
+            for k in kinds:
+                if not run["launches"].get(k):
+                    raise AssertionError(f"dist 19 rank {r}: no {k} launch")
+    grid = results[0]["grid"]
+    launches = {}
+    for res in results:
+        for run in (res["19a"], *res["19b"]):
+            _add_counts(launches, run["launches"])
+    say(f"[dist 19] {len(results)} ranks on {grid['card']}, a {grid['shape']['dp']} x "
+        f"{grid['shape']['tp']} grid (cells' ranks {grid['ranks']}), collectives over "
+        f"{grid['backend']}; phase wall {wall:.3f} s")
+    for res in results:
+        a = res["19a"]
+        say(f"[dist 19a] rank {res['grid']['rank']}: start {res['start_s']:.3f} s, workload "
+            f"built in {res['build_s']:.3f} s; wall {a['wall_s']:.3f} s, prescreen "
+            f"{a['phases'].get('prescreen', 0.0):.3f} ms, device {a['phases']['device']:.3f} "
+            f"ms; gathers {json.dumps(a['gather'])}; launches {json.dumps(a['launches'])}; "
+            f"placements' sha256 {a['sha']} (phase 17a's {want_19a})")
+        for k, b in enumerate(res["19b"]):
+            say(f"[dist 19b] rank {res['grid']['rank']} solve {k + 1}: wall "
+                f"{b['wall_s']:.3f} s, prescreen {b['prescreen_mode']} "
+                f"{b['phases'].get('prescreen', 0.0):.3f} ms, device "
+                f"{b['phases']['device']:.3f} ms; gathers {json.dumps(b['gather'])}; "
+                f"launches {json.dumps(b['launches'])}; tiles {json.dumps(b['tiles'])}")
+    say(f"[dist 19] every rank's 19a digest equals phase 17a's single-card digest, every "
+        f"19b digest 18b's; the ranks' launches summed {json.dumps(launches)}")
+    return {"results": results, "wall_s": wall, "launches": launches, "grid": grid}
+
+
 def launches_line() -> str:
     return (f"kernel launches {json.dumps(screen.LAUNCHES)}, screen by form "
             f"{json.dumps(screen.FORM_LAUNCHES)}")
@@ -5427,6 +5611,7 @@ def main() -> int:
     grid, grid_kind = smoke_grid()
     say(f"[grid] phase 18 on the {_grid_name(grid, grid_kind)}")
     g18a = phase_grid_segmented(seg_full, grid, grid_kind)
+    want_19a = sha256_of(seg_full["runs"][("sequential", "cold")]["placements"])
     del seg_full, seg_pair
     gc.collect()
     mark("phase 18a")
@@ -5440,6 +5625,13 @@ def main() -> int:
            for k in g18b["remote_launches"]}
     say(f"[grid] phase 18 on the {_grid_name(grid, grid_kind)}: launches {json.dumps(b18)}; "
         f"18c the entry's primary {g18c['primary']}")
+
+    # phase 19: the grid over processes, ranks started through
+    # KARPENTER_DIST_COORDINATOR: 19a phase 17a's workload against 17a's
+    # single-card digest, 19b 18b's mixed batch twice against 18b's
+    g19 = phase_dist(want_19a, g18b["single_sha"])
+    b19 = {k: g19["launches"].get(k, 0) for k in b18}
+    mark("phase 19")
 
     # phase 3: card and CPU place config 2 identically; the card's solve is
     # flight-recorded (phase 11 replays the record)
@@ -5794,9 +5986,9 @@ def main() -> int:
     b16 = {k: race["launches"][k] + over_http["launches"][k] for k in race["launches"]}
     runs = (gen_launches, mix_launches, live_launches, tiered_launches, churn_launches,
             cons_launches, life_launches, op_launches, fb_launches, ent_launches, b14, b15,
-            b16, b17, b18)
+            b16, b17, b18, b19)
     form_runs = (gen_forms, mix_forms, live_forms, tiered_forms, churn_forms, cons_forms,
-                 life_forms, op_forms, fb_forms, ent_forms, b14, b15, b16, b17, b18)
+                 life_forms, op_forms, fb_forms, ent_forms, b14, b15, b16, b17, b18, b19)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
     say(f"[launches] phase 10 {json.dumps(op_counts)}, phase 12a {json.dumps(fb['launches'])}"
@@ -5807,8 +5999,8 @@ def main() -> int:
         f"(15a {json.dumps(soak['launches'])}, 15b {json.dumps(steady['launches'])}), phase 16 "
         f"{json.dumps(b16)} (16a {json.dumps(race['launches'])}, 16b "
         f"{json.dumps(over_http['launches'])}), phase 17 {json.dumps(b17)}, phase 18 "
-        f"{json.dumps(b18)}; phases 4-10, 12a and 13-18 summed {json.dumps(launches)} by "
-        f"form {json.dumps(forms)}")
+        f"{json.dumps(b18)}, phase 19 (its ranks summed) {json.dumps(b19)}; phases 4-10, "
+        f"12a and 13-19 summed {json.dumps(launches)} by form {json.dumps(forms)}")
 
     # the line's numbers are those of this slice's main path, phase 10's
     # first operator step (the live cluster's backlog, solved through
@@ -5905,6 +6097,8 @@ if __name__ == "__main__":
     argv = sys.argv[1:]
     if "--create-backlog" in argv:
         code = create_backlog(argv)
+    elif "--dist-rank" in argv:
+        code = dist_rank()
     else:
         code = main()
     sys.stdout.flush()

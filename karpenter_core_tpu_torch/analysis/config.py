@@ -114,6 +114,9 @@ DEFAULT_WALLCLOCK_ALLOWLIST: FrozenSet[str] = frozenset({
     # a worker and its supervisor share is the filesystem's wall clock
     # (the file's mtime), so its age is read against it by design
     "karpenter_core_tpu_torch/utils/supervise.py::age",
+    # a health verdict's stamp and its TTL, read by other processes
+    "karpenter_core_tpu_torch/utils/supervise.py::write_verdict",
+    "karpenter_core_tpu_torch/utils/supervise.py::read_verdict",
 })
 
 # kernel factories whose arguments shape what they build, and the bucket

@@ -88,9 +88,10 @@ def feasibility_tiles(layout, pod_reqs: dict, tmpl_reqs: dict, type_reqs: dict,
                       targs=None) -> torch.Tensor:
     """F_static [J, P, T] on `layout`'s grid (make_device_run with
     spec_layout=): tile (i, j) runs feasibility_static on grid device
-    (i, j) over item rows P_i and type columns T_j, templates whole; the
-    tiles are gathered on the lead device. `targs`, when given, may carry
-    the type planes' tiles its upload made (SpecLayout.put_args)."""
+    (i, j) over item rows P_i and type columns T_j, templates whole, for
+    this process's cells; the tiles are gathered on its lead device
+    (every rank's, on a grid over processes). `targs`, when given, may
+    carry the type planes' tiles its upload made (SpecLayout.put_args)."""
     rows = layout.slot_plane()
     pods_t = layout.split(pod_reqs, rows)
     tol_t = layout.split(pod_tol, rows)
@@ -100,11 +101,13 @@ def feasibility_tiles(layout, pod_reqs: dict, tmpl_reqs: dict, type_reqs: dict,
                                layout.type_plane(3))
     whole = layout.split(tmpl_reqs, layout.replicated())
     wk = layout.split(well_known, layout.replicated())
-    tiles = [[feasibility_static(pods_t[i][j], whole[i][j], types_t[i][j], tol_t[i][j],
-                                 mask_t[i][j], offer_t[i][j], zone_seg, ct_seg, segments,
-                                 wk[i][j])
-              for j in range(layout.ntp)] for i in range(layout.ndp)]
-    return layout.gather(tiles, layout.feasibility())
+    tiles = [[None] * layout.ntp for _ in range(layout.ndp)]
+    for i, j in layout.mesh.cells():
+        tiles[i][j] = feasibility_static(pods_t[i][j], whole[i][j], types_t[i][j], tol_t[i][j],
+                                         mask_t[i][j], offer_t[i][j], zone_seg, ct_seg,
+                                         segments, wk[i][j])
+    shape = (tmpl_reqs["allow"].shape[0], pod_tol.shape[0], tmpl_type_mask.shape[1])
+    return layout.gather(tiles, layout.feasibility(), shape=shape, dtype=torch.bool)
 
 
 def openable_mask(

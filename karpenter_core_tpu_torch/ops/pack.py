@@ -182,8 +182,8 @@ def class_planes(pod_arrays, ops: ScreenOps) -> ScreenItems:
     }, ops.rows_layout)
 
 
-# the last grid_initial_screen's tiles: (i, j, device, screen launches by
-# kernel and form) per tile, in grid order
+# the last grid_initial_screen's tiles of this process: (i, j, rank,
+# device, screen launches by kernel and form) per tile, in grid order
 LAST_TILES: List[tuple] = []
 
 
@@ -194,40 +194,45 @@ def grid_initial_screen(ops: ScreenOps, layout, items_pl: ScreenItems, exist, n_
     existing-slot rows E_i against the class columns C_j (rows_vs_items,
     the block form on the card), its class planes prepared there; the last
     dp row's tiles also screen the virgin row against C_j (items_vs_row,
-    row_n1). The tiles are gathered on the lead device, where the virgin
-    row is broadcast over the machine region as initial_screen does, so
-    the tensor equals initial_screen's. The reference tiles the whole N
-    axis over dp; the machine region is one broadcast row, so the port
-    tiles the existing prefix and moves one row per column tile. `targs`,
-    when given, may carry the existing planes' tiles its upload made."""
+    row_n1). A process computes its own cells' tiles; the tiles are
+    gathered on its lead device (on a grid over processes, through the
+    collectives: the block's, then the virgin row's from the ranks that
+    own the last dp row), where the virgin row is broadcast over the
+    machine region as initial_screen does, so the tensor equals
+    initial_screen's. The reference tiles the whole N axis over dp; the
+    machine region is one broadcast row, so the port tiles the existing
+    prefix and moves one row per column tile. `targs`, when given, may
+    carry the existing planes' tiles its upload made."""
     E = exist["allow"].shape[0]
+    C = items_pl.B
     spec = layout.verdict()
     cols = layout.split(items_pl.planes, (layout.tp_axis, None))
     ex = layout.split_arg(targs, "exist", {k: exist[k] for k in ("allow", "out", "defined")},
                           layout.slot_plane())
     V, K = exist["allow"].shape[1], exist["out"].shape[1]
+    last = layout.ndp - 1
     blocks = [[None] * layout.ntp for _ in range(layout.ndp)]
-    virgin = [None] * layout.ntp
+    virgin = [[None] * layout.ntp for _ in range(layout.ndp)]
     tiles = []
-    for i in range(layout.ndp):
-        for j in range(layout.ntp):
-            dev = layout.mesh.devices[i][j]
-            before = launch_counts()
-            items = ScreenItems(cols[i][j], ops.rows_layout)
-            e = ex[i][j]
-            blocks[i][j] = ops.rows_vs_items(items, e["allow"], e["out"], e["defined"])
-            if i == layout.ndp - 1 and n_slots > E:
-                virgin[j] = ops.items_vs_row(
-                    items, torch.ones(V, dtype=torch.bool, device=dev),
-                    torch.ones(K, dtype=torch.bool, device=dev),
-                    torch.zeros(K, dtype=torch.bool, device=dev))
-            after = launch_counts()
-            tiles.append((i, j, str(dev), {k: after[k] - before[k] for k in after}))
+    for i, j in layout.mesh.cells():
+        dev = layout.mesh.devices[i][j]
+        before = launch_counts()
+        items = ScreenItems(cols[i][j], ops.rows_layout)
+        e = ex[i][j]
+        blocks[i][j] = ops.rows_vs_items(items, e["allow"], e["out"], e["defined"])
+        if i == last and n_slots > E:
+            virgin[i][j] = ops.items_vs_row(
+                items, torch.ones(V, dtype=torch.bool, device=dev),
+                torch.ones(K, dtype=torch.bool, device=dev),
+                torch.zeros(K, dtype=torch.bool, device=dev))
+        after = launch_counts()
+        tiles.append((i, j, layout.mesh.owner(i, j), str(dev),
+                      {k: after[k] - before[k] for k in after}))
     LAST_TILES[:] = tiles
-    block = layout.gather(blocks, spec)
+    block = layout.gather(blocks, spec, shape=(E, C), dtype=torch.bool)
     if n_slots <= E:
         return block
-    row = layout.gather([virgin], (layout.tp_axis,))
+    row = layout.gather(virgin, (layout.tp_axis,), shape=(C,), dtype=torch.bool, row=last)
     return torch.cat([block, row[None, :].expand(n_slots - E, row.shape[0])], dim=0)
 
 

@@ -15,6 +15,16 @@ SpecLayout over a DeviceGrid, so that
     the pack scan runs once, on the lead device; so do the segmented
     scan's lanes, one after another (the reference splits them over dp).
 
+On a grid over processes (parallel/specs.world_grid) every rank computes
+its own tiles, the gathers are collectives after which every rank holds
+the whole tensors on its lead, and every rank runs the scan there: the
+reference's SPMD contract, where every process calls solve() with the same
+inputs and gets the same placements. Every branch taken before a
+collective is a function of the inputs (route_to_mesh, the segmented
+attempt, the resident tensor's refresh, the relaxation rounds), so the
+ranks meet the same collectives; a rank that meets another, or none,
+raises at the group's timeout (solver/factory.DIST_TIMEOUT).
+
 The tiles split output axes only, so the gathered tensors equal the single
 device's and placements are byte-identical (flightrec-canonical) to
 TorchSolver's: tests/test_torch_sharded.py holds them so across the
@@ -98,8 +108,8 @@ class ShardedSolver(TorchSolver):
         return self._mesh_layout if mesh else None
 
     def _sync(self) -> None:
-        """Every card of the grid: a phase ends when its tiles and lanes
-        have."""
+        """Every card of this process's cells: a phase ends when its tiles
+        and lanes have."""
         for dev in self.mesh.distinct():
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)

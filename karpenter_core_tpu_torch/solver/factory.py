@@ -22,11 +22,22 @@ run on that one card.
 Grid shape: tp = KARPENTER_MESH_TP when set; else 2 when the device count
 is even and at least 4, else 1 (the reference's rule); dp takes the rest.
 
-Several processes: a grid that spans them is not ported (ROADMAP Queue A
-item 12). ensure_distributed() refuses KARPENTER_DIST_COORDINATOR, the
-reference's switch to start jax.distributed, rather than serve this
-process's cards alone; and where the caller has started torch.distributed
-itself, detect_mesh raises for a world size above 1.
+Several processes (the reference's multi-host mesh): with
+KARPENTER_DIST_COORDINATOR=host:port, ensure_distributed() starts the
+default torch.distributed group (gloo) over tcp://host:port with
+KARPENTER_DIST_NUM_PROCESSES and KARPENTER_DIST_PROCESS_ID; "auto" takes
+the launcher's environment instead (env://: MASTER_ADDR, MASTER_PORT,
+WORLD_SIZE, RANK, as torchrun or a JobSet sets them). The group's timeout
+is DIST_TIMEOUT, so a rank that is never met raises instead of hanging.
+Under a world of several processes detect_mesh lays the grid over every
+rank's visible devices, in rank order and then in local order (as
+jax.devices() orders processes); ranks with unequal device counts raise.
+A tp pair may then span two ranks. The collectives take NCCL where every
+rank's cards are its own (a subgroup made after the ranks compared their
+cards' UUIDs), gloo otherwise: NCCL refuses two ranks on one card, and
+the CPU has only gloo. The grid (parallel/specs.DeviceGrid) names the
+backend. Every rank calls solve() with the same inputs and gets the same
+placements (the reference's SPMD contract); see parallel/specs.py.
 
     build_primary(max_nodes=1024, host_default=False, device=None)
 
@@ -40,25 +51,55 @@ ResilientSolver's breaker re-admits them through.
 """
 from __future__ import annotations
 
+import datetime
 from typing import Optional
 
 from karpenter_core_tpu_torch.obs import envflags
 
 MODES = ("auto", "single", "sharded")
-SPANNING_ITEM = "ROADMAP Queue A item 12: a grid that spans processes"
+# how long a rank waits at the rendezvous or in a collective for the others
+# before it raises: a rank that is never met, or that meets another
+# collective, fails the solve instead of hanging it
+DIST_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def ensure_distributed() -> bool:
-    """The reference's multi-process set-up, which the port does not have
-    (SPANNING_ITEM): without KARPENTER_DIST_COORDINATOR, nothing to do;
-    with it, RuntimeError. Returns whether torch.distributed is already
-    initialized (by the caller)."""
-    if envflags.raw("KARPENTER_DIST_COORDINATOR"):
-        raise RuntimeError(f"KARPENTER_DIST_COORDINATOR is set, but a device grid over "
-                           f"processes is not ported ({SPANNING_ITEM})")
+    """Start the default process group from KARPENTER_DIST_* when it is
+    set (the module docstring); idempotent. Returns whether a group is up,
+    this call's or one the caller made; False, and nothing started,
+    without a coordinator. A coordinator without _NUM_PROCESSES or
+    _PROCESS_ID raises KeyError naming the variable."""
     import torch.distributed as dist
 
-    return dist.is_available() and dist.is_initialized()
+    if dist.is_available() and dist.is_initialized():
+        return True
+    coordinator = envflags.raw("KARPENTER_DIST_COORDINATOR")
+    if not coordinator:
+        return False
+    if coordinator == "auto":
+        dist.init_process_group("gloo", init_method="env://", timeout=DIST_TIMEOUT)
+    else:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator}",
+            world_size=int(envflags.require("KARPENTER_DIST_NUM_PROCESSES")),
+            rank=int(envflags.require("KARPENTER_DIST_PROCESS_ID")), timeout=DIST_TIMEOUT)
+    return True
+
+
+def refuse_spanning(what: str, mesh=None) -> None:
+    """RuntimeError when `what` (a server or an entry that takes requests
+    in one process) would serve a grid over processes: `mesh` spans
+    several, or KARPENTER_DIST_COORDINATOR is set, or the caller's process
+    group has more than one rank. The other ranks would never call the
+    grid's collectives, and the solve would wait on them."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if ((mesh is not None and mesh.spans_processes) or world > 1
+            or envflags.raw("KARPENTER_DIST_COORDINATOR")):
+        raise RuntimeError(f"{what} takes requests in one process and cannot serve a device "
+                           f"grid over processes: every rank must call solve() itself "
+                           f"(build_solver under KARPENTER_DIST_COORDINATOR)")
 
 
 def visible_devices(device: Optional[str] = None) -> list:
@@ -77,29 +118,34 @@ def visible_devices(device: Optional[str] = None) -> list:
     return cards
 
 
-def detect_mesh(devices=None, tp: Optional[int] = None, device: Optional[str] = None):
-    """The dp x tp DeviceGrid over `devices` (default: visible_devices(
-    device), after ensure_distributed()); None below two devices."""
-    if devices is None:
-        if ensure_distributed():
-            import torch.distributed as dist
-
-            if dist.get_world_size() > 1:
-                raise RuntimeError(
-                    f"detect_mesh: torch.distributed spans {dist.get_world_size()} "
-                    f"processes; a device grid over processes is not ported ({SPANNING_ITEM})")
-        devices = visible_devices(device)
-    n = len(devices)
-    if n < 2:
-        return None
+def _grid_tp(n: int, tp: Optional[int]) -> int:
+    """KARPENTER_MESH_TP, else the reference's rule; checked against n."""
     if tp is None:
         tp_env = envflags.raw("KARPENTER_MESH_TP")
         tp = int(tp_env) if tp_env else (2 if n % 2 == 0 and n >= 4 else 1)
     if tp < 1 or n % tp != 0:
         raise ValueError(f"tp={tp} does not divide device count {n}")
-    from karpenter_core_tpu_torch.parallel.specs import DeviceGrid
+    return tp
 
-    return DeviceGrid.of(devices, tp)
+
+def detect_mesh(devices=None, tp: Optional[int] = None, device: Optional[str] = None):
+    """The dp x tp DeviceGrid over `devices` (default: visible_devices(
+    device), after ensure_distributed(); under a world of several
+    processes, every rank's, parallel/specs.world_grid); None below two
+    devices."""
+    from karpenter_core_tpu_torch.parallel import specs
+
+    if devices is None:
+        devices = visible_devices(device)
+        if ensure_distributed():
+            import torch.distributed as dist
+
+            if dist.get_world_size() > 1:
+                return specs.world_grid(devices, lambda n: _grid_tp(n, tp), DIST_TIMEOUT)
+    n = len(devices)
+    if n < 2:
+        return None
+    return specs.DeviceGrid.of(devices, _grid_tp(n, tp))
 
 
 def describe(solver) -> str:
@@ -117,9 +163,9 @@ def build_solver(max_nodes: int = 1024, mode: Optional[str] = None,
                  device: Optional[str] = None, devices=None, **solver_kwargs):
     """The primary solver; `solver_kwargs` go to TorchSolver or
     ShardedSolver (screen_mode, incremental, max_relax_rounds, pack_scan).
-    The port's detection reads only the device count, which cannot wedge,
-    so a detection that raises (a tp that does not divide, a world size
-    above 1) raises in every mode."""
+    The port's detection reads only the device counts, which cannot wedge,
+    so a detection that raises (a tp that does not divide, ranks with
+    unequal counts) raises in every mode."""
     import torch
 
     mode = (mode or envflags.raw("KARPENTER_SOLVER_MODE", "auto") or "auto").lower()
@@ -152,7 +198,9 @@ def build_primary(max_nodes: int = 1024, host_default: bool = False,
     """The process entry's primary: the hard-killable HostSolver when
     KARPENTER_SOLVER_HOST resolves on (a wedge kills and respawns its
     child), build_solver's in-process solver otherwise. `kwargs` go to the
-    solver built."""
+    solver built. The entry takes requests in one process, so it refuses a
+    grid over processes (refuse_spanning)."""
+    refuse_spanning("the process entry")
     if host_mode_enabled(host_default):
         from karpenter_core_tpu_torch.solver.host import HostSolver
 

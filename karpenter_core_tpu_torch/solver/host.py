@@ -1540,11 +1540,12 @@ def host_main(argv=None) -> int:
     # host.py:1758-1769): KARPENTER_SOLVER_MODE=single pins the one
     # device; auto degrades to it when detection fails; sharded fails the
     # start without a grid, as solver/factory.build_solver does
-    from karpenter_core_tpu_torch.solver.factory import detect_mesh
+    from karpenter_core_tpu_torch.solver.factory import detect_mesh, refuse_spanning
 
     mode = envflags.raw("KARPENTER_SOLVER_MODE", "auto").lower()
     mesh = None
     if mode != "single":
+        refuse_spanning("the solver host's child")
         try:
             mesh = detect_mesh(device=args.device)
         except Exception:  # noqa: BLE001 — auto serves the single device

@@ -410,9 +410,13 @@ class SolverService:
     MAX_REPLAN = 16
 
     def __init__(self, device=None, admission=None, mesh=None):
-        if mesh is True:
-            from karpenter_core_tpu_torch.solver.factory import detect_mesh
+        from karpenter_core_tpu_torch.solver.factory import detect_mesh, refuse_spanning
 
+        if mesh is not None:
+            # a request reaches one process; the other ranks of a grid
+            # over processes would never join its collectives
+            refuse_spanning("the solver service", None if mesh is True else mesh)
+        if mesh is True:
             mesh = detect_mesh(device=device)
         self.mesh = mesh
         # a grid's solves gather on its lead device, which is the service's
@@ -1211,11 +1215,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     # a container that sees several devices serves every Solve over their
     # grid; KARPENTER_SOLVER_MODE=single pins the one device, and sharded
     # fails the start with one device (factory.build_solver's contract)
-    from karpenter_core_tpu_torch.solver.factory import detect_mesh
+    from karpenter_core_tpu_torch.solver.factory import detect_mesh, refuse_spanning
 
     mode = envflags.raw("KARPENTER_SOLVER_MODE", "auto").lower()
     mesh = None
     if mode != "single":
+        refuse_spanning("the solver service")
         mesh = detect_mesh(device=args.device)
         if mesh is None and mode == "sharded":
             raise RuntimeError("KARPENTER_SOLVER_MODE=sharded but only one device is visible")

@@ -1361,15 +1361,19 @@ class TorchSolver:
             # the segmented scan (tpu_solver.py:2429-2456): a failure of its
             # attempt degrades to the sequential scan below, but a kernel
             # that did not build or launch is the card's fault, not the
-            # attempt's, and is raised
+            # attempt's, and is raised; so is a grid collective that failed
+            # (the other ranks did not take this path: degrading here would
+            # meet them at yet another collective)
             self._publish(last_segment_stats=None)
             if (self.pack_scan or ops_compat.resolve_pack_scan()) == "segmented":
+                from karpenter_core_tpu_torch.parallel.specs import GridCollectiveError
+
                 try:
                     chaos.maybe_fail(chaos.SOLVER_SEGMENT)
                     seg = self._try_segmented(snap, geom, key, warm_key, args, targs,
                                               screen0, items_pl, mode, delta, mark, carried,
                                               layout)
-                except KernelError:
+                except (KernelError, GridCollectiveError):
                     raise
                 except Exception as exc:  # noqa: BLE001 — the reference's degrade
                     self._publish(last_segment_stats={

@@ -1111,5 +1111,5 @@ def test_verdict_tile_on_a_second_card_matches_plain():
     single = ops.initial_screen(planes, exist["allow"], exist["out"], exist["defined"], 400)
     tiled = pack.grid_initial_screen(ops, SpecLayout(grid), planes, exist, 400)
     assert tiled.device == grid.lead
-    assert {d for _i, _j, d, _c in pack.LAST_TILES} == {str(d) for d in grid.distinct()}
+    assert {d for _i, _j, _r, d, _c in pack.LAST_TILES} == {str(d) for d in grid.distinct()}
     np.testing.assert_array_equal(tiled.cpu().numpy(), single.cpu().numpy())

@@ -19,9 +19,9 @@ Held exactly:
 Also: small batches take the single path; the grid's and the single
 device's keys never collide; the prewarmed grid tier's live solve is a
 compile-cache hit; a lane that fails on the grid fails or degrades as on
-the single device; the factory, its refusal of a world of several
-processes, the solver service over a grid and the process entry with
-KARPENTER_SOLVER_MODE=sharded.
+the single device; the factory, its start of a world (one process here;
+tests/test_torch_dist.py runs several), the solver service over a grid
+and the process entry with KARPENTER_SOLVER_MODE=sharded.
 
 `test_scan_inputs_sit_on_the_lead_device` is the port's form of the
 reference's `test_mesh_program_has_no_host_roundtrips`,
@@ -46,7 +46,7 @@ from karpenter_core_tpu_torch.ops import feasibility as tfeas
 from karpenter_core_tpu_torch.ops import pack as tpack
 from karpenter_core_tpu_torch.ops.cuda_build import KernelError
 from karpenter_core_tpu_torch.parallel import sharded as tsharded
-from karpenter_core_tpu_torch.parallel.specs import DeviceGrid, SpecLayout
+from karpenter_core_tpu_torch.parallel.specs import DeviceGrid, GridCollectiveError, SpecLayout
 from karpenter_core_tpu_torch.solver import factory as tfactory
 from karpenter_core_tpu_torch.solver import torch_solver as tsolver
 from karpenter_core_tpu_torch.solver.encode import encode_snapshot
@@ -335,8 +335,8 @@ def test_scan_inputs_sit_on_the_lead_device(mesh_always, monkeypatch, pack_scan)
     gathered, seen = [], []
     real_gather = SpecLayout.gather
 
-    def gather(self, tiles, spec):
-        out = real_gather(self, tiles, spec)
+    def gather(self, tiles, spec, *a, **kw):
+        out = real_gather(self, tiles, spec, *a, **kw)
         gathered.append((spec, out))
         return out
 
@@ -397,11 +397,12 @@ def test_prewarmed_mesh_tier_live_solve_hits(mesh_always):
     assert res.pod_count_new() == 40
 
 
-@pytest.mark.parametrize("error", [RuntimeError, KernelError])
+@pytest.mark.parametrize("error", [RuntimeError, KernelError, GridCollectiveError])
 def test_a_failed_lane_on_the_grid(mesh_always, monkeypatch, error):
     """As on the single device: a lane's KernelError fails the solve, and
     any other error degrades to the sequential scan over the grid, placed
-    as the single device places."""
+    as the single device places; but a failed collective of a grid over
+    processes fails the solve (the other ranks did not take this path)."""
     real = tsolver.make_device_run
 
     def make_device_run(*a, **kw):
@@ -417,8 +418,8 @@ def test_a_failed_lane_on_the_grid(mesh_always, monkeypatch, error):
     monkeypatch.setattr(tsolver, "make_device_run", make_device_run)
     w = fuzz_family("pools", 7)
     solver = tsharded.ShardedSolver(grid("4x2"), max_nodes=MAX_NODES, pack_scan="segmented")
-    if error is KernelError:
-        with pytest.raises(KernelError):
+    if error is not RuntimeError:
+        with pytest.raises(error):
             solve(solver, w)
         return
     got = solve(solver, w)
@@ -466,36 +467,44 @@ def test_factory_builds_the_grid(monkeypatch):
 
 
 def test_ensure_distributed(monkeypatch):
-    """No coordinator: a no-op. KARPENTER_DIST_COORDINATOR set: refused,
-    since a grid over processes is not ported. A process group the caller
-    made (gloo, one process on localhost) leaves detection as it is; a
-    world of more than one process raises rather than take this process's
-    devices."""
+    """No coordinator: a no-op. A coordinator without
+    KARPENTER_DIST_NUM_PROCESSES or _PROCESS_ID: KeyError naming it.
+    KARPENTER_DIST_COORDINATOR=host:port with a world of one process
+    starts the default (gloo) group, idempotently; detection then lays the
+    grid over this rank's devices alone, and the service and the entry,
+    which take requests in one process, refuse to start under the
+    coordinator. tests/test_torch_dist.py runs worlds of 2-4 processes."""
     import socket
 
     import torch.distributed as dist
 
-    for k in ("KARPENTER_DIST_COORDINATOR", "KARPENTER_MESH_LOGICAL_DEVICES"):
+    from karpenter_core_tpu_torch.solver.service import SolverService
+
+    for k in ("KARPENTER_DIST_COORDINATOR", "KARPENTER_MESH_LOGICAL_DEVICES",
+              "KARPENTER_DIST_NUM_PROCESSES", "KARPENTER_DIST_PROCESS_ID"):
         monkeypatch.delenv(k, raising=False)
     assert tfactory.ensure_distributed() is False and not dist.is_initialized()
-    monkeypatch.setenv("KARPENTER_DIST_COORDINATOR", "localhost:1")
-    with pytest.raises(RuntimeError, match="item 12"):
-        tfactory.ensure_distributed()
-    with pytest.raises(RuntimeError, match="item 12"):
-        tfactory.detect_mesh(device="cpu")
-    monkeypatch.delenv("KARPENTER_DIST_COORDINATOR")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
+    monkeypatch.setenv("KARPENTER_DIST_COORDINATOR", f"127.0.0.1:{port}")
+    with pytest.raises(KeyError, match="KARPENTER_DIST_NUM_PROCESSES"):
+        tfactory.ensure_distributed()
+    monkeypatch.setenv("KARPENTER_DIST_NUM_PROCESSES", "1")
+    with pytest.raises(KeyError, match="KARPENTER_DIST_PROCESS_ID"):
+        tfactory.ensure_distributed()
+    monkeypatch.setenv("KARPENTER_DIST_PROCESS_ID", "0")
     monkeypatch.setenv("KARPENTER_MESH_LOGICAL_DEVICES", "2")
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1,
-                            rank=0)
     try:
+        assert tfactory.ensure_distributed() is True and dist.is_initialized()
+        assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
         assert tfactory.ensure_distributed() is True
-        assert tfactory.detect_mesh(device="cpu").shape == {"dp": 2, "tp": 1}
-        monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-        with pytest.raises(RuntimeError, match="item 12"):
-            tfactory.detect_mesh(device="cpu")
+        mesh = tfactory.detect_mesh(device="cpu")
+        assert mesh.shape == {"dp": 2, "tp": 1} and not mesh.spans_processes
+        with pytest.raises(RuntimeError, match="one process"):
+            SolverService(device="cpu", mesh=mesh)
+        with pytest.raises(RuntimeError, match="one process"):
+            tfactory.build_primary(device="cpu")
     finally:
         monkeypatch.undo()
         dist.destroy_process_group()
