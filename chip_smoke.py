@@ -322,10 +322,10 @@ Phases, each fatal on failure:
      TorchSolver(pack_scan="segmented"); fatal: a placement check failing,
      placements that differ between the scans, a segmented solve with
      other than 8 segments or fixup_fraction 0.0, or one that launched no
-     screen_prep, block or row_n1, or a screen call of the cold segmented
-     solve (the partition's template rows, the lanes' re-screens at C =
-     1,024; the first 32 of each form and every 16th after, up to 256) that
-     disagrees with its plain version on the same rows; the segments, the
+     screen_prep, block or pack_scan (the lanes, one launch), or a screen
+     call of the cold segmented solve (the partition's template rows, the
+     virgin row; the first 32 of each form and every 16th after, up to
+     256) that disagrees with its plain version on the same rows; the segments, the
      largest lane, the segment and merge ms beside the sequential device
      ms and the launches by form printed. 17b: tests/test_segmented.py's pool
      partition with existing nodes at phase 3c's scale (5,000 pods over 4
@@ -348,7 +348,7 @@ Phases, each fatal on failure:
      segmented (the lanes on the lead), each byte-identical to 17a's cold
      single-card solve of the same scan and timed against it; fatal: a
      solve off the grid, a segmented solve without 17a's segments, no
-     screen_prep, block or row_n1 launch; printed: the prescreen, segment
+     screen_prep, block or pack_scan launch; printed: the prescreen, segment
      and device ms beside 17a's, the launches by form and by device, each
      verdict tile's rank, device and launches, the gathers' bytes (and
      those from another device) and the largest gather timed alone. 18b:
@@ -376,11 +376,30 @@ Phases, each fatal on failure:
      single-card sequential solve's (19a) or 18b's TorchSolver's (19b), a
      rank that exits non-zero or still runs at DIST_DEADLINE_S (every rank
      then killed), a solve off the grid, no refresh, a missing launch.
+  20. the pack scan as one device program (right after phase 19): every
+     scan without topology groups (17a-17d, 18a, 19a and these) runs as
+     csrc/pack_scan.cu, one launch a solve, a segmented solve's lanes its
+     batch. 20a: each topology-free parity family of
+     tests/test_torch_cuda.py (mixed, relax, bulk, wide, ports_vols)
+     through the kernel and through the plain (eager) scan on the card;
+     20c: the mixed family with its log cut to half its commits (the log
+     overflows); 20d: the bulk and ports_vols families with a bulk take
+     budget of one row (the existing slots then go through candidate
+     verify); 20b: 17a's workload at full width, sequential and
+     segmented, each solved with the kernel and with the plain scan, and
+     the sequential scan alone on one solve program's inputs. Fatal: a log,
+     ptr, PackState field or final verdict tensor that differs (floats bit
+     for bit), a 20d scan with no candidate commit on an existing slot,
+     placements
+     whose sha256 is not 17a's, a kernel solve that is not one pack_scan
+     launch or launches a row_n1 of its own. Printed: each scan's kernel
+     ms alone (CUDA events), the run against the plain scan's, the
+     solves' device ms with each, the bound.
 Phase 1 builds the native packer (g++, native/fast_pack.cpp) beside the
 CUDA kernels. Phases 4-6 solve with incremental="off", so their warm solves
 run the full precompute as before. It prints one JSON line describing
-every kernel (the screen, screen_prep, and the screen's three forms with
-their launches over phases 4-10, 12a and 13-19, the solver host's
+every kernel (the screen, screen_prep, the screen's three forms and
+pack_scan, with their launches over phases 4-10, 12a and 13-19, the solver host's
 children's, the gRPC service's, 16a's child's and phase 19's ranks'
 summed in), then as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
@@ -469,7 +488,7 @@ from karpenter_core_tpu_torch.operator import __main__ as entry  # noqa: E402
 from karpenter_core_tpu_torch.operator import controller as operator_controller  # noqa: E402
 from karpenter_core_tpu_torch.operator import leaderelection, new_operator  # noqa: E402
 from karpenter_core_tpu_torch.operator.options import parse_options  # noqa: E402
-from karpenter_core_tpu_torch.ops import cuda_build, pack, screen  # noqa: E402
+from karpenter_core_tpu_torch.ops import cuda_build, pack, pack_scan, screen  # noqa: E402
 from karpenter_core_tpu_torch.ops.pack import ScreenOps, class_planes  # noqa: E402
 from karpenter_core_tpu_torch.parallel import specs  # noqa: E402
 from karpenter_core_tpu_torch.parallel.sharded import ShardedSolver  # noqa: E402
@@ -515,7 +534,8 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 # Programming Guide, arithmetic instruction throughput table); times the
 # card's SMs and its maximum SM clock (nvidia-smi clocks.max.sm)
 INT32_OPS_PER_CLOCK_PER_SM = 64
-KERNELS = ["screen"]  # csrc/screen.cu holds both screen and screen_prep
+# csrc/screen.cu holds both screen and screen_prep; csrc/pack_scan.cu the scan
+KERNELS = ["screen", "pack_scan"]
 
 
 def say(msg: str) -> None:
@@ -1497,7 +1517,7 @@ def dispatch_launches(mode: str, delta, n_exist: int, n_cols: int) -> dict:
         shapes = ([(rows, n_cols)] if rows else []) + (
             [(n_exist, cols), (1, cols)] if cols else [])
     forms = [screen.form_of(n, b) for n, b in shapes]
-    out = {"screen": len(forms), "screen_prep": 1 + len(forms)}
+    out = {"screen": len(forms), "screen_prep": 1 + len(forms), "pack_scan": 0}
     out.update({f: forms.count(f) for f in screen.FORM_LAUNCHES})
     return out
 
@@ -2158,10 +2178,11 @@ def ttl_passes(lc: "Lifecycle", expire: int, spot_pinned: int) -> list:
         if rec["key"][2] != [name]:
             raise AssertionError(f"{lc.label}: expiration {k + 1} removed {rec['key'][2]}, "
                                  f"not the most expired {name}")
-        if lc.solver.device.type == "cuda" and not all(
-                rec["launches"][form] for form in ("screen_prep", "block", "row_n1")):
+        if lc.solver.device.type == "cuda" and not (
+                rec["launches"]["screen_prep"] and rec["launches"]["block"]
+                and (rec["launches"]["row_n1"] or rec["launches"]["pack_scan"])):
             raise AssertionError(f"{lc.label}: expiration {k + 1}'s simulate solve did not "
-                                 f"launch screen_prep, the block and row_n1: "
+                                 f"launch screen_prep, the block and row_n1 or pack_scan: "
                                  f"{rec['launches']}")
         if k == spot_pinned:
             if rec["cmd"].action != "replace":
@@ -4029,6 +4050,11 @@ def phase_wedge_drill(device="cuda", size=QUARTER_SIZE, stale_s: float = WEDGE_S
     finally:
         host_mod._write_frame = real_write
         hs.close()
+    # the scan kernel's longest launch so far in this process (phases 17-20
+    # run before), beside the watchdog's stale threshold: a scan near it
+    # would lean on the kernel's item counter to read as alive
+    out["pack_scan_longest_ms"] = pack_scan.LAST_LAUNCH["max_ms"]
+    out["wedge_stale_s"] = stale_s
     say(f"[boundary 14b] the wedge drill: {json.dumps(out)}")
     return out
 
@@ -4763,7 +4789,7 @@ def phase_segmented_full(device="cuda", size=None, int_rate: float = 0.0,
     pack_scan="sequential" and with "segmented" on `device`. Fatal: a
     placement check failing, placements that differ between the scans, a
     segmented solve that did not engage `pools` segments with fixup 0.0,
-    or launched no screen_prep, block or row_n1. On the card the cold
+    or launched no screen_prep, block or pack_scan (the lanes' scans). On the card the cold
     segmented solve's screen calls are kept and held against their plain
     versions (ScreenAudit: the partition's template rows, the lanes'
     re-screens at C = 1,024) and timed."""
@@ -4791,7 +4817,7 @@ def phase_segmented_full(device="cuda", size=None, int_rate: float = 0.0,
         if (st.get("mode") != "segmented" or st.get("segments") != size["pools"]
                 or st.get("fixup_fraction") != 0.0):
             raise AssertionError(f"segmented 17a ({turn}): stats {json.dumps(st)}")
-        for k in ("screen_prep", "block", "row_n1"):
+        for k in ("screen_prep", "block", "pack_scan"):
             if device == "cuda" and not seg["launches"].get(k):
                 raise AssertionError(f"segmented 17a ({turn}): no {k} launch")
     seg, seq = out[("segmented", "warm")], out[("sequential", "warm")]
@@ -5089,7 +5115,7 @@ def phase_grid_segmented(seg_full, grid, kind, device="cuda") -> dict:
         if run["placements"] != single["placements"]:
             raise AssertionError(f"grid 18a ({mode}): placements differ from phase 17a's "
                                  f"single-card solve")
-        for k in ("screen_prep", "block", "row_n1"):
+        for k in ("screen_prep", "block", "pack_scan"):
             if device == "cuda" and not run["launches"].get(k):
                 raise AssertionError(f"grid 18a ({mode}): no {k} launch")
         if mode == "segmented" and (run["stats"].get("mode") != "segmented"
@@ -5407,7 +5433,7 @@ def phase_dist(want_19a: str, want_19b: str) -> dict:
     single-card sequential solve's (`want_19a`) or of 19b other than
     18b's single-card solve's (`want_19b`), a second 19b solve that did
     not refresh, or a 19a or first 19b solve of a rank that launched no
-    screen_prep or row_n1 (19b also no block)."""
+    screen_prep or pack_scan (19b also no block)."""
     cards = torch.cuda.device_count()
     ranks = cards if cards > 1 else DIST_RANKS_ONE_CARD
     port = _free_port()
@@ -5464,7 +5490,7 @@ def phase_dist(want_19a: str, want_19b: str) -> dict:
         if b2["prescreen_mode"] != "refresh":
             raise AssertionError(f"dist 19b rank {r}: the second solve's prescreen "
                                  f"{b2['prescreen_mode']}")
-        for run, kinds in ((a, ("screen_prep", "row_n1")), (b1, ("screen_prep", "block"))):
+        for run, kinds in ((a, ("screen_prep", "pack_scan")), (b1, ("screen_prep", "block"))):
             for k in kinds:
                 if not run["launches"].get(k):
                     raise AssertionError(f"dist 19 rank {r}: no {k} launch")
@@ -5492,6 +5518,261 @@ def phase_dist(want_19a: str, want_19b: str) -> dict:
     say(f"[dist 19] every rank's 19a digest equals phase 17a's single-card digest, every "
         f"19b digest 18b's; the ranks' launches summed {json.dumps(launches)}")
     return {"results": results, "wall_s": wall, "launches": launches, "grid": grid}
+
+
+# -- phase 20: the pack scan as one device program -----------------------------
+
+# the parity families of tests/test_torch_cuda.py whose solve has no
+# topology group: the pack_scan kernel's route
+SCAN_FAMILIES = ("mixed", "relax", "bulk", "wide", "ports_vols")
+
+
+@contextlib.contextmanager
+def bulk_budget(rows):
+    """Every scan built while entered, eager or kernel, with a bulk take
+    budget of `rows` (None: the scan's own)."""
+    if rows is None:
+        yield
+        return
+    make, real_run = torch_solver.make_pack_kernel, pack_scan.run
+
+    def make_cut(*a, **k):
+        scan = make(*a, **k)
+        return lambda *pa, **pk: scan(*pa, **dict(pk, bulk_len=rows))
+
+    torch_solver.make_pack_kernel = make_cut
+    pack_scan.run = lambda *a, **k: real_run(*a, **dict(k, bulk_len=rows))
+    try:
+        yield
+    finally:
+        torch_solver.make_pack_kernel, pack_scan.run = make, real_run
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """Every scan eager (make_pack_kernel.pack, the kernel's plain version)
+    while entered: the routing predicate answers no."""
+    routes = pack.kernel_routes
+    pack.kernel_routes = lambda *a: False
+    try:
+        yield
+    finally:
+        pack.kernel_routes = routes
+
+
+def scan_program(snap, provs, max_nodes, log_len=None, device="cuda", bulk_len=None):
+    """A solve program's pieces for one snapshot on `device`: run(), its
+    uploaded arguments and the prescreen tensor; bulk_len cuts the scan's
+    bulk take budget."""
+    geom = torch_solver.solve_geometry(snap, max_nodes)
+    N, segs, zs, cs, L, screen_v = (geom[7], geom[8], geom[9], geom[10], geom[12], geom[16])
+    targs = torch_solver.args_to_torch(torch_solver.device_args(snap, provs), device)
+    scr = pack.make_prescreen_kernel(segs, N, screen_v=screen_v)(targs[0], targs[9])
+    with bulk_budget(bulk_len):
+        run = torch_solver.make_device_run(segs, zs, cs, snap.topo_meta, N,
+                                           L if log_len is None else log_len, screen_v=screen_v)
+
+    def run_cut(*a, **k):
+        with bulk_budget(bulk_len):
+            return run(*a, **k)
+
+    return run_cut, targs, scr
+
+
+def run_scan(run, targs, scr, plain: bool) -> dict:
+    """One scan of a solve program on the card, timed on the host, with
+    the launch counts set to 0 just before it and read just after."""
+    screen.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verdicts = []
+    with plain_scans() if plain else contextlib.nullcontext():
+        log, ptr, state = run(scr, *targs, verdicts=verdicts)
+    torch.cuda.synchronize()
+    return {"log": log, "ptr": ptr, "state": state, "verdicts": verdicts,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": screen.launch_counts(), "scan": dict(pack.LAST_SCAN),
+            "kernel_ms": None if plain else pack_scan.LAST_LAUNCH["ms"],
+            "templates": targs[2].shape[0]}
+
+
+def scan_diff(label: str, got: dict, want: dict) -> float:
+    """Fatal unless the kernel's log, ptr, every PackState field and the
+    final verdict tensor (the in-scan re-screens' result) equal the plain
+    scan's, floats bit for bit; returns the largest absolute difference
+    of the float fields (0.0)."""
+    bad = []
+    if len(got["verdicts"]) != 1 or len(want["verdicts"]) != 1 or not torch.equal(
+            got["verdicts"][0].cpu(), want["verdicts"][0].cpu()):
+        bad.append("verdicts")
+    if got["ptr"] != want["ptr"] or got["log"]["bulk_n"] != want["log"]["bulk_n"]:
+        bad.append(f"ptr {got['ptr']} / {want['ptr']}, bulk_n {got['log']['bulk_n']} / "
+                   f"{want['log']['bulk_n']}")
+    for k in ("item", "slot", "ns", "k", "k_last"):
+        if not np.array_equal(np.asarray(got["log"][k]), np.asarray(want["log"][k])):
+            bad.append(f"log {k}")
+    if not torch.equal(got["log"]["bulk_take"].cpu(), want["log"]["bulk_take"].cpu()):
+        bad.append("log bulk_take")
+    err = 0.0
+    for name in want["state"]._fields:
+        a, b = getattr(got["state"], name).cpu(), getattr(want["state"], name).cpu()
+        if a.dtype == torch.float32:
+            finite = torch.isfinite(a) & torch.isfinite(b)
+            if finite.any():
+                err = max(err, float((a[finite] - b[finite]).abs().max()))
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad.append(f"state.{name}")
+    if bad:
+        raise AssertionError(f"{label}: the pack_scan kernel differs from the plain scan: "
+                             f"{', '.join(bad)}")
+    return err
+
+
+def scan_bound(snap, targs, runs, n_items: int) -> dict:
+    """The least time the card could take for the scans of one launch: the
+    bytes each input must be read and each output written, once. Inputs:
+    the stepped items' rows, the template and type planes, each scan's
+    entry state and verdict rows over the slots it reaches; outputs: those
+    rows' final state and verdicts, and the commit log. The rows past a
+    scan's final nopen are never read nor written. The scan's arithmetic
+    (compares and a few float operations per slot, type and column) is far
+    below the byte time."""
+    pod_arrays, tmpl = targs[0], targs[1]
+    V, K = pod_arrays["allow"].shape[1], pod_arrays["out"].shape[1]
+    R, T = targs[5].shape[1], targs[5].shape[0]
+    J = targs[2].shape[0]
+    Q, W = pod_arrays["ports"].shape[1], pod_arrays["vols"].shape[1]
+    C = pod_arrays["scls_first"].shape[0]
+    item_row = V + 2 * K + 4 * R + targs[8].shape[1] + 2 * Q + W + J * (T + 1) + 12
+    slot_row = V + 2 * K + T + 8 * R + Q + 14 + C
+    tmpl_rows = J * (V + 2 * K + 4 * R + T + C + R * 4)
+    type_rows = T * (V + 4 * K + 8 * R + targs[7][0].numel())
+    reached = sum(int(r["state"].nopen) for r in runs)
+    L = len(runs[0]["log"]["item"])
+    total = (n_items * item_row + tmpl_rows + type_rows + 2 * reached * slot_row
+             + len(runs) * 5 * L * 4)
+    return _bound(total, 0, 0, 1.0)
+
+
+def phase_scan_families(device="cuda") -> dict:
+    """20a: each topology-free parity family of tests/test_torch_cuda.py
+    through the kernel and through the plain scan on the card; 20c the
+    mixed family again with its log cut to half its commits, so that it
+    overflows; 20d the bulk and ports_vols families with a bulk take
+    budget of one row. Fatal: any difference (scan_diff), a kernel scan
+    that is not one pack_scan launch or launches a row_n1 of its own, a
+    cut log that did not fill, a 20d scan without a candidate commit on
+    an existing slot."""
+    import importlib.util
+
+    # by path: a `tests` package installed on the machine may shadow the
+    # checkout's (a namespace package)
+    spec = importlib.util.spec_from_file_location(
+        "scan_parity_workloads", os.path.join(ROOT, "tests", "test_torch_cuda.py"))
+    families = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(families)
+    workload = families.workload
+    out, err, launches = {}, 0.0, 0
+    cases = ([(f, "a", None) for f in SCAN_FAMILIES] + [("mixed (log cut)", "c", None)]
+             + [(f"{f} (bulk budget 1)", "d", 1) for f in ("bulk", "ports_vols")])
+    for family, sub, rows in cases:
+        name = family.split()[0]
+        pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload(name, "torch")
+        snap = encode_snapshot(pods, provs, its, daemons, nodes, client, cluster,
+                               max_nodes=max_nodes)
+        cut = None
+        if sub == "c":
+            full = run_scan(*scan_program(snap, provs, max_nodes, device=device), plain=True)
+            cut = full["ptr"] // 2
+        runs = {}
+        for plain in (False, True):
+            program = scan_program(snap, provs, max_nodes, log_len=cut, device=device,
+                                   bulk_len=rows)
+            runs[plain] = run_scan(*program, plain=plain)
+        got, want = runs[False], runs[True]
+        err = max(err, scan_diff(f"scan 20{sub} {family}", got, want))
+        # one template's verdict row (before the scan) is a row_n1 launch
+        if (got["launches"]["pack_scan"] != 1
+                or got["launches"]["row_n1"] != int(got["templates"] == 1)
+                or got["scan"]["impl"] != "kernel" or want["scan"]["impl"] != "eager"):
+            raise AssertionError(f"scan 20a {family}: launches {json.dumps(got['launches'])}, "
+                                 f"impl {got['scan']['impl']} / {want['scan']['impl']}")
+        if cut is not None and got["ptr"] != cut:
+            raise AssertionError(f"scan 20c: the log cut to {cut} did not fill ({got['ptr']})")
+        if rows is not None:
+            slot, ns = (np.asarray(got["log"][k])[:got["ptr"]] for k in ("slot", "ns"))
+            cand_ex = int(((ns == 1) & got["state"].is_existing.cpu().numpy()[slot]).sum())
+            if got["log"]["bulk_n"] != rows or not cand_ex:
+                raise AssertionError(f"scan 20d {family}: bulk rows {got['log']['bulk_n']}, "
+                                     f"candidate commits on existing slots {cand_ex}")
+        launches += got["launches"]["pack_scan"]
+        out[family] = {"ptr": got["ptr"], "nopen": int(got["state"].nopen),
+                       "kernel_ms": got["kernel_ms"], "ms": got["ms"], "plain_ms": want["ms"],
+                       "scan": {k: got["scan"][k] for k in pack.SCAN_COUNTERS}}
+        say(f"[scan 20{sub}] {family}: {len(pods)} pods, log {got['ptr']} "
+            f"entries (bulk {got['log']['bulk_n']}), nopen {int(got['state'].nopen)}, scan "
+            f"{json.dumps(out[family]['scan'])}: kernel and plain equal bit for bit, verdict "
+            f"tensors {tuple(got['verdicts'][0].shape)} included; kernel "
+            f"{got['kernel_ms']:.3f} ms alone, the run {got['ms']:.1f} ms against the plain "
+            f"{want['ms']:.1f} ms")
+    return {"families": out, "max_abs_err": err, "launches": launches}
+
+
+def phase_scan_full(workload, want_sha: str, device="cuda") -> dict:
+    """20b: phase 17a's workload at full width (50,000 pods, 8 pools, 500
+    types), sequential and segmented, each solved with the kernel and with
+    the plain scan (fresh solvers, cold). Fatal: placements whose sha256 is
+    not 17a's sequential digest, a kernel solve that is not one pack_scan
+    launch or launches a row_n1 of its own (past its prescreen's), any
+    difference between the kernel's and the plain scan's sequential state
+    (scan_diff). Printed: the solves' device ms with the kernel and with
+    the plain scan, the kernel alone (CUDA events), the launches."""
+    pods, provs, its, max_nodes = workload
+    sync = torch.cuda.synchronize
+    out = {}
+    for mode in ("sequential", "segmented"):
+        for plain in (False, True):
+            solver = torch_solver.TorchSolver(max_nodes=max_nodes, device=device,
+                                              pack_scan=mode)
+            with plain_scans() if plain else contextlib.nullcontext():
+                run = segmented_solve(f"scan 20b {mode} {'plain' if plain else 'kernel'}",
+                                      solver, pods, provs, its, sync=sync)
+            run["kernel_ms"] = None if plain else pack_scan.LAST_LAUNCH["ms"]
+            run["scans"] = None if plain else pack_scan.LAST_LAUNCH["scans"]
+            run["prescreen_launches"] = dict(solver.last_prescreen_launches or {})
+            out[(mode, plain)] = run
+            if sha256_of(run["placements"]) != want_sha:
+                raise AssertionError(f"scan 20b {mode} ({'plain' if plain else 'kernel'}): "
+                                     f"placements differ from phase 17a's digest")
+        got = out[(mode, False)]
+        scan_row_n1 = got["launches"]["row_n1"] - got["prescreen_launches"].get("row_n1", 0)
+        if got["launches"]["pack_scan"] != 1 or scan_row_n1 or got["scan"]["impl"] != "kernel":
+            raise AssertionError(f"scan 20b {mode}: launches {json.dumps(got['launches'])} "
+                                 f"(the prescreen's {json.dumps(got['prescreen_launches'])}), "
+                                 f"impl {got['scan']['impl']}")
+    # the sequential scan's state, kernel against plain, on the same inputs
+    snap = encode_snapshot(pods, provs, its, None, [], max_nodes=max_nodes)
+    program = scan_program(snap, provs, max_nodes, device=device)
+    kern, plain = run_scan(*program, plain=False), run_scan(*program, plain=True)
+    err = scan_diff("scan 20b sequential state", kern, plain)
+    bound = scan_bound(snap, program[1], [kern], kern["scan"]["items"])
+    for mode in ("sequential", "segmented"):
+        k, p = out[(mode, False)], out[(mode, True)]
+        say(f"[scan 20b] {mode}: {len(pods)} pods, placements sha256 "
+            f"{sha256_of(k['placements'])} (17a's); device {k['phases']['device']:.1f} ms "
+            f"with the kernel ({k['scans']} scans in one launch, {k['kernel_ms']:.3f} ms "
+            f"alone) against {p['phases']['device']:.1f} ms with the plain scan; walls "
+            f"{k['wall_s']:.3f} / {p['wall_s']:.3f} s; launches {json.dumps(k['launches'])} "
+            f"against {json.dumps(p['launches'])}")
+    say(f"[scan 20b] the sequential scan alone: kernel {kern['kernel_ms']:.3f} ms "
+        f"(the run {kern['ms']:.1f} ms) against the plain {plain['ms']:.1f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bytes']} bytes); state "
+        f"equal bit for bit; scan {json.dumps({k: kern['scan'][k] for k in pack.SCAN_COUNTERS})}")
+    return {"runs": out, "max_abs_err": err, "seq": {"kernel_ms": kern["kernel_ms"],
+            "ms": kern["ms"], "plain_ms": plain["ms"], **bound},
+            "launches": sum(r["launches"]["pack_scan"] for r in out.values())
+            + kern["launches"]["pack_scan"]}
 
 
 def launches_line() -> str:
@@ -5612,6 +5893,7 @@ def main() -> int:
     say(f"[grid] phase 18 on the {_grid_name(grid, grid_kind)}")
     g18a = phase_grid_segmented(seg_full, grid, grid_kind)
     want_19a = sha256_of(seg_full["runs"][("sequential", "cold")]["placements"])
+    w17 = seg_full["workload"]
     del seg_full, seg_pair
     gc.collect()
     mark("phase 18a")
@@ -5632,6 +5914,17 @@ def main() -> int:
     g19 = phase_dist(want_19a, g18b["single_sha"])
     b19 = {k: g19["launches"].get(k, 0) for k in b18}
     mark("phase 19")
+
+    # phase 20: the pack scan as one device program: 20a the topology-free
+    # parity families, 20c a log that overflows and 20d a bulk budget of
+    # one row, kernel against the plain scan on the card; 20b 17a's
+    # workload, sequential and segmented
+    scan20 = phase_scan_families()
+    mark("phase 20a, 20c, 20d")
+    full20 = phase_scan_full(w17, want_19a)
+    del w17
+    gc.collect()
+    mark("phase 20b")
 
     # phase 3: card and CPU place config 2 identically; the card's solve is
     # flight-recorded (phase 11 replays the record)
@@ -5873,7 +6166,7 @@ def main() -> int:
     for rec in lc.passes:
         _add_counts(life_launches, rec["launches"])
     for k in ("screen_prep", "block", "row_n1"):
-        if not life_launches.get(k):
+        if not life_launches.get(k) and not (k == "row_n1" and life_launches.get("pack_scan")):
             raise AssertionError(f"lifecycle: phase 9's passes launched no {k}")
     life_forms = {k: life_launches.get(k, 0) for k in screen.FORM_LAUNCHES}
     life_launches = {k: life_launches.get(k, 0) for k in screen.LAUNCHES}
@@ -5991,6 +6284,8 @@ def main() -> int:
                  life_forms, op_forms, fb_forms, ent_forms, b14, b15, b16, b17, b18, b19)
     launches = {k: sum(r[k] for r in runs) for k in gen_launches}
     forms = {k: sum(r[k] for r in form_runs) for k in gen_forms}
+    if not launches["pack_scan"]:
+        raise AssertionError("no solve of phases 4-19 launched the pack_scan kernel")
     say(f"[launches] phase 10 {json.dumps(op_counts)}, phase 12a {json.dumps(fb['launches'])}"
         f", phase 13 (the solver host's child) {json.dumps(ent['launches'])}, phase 14 "
         f"{json.dumps(b14)} (14a {json.dumps(b14a['launches'])}, 14b "
@@ -6083,6 +6378,18 @@ def main() -> int:
         form_entry("row_b1", tiered_shape, "karpenter_core_tpu/ops/pallas_kernels.py:104",
                    {"tiered nopen x 1 (phase 6)": times(tiered_shape)}),
     ]
+    # the scan kernel at 17a's sequential scan (phase 20b): ms is the solve
+    # program's run (feasibility, the scan's set-up, the launch and the
+    # read), kernel_ms the launch alone, plain_ms the same run with the
+    # eager scan; "shapes" keeps each topology-free family's scan (20a, 20c, 20d)
+    seq20 = full20["seq"]
+    kernels.append(dict(
+        name="pack_scan", route="cuda", source="karpenter_core_tpu_torch/csrc/pack_scan.cu",
+        replaces="karpenter_core_tpu/ops/pack.py:909", launches=launches["pack_scan"],
+        max_abs_err=max(scan20["max_abs_err"], full20["max_abs_err"]), ms=seq20["ms"],
+        kernel_ms=seq20["kernel_ms"], plain_ms=seq20["plain_ms"], bound_ms=seq20["bound_ms"],
+        bound_by=seq20["bound_by"], library_ms=None,
+        shapes={f"{family} (phase 20)": st for family, st in scan20["families"].items()}))
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,9 +59,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "screen_dev.cuh"
+
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
+using screen_dev::FULL;
+using screen_dev::group_ok;
 
 // ---- prep ------------------------------------------------------------------
 
@@ -146,7 +149,7 @@ screen_prep_kernel(const uint8_t* __restrict__ allow, int a_ld,  // [R, >= width
     } else {  // escape = defined & ((out & has_excl) | (~out & ~has_allow))
       const bool a = (has_a[q] >> lane) & 1u;
       const bool x = (has_x[q] >> lane) & 1u;
-      e = d && (o ? x : !a);
+      e = screen_dev::slot_escape(d, o, a, x);
     }
     const bool n = deny && in && deny[(size_t)r * n_ld + k] != 0;
     const unsigned dw = __ballot_sync(FULL, d);
@@ -160,14 +163,6 @@ screen_prep_kernel(const uint8_t* __restrict__ allow, int a_ld,  // [R, >= width
       flags[((size_t)3 * KW + q) * R + r] = nw;
     }
   }
-}
-
-// The verdict of one pair for key group q (keys 32q .. 32q + 31).
-__device__ __forceinline__ bool group_ok(unsigned sd, unsigned so, unsigned se,
-                                         unsigned id, unsigned io, unsigned ie,
-                                         unsigned idn, unsigned inter, unsigned on) {
-  const unsigned ok = ~(sd & id) | (so & io) | (se & ie) | inter | ~on;
-  return ok == FULL && (idn & ~sd) == 0u;
 }
 
 // ---- block form: int8 tensor-core contraction --------------------------------
@@ -495,14 +490,8 @@ screen_row_kernel(const uint32_t* __restrict__ one_words,   // word w at [w * on
 
   bool fail = false;
   for (int q = 0; q < KW; ++q) {
-    unsigned inter = 0u;
-    const int w1 = sh_gw[q + 1];
-#pragma unroll 4
-    for (int w = sh_gw[q] + part; w < w1; w += ROW_PARTS) {
-      if ((sh_one[w] & __ldg(many_words + (size_t)w * R + rr)) != 0u) {
-        inter |= 1u << (sh_key[w] & 31);
-      }
-    }
+    unsigned inter = screen_dev::row_inter(sh_one, many_words, R, rr, sh_key, sh_gw[q] + part,
+                                           sh_gw[q + 1], ROW_PARTS);
 #pragma unroll
     for (int m = 1; m < ROW_PARTS; m <<= 1) inter |= __shfl_xor_sync(FULL, inter, m);
     const unsigned m0 = __ldg(many_flags + ((size_t)0 * KW + q) * R + rr);

@@ -2,14 +2,22 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is built
 with nvcc for sm_90a into ``csrc/build/lib<name>.so`` (rebuilt whenever the
-source is newer; written to a temporary file and renamed into place, so
-concurrent builders never load a half-written library) and loaded with
-ctypes. A failed build raises KernelError: there is no fallback.
+source or a ``csrc/`` header it includes is newer; written to a temporary
+file and renamed into place, so concurrent builders never load a
+half-written library) and loaded with ctypes. A failed build raises
+KernelError: there is no fallback.
+
+The flags keep float arithmetic exact to the eager scan's: -fmad=false
+(no multiply-add contraction) and never --use_fast_math (the scan's
+divisions must be IEEE). ``build_host`` builds a ``csrc/<name>.cpp`` with
+g++ into the same directory, with -ffp-contract=off for the same reason:
+the pack scan's CPU build, which only the tests load.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,8 +34,10 @@ DEFAULT_BUILD_DIR = os.path.join(CSRC, "build")
 BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
+GXX_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -51,26 +61,39 @@ def nvcc_path() -> str:
     raise KernelError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless the library is newer; returns its path."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    build_dir = BUILD_DIR
-    out = os.path.join(build_dir, f"lib{name}.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+def _sources(src: str) -> List[str]:
+    """`src` and every csrc/ header it includes, transitively."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen or not os.path.exists(path):
+            continue
+        seen.append(path)
+        with open(path, encoding="utf-8") as f:
+            todo += [os.path.join(CSRC, h) for h in _INCLUDE.findall(f.read())]
+    return seen
+
+
+def _compile(name: str, src: str, out: str, argv) -> str:
+    """Run argv (the compiler, its flags, then -o and the output go last)
+    unless `out` is newer than `src` and its headers."""
+    if os.path.exists(out) and os.path.getmtime(out) >= max(
+            os.path.getmtime(p) for p in _sources(src)):
         BUILD_SECONDS.setdefault(name, 0.0)
         return out
-    os.makedirs(build_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
+        try:
+            proc = subprocess.run([*argv, "-o", tmp, src], capture_output=True, text=True)
+        except OSError as exc:
+            raise KernelError(f"{argv[0]} could not run for {src}: {exc}") from exc
         if proc.returncode != 0:
             raise KernelError(
-                f"nvcc failed for {src} (exit {proc.returncode}):\n{proc.stderr}"
+                f"{os.path.basename(argv[0])} failed for {src} (exit {proc.returncode}):\n"
+                f"{proc.stderr}"
             )
         os.replace(tmp, out)
     finally:
@@ -78,6 +101,18 @@ def build(name: str) -> str:
             os.unlink(tmp)
     BUILD_SECONDS[name] = time.perf_counter() - t0
     return out
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless the library is newer; returns its path."""
+    return _compile(name, os.path.join(CSRC, f"{name}.cu"),
+                    os.path.join(BUILD_DIR, f"lib{name}.so"), [nvcc_path(), *NVCC_FLAGS])
+
+
+def build_host(name: str) -> str:
+    """Compile csrc/<name>.cpp with g++ unless the library is newer."""
+    return _compile(name, os.path.join(CSRC, f"{name}.cpp"),
+                    os.path.join(BUILD_DIR, f"lib{name}.so"), ["g++", *GXX_FLAGS])
 
 
 def build_all(names) -> Dict[str, str]:
@@ -95,12 +130,13 @@ def loaded_names() -> List[str]:
         return sorted(_LIBS)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
+def load(name: str, host: bool = False) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (host: csrc/<name>.cpp),
+    built on first use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            path = build(name)
+            path = build_host(name) if host else build(name)
             try:
                 lib = _LIBS[name] = ctypes.CDLL(path)
             except OSError as exc:

@@ -79,7 +79,22 @@ BIG = 1e30  # float32(1e30) once it meets a float32 tensor
 BIGK = 2**30
 
 # the last pack call's work: items stepped and while-iterations per branch
-LAST_SCAN = {"items": 0, "bulk": 0, "candidate": 0, "open": 0}
+# (summed over the scans of a kernel launch), and which implementation ran
+# it: "eager" (make_pack_kernel.pack) or "kernel" (ops/pack_scan.py)
+LAST_SCAN = {"items": 0, "bulk": 0, "candidate": 0, "open": 0, "impl": "eager"}
+SCAN_COUNTERS = ("items", "bulk", "candidate", "open")
+
+
+def kernel_routes(device, screen_mode: str, log_commits: bool,
+                  topo_meta: Optional[TopoMeta]) -> bool:
+    """Whether a scan runs as the pack_scan kernel (ops/pack_scan.py)
+    rather than the eager scan: tensors on a CUDA device, the prescreen,
+    a commit log (not the replan's rung mode) and no topology group. It is
+    decided from the geometry before the dispatch, never from a failure;
+    every other scan stays eager, and CPU tensors always take the plain
+    version."""
+    return (torch.device(device).type == "cuda" and screen_mode == "prescreen"
+            and log_commits and (topo_meta is None or not topo_meta.groups))
 
 
 class PackState(NamedTuple):
@@ -577,6 +592,7 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         shared: Optional[dict] = None,
         item_ids: Optional[np.ndarray] = None,  # [I] global item id per row, host
         bulk_len: Optional[int] = None,
+        verdicts: Optional[list] = None,
     ):
         """One scan. log_commits=False is the consolidation replan's rung
         mode: no log is written and no commit waits on log space (so the
@@ -594,7 +610,9 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         planes of the whole axis (the reference's class_planes argument:
         scls_first indexes the whole axis), `item_ids` the global item
         index each row logs, and `bulk_len` the lane's own take-matrix
-        budget."""
+        budget. `verdicts`, when given, receives the scan's final [N, C]
+        verdict tensor (the prescreen tensor as the commits refreshed it;
+        nothing under the tiered screen)."""
         dev = state.used.device
         N, V = state.allow.shape
         K = state.out.shape[1]
@@ -720,8 +738,9 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         # items_vs_row agree unless an item defines a key at or past the
         # screen width, which the encoder's elision rule prevents.)
 
-        for k in LAST_SCAN:
+        for k in SCAN_COUNTERS:
             LAST_SCAN[k] = 0
+        LAST_SCAN["impl"] = "eager"
         for i in range(I):
             count = int(count_h[i])
             if not valid_h[i] or count <= 0:
@@ -1292,6 +1311,8 @@ def make_pack_kernel(segments, zone_seg, ct_seg, topo_meta: Optional[TopoMeta] =
         state = state._replace(
             nopen=torch.tensor(nopen, dtype=torch.int32, device=dev)
         )
+        if verdicts is not None and screen is not None:
+            verdicts.append(screen)
         return state, log.arrays(), log.ptr
 
     return pack
@@ -1363,7 +1384,7 @@ def make_batched_replan_kernel(rung_run, n_exist: int):
             _log, _ptr, state = rung_run(
                 count_rows[r], open_dev[r], screen0,
                 *run_args, items_pl=items_pl, shared=shared)
-            for key in ("items", "bulk", "candidate", "open"):
+            for key in SCAN_COUNTERS:
                 LAST_REPLAN[key] += LAST_SCAN[key]
             pods[r] = state.pods
             verdicts[r] = verdict_of(state.pods, counts_dev[r], uninit)

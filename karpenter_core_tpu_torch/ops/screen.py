@@ -49,8 +49,9 @@ import torch
 from karpenter_core_tpu_torch.ops.compat import _count
 from karpenter_core_tpu_torch.ops.cuda_build import KernelError
 
-# launches of each CUDA kernel, counted where it is launched
-LAUNCHES: Dict[str, int] = {"screen": 0, "screen_prep": 0}
+# launches of each CUDA kernel, counted where it is launched (pack_scan:
+# ops/pack_scan.py, the scan as one device program)
+LAUNCHES: Dict[str, int] = {"screen": 0, "screen_prep": 0, "pack_scan": 0}
 # launches of the screen kernel by form: block (N > 1, B > 1), row_n1 (one
 # slot row against every item row), row_b1 (every slot row against one item)
 FORM_LAUNCHES: Dict[str, int] = {"block": 0, "row_n1": 0, "row_b1": 0}

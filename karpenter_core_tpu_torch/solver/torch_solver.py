@@ -88,6 +88,7 @@ from karpenter_core_tpu_torch.obs.flightrec import (  # noqa: F401 — re-export
 from karpenter_core_tpu_torch.obs import envflags
 from karpenter_core_tpu_torch.ops import compat as ops_compat
 from karpenter_core_tpu_torch.ops import pack as pack_ops
+from karpenter_core_tpu_torch.ops import pack_scan
 from karpenter_core_tpu_torch.ops import screen as screen_ops
 from karpenter_core_tpu_torch.ops.cuda_build import KernelError
 from karpenter_core_tpu_torch.ops.feasibility import (
@@ -433,12 +434,19 @@ def topo_meta_from(obj) -> Optional[TopoMeta]:
 def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
                     log_len: int, screen_v: Optional[int] = None,
                     screen_mode: str = "prescreen", rung_mode: bool = False,
-                    segment_mode: bool = False, spec_layout=None):
+                    segment_mode: bool = False, spec_layout=None, host_kernel: bool = False):
     """The solve program (make_device_run with an external prescreen):
     feasibility + openable + the pack scan, a function of args_to_torch's
     tensors and the prescreen tensor (None under screen_mode="tiered"),
     with the class planes the prescreen built (items_pl) reused by the
-    scan. Returns (log, ptr, state).
+    scan. Returns (log, ptr, state); run(..., verdicts=[]) also appends
+    the scan's final [N, C] verdict tensor to the list.
+
+    Where ops/pack.kernel_routes holds (a CUDA device, the prescreen, a
+    commit log, no topology group) the scan is the pack_scan kernel
+    (ops/pack_scan.py): one launch and one read per solve. Every other
+    scan runs the eager make_pack_kernel.pack. host_kernel=True (tests
+    only) routes as on a card and runs the kernel's CPU build.
 
     rung_mode=True is the consolidation replan's form
     (tpu_solver.py:345-370,558-570): run(count_row, exist_open, screen0,
@@ -458,8 +466,10 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
     lanes' slots disjoint) and a private machine region [E, N). The
     feasibility planes are computed once over the whole item axis and
     gathered per lane; `items_pl` must be the prescreen's class planes of
-    the whole axis. The lanes run one after another; a lane with no item
-    is not run (its scan would commit nothing). Each lane refreshes its
+    the whole axis. On the kernel route every lane with items is a scan of
+    one launch (the lanes are its batch axis); else the lanes run one
+    after another. A lane with no item is not run (its scan would commit
+    nothing). Each lane refreshes its
     own copy of screen0 as the sequential scan does; the reference's
     read-only variant for all-neutral lanes (seg_frozen) is not ported,
     since a fully neutral batch is one component and never dispatches
@@ -470,17 +480,16 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
     (tpu_solver.py:367-410,528-553): feasibility_static runs as the
     grid's tiles (ops/feasibility.feasibility_tiles) and is gathered on
     the lead device, where openable_mask and the scan run on the inputs
-    the lead holds. The segmented lanes run there too, one after
-    another, where the reference splits them over dp (segment_axis): the
-    scan steps items from the host, so lanes on a thread per card would
-    take turns at the GIL and not overlap (ROADMAP Queue B item 4). The
+    the lead holds. The segmented lanes run there too, where the
+    reference splits them over dp (segment_axis): one launch on the
+    kernel route, else one after another (ROADMAP Queue B). The
     replan (rung_mode) runs on the lead device, as the reference's runs
     the single-device program. run() and seg_run() take `placed`, the
     GridArgs of SpecLayout.put_args, whose type-plane tiles the
     feasibility tiles read."""
     segments = [tuple(s) for s in segments]
-    pack = make_pack_kernel(segments, zone_seg, ct_seg,
-                            topo_meta=topo_meta_from(topo_meta), screen_v=screen_v,
+    topo = topo_meta_from(topo_meta)
+    pack = make_pack_kernel(segments, zone_seg, ct_seg, topo_meta=topo, screen_v=screen_v,
                             screen_mode=screen_mode)
     if rung_mode:
         spec_layout = None
@@ -490,12 +499,13 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
                  pod_tol_all, exist, exist_used, exist_cap, well_known, remaining0,
                  topo_counts0, topo_hcounts0, topo_doms0, topo_terms, exist_ports,
                  exist_vols, exist_vol_limits, vol_driver, items_pl=None, shared=None,
-                 item_sel=None, placed=None):
+                 item_sel=None, placed=None, verdicts=None):
         dev = exist_used.device
         E = exist_used.shape[0]
-        N = n_slots
         T = type_alloc.shape[0]
         J = tmpl_daemon.shape[0]
+        kernel = pack_ops.kernel_routes("cuda" if host_kernel else dev, screen_mode,
+                                        count_row is None, topo)
         pre = shared if shared is not None else {}
         if "f_static" not in pre:
             feas_args = ({k: pod_arrays[k] for k in ("allow", "out", "defined", "escape")},
@@ -508,10 +518,35 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             pre["openable"] = openable_mask(pre["f_static"], pod_arrays["requests"],
                                             tmpl_daemon, type_alloc)
         f_static, openable = pre["f_static"], pre["openable"]
+        if kernel:
+            # the scan as one device program: the wrapper takes the whole
+            # item axis and each scan's item list
+            states = [initial_state(eo, exist, exist_used, exist_cap, remaining0,
+                                    topo_counts0, topo_hcounts0, topo_doms0, exist_ports,
+                                    exist_vols, J, T)
+                      for eo in (exist_open if item_sel is not None else [exist_open])]
+            geo = pre.setdefault("scan", {}).setdefault("geo", {})
+            item_arrays = dict(pod_arrays, tol=pod_tol_all)
+            if not geo:
+                geo.update(pack_ops._scan_constants(
+                    segments, pod_arrays["allow"].shape[1], screen_v, types,
+                    type_offering_ok, item_arrays, items_pl, tmpl, False, [], None, dev))
+            runs = pack_scan.run(
+                states, item_arrays, f_static, openable,
+                {k: tmpl[k] for k in ("allow", "out", "defined")}, tmpl_daemon,
+                tmpl_type_mask, types, type_alloc, type_capacity, type_offering_ok,
+                segments=segments, zone_seg=zone_seg, ct_seg=ct_seg, screen0=screen0,
+                items_pl=geo["items_pl"], geo=geo, log_len=log_len, n_exist=E,
+                vol_limits=exist_vol_limits, vol_driver=vol_driver, item_sel=item_sel,
+                bulk_len=None if item_sel is None else lane_bulk_len(item_sel.shape[1]),
+                host=host_kernel, verdicts=verdicts)
+            got = [(log, ptr, state) for state, log, ptr in runs]
+            return got if item_sel is not None else got[0]
         lane = {}
         if item_sel is not None:
-            # a lane scans its gathered items only; pads (-1) gather row 0
-            # with valid=False and count=0, so they skip as padded items do
+            # a lane scans its gathered items only
+            # pads (-1) gather row 0 with valid=False and count=0, so they
+            # skip as padded items do
             gi = torch.as_tensor(np.maximum(item_sel, 0), dtype=torch.int64, device=dev)
             onsel = torch.as_tensor(item_sel >= 0, device=dev)
             pod_arrays = {k: v[gi] for k, v in pod_arrays.items() if k != "scls_first"}
@@ -519,7 +554,31 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             pod_arrays["count"] = torch.where(onsel, pod_arrays["count"], 0)
             pod_tol_all = pod_tol_all[gi]
             f_static, openable = f_static[:, gi, :], openable[:, gi]
-            lane = dict(item_ids=item_sel, bulk_len=min(2 * len(item_sel) + 64, 4096))
+            lane = dict(item_ids=item_sel, bulk_len=lane_bulk_len(len(item_sel)))
+        state = initial_state(exist_open, exist, exist_used, exist_cap, remaining0,
+                              topo_counts0, topo_hcounts0, topo_doms0, exist_ports,
+                              exist_vols, J, T)
+        item_arrays = dict(pod_arrays, tol=pod_tol_all)
+        state, log, ptr = pack(
+            state, item_arrays, f_static, openable,
+            {k: tmpl[k] for k in ("allow", "out", "defined")},
+            tmpl_daemon, tmpl_type_mask, types, type_alloc, type_capacity,
+            type_offering_ok, well_known=well_known, topo_terms=topo_terms,
+            log_len=log_len, n_exist=E, vol_limits=exist_vol_limits,
+            vol_driver=vol_driver, screen0=screen0, items_pl=items_pl,
+            log_commits=count_row is None, counts_host=count_row,
+            shared=pre.setdefault("scan", {}), verdicts=verdicts, **lane,
+        )
+        return log, ptr, state
+
+    def initial_state(exist_open, exist, exist_used, exist_cap, remaining0, topo_counts0,
+                      topo_hcounts0, topo_doms0, exist_ports, exist_vols, J, T):
+        """A scan's PackState at entry: the existing prefix from the
+        snapshot (exist_open [E], when given, closes slots: a closed slot
+        is neither open nor existing), a closed machine region [E, N)."""
+        dev = exist_used.device
+        E = exist_used.shape[0]
+        N = n_slots
         open0 = torch.arange(N, device=dev) < E
         if exist_open is not None:
             open0[:E] &= exist_open
@@ -529,7 +588,7 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             out[:E] = rows
             return out
 
-        state = PackState(
+        return PackState(
             used=prefix(0.0, exist_used, torch.float32),
             open=open0,
             is_existing=open0.clone(),
@@ -552,18 +611,6 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             ports=prefix(False, exist_ports, torch.bool),
             vols=exist_vols.clone(),
         )
-        item_arrays = dict(pod_arrays, tol=pod_tol_all)
-        state, log, ptr = pack(
-            state, item_arrays, f_static, openable,
-            {k: tmpl[k] for k in ("allow", "out", "defined")},
-            tmpl_daemon, tmpl_type_mask, types, type_alloc, type_capacity,
-            type_offering_ok, well_known=well_known, topo_terms=topo_terms,
-            log_len=log_len, n_exist=E, vol_limits=exist_vol_limits,
-            vol_driver=vol_driver, screen0=screen0, items_pl=items_pl,
-            log_commits=count_row is None, counts_host=count_row,
-            shared=pre.setdefault("scan", {}), **lane,
-        )
-        return log, ptr, state
 
     if segment_mode:
         if screen_mode != "prescreen":
@@ -576,14 +623,21 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             # the lanes' own only through their item rows: shared
             pre = {}
             geo = {}
-            out = []
-            for sel, eo in zip(item_sel, open_dev):
-                if not (sel >= 0).any():
-                    out.append(None)
-                    continue
+            live = [s for s, sel in enumerate(item_sel) if (np.asarray(sel) >= 0).any()]
+            out = [None] * len(item_sel)
+            if live and pack_ops.kernel_routes("cuda" if host_kernel else dev, screen_mode,
+                                               True, topo):
+                # every lane with items in one launch, the lanes its batch
                 pre["scan"] = {"geo": geo}
-                out.append(run_impl(None, eo, screen0, *args, items_pl=items_pl,
-                                    shared=pre, item_sel=np.asarray(sel), placed=placed))
+                runs = run_impl(None, open_dev[live], screen0, *args, items_pl=items_pl,
+                                shared=pre, item_sel=np.asarray(item_sel)[live], placed=placed)
+                for s, got in zip(live, runs):
+                    out[s] = got
+                return out
+            for s in live:
+                pre["scan"] = {"geo": geo}
+                out[s] = run_impl(None, open_dev[s], screen0, *args, items_pl=items_pl,
+                                  shared=pre, item_sel=np.asarray(item_sel[s]), placed=placed)
             return out
 
         return seg_run
@@ -596,10 +650,16 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
         rung_run.n_slots = n_slots
         return rung_run
 
-    def run(screen0, *args, items_pl=None, placed=None):
-        return run_impl(None, None, screen0, *args, items_pl=items_pl, placed=placed)
+    def run(screen0, *args, items_pl=None, placed=None, verdicts=None):
+        return run_impl(None, None, screen0, *args, items_pl=items_pl, placed=placed,
+                        verdicts=verdicts)
 
     return run
+
+
+def lane_bulk_len(m: int) -> int:
+    """A segmented lane's bulk take budget for m item rows."""
+    return min(2 * m + 64, 4096)
 
 
 def expand_log(snap: EncodedSnapshot, log, ptr: int) -> np.ndarray:
@@ -1514,7 +1574,7 @@ class TorchSolver:
         nopen_a = np.asarray([E if r is None else int(r[2].nopen) for r in runs])
         bulkn_a = np.asarray([0 if r is None else int(r[0]["bulk_n"]) for r in runs])
         opens = np.maximum(nopen_a - E, 0)
-        lane_lb = min(2 * m_pad + 64, 4096) if E else 1
+        lane_lb = lane_bulk_len(m_pad) if E else 1
         if int(opens.sum()) > N - E:
             # the slot budget is shared: the sequential scan would have run
             # out mid-way, and from there its result depends on the order

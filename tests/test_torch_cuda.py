@@ -101,8 +101,8 @@ def workload(family, pkg):
     max_nodes, kube client, cluster) for one family, built with `pkg`'s
     builders; the client and cluster are None but for the cluster
     family."""
-    if family == "cluster":
-        return cluster_workload(_mods(pkg), family)
+    if family in ("cluster", "ports_vols"):
+        return cluster_workload(_mods(pkg), family, topology=family == "cluster")
     return _workload(family, pkg) + (None, None)
 
 
@@ -376,7 +376,7 @@ def reference_mix(m, n_pods, n_types, distinct=1, tag="mix"):
 EBS = "ebs.csi.aws.com"
 
 
-def cluster_workload(m, family, n_nodes=9, n_pending=280, n_types=16):
+def cluster_workload(m, family, n_nodes=9, n_pending=280, n_types=16, topology=True):
     """A live cluster: nodes registered through a Cluster with CSINode
     attach limits, bound pods in the kube client (claims, host ports,
     spread and affinity cohorts skewed over the zones, a pod in another
@@ -385,7 +385,9 @@ def cluster_workload(m, family, n_nodes=9, n_pending=280, n_types=16):
     batch of the reference mix plus host-port pods (wildcard, specific
     IP, UDP), StatefulSet-like claim pods, a shared claim, a claim bound
     to a PV of another driver, a claim of an unknown class and a missing
-    claim."""
+    claim. topology=False (the ports_vols family) leaves out every spread,
+    affinity and anti-affinity pod, bound or pending: the pending batch is
+    the mix's generic classes, so the solve has no topology group."""
     client = m.client()
     cluster = m.cluster(client)
     client.create(m.t.make_storage_class("ebs", provisioner=EBS))
@@ -429,6 +431,8 @@ def cluster_workload(m, family, n_nodes=9, n_pending=280, n_types=16):
             if e == 3:
                 p.spec.containers[0].ports[0].host_ip = "10.0.0.3"
             running.append(p)
+        if not topology:
+            continue
         # zonal-spread cohort skewed 3 : 2 : 1, hostname spread on one node,
         # the affinity cohort's matches in zone 2 only
         running += [bound(e, f"s{j}", labels={"app": "spread"}) for j in range(3 - zone)]
@@ -447,6 +451,8 @@ def cluster_workload(m, family, n_nodes=9, n_pending=280, n_types=16):
     running.append(term)
 
     pods, provs, its_map = reference_mix(m, n_pending, n_types, distinct=3, tag=family)
+    if not topology:
+        pods = [p for p in pods if p.metadata.labels.get("app", "").startswith("gen-")]
     udp = m.o.ContainerPort(host_port=53, protocol="UDP")
     extra = []
     for i in range(32):
@@ -588,12 +594,12 @@ def test_screen_launches_per_form_on_card():
         cuda = {k: v.cuda() for k, v in slot.items()}
         screen.reset_launches()
         c_items = screen.ScreenItems({k: v.cuda() for k, v in items.items()}, layout)
-        assert screen.LAUNCHES == {"screen": 0, "screen_prep": 1}
+        assert screen.LAUNCHES == {"screen": 0, "screen_prep": 1, "pack_scan": 0}
         screen.screen_block(cuda["allow"], cuda["out"], cuda["defined"], c_items, layout)
-        assert screen.LAUNCHES == {"screen": 1, "screen_prep": 2}
+        assert screen.LAUNCHES == {"screen": 1, "screen_prep": 2, "pack_scan": 0}
         assert screen.FORM_LAUNCHES[form] == 1 and sum(screen.FORM_LAUNCHES.values()) == 1
         screen.screen_row(cuda["allow"], cuda["out"], cuda["defined"], c_items, B - 1, layout)
-        assert screen.LAUNCHES == {"screen": 2, "screen_prep": 3}
+        assert screen.LAUNCHES == {"screen": 2, "screen_prep": 3, "pack_scan": 0}
         assert screen.FORM_LAUNCHES["row_b1"] == 1 + (form == "row_b1")
     torch.cuda.synchronize()
 
@@ -1113,3 +1119,172 @@ def test_verdict_tile_on_a_second_card_matches_plain():
     assert tiled.device == grid.lead
     assert {d for _i, _j, _r, d, _c in pack.LAST_TILES} == {str(d) for d in grid.distinct()}
     np.testing.assert_array_equal(tiled.cpu().numpy(), single.cpu().numpy())
+
+
+# -- the pack scan kernel (ops/pack_scan.py, csrc/pack_scan.cu) ---------------
+
+# the families whose solve has no topology group: the kernel's route
+SCAN_FAMILIES = ("mixed", "relax", "bulk", "wide", "ports_vols")
+
+
+def _scan_on_card(family, kernel, log_len=None, bulk_len=None):
+    """One device solve of a family on the card, its scan through the
+    pack_scan kernel or (kernel=False) the eager scan; with the screen's
+    and the scan's launches counted around the scan alone, and the scan's
+    final verdict tensor. bulk_len cuts the bulk take budget on both
+    routes."""
+    from karpenter_core_tpu_torch.ops import pack as tpack
+    from karpenter_core_tpu_torch.ops import pack_scan
+    from karpenter_core_tpu_torch.ops.pack import make_prescreen_kernel
+    from karpenter_core_tpu_torch.solver.encode import encode_snapshot
+
+    pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload(family, "torch")
+    snap = encode_snapshot(pods, provs, its, daemons, nodes, client, cluster,
+                           max_nodes=max_nodes)
+    geom = tsolver.solve_geometry(snap, max_nodes)
+    N, segs, zs, cs, L, screen_v = (geom[7], geom[8], geom[9], geom[10], geom[12], geom[16])
+    targs = tsolver.args_to_torch(tsolver.device_args(snap, provs), "cuda")
+    scr = make_prescreen_kernel(segs, N, screen_v=screen_v)(targs[0], targs[9])
+    routes, make, real_run = tpack.kernel_routes, tsolver.make_pack_kernel, pack_scan.run
+    if bulk_len is not None:
+        def make_cut(*a, **k):
+            pack = make(*a, **k)
+            return lambda *pa, **pk: pack(*pa, **dict(pk, bulk_len=bulk_len))
+
+        tsolver.make_pack_kernel = make_cut
+        pack_scan.run = lambda *a, **k: real_run(*a, **dict(k, bulk_len=bulk_len))
+    if not kernel:
+        tpack.kernel_routes = lambda *a: False
+    try:
+        run = tsolver.make_device_run(segs, zs, cs, snap.topo_meta, N,
+                                      L if log_len is None else log_len, screen_v=screen_v)
+        before = screen.launch_counts()
+        verdicts = []
+        log, ptr, state = run(scr, *targs, verdicts=verdicts)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in screen.launch_counts().items()}
+    finally:
+        tpack.kernel_routes, tsolver.make_pack_kernel, pack_scan.run = routes, make, real_run
+    return log, ptr, state, launches, dict(tpack.LAST_SCAN), targs[2].shape[0], verdicts
+
+
+def _assert_scans_equal(a, b):
+    (la, pa, sa, *_), (lb, pb, sb, *_) = a, b
+    assert len(a[6]) == len(b[6]) == 1
+    assert torch.equal(a[6][0].cpu(), b[6][0].cpu()), "verdicts"
+    assert pa == pb and la["bulk_n"] == lb["bulk_n"]
+    for k in ("item", "slot", "ns", "k", "k_last"):
+        np.testing.assert_array_equal(la[k], lb[k], err_msg=k)
+    assert torch.equal(la["bulk_take"].cpu(), lb["bulk_take"].cpu())
+    for name in sa._fields:
+        x, y = getattr(sa, name).cpu(), getattr(sb, name).cpu()
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", SCAN_FAMILIES)
+def test_pack_scan_kernel_matches_plain_on_card(family):
+    """The commit log, ptr and every PackState field of the kernel's scan
+    equal the eager scan's on the card, floats bit for bit; the kernel's
+    scan is one launch and re-screens without a row_n1 launch (one
+    template's verdict row, screened before the scan, is the one row_n1
+    of a single-template solve)."""
+    _card()
+    got = _scan_on_card(family, kernel=True)
+    want = _scan_on_card(family, kernel=False)
+    _assert_scans_equal(got, want)
+    assert got[4]["impl"] == "kernel" and want[4]["impl"] == "eager"
+    assert got[3]["pack_scan"] == 1 and got[3]["row_n1"] == int(got[5] == 1)
+    assert {k: got[4][k] for k in ("items", "bulk", "candidate", "open")} == {
+        k: want[4][k] for k in ("items", "bulk", "candidate", "open")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mixed", "ports_vols"])
+def test_pack_scan_kernel_overflowing_log_on_card(family):
+    """A log cut to half the commits fills where the eager scan's does."""
+    _card()
+    full = _scan_on_card(family, kernel=False)
+    assert full[1] >= 4
+    cut = full[1] // 2
+    got = _scan_on_card(family, kernel=True, log_len=cut)
+    _assert_scans_equal(got, _scan_on_card(family, kernel=False, log_len=cut))
+    assert got[1] == cut
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["bulk", "ports_vols"])
+def test_pack_scan_kernel_small_bulk_budget_on_card(family):
+    """A bulk take budget of one row sends the existing slots through
+    candidate verify after the first bulk commit; the kernel still equals
+    the eager scan, verdicts included."""
+    _card()
+    got = _scan_on_card(family, kernel=True, bulk_len=1)
+    _assert_scans_equal(got, _scan_on_card(family, kernel=False, bulk_len=1))
+    log, ptr, state = got[0], got[1], got[2]
+    slot, ns = (np.asarray(log[k])[:ptr] for k in ("slot", "ns"))
+    assert log["bulk_n"] == 1
+    assert ((ns == 1) & state.is_existing.cpu().numpy()[slot]).any()
+
+
+@pytest.mark.cuda
+def test_pack_scan_segmented_lanes_in_one_launch_on_card():
+    """The segmented solve's lanes as the kernel's batch: one launch, the
+    placements and merged state of the eager lanes on the card."""
+    _card()
+    from karpenter_core_tpu_torch.ops import pack as tpack
+
+    m = _mods("torch")
+    universe = m.fake.instance_types(6)
+    provs, its = m.t.make_pool_provisioners(4, universe)
+    rng = np.random.default_rng(5)
+    nodes = [m.node(m.t.make_node(
+        name=f"seg-n-{e}",
+        labels={PROV: f"pool-{e % 4}", "karpenter.sh/initialized": "true",
+                "node.kubernetes.io/instance-type": universe[e % 6].name, CT: "on-demand",
+                ZONE: "test-zone-1", "team": f"pool-{e % 4}"},
+        capacity={k: str(v) for k, v in universe[e % 6].capacity.items()}))
+        for e in range(8)]
+    pods = []
+    for i in range(160):
+        p = int(rng.integers(4))
+        pods.append(_pod(m, "seg", i, labels={"app": f"dep-{p}-{int(rng.integers(8))}"},
+                         requests={"cpu": str(0.25 + 0.25 * int(rng.integers(3)))},
+                         node_selector={"team": f"pool-{p}"}))
+    got = {}
+    routes = tpack.kernel_routes
+    for kernel in (True, False):
+        if not kernel:
+            tpack.kernel_routes = lambda *a: False
+        try:
+            screen.reset_launches()
+            solver = tsolver.TorchSolver(max_nodes=96, device="cuda", pack_scan="segmented")
+            result = solver.solve(copy.deepcopy(pods), provs, its,
+                                  state_nodes=[n.deep_copy() for n in nodes])
+            got[kernel] = (tsolver.placements_json(result), dict(screen.LAUNCHES),
+                           dict(solver.last_segment_stats), dict(tpack.LAST_SCAN))
+        finally:
+            tpack.kernel_routes = routes
+    assert got[True][0] == got[False][0]
+    assert got[True][2]["mode"] == "segmented" and got[True][2]["lanes"] >= 2
+    assert got[True][1]["pack_scan"] == 1 and got[False][1]["pack_scan"] == 0
+    assert got[True][3]["impl"] == "kernel"
+
+
+@pytest.mark.cuda
+def test_pack_scan_build_failure_raises(tmp_path, monkeypatch):
+    """A kernel that does not build raises KernelError; nothing falls back
+    to the eager scan."""
+    _card()
+    from karpenter_core_tpu_torch.ops import cuda_build
+
+    screen._c_kernels()  # the screen's library is loaded: only the scan's build fails
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ["--no-such-flag"])
+    monkeypatch.delitem(cuda_build._LIBS, "pack_scan", raising=False)
+    before = screen.launch_counts()
+    with pytest.raises(cuda_build.KernelError):
+        _scan_on_card("bulk", kernel=True)
+    assert screen.launch_counts()["pack_scan"] == before["pack_scan"]

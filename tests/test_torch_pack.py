@@ -21,7 +21,7 @@ from tests.test_torch_solver import _assert_tree_equal
 
 
 @pytest.fixture(scope="module", params=["mixed", "bulk", "wide", "spread", "affinity",
-                                        "anti", "refmix", "cluster"])
+                                        "anti", "refmix", "cluster", "ports_vols"])
 def runs(request):
     family = request.param
     pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload(family, "jax")
@@ -88,4 +88,4 @@ def test_pack_state_matches(runs):
 
 
 def test_cpu_path_never_launches_the_kernel(runs):
-    assert runs["launches"] == {"screen": 0, "screen_prep": 0}
+    assert runs["launches"] == {"screen": 0, "screen_prep": 0, "pack_scan": 0}

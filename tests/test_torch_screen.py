@@ -430,7 +430,7 @@ def test_cpu_tensors_take_the_plain_version():
     screen_block(ts["allow"][:1], ts["out"][:1], ts["defined"][:1], ti, layout)
     screen_row(ts["allow"], ts["out"], ts["defined"], ti, 2, layout)
     screen.screen_prep(ts["allow"], ts["out"], ts["defined"], layout)
-    assert screen.LAUNCHES == {"screen": 0, "screen_prep": 0}
+    assert screen.LAUNCHES == {"screen": 0, "screen_prep": 0, "pack_scan": 0}
     assert screen.FORM_LAUNCHES == {"block": 0, "row_n1": 0, "row_b1": 0}
 
 

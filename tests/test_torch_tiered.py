@@ -91,7 +91,7 @@ def test_tiered_log_and_state_match_reference(tiered_runs):
         _assert_tree_equal(np.asarray(getattr(j_state, name)),
                            getattr(t_state, name).numpy(), f"state.{name}")
     # the CPU path uses the plain versions only
-    assert tiered_runs["launches"] == {"screen": 0, "screen_prep": 0}
+    assert tiered_runs["launches"] == {"screen": 0, "screen_prep": 0, "pack_scan": 0}
 
 
 def test_tiered_prefix_screen_equals_the_full_slot_axis(tiered_runs):
