@@ -377,24 +377,32 @@ Phases, each fatal on failure:
      rank that exits non-zero or still runs at DIST_DEADLINE_S (every rank
      then killed), a solve off the grid, no refresh, a missing launch.
   20. the pack scan as one device program (right after phase 19): every
-     scan without topology groups (17a-17d, 18a, 19a and these) runs as
-     csrc/pack_scan.cu, one launch a solve, a segmented solve's lanes its
-     batch. 20a: each topology-free parity family of
-     tests/test_torch_cuda.py (mixed, relax, bulk, wide, ports_vols)
-     through the kernel and through the plain (eager) scan on the card;
-     20c: the mixed family with its log cut to half its commits (the log
-     overflows); 20d: the bulk and ports_vols families with a bulk take
-     budget of one row (the existing slots then go through candidate
-     verify); 20b: 17a's workload at full width, sequential and
-     segmented, each solved with the kernel and with the plain scan, and
-     the sequential scan alone on one solve program's inputs. Fatal: a log,
-     ptr, PackState field or final verdict tensor that differs (floats bit
-     for bit), a 20d scan with no candidate commit on an existing slot,
-     placements
-     whose sha256 is not 17a's, a kernel solve that is not one pack_scan
-     launch or launches a row_n1 of its own. Printed: each scan's kernel
-     ms alone (CUDA events), the run against the plain scan's, the
-     solves' device ms with each, the bound.
+     scan under the prescreen with a commit log, topology groups included
+     (phases 3-7, 10, 13-19 and these), runs as csrc/pack_scan.cu, one
+     launch a solve, a segmented solve's lanes its batch. 20a: every
+     parity family of tests/test_torch_cuda.py (mixed, relax, bulk, wide,
+     spread, affinity, anti, refmix, cluster, ports_vols) through the
+     kernel and through the plain (eager) scan on the card; 20c: the
+     mixed and refmix families with their logs cut to half their commits
+     (the log overflows); 20d: the bulk, ports_vols and anti families
+     with a bulk take budget of one row (the existing slots then go
+     through candidate verify; anti's bulk region is the whole slot
+     axis); 20b: 17a's workload at full width, sequential and segmented,
+     each solved with the kernel and with the plain scan, and the
+     sequential scan alone on one solve program's inputs; 20e: phase 5's
+     workload (the full reference mix, 50,000 pods x 500 types over 1,000
+     nodes: zonal and hostname spread, zonal affinity) solved with the
+     kernel and with the plain scan in fresh solvers, then its scan alone
+     both ways. Fatal: a log, ptr, PackState field (the topology counts
+     included) or final verdict tensor that differs (floats bit for bit),
+     a 20d scan with no candidate commit on an existing slot, placements
+     whose sha256 is not 17a's (20b) or not the plain solve's (20e), a
+     kernel solve that is not one pack_scan launch or launches a row_n1
+     of its own. Printed: each scan's kernel ms alone (CUDA events), the
+     run against the plain scan's, the solves' device ms with each, the
+     bound, the longest launch against WEDGE_STALE_S. Phases 3b, 5, 6 and
+     10 print their device ms and row_n1 launches and fail on a scan off
+     the kernel; phase 13 prints its first live solve's device ms.
 Phase 1 builds the native packer (g++, native/fast_pack.cpp) beside the
 CUDA kernels. Phases 4-6 solve with incremental="off", so their warm solves
 run the full precompute as before. It prints one JSON line describing
@@ -1393,6 +1401,13 @@ def run_main_path(label, solver, workload, zones=None, cluster=None):
             f"{res.rounds}, last_phase_ms "
             + json.dumps({k: round(v, 3) for k, v in phases.items()})
             + f", scan {json.dumps(scan)}")
+    for run, _wall, _nodes_s, _phases, scan, _res, _gcs in runs:
+        check_kernel_route(f"{label} {run}", scan)
+    say(f"[{label}] on the pack_scan kernel: device "
+        + " / ".join(f"{phases['device']:.1f}" for _r, _w, _n, phases, *_ in runs)
+        + f" ms (cold / warm), row_n1 launches {forms['row_n1']} and pack_scan "
+        f"{launches['pack_scan']} over the two solves, longest pack_scan launch so far "
+        f"{pack_scan.LAST_LAUNCH['max_ms']:.1f} ms")
     if result.failed_pods and cluster is not None:
         raise AssertionError(f"{label}: {len(result.failed_pods)} pods failed, e.g. "
                              f"{result.failed_pods[0].metadata.name}")
@@ -2561,7 +2576,8 @@ class OperatorRun:
                                 "result": res, "snapshot": (snaps[0], a[1]) if snaps else None,
                                 "phases_ms": {k: round(v, 3) for k, v in
                                               self.solver.last_phase_ms.items()},
-                                "phases_raw": dict(self.solver.last_phase_ms)})
+                                "phases_raw": dict(self.solver.last_phase_ms),
+                                "scan": dict(pack.LAST_SCAN)})
             return res
 
         self.solver.solve = solve
@@ -5522,9 +5538,10 @@ def phase_dist(want_19a: str, want_19b: str) -> dict:
 
 # -- phase 20: the pack scan as one device program -----------------------------
 
-# the parity families of tests/test_torch_cuda.py whose solve has no
-# topology group: the pack_scan kernel's route
-SCAN_FAMILIES = ("mixed", "relax", "bulk", "wide", "ports_vols")
+# the parity families of tests/test_torch_cuda.py, topology groups or none:
+# the pack_scan kernel's route
+SCAN_FAMILIES = ("mixed", "relax", "bulk", "wide", "spread", "affinity", "anti", "refmix",
+                 "cluster", "ports_vols")
 
 
 @contextlib.contextmanager
@@ -5633,37 +5650,41 @@ def scan_bound(snap, targs, runs, n_items: int) -> dict:
     """The least time the card could take for the scans of one launch: the
     bytes each input must be read and each output written, once. Inputs:
     the stepped items' rows, the template and type planes, each scan's
-    entry state and verdict rows over the slots it reaches; outputs: those
-    rows' final state and verdicts, and the commit log. The rows past a
-    scan's final nopen are never read nor written. The scan's arithmetic
-    (compares and a few float operations per slot, type and column) is far
-    below the byte time."""
+    entry state and verdict rows over the slots it reaches, the topology
+    groups' counts and node-filter terms; outputs: those rows' final state
+    and verdicts, the groups' final counts, and the commit log. The rows
+    past a scan's final nopen are never read nor written. The scan's
+    arithmetic (compares and a few float operations per slot, type and
+    column) is far below the byte time."""
     pod_arrays, tmpl = targs[0], targs[1]
     V, K = pod_arrays["allow"].shape[1], pod_arrays["out"].shape[1]
     R, T = targs[5].shape[1], targs[5].shape[0]
     J = targs[2].shape[0]
     Q, W = pod_arrays["ports"].shape[1], pod_arrays["vols"].shape[1]
     C = pod_arrays["scls_first"].shape[0]
-    item_row = V + 2 * K + 4 * R + targs[8].shape[1] + 2 * Q + W + J * (T + 1) + 12
-    slot_row = V + 2 * K + T + 8 * R + Q + 14 + C
+    G = targs[14].shape[0]  # topo_counts0 [G, V]
+    GT = targs[17]["allow"].shape[0]  # the node-filter terms
+    item_row = V + 2 * K + 4 * R + targs[8].shape[1] + 2 * Q + W + J * (T + 1) + 12 + 2 * G
+    slot_row = V + 2 * K + T + 8 * R + Q + 14 + C + 4 * G
     tmpl_rows = J * (V + 2 * K + 4 * R + T + C + R * 4)
     type_rows = T * (V + 4 * K + 8 * R + targs[7][0].numel())
+    topo_rows = GT * (V + 3 * K) + 2 * len(runs) * G * V * 5
     reached = sum(int(r["state"].nopen) for r in runs)
     L = len(runs[0]["log"]["item"])
-    total = (n_items * item_row + tmpl_rows + type_rows + 2 * reached * slot_row
+    total = (n_items * item_row + tmpl_rows + type_rows + topo_rows + 2 * reached * slot_row
              + len(runs) * 5 * L * 4)
     return _bound(total, 0, 0, 1.0)
 
 
 def phase_scan_families(device="cuda") -> dict:
-    """20a: each topology-free parity family of tests/test_torch_cuda.py
-    through the kernel and through the plain scan on the card; 20c the
-    mixed family again with its log cut to half its commits, so that it
-    overflows; 20d the bulk and ports_vols families with a bulk take
-    budget of one row. Fatal: any difference (scan_diff), a kernel scan
-    that is not one pack_scan launch or launches a row_n1 of its own, a
-    cut log that did not fill, a 20d scan without a candidate commit on
-    an existing slot."""
+    """20a: each parity family of tests/test_torch_cuda.py (topology
+    groups or none) through the kernel and through the plain scan on the
+    card; 20c the mixed and refmix families again with their logs cut to
+    half their commits, so that they overflow; 20d the bulk, ports_vols
+    and anti families with a bulk take budget of one row. Fatal: any
+    difference (scan_diff), a kernel scan that is not one pack_scan
+    launch or launches a row_n1 of its own, a cut log that did not fill,
+    a 20d scan without a candidate commit on an existing slot."""
     import importlib.util
 
     # by path: a `tests` package installed on the machine may shadow the
@@ -5674,8 +5695,9 @@ def phase_scan_families(device="cuda") -> dict:
     spec.loader.exec_module(families)
     workload = families.workload
     out, err, launches = {}, 0.0, 0
-    cases = ([(f, "a", None) for f in SCAN_FAMILIES] + [("mixed (log cut)", "c", None)]
-             + [(f"{f} (bulk budget 1)", "d", 1) for f in ("bulk", "ports_vols")])
+    cases = ([(f, "a", None) for f in SCAN_FAMILIES]
+             + [(f"{f} (log cut)", "c", None) for f in ("mixed", "refmix")]
+             + [(f"{f} (bulk budget 1)", "d", 1) for f in ("bulk", "ports_vols", "anti")])
     for family, sub, rows in cases:
         name = family.split()[0]
         pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload(name, "torch")
@@ -5708,9 +5730,11 @@ def phase_scan_families(device="cuda") -> dict:
                                      f"candidate commits on existing slots {cand_ex}")
         launches += got["launches"]["pack_scan"]
         out[family] = {"ptr": got["ptr"], "nopen": int(got["state"].nopen),
+                       "groups": int(got["state"].tcounts.shape[0]),
                        "kernel_ms": got["kernel_ms"], "ms": got["ms"], "plain_ms": want["ms"],
                        "scan": {k: got["scan"][k] for k in pack.SCAN_COUNTERS}}
-        say(f"[scan 20{sub}] {family}: {len(pods)} pods, log {got['ptr']} "
+        say(f"[scan 20{sub}] {family}: {len(pods)} pods, {out[family]['groups']} topology "
+            f"groups, log {got['ptr']} "
             f"entries (bulk {got['log']['bulk_n']}), nopen {int(got['state'].nopen)}, scan "
             f"{json.dumps(out[family]['scan'])}: kernel and plain equal bit for bit, verdict "
             f"tensors {tuple(got['verdicts'][0].shape)} included; kernel "
@@ -5773,6 +5797,79 @@ def phase_scan_full(workload, want_sha: str, device="cuda") -> dict:
             "ms": kern["ms"], "plain_ms": plain["ms"], **bound},
             "launches": sum(r["launches"]["pack_scan"] for r in out.values())
             + kern["launches"]["pack_scan"]}
+
+
+def phase_scan_mix(workload, max_nodes: int, device="cuda") -> dict:
+    """20e: phase 5's workload (the full reference mix at full width: 1/7
+    zonal spread, 1/7 hostname spread, 2/7 zonal affinity, 3/7 generic,
+    over 1,000 existing nodes) solved with the kernel and with the plain
+    scan, each in a fresh solver (incremental="off", cold), then the scan
+    alone both ways on one solve program's inputs. Fatal: placements that
+    are not byte-identical, a kernel solve that is not one pack_scan
+    launch or launches a row_n1 of its own past its prescreen's and the
+    template rows', any scan_diff. Printed: both solves' device ms, the
+    kernel alone (CUDA events) against its bound by bytes, the launches,
+    the longest launch so far."""
+    pods, provs, its, nodes = workload
+    solves = {}
+    for plain in (False, True):
+        solver = torch_solver.TorchSolver(max_nodes=max_nodes, device=device,
+                                          incremental="off")
+        screen.reset_launches()
+        t0 = time.perf_counter()
+        with plain_scans() if plain else contextlib.nullcontext():
+            res = solver.solve(pods, provs, its, state_nodes=nodes)
+        torch.cuda.synchronize()
+        solves[plain] = {"wall_s": time.perf_counter() - t0,
+                         "phases": dict(solver.last_phase_ms),
+                         "launches": screen.launch_counts(), "scan": dict(pack.LAST_SCAN),
+                         "prescreen_launches": dict(solver.last_prescreen_launches or {}),
+                         "kernel_ms": None if plain else pack_scan.LAST_LAUNCH["ms"],
+                         "placements": torch_solver.placements_json(res),
+                         "failed": len(res.failed_pods)}
+    kern_solve, plain_solve = solves[False], solves[True]
+    if kern_solve["placements"] != plain_solve["placements"]:
+        raise AssertionError("scan 20e: the kernel's and the plain scan's placements differ")
+    snap = encode_snapshot(pods, provs, its, None, nodes, max_nodes=max_nodes)
+    program = scan_program(snap, provs, max_nodes, device=device)
+    n_templates = program[1][2].shape[0]
+    scan_row_n1 = (kern_solve["launches"]["row_n1"]
+                   - kern_solve["prescreen_launches"].get("row_n1", 0))
+    if (kern_solve["launches"]["pack_scan"] != 1 or scan_row_n1 > int(n_templates == 1)
+            or kern_solve["scan"]["impl"] != "kernel" or plain_solve["scan"]["impl"] != "eager"):
+        raise AssertionError(f"scan 20e: launches {json.dumps(kern_solve['launches'])} (the "
+                             f"prescreen's {json.dumps(kern_solve['prescreen_launches'])}), "
+                             f"impl {kern_solve['scan']['impl']} / "
+                             f"{plain_solve['scan']['impl']}")
+    kern, plain = run_scan(*program, plain=False), run_scan(*program, plain=True)
+    err = scan_diff("scan 20e full mix state", kern, plain)
+    bound = scan_bound(snap, program[1], [kern], kern["scan"]["items"])
+    groups = len(snap.topo_meta.groups) if snap.topo_meta is not None else 0
+    say(f"[scan 20e] full mix: {len(pods)} pods, {len(nodes)} nodes, {groups} topology "
+        f"groups, N={snap.n_slots}: placements byte-identical "
+        f"({len(kern_solve['placements'])} bytes, {kern_solve['failed']} failed); device "
+        f"{kern_solve['phases']['device']:.1f} ms with the kernel ({kern_solve['kernel_ms']:.3f} "
+        f"ms alone) against {plain_solve['phases']['device']:.1f} ms with the plain scan; "
+        f"walls {kern_solve['wall_s']:.3f} / {plain_solve['wall_s']:.3f} s; launches "
+        f"{json.dumps(kern_solve['launches'])} against {json.dumps(plain_solve['launches'])}; "
+        f"scan {json.dumps({k: kern_solve['scan'][k] for k in pack.SCAN_COUNTERS})}")
+    say(f"[scan 20e] the scan alone: kernel {kern['kernel_ms']:.3f} ms (the run "
+        f"{kern['ms']:.1f} ms) against the plain {plain['ms']:.1f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bytes']} bytes); state "
+        f"(tcounts, thost, tdoms included), log and verdicts equal bit for bit; longest "
+        f"pack_scan launch so far {pack_scan.LAST_LAUNCH['max_ms']:.1f} ms against the "
+        f"watchdogs' {WEDGE_STALE_S:.1f} s staleness")
+    return {"max_abs_err": err, "solves": solves,
+            "seq": {"kernel_ms": kern["kernel_ms"], "ms": kern["ms"], "plain_ms": plain["ms"],
+                    **bound},
+            "launches": kern_solve["launches"]["pack_scan"] + kern["launches"]["pack_scan"]}
+
+
+def check_kernel_route(label: str, scan: dict) -> None:
+    """Fatal unless the solve's scan ran on the pack_scan kernel."""
+    if scan.get("impl") != "kernel":
+        raise AssertionError(f"{label}: the scan ran {scan.get('impl')}, not on the "
+                             f"pack_scan kernel")
 
 
 def launches_line() -> str:
@@ -5915,16 +6012,21 @@ def main() -> int:
     b19 = {k: g19["launches"].get(k, 0) for k in b18}
     mark("phase 19")
 
-    # phase 20: the pack scan as one device program: 20a the topology-free
-    # parity families, 20c a log that overflows and 20d a bulk budget of
-    # one row, kernel against the plain scan on the card; 20b 17a's
-    # workload, sequential and segmented
+    # phase 20: the pack scan as one device program: 20a every parity
+    # family, topology groups included, 20c logs that overflow and 20d a
+    # bulk budget of one row, kernel against the plain scan on the card;
+    # 20b 17a's workload, sequential and segmented; 20e phase 5's full
+    # reference mix (kept for phase 5)
     scan20 = phase_scan_families()
     mark("phase 20a, 20c, 20d")
     full20 = phase_scan_full(w17, want_19a)
     del w17
     gc.collect()
     mark("phase 20b")
+    mix = full_mix()
+    mark("building the full mix")
+    mix20 = phase_scan_mix(mix, max_nodes)
+    mark("phase 20e")
 
     # phase 3: card and CPU place config 2 identically; the card's solve is
     # flight-recorded (phase 11 replays the record)
@@ -5966,11 +6068,14 @@ def main() -> int:
         zones = _zones(its)
         screen.reset_launches()
         t0 = time.perf_counter()
-        on_card = torch_solver.TorchSolver(max_nodes=mn, device="cuda").solve(
-            pods, provs, its, state_nodes=nodes)
+        card_solver = torch_solver.TorchSolver(max_nodes=mn, device="cuda")
+        on_card = card_solver.solve(pods, provs, its, state_nodes=nodes)
         t_card = time.perf_counter() - t0
         scan = dict(pack.LAST_SCAN)
+        check_kernel_route(name, scan)
         card_launches = launches_line()
+        card_device_ms = card_solver.last_phase_ms["device"]
+        card_row_n1 = screen.FORM_LAUNCHES["row_n1"]
         t0 = time.perf_counter()
         on_cpu = torch_solver.TorchSolver(max_nodes=mn, device="cpu").solve(
             pods, provs, its, state_nodes=nodes)
@@ -5986,6 +6091,9 @@ def main() -> int:
             f"{on_card.rounds}; card {t_card:.2f} s, cpu {t_cpu:.2f} s; placements "
             f"byte-identical ({len(a)} bytes); topology checked {json.dumps(checked)}; "
             f"card scan {json.dumps(scan)}; {card_launches}")
+        say(f"[parity] {name} on the kernel: device {card_device_ms:.1f} ms, row_n1 "
+            f"launches {card_row_n1}, longest pack_scan launch so far "
+            f"{pack_scan.LAST_LAUNCH['max_ms']:.1f} ms")
     mark("phase 3b")
 
     # phase 3c: card and CPU place a live cluster's inputs identically
@@ -6029,9 +6137,7 @@ def main() -> int:
                              "block-form screen")
     mark("phase 4")
 
-    # phase 5: the main path, the whole reference mix at full width
-    mix = full_mix()
-    mark("building the full mix")
+    # phase 5: the main path, the whole reference mix at full width (20e's)
     mix_launches, mix_forms, *_ = run_main_path(
         "main", torch_solver.TorchSolver(max_nodes=max_nodes, device="cuda",
                                          incremental="off"), mix,
@@ -6207,7 +6313,14 @@ def main() -> int:
     for k in ("screen_prep", "block", "row_n1"):
         if not op_counts.get(k):
             raise AssertionError(f"operator: phase 10's steps launched no {k}")
-    op_snap = op10["run"].solves[0]["snapshot"]
+    op_solve = op10["run"].solves[0]
+    check_kernel_route("operator step 1", op_solve["scan"])
+    say(f"[operator] step 1's solve on the pack_scan kernel: device "
+        f"{op_solve['phases_raw']['device']:.1f} ms, row_n1 launches {op_counts['row_n1']} "
+        f"and pack_scan {op_counts['pack_scan']} in the step, scan "
+        f"{json.dumps(op_solve['scan'])}, longest pack_scan launch so far "
+        f"{pack_scan.LAST_LAUNCH['max_ms']:.1f} ms")
+    op_snap = op_solve["snapshot"]
     operator_shapes = snapshot_shapes("operator (step 1)", *op_snap, int_rate, busy_cycles)
     step_walls = [(st["name"], st["wall_s"], st["parts_s"], st["gen2"])
                   for st in op10["steps"]]
@@ -6217,7 +6330,7 @@ def main() -> int:
     say(f"[operator] steps {json.dumps(step_walls)}; machines launched "
         f"{op10['passed']['machines']}, events posted {op10['events']}; spans "
         f"{json.dumps(op10['spans'])}")
-    del op10, op_snap
+    del op10, op_snap, op_solve
     gc.collect()
     mark("phase 10")
 
@@ -6258,6 +6371,10 @@ def main() -> int:
     # (it runs last: the collector tuning and the signal handlers are
     # process-wide; it restores the collector when it ends)
     ent = phase_entry(gen2_without=op10_gen2)
+    first_live = ent["out"]["solves"][0]
+    say(f"[entry] the first live solve (pack_scan loaded by the prewarm): device "
+        f"{first_live['child_phases_ms'].get('device', first_live['phases_ms'].get('device'))}"
+        f" ms in the solver host's child, {first_live['pods']} pods")
     entry_shapes = snapshot_shapes("entry (first live solve)", *ent["snapshot"], int_rate,
                                    busy_cycles)
     mark("phase 13")
@@ -6378,18 +6495,25 @@ def main() -> int:
         form_entry("row_b1", tiered_shape, "karpenter_core_tpu/ops/pallas_kernels.py:104",
                    {"tiered nopen x 1 (phase 6)": times(tiered_shape)}),
     ]
-    # the scan kernel at 17a's sequential scan (phase 20b): ms is the solve
-    # program's run (feasibility, the scan's set-up, the launch and the
-    # read), kernel_ms the launch alone, plain_ms the same run with the
-    # eager scan; "shapes" keeps each topology-free family's scan (20a, 20c, 20d)
-    seq20 = full20["seq"]
+    # the scan kernel at the full reference mix's scan (phase 20e, phase
+    # 5's workload): ms is the solve program's run (feasibility, the scan's
+    # set-up, the launch and the read), kernel_ms the launch alone,
+    # plain_ms the same run with the eager scan; "shapes" keeps 17a's
+    # sequential scan (20b) and each parity family's (20a, 20c, 20d)
+    seq20, mix_seq = full20["seq"], mix20["seq"]
     kernels.append(dict(
         name="pack_scan", route="cuda", source="karpenter_core_tpu_torch/csrc/pack_scan.cu",
         replaces="karpenter_core_tpu/ops/pack.py:909", launches=launches["pack_scan"],
-        max_abs_err=max(scan20["max_abs_err"], full20["max_abs_err"]), ms=seq20["ms"],
-        kernel_ms=seq20["kernel_ms"], plain_ms=seq20["plain_ms"], bound_ms=seq20["bound_ms"],
-        bound_by=seq20["bound_by"], library_ms=None,
-        shapes={f"{family} (phase 20)": st for family, st in scan20["families"].items()}))
+        max_abs_err=max(scan20["max_abs_err"], full20["max_abs_err"], mix20["max_abs_err"]),
+        ms=mix_seq["ms"], kernel_ms=mix_seq["kernel_ms"], plain_ms=mix_seq["plain_ms"],
+        bound_ms=mix_seq["bound_ms"], bound_by=mix_seq["bound_by"], library_ms=None,
+        shapes=dict({"17a sequential (phase 20b)": {
+            k: seq20[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}},
+            **{f"{family} (phase 20)": st for family, st in scan20["families"].items()})))
+    longest = pack_scan.LAST_LAUNCH["max_ms"]
+    say(f"[pack_scan] the longest launch of the run: {longest:.1f} ms against the "
+        f"watchdogs' {WEDGE_STALE_S:.1f} s staleness (its progress word moves at each item "
+        f"and every 64th step)")
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

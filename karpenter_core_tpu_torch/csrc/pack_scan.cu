@@ -5,9 +5,9 @@
 // pack), the port of the reference's jitted scan (karpenter_core_tpu/ops/
 // pack.py make_pack_kernel: a lax.scan over the FFD items with a
 // lax.while_loop per item, vmapped over the segmented lanes), for every
-// scan without topology groups under the prescreen that writes a commit
-// log. The scan's logic is csrc/pack_scan_body.h; this file gives it the
-// block primitives of a CUDA thread block and the launch.
+// scan under the prescreen that writes a commit log, topology groups
+// included. The scan's logic is csrc/pack_scan_body.h; this file gives it
+// the block primitives of a CUDA thread block and the launch.
 //
 // Design. A scan is a sequence of small decisions, each over one axis of
 // one scan's state (the N slots, the T types, the C class columns, the J
@@ -43,7 +43,10 @@ constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
+// TOPO: the build with the topology lanes (pack_scan_body.h, Blk::topo)
+template <bool TOPO>
 struct CudaBlock {
+  static constexpr bool topo = TOPO;
   int tid;
   int nt;
   int lane;
@@ -127,10 +130,11 @@ struct CudaBlock {
   }
 };
 
+template <bool TOPO>
 __global__ void __launch_bounds__(THREADS, 1) pack_scan_kernel(pack_scan::Args a) {
   __shared__ long long red[WARPS];
   __shared__ unsigned part[WARPS];
-  CudaBlock blk;
+  CudaBlock<TOPO> blk;
   blk.tid = threadIdx.x;
   blk.nt = THREADS;
   blk.lane = threadIdx.x & 31;
@@ -159,6 +163,12 @@ extern "C" int pack_scan_launch(const pack_scan::Args* args, int threads, void* 
       a.progress = nullptr;
     }
   }
-  pack_scan_kernel<<<static_cast<unsigned>(a.B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  // a batch without topology groups runs the build without their lanes
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.G > 0) {
+    pack_scan_kernel<true><<<static_cast<unsigned>(a.B), THREADS, 0, st>>>(a);
+  } else {
+    pack_scan_kernel<false><<<static_cast<unsigned>(a.B), THREADS, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,9 @@
 
 namespace {
 
+template <bool TOPO>
 struct SerialBlock {
+  static constexpr bool topo = TOPO;  // the build with the topology lanes
   int tid = 0;
   int nt = 1;
   void sync() {}
@@ -33,8 +35,14 @@ struct SerialBlock {
 // Every scan of the launch, one after another. Returns 0.
 extern "C" int pack_scan_host_run(const pack_scan::Args* args) {
   for (long long b = 0; b < args->B; ++b) {
-    SerialBlock blk;
-    pack_scan::scan(blk, *args, b);
+    // a batch without topology groups runs the build without their lanes
+    if (args->G > 0) {
+      SerialBlock<true> blk;
+      pack_scan::scan(blk, *args, b);
+    } else {
+      SerialBlock<false> blk;
+      pack_scan::scan(blk, *args, b);
+    }
   }
   return 0;
 }

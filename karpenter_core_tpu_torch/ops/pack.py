@@ -85,16 +85,15 @@ LAST_SCAN = {"items": 0, "bulk": 0, "candidate": 0, "open": 0, "impl": "eager"}
 SCAN_COUNTERS = ("items", "bulk", "candidate", "open")
 
 
-def kernel_routes(device, screen_mode: str, log_commits: bool,
-                  topo_meta: Optional[TopoMeta]) -> bool:
+def kernel_routes(device, screen_mode: str, log_commits: bool) -> bool:
     """Whether a scan runs as the pack_scan kernel (ops/pack_scan.py)
-    rather than the eager scan: tensors on a CUDA device, the prescreen,
-    a commit log (not the replan's rung mode) and no topology group. It is
-    decided from the geometry before the dispatch, never from a failure;
-    every other scan stays eager, and CPU tensors always take the plain
-    version."""
+    rather than the eager scan: tensors on a CUDA device, the prescreen
+    and a commit log (not the replan's rung mode), topology groups or
+    none. It is decided from the geometry before the dispatch, never from
+    a failure; every other scan stays eager, and CPU tensors always take
+    the plain version."""
     return (torch.device(device).type == "cuda" and screen_mode == "prescreen"
-            and log_commits and (topo_meta is None or not topo_meta.groups))
+            and log_commits)
 
 
 class PackState(NamedTuple):

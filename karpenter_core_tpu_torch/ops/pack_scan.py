@@ -7,10 +7,12 @@ kernel walks the items on the card in one launch instead, one thread
 block per scan: the slot screen of each item, the per-item loop with its
 bulk, candidate and open branches, the commit log under its budgets and,
 after each commit that changes a screened plane, the re-screen of the
-written slot row against every class column (csrc/screen_dev.cuh). It
-takes every scan without topology groups under the prescreen that writes
-a commit log (ops/pack.kernel_routes); a segmented solve's lanes are its
-batch axis, B scans in one launch.
+written slot row against every class column (csrc/screen_dev.cuh), with
+the topology lanes: the groups' viability, narrowing, water-fill and
+counts (ops/topology.py), and the bulk fill over the whole slot axis
+under hostname anti-affinity. It takes every scan under the prescreen
+that writes a commit log (ops/pack.kernel_routes); a segmented solve's
+lanes are its batch axis, B scans in one launch.
 
 The scan's logic is written once, in ``csrc/pack_scan_body.h``, against
 a few block primitives; ``csrc/pack_scan.cu`` defines them for a CUDA
@@ -39,27 +41,33 @@ import torch
 from karpenter_core_tpu_torch.ops import pack as tpack
 from karpenter_core_tpu_torch.ops import screen as screen_ops
 from karpenter_core_tpu_torch.ops.cuda_build import KernelError
+from karpenter_core_tpu_torch.ops.topology import TOPO_ANTI, TOPO_SPREAD
 from karpenter_core_tpu_torch.utils import supervise
 
 HDR = 8  # per scan: ptr, bulk_n, nopen, items, bulk, candidate, open, -
 THREADS = 512  # threads per scan's block (csrc/pack_scan.cu)
 
 _SIZES = ("B", "N", "V", "K", "R", "T", "J", "I", "M", "C", "Q", "W", "D", "EV", "E", "L",
-          "LB", "WSCR", "zlo", "zhi", "clo", "chi", "NW", "KW", "TOLW")
+          "LB", "WSCR", "zlo", "zhi", "clo", "chi", "NW", "KW", "TOLW", "G", "GT", "BR", "MACH")
 _POINTERS = (
     "i_allow", "i_out", "i_def", "i_req", "i_tol", "i_valid", "i_count", "i_scls", "i_ports",
-    "i_conf", "i_vols", "item_sel", "f_static", "openable",
+    "i_conf", "i_vptr", "i_vidx", "item_sel", "f_static", "openable", "i_own", "i_sel",
+    "g_meta", "g_tptr", "g_trows", "term_allow", "term_out", "term_def", "term_esc",
+    "well_known",
     "t_allow", "t_out", "t_def", "t_daemon", "t_tmask", "t_rows",
     "y_allow", "y_out", "y_def", "y_esc", "y_alloc", "y_cap", "y_offer",
     "vol_limits", "vol_driver", "key_lo", "key_hi", "key_scr",
     "bit_col", "word_key", "word_valid", "key_w0", "key_w1", "group_w0", "on_row", "on_rows",
     "c_words", "c_flags",
     "used", "open", "is_ex", "tmpl", "tol_idx", "pods", "allow", "out", "def", "tmask", "cap",
-    "remaining", "ports", "vols", "screen", "nopen",
+    "remaining", "ports", "vols", "screen", "nopen", "tcounts", "thost", "tdoms",
     "hdr", "bulk_take",
     "score", "keff", "take", "m_allow", "m_keys", "ctm", "kcap", "sw", "sflag", "rvec",
+    "vcnt", "tv", "tk", "tg", "fkey", "rtmp",
     "progress",
 )
+# a group's metadata row (csrc/pack_scan_body.h G_* columns)
+_GMETA = 8
 
 
 class _Args(ctypes.Structure):
@@ -122,19 +130,50 @@ def _check(t: torch.Tensor, name: str, dtype, dim: int, dev) -> torch.Tensor:
     return t.contiguous()
 
 
+def _group_tables(groups, nf_trivial, topo_terms, dev) -> Dict[str, torch.Tensor]:
+    """The topology groups' metadata rows (type, segment, key, maxSkew,
+    hostname, inverse, and whether the node filter matches every row,
+    ops/pack._scan_constants' nf_trivial), their node-filter term rows as
+    offsets into one list, and the term planes."""
+    meta = np.zeros((len(groups), _GMETA), dtype=np.int32)
+    ptr = [0]
+    rows: List[int] = []
+    for g, gm in enumerate(groups):
+        rows += list(gm.filter_term_rows)
+        ptr.append(len(rows))
+        meta[g] = (gm.gtype, gm.seg[0], gm.seg[1], gm.key_k, gm.max_skew, gm.is_hostname,
+                   gm.is_inverse, nf_trivial[g])
+    out = {
+        "g_meta": torch.as_tensor(meta, device=dev),
+        "g_tptr": torch.as_tensor(np.asarray(ptr, np.int32), device=dev),
+        "g_trows": torch.as_tensor(np.asarray(rows or [0], np.int32), device=dev),
+    }
+    for name, key in (("term_allow", "allow"), ("term_out", "out"), ("term_def", "defined"),
+                      ("term_esc", "escape")):
+        out[name] = _check(topo_terms[key], f"topo_terms {key}", torch.bool, 2, dev)
+    return out
+
+
 def run(states: List[tpack.PackState], item_arrays, f_static, openable, tmpl_reqs, tmpl_daemon,
         tmpl_type_mask, type_reqs, type_alloc, type_capacity, type_offering_ok, *, segments,
         zone_seg, ct_seg, screen0, items_pl, geo, log_len: int, n_exist: int, vol_limits,
-        vol_driver, item_sel: Optional[np.ndarray] = None, bulk_len: Optional[int] = None,
+        vol_driver, topo=None, topo_terms=None, well_known=None,
+        item_sel: Optional[np.ndarray] = None, bulk_len: Optional[int] = None,
         host: bool = False, verdicts: Optional[list] = None):
     """B scans in one launch, scan b from the initial state states[b].
 
     item_arrays is the whole item axis (the solve's pod arrays with `tol`,
-    pod_tol_all); item_sel [B, M] lists each scan's items (global indices
-    in order, -1 pads), None for one sequential scan over every item.
+    pod_tol_all, and with topology groups `topo_own`/`topo_sel` [I, G]);
+    item_sel [B, M] lists each scan's items (global indices in order, -1
+    pads), None for one sequential scan over every item. `topo` is the
+    scan's TopoMeta (None or no group: no topology lane), `topo_terms` the
+    groups' node-filter term planes and `well_known` the [K] well-known
+    keys; each state carries its groups' counts (tcounts, thost, tdoms),
+    which the scan updates.
     `geo` is the scan's geometry constants (ops/pack._scan_constants under
     the prescreen: the screen ops, the class planes, the template verdict
-    rows), screen0 the [N, C] prescreen tensor, which every scan copies.
+    rows, the node filters' triviality per group), screen0 the [N, C]
+    prescreen tensor, which every scan copies.
     bulk_len sizes a lane's bulk take matrix, as the eager lane does.
     `verdicts`, when given, receives each scan's final [N, C] verdict
     tensor, as make_pack_kernel.pack's does.
@@ -200,6 +239,28 @@ def run(states: List[tpack.PackState], item_arrays, f_static, openable, tmpl_req
         raise ValueError("pack_scan: the template rows and the prescreen need [J, C] and [N, C]")
     if t["vol_driver"].shape != (W, D) or states[0].vols.shape != (EV, W):
         raise ValueError("pack_scan: the volume planes disagree")
+    # each item's claim columns, row by row (an item mounts a few of W)
+    rows, cols = torch.nonzero(t.pop("i_vols"), as_tuple=True)
+    t["i_vptr"] = torch.zeros(I + 1, dtype=i32, device=dev)
+    t["i_vptr"][1:] = torch.cumsum(torch.bincount(rows, minlength=I), 0)
+    t["i_vidx"] = torch.cat([cols.to(i32), torch.zeros(1, dtype=i32, device=dev)])
+    groups = list(topo.groups) if topo is not None else []
+    G = len(groups)
+    if G:
+        if topo_terms is None or well_known is None:
+            raise ValueError("pack_scan: topology groups need their term planes and well_known")
+        t["i_own"] = _check(ia["topo_own"], "topo_own", u8, 2, dev)
+        t["i_sel"] = _check(ia["topo_sel"], "topo_sel", u8, 2, dev)
+        if tuple(t["i_own"].shape) != (I, G) or tuple(t["i_sel"].shape) != (I, G):
+            raise ValueError(f"pack_scan: topo_own and topo_sel must be [{I}, {G}]")
+        t.update(_group_tables(groups, geo["nf_trivial"], topo_terms, dev))
+        t["well_known"] = _check(well_known, "well_known", u8, 1, dev)
+        if t["term_allow"].shape[1] != V or t["term_out"].shape[1] != K or len(
+                t["well_known"]) != K:
+            raise ValueError("pack_scan: the term planes and well_known disagree with the items")
+    # the bulk region: the existing prefix, or with hostname anti-affinity
+    # groups (slot-local) the whole slot axis
+    mach = any(gm.gtype == TOPO_ANTI and gm.is_hostname for gm in groups)
     items_pl.check_packing(ops.rows_layout)
     lay = _layout_arrays(ops.rows_layout, ops.row_layout)
     t.update({k: torch.as_tensor(v, device=dev) for k, v in lay.items()})
@@ -221,12 +282,18 @@ def run(states: List[tpack.PackState], item_arrays, f_static, openable, tmpl_req
         t["item_sel"] = torch.as_tensor(item_sel, device=dev)
     else:
         M = I
-    if E == 0:
+    BR = N if mach else E
+    # the bulk take matrix's rows, as the eager scan sizes them
+    if BR == 0:
         LB = 1
     elif bulk_len is not None:
         LB = max(int(bulk_len), 1)
+    elif mach:
+        spread_w = sum(gm.seg[1] - gm.seg[0] for gm in groups
+                       if gm.gtype == TOPO_SPREAD and not gm.is_hostname)
+        LB = min(3 * I + spread_w + 64, 2048)
     else:
-        LB = min(2 * I + V + 64, 4096)  # as the eager scan sizes it
+        LB = min(2 * I + V + 64, 4096)
 
     # the scans' state, [B, ...], each from its own initial state
     names = ("used", "open", "is_existing", "tmpl", "tol_idx", "pods", "allow", "out",
@@ -238,16 +305,22 @@ def run(states: List[tpack.PackState], item_arrays, f_static, openable, tmpl_req
                                 for s in states])
     st["nopen"] = torch.stack([s.nopen.to(i32) for s in states])
     st["screen"] = _check(screen0, "screen0", u8, 2, dev).unsqueeze(0).repeat(B, 1, 1)
+    for name, dtype, shape in (("tcounts", f32, (G, V)), ("thost", f32, (G, N)),
+                               ("tdoms", u8, (G, V))):
+        st[name] = torch.stack([_check(getattr(s, name), name, dtype, 2, dev) for s in states])
+        if tuple(st[name].shape[1:]) != shape:
+            raise ValueError(f"pack_scan: {name} must be {list(shape)}, got "
+                             f"{list(st[name].shape[1:])}")
     out = {
         "hdr": torch.zeros((B, HDR + 5 * L), dtype=i32, device=dev),
-        "bulk_take": torch.zeros((B, LB, E), dtype=i32, device=dev),
+        "bulk_take": torch.zeros((B, LB, BR), dtype=i32, device=dev),
     }
     NW, KW = ops.rows_layout.n_words, ops.rows_layout.KW
-    e1 = max(E, 1)
+    br1 = max(BR, 1)
     scratch = {
         "score": torch.empty((B, N), dtype=f32, device=dev),
-        "keff": torch.empty((B, e1), dtype=i32, device=dev),
-        "take": torch.empty((B, e1), dtype=i32, device=dev),
+        "keff": torch.empty((B, br1), dtype=i32, device=dev),
+        "take": torch.empty((B, br1), dtype=i32, device=dev),
         "m_allow": torch.empty((B, V), dtype=torch.uint8, device=dev),
         "m_keys": torch.empty((B, 3, K), dtype=torch.uint8, device=dev),
         "ctm": torch.empty((B, T), dtype=torch.uint8, device=dev),
@@ -255,13 +328,20 @@ def run(states: List[tpack.PackState], item_arrays, f_static, openable, tmpl_req
         "sw": torch.empty((B, max(NW, 1)), dtype=i32, device=dev),
         "sflag": torch.empty((B, 3 * KW), dtype=i32, device=dev),
         "rvec": torch.empty((B, 3, max(R, 1)), dtype=f32, device=dev),
+        "vcnt": torch.empty((B, max(EV * D, 1)), dtype=f32, device=dev),
+        "tv": torch.empty((B, 6, V), dtype=torch.uint8, device=dev),
+        "tk": torch.empty((B, 2, K), dtype=torch.uint8, device=dev),
+        "tg": torch.empty((B, 3, max(G, 1)), dtype=i32, device=dev),
+        "fkey": torch.empty((B, N), dtype=f32, device=dev),
+        "rtmp": torch.empty((B, N), dtype=i32, device=dev),
     }
     progress = None
     if not host:
         progress = torch.zeros(B, dtype=i32).pin_memory()
     sizes = dict(B=B, N=N, V=V, K=K, R=R, T=T, J=J, I=I, M=M, C=C, Q=Q, W=W, D=D, EV=EV, E=E,
                  L=L, LB=LB, WSCR=ops.width, zlo=zlo, zhi=zhi, clo=clo, chi=chi, NW=NW, KW=KW,
-                 TOLW=t["i_tol"].shape[1])
+                 TOLW=t["i_tol"].shape[1], G=G, GT=t["term_allow"].shape[0] if G else 0, BR=BR,
+                 MACH=int(mach))
     tensors = dict(t, **{("is_ex" if k == "is_existing" else "def" if k == "defined" else k): v
                          for k, v in st.items()}, **out, **scratch)
     if progress is not None:
@@ -293,8 +373,8 @@ def run(states: List[tpack.PackState], item_arrays, f_static, openable, tmpl_req
             tmpl=st["tmpl"][b], tol_idx=st["tol_idx"][b], pods=st["pods"][b],
             allow=st["allow"][b], out=st["out"][b], defined=st["defined"][b],
             tmask=st["tmask"][b], cap=st["cap"][b], nopen=st["nopen"][b],
-            remaining=st["remaining"][b], tcounts=states[b].tcounts, thost=states[b].thost,
-            tdoms=states[b].tdoms, ports=st["ports"][b], vols=st["vols"][b])
+            remaining=st["remaining"][b], tcounts=st["tcounts"][b], thost=st["thost"][b],
+            tdoms=st["tdoms"][b], ports=st["ports"][b], vols=st["vols"][b])
         if int(state.nopen) != nopen:
             raise KernelError(f"pack_scan: scan {b} reported nopen {nopen}, its state "
                               f"{int(state.nopen)}")

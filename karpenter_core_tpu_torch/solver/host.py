@@ -861,7 +861,7 @@ class SolverHost:
         self.respawns = 0
         self.last_recovery_s: Optional[float] = None
         # the last child's boot: its spawn to its ready frame (the torch
-        # import, the card's context, the screen library), and of that
+        # import, the card's context, the kernels' libraries), and of that
         # the seconds after its imports
         self.last_boot_s: Optional[float] = None
         self.last_startup_s: Optional[float] = None
@@ -1534,7 +1534,7 @@ def host_main(argv=None) -> int:
         TRACER.set_spill(f"{args.heartbeat}.spans")
     # the device the parent named (the card raises here when there is none,
     # before the ready frame: the parent reports the stderr tail); on the
-    # card, its context and the screen library are made before the ready
+    # card, its context and the kernels' libraries are made before the ready
     # frame too, so a dispatch's watchdog never waits on them
     # a child that sees several devices serves over their grid (reference
     # host.py:1758-1769): KARPENTER_SOLVER_MODE=single pins the one
@@ -1557,10 +1557,10 @@ def host_main(argv=None) -> int:
     if service.device.type == "cuda":
         import torch
 
-        from karpenter_core_tpu_torch.solver.torch_solver import load_screen_library
+        from karpenter_core_tpu_torch.solver.torch_solver import load_solve_libraries
 
         torch.empty(1, device=service.device)
-        load_screen_library(service.device)
+        load_solve_libraries(service.device)
     _write_frame(out, {"op": "ready", "id": 0, "pid": os.getpid(),
                        "startup_s": round(time.monotonic() - start, 3),
                        "sent_at": time.monotonic()})

@@ -71,7 +71,7 @@ from karpenter_core_tpu_torch.solver.torch_solver import (
     fetch_log,
     fetch_replan,
     fetch_state,
-    load_screen_library,
+    load_solve_libraries,
     make_device_run,
     solve_geometry,
     solve_with_relaxation,
@@ -854,12 +854,12 @@ class SolverService:
     def prewarm(self, request) -> str:
         """A geometry's cold costs without a scan (TorchSolver's
         prewarm_snapshot, at the wire's geometry): "compiled" when this
-        call loaded the screen library or minted the geometry's entry,
-        "cached" otherwise."""
+        call loaded the screen or pack scan library or minted the
+        geometry's entry, "cached" otherwise."""
         from karpenter_core_tpu_torch.ops import compat as ops_compat
 
         t0 = time.perf_counter()
-        fresh = load_screen_library(self.device)
+        fresh = load_solve_libraries(self.device)
         screen_mode = ops_compat.resolve_screen_mode()
         args = _unflatten_args({t.name: tensor_from_pb(t) for t in request.tensors})
         layout = self._layout_for(args)

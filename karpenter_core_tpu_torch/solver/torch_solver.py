@@ -443,7 +443,7 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
     the scan's final [N, C] verdict tensor to the list.
 
     Where ops/pack.kernel_routes holds (a CUDA device, the prescreen, a
-    commit log, no topology group) the scan is the pack_scan kernel
+    commit log; topology groups or none) the scan is the pack_scan kernel
     (ops/pack_scan.py): one launch and one read per solve. Every other
     scan runs the eager make_pack_kernel.pack. host_kernel=True (tests
     only) routes as on a card and runs the kernel's CPU build.
@@ -505,7 +505,7 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
         T = type_alloc.shape[0]
         J = tmpl_daemon.shape[0]
         kernel = pack_ops.kernel_routes("cuda" if host_kernel else dev, screen_mode,
-                                        count_row is None, topo)
+                                        count_row is None)
         pre = shared if shared is not None else {}
         if "f_static" not in pre:
             feas_args = ({k: pod_arrays[k] for k in ("allow", "out", "defined", "escape")},
@@ -530,14 +530,16 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             if not geo:
                 geo.update(pack_ops._scan_constants(
                     segments, pod_arrays["allow"].shape[1], screen_v, types,
-                    type_offering_ok, item_arrays, items_pl, tmpl, False, [], None, dev))
+                    type_offering_ok, item_arrays, items_pl, tmpl, False,
+                    topo.groups if topo is not None else [], topo_terms, dev))
             runs = pack_scan.run(
                 states, item_arrays, f_static, openable,
                 {k: tmpl[k] for k in ("allow", "out", "defined")}, tmpl_daemon,
                 tmpl_type_mask, types, type_alloc, type_capacity, type_offering_ok,
                 segments=segments, zone_seg=zone_seg, ct_seg=ct_seg, screen0=screen0,
                 items_pl=geo["items_pl"], geo=geo, log_len=log_len, n_exist=E,
-                vol_limits=exist_vol_limits, vol_driver=vol_driver, item_sel=item_sel,
+                vol_limits=exist_vol_limits, vol_driver=vol_driver, topo=topo,
+                topo_terms=topo_terms, well_known=well_known, item_sel=item_sel,
                 bulk_len=None if item_sel is None else lane_bulk_len(item_sel.shape[1]),
                 host=host_kernel, verdicts=verdicts)
             got = [(log, ptr, state) for state, log, ptr in runs]
@@ -626,7 +628,7 @@ def make_device_run(segments, zone_seg, ct_seg, topo_meta, n_slots: int,
             live = [s for s, sel in enumerate(item_sel) if (np.asarray(sel) >= 0).any()]
             out = [None] * len(item_sel)
             if live and pack_ops.kernel_routes("cuda" if host_kernel else dev, screen_mode,
-                                               True, topo):
+                                               True):
                 # every lane with items in one launch, the lanes its batch
                 pre["scan"] = {"geo": geo}
                 runs = run_impl(None, open_dev[live], screen0, *args, items_pl=items_pl,
@@ -1052,15 +1054,22 @@ def fetch_replan(verdict_parts, pods_parts, want_slots: bool):
     return verdicts, pods
 
 
-def load_screen_library(device) -> bool:
-    """On the card, load the screen library (nvcc builds it when the
-    source is newer than the built one); True when this call loaded it."""
+# the kernels a solve on the card runs: the screen and the pack scan
+SOLVE_LIBRARIES = ("screen", "pack_scan")
+
+
+def load_solve_libraries(device) -> bool:
+    """On the card, load the libraries a solve's kernels live in (the
+    screen's and the pack scan's; nvcc builds one when its source is newer
+    than the built one); True when this call loaded one."""
     if torch.device(device).type != "cuda":
         return False
     from karpenter_core_tpu_torch.ops import cuda_build
 
-    fresh = "screen" not in cuda_build.loaded_names()
-    cuda_build.load("screen")
+    loaded = cuda_build.loaded_names()
+    fresh = any(name not in loaded for name in SOLVE_LIBRARIES)
+    for name in SOLVE_LIBRARIES:
+        cuda_build.load(name)
     return fresh
 
 
@@ -1712,13 +1721,14 @@ class TorchSolver:
 
     def prewarm_snapshot(self, snap: EncodedSnapshot, provisioners) -> str:
         """Pay a geometry's cold costs without solving
-        (tpu_solver.py:1104-1191): on the card, load the screen library
-        (nvcc builds it when the source is newer than the built one);
+        (tpu_solver.py:1104-1191): on the card, load the screen and pack
+        scan libraries (nvcc builds one when its source is newer than the
+        built one);
         then device_args and the upload of the snapshot, and the
         prescreen at its geometry (screen_prep and the screen forms that
         geometry takes), which also makes the caching allocator's first
         allocations there. The scan does not run. Returns "compiled" when
-        this call loaded the library or first met the snapshot's solve
+        this call loaded a library or first met the snapshot's solve
         geometry, "cached" otherwise (a live solve or an earlier prewarm
         got there first).
 
@@ -1726,7 +1736,7 @@ class TorchSolver:
         prescreen tensor, and leaves the per-solve state (`last_phase_ms`,
         `last_prescreen_*`, ops/pack.LAST_SCAN) as the last solve left it."""
         t0 = time.perf_counter()
-        fresh = load_screen_library(self.device)
+        fresh = load_solve_libraries(self.device)
         geom = solve_geometry(snap, self.max_nodes)
         # a tier that a live solve would route to the device grid prewarms
         # under the grid's key, and its tiles (tpu_solver.py:1133-1161)

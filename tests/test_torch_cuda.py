@@ -1123,8 +1123,8 @@ def test_verdict_tile_on_a_second_card_matches_plain():
 
 # -- the pack scan kernel (ops/pack_scan.py, csrc/pack_scan.cu) ---------------
 
-# the families whose solve has no topology group: the kernel's route
-SCAN_FAMILIES = ("mixed", "relax", "bulk", "wide", "ports_vols")
+# every parity family: the kernel's route takes topology groups too
+SCAN_FAMILIES = FAMILIES + ("ports_vols",)
 
 
 def _scan_on_card(family, kernel, log_len=None, bulk_len=None):
@@ -1187,10 +1187,11 @@ def _assert_scans_equal(a, b):
 @pytest.mark.parametrize("family", SCAN_FAMILIES)
 def test_pack_scan_kernel_matches_plain_on_card(family):
     """The commit log, ptr and every PackState field of the kernel's scan
-    equal the eager scan's on the card, floats bit for bit; the kernel's
-    scan is one launch and re-screens without a row_n1 launch (one
-    template's verdict row, screened before the scan, is the one row_n1
-    of a single-template solve)."""
+    (the topology groups' counts included) equal the eager scan's on the
+    card, floats bit for bit; the kernel's scan is one launch and
+    re-screens without a row_n1 launch (one template's verdict row,
+    screened before the scan, is the one row_n1 of a single-template
+    solve)."""
     _card()
     got = _scan_on_card(family, kernel=True)
     want = _scan_on_card(family, kernel=False)
@@ -1202,7 +1203,7 @@ def test_pack_scan_kernel_matches_plain_on_card(family):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["mixed", "ports_vols"])
+@pytest.mark.parametrize("family", ["mixed", "ports_vols", "refmix"])
 def test_pack_scan_kernel_overflowing_log_on_card(family):
     """A log cut to half the commits fills where the eager scan's does."""
     _card()
@@ -1215,11 +1216,12 @@ def test_pack_scan_kernel_overflowing_log_on_card(family):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["bulk", "ports_vols"])
+@pytest.mark.parametrize("family", ["bulk", "ports_vols", "anti", "cluster"])
 def test_pack_scan_kernel_small_bulk_budget_on_card(family):
     """A bulk take budget of one row sends the existing slots through
     candidate verify after the first bulk commit; the kernel still equals
-    the eager scan, verdicts included."""
+    the eager scan, verdicts included (anti: the machine-region bulk,
+    over the whole slot axis, under that budget)."""
     _card()
     got = _scan_on_card(family, kernel=True, bulk_len=1)
     _assert_scans_equal(got, _scan_on_card(family, kernel=False, bulk_len=1))

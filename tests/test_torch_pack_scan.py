@@ -5,9 +5,10 @@ The kernel runs only on a card; its CPU build (csrc/pack_scan_host.cpp:
 the same scan body with the block primitives as serial loops, built with
 g++ into csrc/build/) is held here against the reference's jitted solve
 program, fed the SAME device_args arrays and prescreen tensor (moved with
-args_to_torch): the commit log, ptr and every PackState field must be
-equal, floats bit for bit, on every topology-free family, with the log
-cut until it overflows too. A segmented solve's lanes go through the CPU
+args_to_torch): the commit log, ptr and every PackState field (the
+topology groups' counts included) must be equal, floats bit for bit, on
+every parity family, topology groups or none, with the log cut until it
+overflows too. A segmented solve's lanes go through the CPU
 build as one batch, and its placements, lane plan and merged state must
 equal the reference's segmented solve. The routing predicate, the CPU
 solve's eager route and the wrapper's argument checks are held here too;
@@ -46,8 +47,8 @@ from tests.test_torch_segmented import (
 )
 from tests.test_torch_solver import _assert_tree_equal
 
-# the families whose solve has no topology group: the kernel's route
-SCAN_FAMILIES = ("mixed", "relax", "bulk", "wide", "ports_vols")
+# every parity family: the kernel's route takes topology groups too
+SCAN_FAMILIES = FAMILIES + ("ports_vols",)
 
 
 def _reference(family, log_len=None):
@@ -135,12 +136,14 @@ def test_host_build_verdicts_match_eager_scan(scans):
     assert torch.equal(got[0], want[0])
 
 
-@pytest.mark.parametrize("family", ["bulk", "ports_vols"])
+@pytest.mark.parametrize("family", ["bulk", "ports_vols", "anti", "cluster"])
 def test_host_build_small_bulk_budget_matches_reference(family, monkeypatch):
     """A bulk take budget of one row: after the first bulk commit the
     existing slots go through candidate verify (replica_cap on the slot's
     own capacity), and the log, ptr and state still equal the reference's
-    under the same budget, the verdicts the eager scan's."""
+    under the same budget, the verdicts the eager scan's. The anti family's
+    bulk region is the whole slot axis (hostname anti-affinity), so its one
+    row spans every slot."""
     from karpenter_core_tpu.ops import pack as jpack
 
     def one_row(make):
@@ -158,6 +161,8 @@ def test_host_build_small_bulk_budget_matches_reference(family, monkeypatch):
     _assert_scan_equal(ref, got)
     log, ptr, state, _scan, verdicts = got
     assert log["bulk_n"] == 1 and tuple(log["bulk_take"].shape)[0] == 1
+    if family == "anti":
+        assert tuple(log["bulk_take"].shape)[1] == state.used.shape[0]
     slot, ns = (np.asarray(log[k])[:ptr] for k in ("slot", "ns"))
     # candidate commits on existing slots ran
     assert ((ns == 1) & state.is_existing.numpy()[slot]).any()
@@ -166,7 +171,7 @@ def test_host_build_small_bulk_budget_matches_reference(family, monkeypatch):
     assert torch.equal(verdicts[0], eager[4][0])
 
 
-@pytest.mark.parametrize("family", ["mixed", "ports_vols"])
+@pytest.mark.parametrize("family", ["mixed", "ports_vols", "refmix"])
 def test_host_build_overflowing_log_matches_reference(family):
     """A log that fills stops the scan's commits where the reference's
     does: the log, ptr and state under a budget of half the entries."""
@@ -212,19 +217,35 @@ def test_segmented_lanes_in_one_host_batch_match_reference(case, monkeypatch):
 
 
 @pytest.mark.parametrize("family", FAMILIES + ("ports_vols",))
-def test_routing_predicate(family):
-    """The kernel takes a scan on a card, under the prescreen, with a log,
-    without topology groups; every other scan stays eager."""
+def test_routing_predicate(family, monkeypatch):
+    """The kernel takes every scan on a card under the prescreen with a
+    log, topology groups or none; the replan's rung mode, the tiered
+    screen and CPU tensors stay eager. The solve program decides it from
+    the geometry alone: each family's scan reaches the CPU build when the
+    program routes as on a card."""
     pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload(family, "torch")
     snap = tencode.encode_snapshot(pods, provs, its, daemons, nodes, client, cluster,
                                    max_nodes=max_nodes)
     topo = tsolver.topo_meta_from(snap.topo_meta)
-    free = topo is None or not topo.groups
-    assert free == (family in SCAN_FAMILIES)
-    assert tpack.kernel_routes(torch.device("cuda"), "prescreen", True, topo) == free
-    assert not tpack.kernel_routes(torch.device("cuda"), "tiered", True, topo)
-    assert not tpack.kernel_routes(torch.device("cuda"), "prescreen", False, topo)
-    assert not tpack.kernel_routes(torch.device("cpu"), "prescreen", True, topo)
+    assert (topo is not None and bool(topo.groups)) == (
+        family in ("spread", "affinity", "anti", "refmix", "cluster"))
+    assert tpack.kernel_routes(torch.device("cuda"), "prescreen", True)
+    assert not tpack.kernel_routes(torch.device("cuda"), "tiered", True)
+    assert not tpack.kernel_routes(torch.device("cuda"), "prescreen", False)
+    assert not tpack.kernel_routes(torch.device("cpu"), "prescreen", True)
+    calls = []
+    monkeypatch.setattr(pack_scan, "run", lambda states, *a, **k: calls.append(k) or [])
+    geom = tsolver.solve_geometry(snap, max_nodes)
+    N, segs, zs, cs, L, sv = geom[7], geom[8], geom[9], geom[10], geom[12], geom[16]
+    targs = tsolver.args_to_torch(tsolver.device_args(snap, provs), "cpu")
+    run = tsolver.make_device_run(segs, zs, cs, snap.topo_meta, N, L, screen_v=sv,
+                                  host_kernel=True)
+    scr = tpack.make_prescreen_kernel(segs, N, screen_v=sv)(targs[0], targs[9])
+    with pytest.raises(IndexError):  # the stub returns no scan
+        run(scr, *targs)
+    (kw,) = calls
+    assert (kw["topo"] is not None and bool(kw["topo"].groups)) == bool(
+        topo is not None and topo.groups)
 
 
 def test_cpu_solve_never_loads_the_kernel():
@@ -236,6 +257,31 @@ def test_cpu_solve_never_loads_the_kernel():
         assert tpack.LAST_SCAN["impl"] == "eager"
     assert "pack_scan" not in cuda_build.loaded_names()
     assert screen.LAUNCHES["pack_scan"] == 0
+
+
+def test_prewarm_asks_for_both_libraries(monkeypatch):
+    """The prewarm loads the pack scan's library beside the screen's, and
+    counts a fresh load of either as a miss: load_solve_libraries (which
+    TorchSolver.prewarm_snapshot, the service's prewarm and the host's
+    child call) asks cuda_build.load for both on the card, and reports
+    True only while one was not loaded yet."""
+    asked = []
+    monkeypatch.setattr(cuda_build, "load", lambda name, host=False: asked.append(name))
+    monkeypatch.setattr(cuda_build, "loaded_names", lambda: sorted(set(asked)))
+    assert tsolver.load_solve_libraries(torch.device("cuda")) is True
+    assert asked == ["screen", "pack_scan"]
+    assert tsolver.load_solve_libraries("cuda:0") is False
+    assert not tsolver.load_solve_libraries("cpu") and len(asked) == 4
+    # the solver's prewarm goes through it (here with the card's device)
+    real = tsolver.load_solve_libraries
+    monkeypatch.setattr(tsolver, "load_solve_libraries", lambda device: real("cuda"))
+    asked.clear()
+    pods, provs, its, daemons, nodes, max_nodes, client, cluster = workload("mixed", "torch")
+    snap = tencode.encode_snapshot(pods, provs, its, daemons, nodes, client, cluster,
+                                   max_nodes=max_nodes)
+    assert tsolver.TorchSolver(max_nodes=max_nodes, device="cpu").prewarm_snapshot(
+        snap, provs) == "compiled"
+    assert asked == ["screen", "pack_scan"]
 
 
 def test_wrapper_rejects_bad_inputs(monkeypatch):
@@ -267,3 +313,33 @@ def test_wrapper_rejects_bad_inputs(monkeypatch):
     # solver's eager scan, not the wrapper's
     with pytest.raises(ValueError):
         real_run(states, item_arrays, *args[2:], **dict(kw, host=False))
+
+
+def test_wrapper_rejects_bad_topology_inputs(monkeypatch):
+    """The topology fields keep the wrapper's checks: a group flag plane
+    or a count of the wrong dtype raises TypeError, one of the wrong shape
+    ValueError, and groups without their term planes ValueError."""
+    calls = []
+    real_run = pack_scan.run
+
+    def capture(*a, **k):
+        calls.append((a, k))
+        return real_run(*a, **k)
+
+    monkeypatch.setattr(pack_scan, "run", capture)
+    _host_scan(_reference("refmix"))
+    (args, kw), = calls
+    states, item_arrays = args[0], args[1]
+    assert kw["topo"].groups and states[0].tcounts.shape[0] == len(kw["topo"].groups)
+    with pytest.raises(TypeError):
+        real_run(states, dict(item_arrays, topo_own=item_arrays["topo_own"].to(torch.uint8)),
+                 *args[2:], **kw)
+    with pytest.raises(TypeError):
+        real_run([states[0]._replace(tcounts=states[0].tcounts.double())], *args[1:], **kw)
+    with pytest.raises(ValueError):
+        real_run(states, dict(item_arrays, topo_sel=item_arrays["topo_sel"][:, :1]),
+                 *args[2:], **kw)
+    with pytest.raises(ValueError):
+        real_run([states[0]._replace(thost=states[0].thost[:, :1])], *args[1:], **kw)
+    with pytest.raises(ValueError):
+        real_run(states, *args[1:], **dict(kw, topo_terms=None))
